@@ -1,0 +1,192 @@
+"""Optimal assignment (shortest-augmenting-path LAPJV) on the device.
+
+The port of ``aicamera_tpu/core/assignment.py``: ``solve_square`` with its
+vectorised row-argmin pre-assignment and sequential augmenting phase,
+``min_cost_matching`` with the reference's threshold semantics (costs above
+``max_distance`` clamped to ``max_distance + 1e-5``; a match is accepted only
+if its original cost is ``<= max_distance``), and the DeepSORT
+``matching_cascade`` over ``time_since_update`` levels.
+
+The JAX package's ``lax.while_loop``s and ``lax.cond``s become Python control
+flow over tensors that stay on the device; each data-dependent condition
+reads one value back to the host, counted in ``TRACKER_SYNCS``. Ties resolve
+as in JAX: ``argmin`` takes the first minimum, and row order is kept.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..syncs import SyncCounter
+
+TRACKER_SYNCS = SyncCounter()
+
+
+def _scatter_drop(arr: torch.Tensor, idx: torch.Tensor,
+                  values: torch.Tensor) -> torch.Tensor:
+    """``arr.at[idx].set(values, mode="drop")`` for indices in
+    ``[0, len(arr)]``: index ``len(arr)`` is a dump row that is cut off."""
+    ext = torch.cat([arr, arr[:1]])
+    ext[idx] = values.to(arr.dtype)
+    return ext[:arr.shape[0]]
+
+
+def _augment_row(i: int, cost, u, v, col4row, row4col):
+    """Run one shortest augmenting path from row ``i`` and apply it."""
+    n = cost.shape[0]
+    dev = cost.device
+    sr = torch.zeros(n, dtype=torch.bool, device=dev)
+    sc = torch.zeros(n, dtype=torch.bool, device=dev)
+    spc = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+    path = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    min_val = torch.zeros((), dtype=torch.float32, device=dev)
+    inf = torch.full_like(spc, float("inf"))
+    cur_row = i
+    while True:
+        sr[cur_row] = True
+        reduced = min_val + cost[cur_row] - u[cur_row] - v
+        upd = (~sc) & (reduced < spc)
+        spc = torch.where(upd, reduced, spc)
+        path = torch.where(upd, torch.full_like(path, cur_row), path)
+        masked = torch.where(sc, inf, spc)
+        j_dev = torch.argmin(masked)
+        min_val = masked[j_dev]
+        sc[j_dev] = True
+        j, r = TRACKER_SYNCS.tolist(torch.stack([j_dev, row4col[j_dev]]))
+        if r < 0:
+            sink = j
+            break
+        cur_row = r
+
+    # Dual variable update (potentials), as in the classical JV scheme.
+    rows = torch.arange(n, device=dev)
+    u = u.clone()
+    u[i] += min_val
+    spc_at_assigned = spc[torch.clamp(col4row, 0, n - 1)]
+    u = torch.where(sr & (rows != i), u + min_val - spc_at_assigned, u)
+    v = torch.where(sc, v - (min_val - spc), v)
+
+    # Augment: walk back from the sink flipping assignments.
+    row4col = row4col.clone()
+    col4row = col4row.clone()
+    j = sink
+    while True:
+        i_, j_next = TRACKER_SYNCS.tolist(
+            torch.stack([path[j], col4row[path[j]]]))
+        row4col[j] = i_
+        col4row[i_] = j
+        if i_ == i:
+            break
+        j = j_next
+    return u, v, col4row, row4col
+
+
+def solve_square(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+    """Optimal assignment on a square (n, n) cost matrix of finite costs.
+
+    Rows where ``row_mask`` is False stay unassigned. Returns ``col4row``
+    (n,) int64 with -1 for unassigned rows. Each eligible row first claims
+    its cheapest column (collisions go to the smallest row index); only the
+    losers run the sequential augmenting phase, in row order.
+    """
+    n = cost.shape[0]
+    dev = cost.device
+    cost = cost.float()
+    rows = torch.arange(n, device=dev)
+    rowmin = torch.amin(cost, dim=1)
+    jmin = torch.argmin(cost, dim=1)
+    dump = torch.full_like(jmin, n)
+    winner = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
+    winner.scatter_reduce_(0, torch.where(row_mask, jmin, dump), rows,
+                           reduce="amin", include_self=True)
+    assigned = row_mask & (winner[:n][jmin] == rows)
+    col4row = torch.where(assigned, jmin, torch.full_like(jmin, -1))
+    row4col = _scatter_drop(torch.full((n,), -1, dtype=torch.int64,
+                                       device=dev),
+                            torch.where(assigned, jmin, dump),
+                            torch.where(assigned, rows,
+                                        torch.full_like(rows, -1)))
+    u = torch.where(assigned, rowmin, torch.zeros_like(rowmin))
+    v = torch.zeros(n, dtype=torch.float32, device=dev)
+
+    todo = row_mask & ~assigned
+    # the losers, in ascending row order (one read of the mask; nonzero on
+    # the device would wait on the GPU as well)
+    todo_rows = [i for i, t in enumerate(TRACKER_SYNCS.tolist(todo)) if t]
+    for i in todo_rows:
+        u, v, col4row, row4col = _augment_row(i, cost, u, v, col4row,
+                                              row4col)
+    return col4row
+
+
+def min_cost_matching(cost: torch.Tensor, row_mask: torch.Tensor,
+                      col_mask: torch.Tensor,
+                      max_distance: float) -> torch.Tensor:
+    """Masked minimum-cost matching with the reference's threshold
+    semantics. ``cost (R, C)``; returns ``(R,)`` matched column per row or
+    -1."""
+    r, c = cost.shape
+    n = max(r, c)
+    dev = cost.device
+    max_d = torch.tensor(max_distance, dtype=torch.float32, device=dev)
+    clamp = max_d + 1e-5  # f32 arithmetic, as in JAX
+
+    eligible = row_mask[:, None] & col_mask[None, :]
+    feasible = eligible & (cost <= max_d)
+    # Rows/cols with no feasible entry can never yield an accepted match.
+    row_ok = row_mask & torch.any(feasible, dim=1)
+    col_ok = col_mask & torch.any(feasible, dim=0)
+
+    eligible = row_ok[:, None] & col_ok[None, :]
+    clamped = torch.where(eligible & (cost <= max_d), cost.float(), clamp)
+    padded = clamp.expand(n, n).clone()
+    padded[:r, :c] = clamped
+    row_mask_p = torch.zeros(n, dtype=torch.bool, device=dev)
+    row_mask_p[:r] = row_ok
+    col4row = solve_square(padded, row_mask_p)[:r]
+
+    j = torch.clamp(col4row, 0, c - 1)
+    ok = (row_mask & (col4row >= 0) & (col4row < c) & col_mask[j]
+          & (cost[torch.arange(r, device=dev), j] <= max_d))
+    return torch.where(ok, col4row, torch.full_like(col4row, -1))
+
+
+def _claim(lvl_match: torch.Tensor, det_unmatched: torch.Tensor):
+    nd = det_unmatched.shape[0]
+    claimed = _scatter_drop(
+        torch.zeros(nd, dtype=torch.bool, device=det_unmatched.device),
+        torch.where(lvl_match >= 0, lvl_match,
+                    torch.full_like(lvl_match, nd)),
+        torch.ones_like(lvl_match, dtype=torch.bool))
+    return det_unmatched & ~claimed
+
+
+def matching_cascade(cost: torch.Tensor, track_level: torch.Tensor,
+                     track_eligible: torch.Tensor, det_valid: torch.Tensor,
+                     max_distance: float, cascade_depth: int):
+    """DeepSORT matching cascade over ``time_since_update`` levels: one
+    assignment per level present in ``[1, cascade_depth]``, ascending,
+    against the still-unmatched detections.
+
+    Returns ``(match (T,) det index or -1, det_unmatched (N,) bool)``.
+    """
+    t = cost.shape[0]
+    sentinel = cascade_depth + 1
+    lv = torch.where(
+        track_eligible & (track_level >= 1) & (track_level <= cascade_depth),
+        track_level.long(), torch.full_like(track_level, sentinel).long())
+    # the levels present, ascending: one read of the (T,) level vector
+    levels = sorted(set(TRACKER_SYNCS.tolist(lv)) - {sentinel})
+    match = torch.full((t,), -1, dtype=torch.int64, device=cost.device)
+    det_unmatched = det_valid
+    for n, level in enumerate(levels):
+        # Stop once every detection is claimed (an assignment against no
+        # columns matches nothing, so the first level needs no check).
+        if n and not TRACKER_SYNCS.flag(torch.any(det_unmatched)):
+            break
+        rows = track_eligible & (track_level == level)
+        lvl_match = min_cost_matching(cost, rows, det_unmatched,
+                                      max_distance)
+        match = torch.where(lvl_match >= 0, lvl_match, match)
+        det_unmatched = _claim(lvl_match, det_unmatched)
+    return match, det_unmatched

@@ -1,0 +1,456 @@
+"""The fused chunk pipeline: letterbox -> YOLOv8 -> decode+NMS -> crops ->
+ReID -> DeepSORT, K frames per dispatch.
+
+The port of ``aicamera_tpu/runtime/pipeline.py`` (DeepSORT branch). All
+batchable work (letterbox kernel, detector forward, decode+NMS, crop gather,
+ReID embedding) runs batched over the chunk on the device; the sequential
+tracker then runs frame by frame over the chunk, its state staying on the
+same device. Outputs follow the JAX package's contracts: per frame, the
+detections in frame coordinates and the confirmed, just-updated tracks as
+``(x1, y1, x2, y2, id, class_name, conf)`` tuples.
+
+On a CUDA device the letterbox always runs the hand-written kernel
+(``ops/letterbox.py``); on the CPU it runs the kernel's plain version.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Iterator, Tuple
+
+import numpy as np
+import torch
+
+from .. import config
+from ..core import state as core_state
+from ..core import tracker as core_tracker
+from ..core.state import Detections, TrackerParams
+from ..ops.crops import extract_reid_crops
+from ..ops.letterbox import letterbox
+from ..ops.nms import fused_decode_nms
+from ..ops.preprocess import letterbox_spec, scale_boxes_back
+from ..syncs import SyncCounter
+from .params import resolve_reid_params, resolve_yolo_params
+
+_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+EMBED_SYNCS = SyncCounter()  # the ReID bucket choice: one read per chunk
+
+
+@dataclasses.dataclass
+class FrameResult:
+    """Host-side per-frame outputs."""
+    frame_index: int
+    det_boxes: np.ndarray     # (n, 4) xyxy in frame coords
+    det_scores: np.ndarray    # (n,)
+    det_labels: np.ndarray    # (n,) int32
+    tracks: list              # [(x1, y1, x2, y2, id, class_name, conf), ...]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the GPU; there is no silent CPU fallback."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain CPU path")
+    return dev
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Full-precision f32 convolutions and matmuls (TF32 off) inside."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+class StageTimer:
+    """Per-stage time of each chunk on the GPU stream, from CUDA events.
+    Attach one to ``TrackingPipeline.stage_timer``: each chunk then records
+    an event at every stage boundary, and :meth:`finish` adds the stage
+    intervals to ``totals`` (ms over ``chunks`` chunks)."""
+
+    STAGES = ("letterbox", "yolo", "nms", "crops_reid", "tracker")
+
+    def __init__(self):
+        self._events = []
+        self.totals = dict.fromkeys(self.STAGES, 0.0)
+        self.chunks = 0
+
+    def start(self):
+        self._events = [("start", self._record())]
+
+    def mark(self, stage: str):
+        self._events.append((stage, self._record()))
+
+    @staticmethod
+    def _record():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def finish(self):
+        """Sync, add this chunk's stage times to the totals."""
+        self._events[-1][1].synchronize()
+        for (_, a), (stage, b) in zip(self._events, self._events[1:]):
+            self.totals[stage] += a.elapsed_time(b)
+        self.chunks += 1
+
+
+def _format_tracks(tlbr, ids, cls, conf, mask):
+    out = []
+    for b, i, c, s in zip(tlbr[mask], ids[mask], cls[mask], conf[mask]):
+        name = config.CLASSES[int(c)] if 0 <= int(c) < len(config.CLASSES) \
+            else "Unknown"
+        out.append((int(round(float(b[0]))), int(round(float(b[1]))),
+                    int(round(float(b[2]))), int(round(float(b[3]))),
+                    int(i), name, float(s)))
+    return out
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to aicamera_tpu_torch yet (see ROADMAP.md)")
+
+
+class TrackingPipeline:
+    """End-to-end detector + DeepSORT tracker with chunked device steps."""
+
+    def __init__(self,
+                 variant: str = "n",
+                 input_shape: Tuple[int, int] = config.YOLO_INPUT_SHAPE,
+                 conf_threshold: float = config.YOLO_CONF_THRESHOLD,
+                 nms_threshold: float = config.YOLO_NMS_THRESHOLD,
+                 min_detection_confidence: float =
+                 config.DEEPSORT_MIN_CONFIDENCE,
+                 yolo_weights: str | None = None,
+                 reid_weights: str | None = None,
+                 tracker_params: TrackerParams | None = None,
+                 max_reid_crops: int = config.MAX_REID_CROPS,
+                 chunk_size: int = 8,
+                 with_reid: bool = True,
+                 synthetic_load: int = 0,
+                 letterbox_auto: bool = False,
+                 tracker: str = "deepsort",
+                 gmc: str | bool = False,
+                 nsa: bool = False,
+                 reid_quant: str | None = None,
+                 yolo_quant: str | None = None,
+                 detect_dtype: str | None = None,
+                 reid_dtype: str | None = None,
+                 device=None):
+        """Arguments as in the JAX ``TrackingPipeline`` (DeepSORT branch).
+
+        ``synthetic_load=n`` fills the first n empty detection slots of every
+        frame with a fixed grid of boxes (class person, conf 0.5) after NMS,
+        so the crop gather, ReID, cascade and lifecycle run every frame.
+        ``letterbox_auto`` runs the detector on the stride-32 minimum
+        rectangle. ``detect_dtype`` / ``reid_dtype``: ``"f32"`` or
+        ``"bf16"``; the default is bf16 on the GPU and f32 on the CPU. In f32
+        the forwards run with TF32 off. ``reid_dtype`` also sets the crop
+        gather's dtype. ``device``: default ``"cuda"`` (raises without a
+        GPU); tests pass ``"cpu"``.
+        """
+        if tracker != "deepsort":
+            raise _not_ported(f"tracker={tracker!r}")
+        if gmc not in (False, None, "off", "none", ""):
+            raise _not_ported("camera-motion compensation (gmc)")
+        if reid_quant not in (None, "", "none"):
+            raise _not_ported("reid_quant")
+        if yolo_quant not in (None, "", "none"):
+            raise _not_ported("yolo_quant")
+        if nsa and tracker_params is not None:
+            raise ValueError("pass nsa via tracker_params.nsa when "
+                             "supplying explicit tracker_params")
+        for name, dt in (("detect_dtype", detect_dtype),
+                         ("reid_dtype", reid_dtype)):
+            if dt not in (None, "bf16", "f32"):
+                raise ValueError(f"{name} must be None, 'bf16' or 'f32' "
+                                 f"(got {dt!r})")
+        self.device = resolve_device(device)
+        default_dt = torch.bfloat16 if self.device.type == "cuda" \
+            else torch.float32
+        self.detect_dtype = _DTYPES.get(detect_dtype, default_dt)
+        self.reid_dtype = _DTYPES.get(reid_dtype, default_dt)
+        self.synthetic_load = int(synthetic_load)
+        self.input_shape = tuple(input_shape)
+        self.letterbox_auto = bool(letterbox_auto)
+        self.conf_threshold = float(conf_threshold)
+        self.nms_threshold = float(nms_threshold)
+        self.min_detection_confidence = float(min_detection_confidence)
+        self.chunk_size = int(chunk_size)
+        self.with_reid = with_reid
+        self.yolo = resolve_yolo_params(variant, weights_path=yolo_weights,
+                                        device=self.device,
+                                        dtype=self.detect_dtype)
+        self.reid = resolve_reid_params(weights_path=reid_weights,
+                                        device=self.device,
+                                        dtype=self.reid_dtype)
+        self.tracker_params = tracker_params or TrackerParams(
+            max_cosine_distance=config.DEEPSORT_MAX_DIST,
+            nn_budget=config.DEEPSORT_NN_BUDGET,
+            max_iou_distance=config.DEEPSORT_MAX_IOU_DISTANCE,
+            max_age=config.DEEPSORT_MAX_AGE,
+            n_init=config.DEEPSORT_N_INIT,
+            max_tracks=config.MAX_TRACKS,
+            max_detections=config.MAX_DETECTIONS,
+            feature_dim=config.REID_FEATURE_DIM,
+            nsa=bool(nsa),
+        )
+        # crops come from the detection slots: more crop capacity than
+        # detection slots is unreachable
+        self.max_reid_crops = min(int(max_reid_crops),
+                                  self.tracker_params.max_detections)
+        self._track_class_ids = torch.tensor(
+            config.CLASS_IDS_TO_TRACK, dtype=torch.int32, device=self.device)
+        self._nms_score_floor = config.YOLO_NMS_SCORE_THRESHOLD
+        self.stage_timer: StageTimer | None = None
+        self.state = core_state.init_state(self.tracker_params, self.device)
+        self._steps = {}
+
+    # --- step construction --------------------------------------------------
+
+    def _precision(self, dtype: torch.dtype):
+        return full_f32() if dtype == torch.float32 \
+            else contextlib.nullcontext()
+
+    def _make_chunk_step(self, frame_hw: Tuple[int, int], k: int):
+        spec = letterbox_spec(frame_hw, self.input_shape,
+                              auto=self.letterbox_auto)
+        p = self.tracker_params
+        n_det = p.max_detections
+        feature_dim = p.feature_dim
+        n_crops = self.max_reid_crops
+        dev = self.device
+        n_syn = min(self.synthetic_load, n_det)
+        if n_syn:
+            # static 8x8 grid of boxes spanning the frame (worst-case mode)
+            fh, fw = frame_hw
+            gi = np.arange(n_det)
+            gx = (gi % 8) * (fw / 8.0)
+            gy = ((gi // 8) % 8) * (fh / 8.0)
+            syn_boxes = torch.from_numpy(np.stack(
+                [gx + 2, gy + 2, gx + fw / 8.0 - 2, gy + fh / 8.0 - 2],
+                axis=-1).astype(np.float32)).to(dev)
+        buckets = [0] + [b for b in (4, 8, 12, 16, 24) if b < n_crops] \
+            + [n_crops]
+        fidx = torch.arange(k, device=dev)[:, None]
+
+        def mark(stage):
+            if self.stage_timer is not None:
+                self.stage_timer.mark(stage)
+
+        def compact_dets(num, boxes, scores, labels):
+            """Per frame: compact tracker-eligible dets into padded slots."""
+            present = torch.arange(boxes.shape[1], device=dev)[None] \
+                < num[:, None]
+            det_valid = present & (scores >= self.conf_threshold)
+            trackable = torch.any(
+                labels[..., None] == self._track_class_ids, dim=-1)
+            elig = det_valid & trackable & \
+                (scores >= self.min_detection_confidence)
+            rank = torch.cumsum(elig, dim=1) - 1
+            slot = torch.where(elig & (rank < n_det), rank,
+                               torch.full_like(rank, n_det))
+
+            def compact(vals):
+                arr = torch.zeros((k, n_det + 1) + tuple(vals.shape[2:]),
+                                  dtype=vals.dtype, device=dev)
+                arr[fidx, slot] = vals
+                return arr[:, :n_det]
+
+            return (compact(boxes), compact(scores),
+                    compact(labels.to(torch.int32)), compact(elig),
+                    det_valid)
+
+        def embed(frames, d_xyxy, d_valid):
+            """Load-bucketed crop gather + ReID: embed only as many crop
+            slots as the busiest frame of the chunk needs (the bucket choice
+            reads one value back per chunk)."""
+            d_feats = torch.zeros((k, n_det, feature_dim),
+                                  dtype=torch.float32, device=dev)
+            d_hasfeat = torch.zeros((k, n_det), dtype=torch.bool,
+                                    device=dev)
+            if not self.with_reid:
+                return d_feats, d_hasfeat
+            n_needed = EMBED_SYNCS.tolist(
+                torch.amax(torch.sum(d_valid[:, :n_crops], 1)))
+            b = buckets[sum(int(n_needed > bk) for bk in buckets[:-1])]
+            if b == 0:
+                return d_feats, d_hasfeat
+            crops, crop_valid = extract_reid_crops(
+                frames, d_xyxy[:, :b], out_hw=config.REID_INPUT_SHAPE,
+                compute_dtype=self.reid_dtype)
+            with self._precision(self.reid_dtype):
+                feats = self.reid(crops.reshape(k * b, *crops.shape[2:]))
+            d_feats[:, :b] = feats.reshape(k, b, -1).float()
+            d_hasfeat[:, :b] = crop_valid & d_valid[:, :b]
+            return d_feats, d_hasfeat
+
+        @torch.no_grad()
+        def step(state, frames, n_valid: int):
+            x = letterbox(frames, spec, self.detect_dtype)
+            mark("letterbox")
+            with self._precision(self.detect_dtype):
+                levels = self.yolo(x)
+            mark("yolo")
+            num, nboxes, scores, labels = fused_decode_nms(
+                levels,
+                score_threshold=self._nms_score_floor,
+                iou_threshold=self.nms_threshold,
+                top_k=config.YOLO_NMS_TOPK,
+                max_det=config.YOLO_MAX_DETECTIONS)
+            boxes_f = scale_boxes_back(nboxes, spec)
+            d_xyxy, d_conf, d_cls, d_valid, det_valid = compact_dets(
+                num, boxes_f, scores, labels)
+            if n_syn:
+                # fill empty slots (real dets are compacted to the front)
+                fill = (torch.arange(n_det, device=dev) < n_syn)[None] \
+                    & ~d_valid
+                d_xyxy = torch.where(fill[..., None], syn_boxes[None], d_xyxy)
+                d_conf = torch.where(fill, torch.full_like(d_conf, 0.5),
+                                     d_conf)
+                d_cls = torch.where(fill, torch.zeros_like(d_cls), d_cls)
+                d_valid = d_valid | fill
+            mark("nms")
+
+            d_feats, d_hasfeat = embed(frames, d_xyxy, d_valid)
+            mark("crops_reid")
+
+            tlwh = torch.cat([d_xyxy[..., :2],
+                              d_xyxy[..., 2:] - d_xyxy[..., :2]], dim=-1)
+            outs = []
+            for i in range(k):
+                if i < n_valid:  # padding frames leave the state untouched
+                    dets = Detections(tlwh=tlwh[i], conf=d_conf[i],
+                                      class_id=d_cls[i], feature=d_feats[i],
+                                      has_feature=d_hasfeat[i],
+                                      valid=d_valid[i])
+                    state = core_tracker.predict(state, p)
+                    state = core_tracker.update(state, dets, p)
+                outs.append(core_tracker.get_outputs(state))
+            track_outs = tuple(torch.stack(x) for x in zip(*outs))
+            mark("tracker")
+            det_outs = (num, boxes_f, scores, labels, det_valid)
+            return state, det_outs, track_outs
+
+        return step
+
+    def _get_step(self, frame_hw: Tuple[int, int], k: int):
+        key = (tuple(frame_hw), k)
+        if key not in self._steps:
+            self._steps[key] = self._make_chunk_step(key[0], k)
+        return self._steps[key]
+
+    # --- host API -----------------------------------------------------------
+
+    def reset(self):
+        """Fresh tracker state (ids restart at 1)."""
+        self.state = core_state.init_state(self.tracker_params, self.device)
+
+    def _dispatch_chunk(self, frames_np: np.ndarray,
+                        n_valid: int | None = None):
+        """Upload one (K, H, W, 3) uint8 chunk and run the chunk step."""
+        k = frames_np.shape[0]
+        n_valid = k if n_valid is None else n_valid
+        step = self._get_step(frames_np.shape[1:3], k)
+        frames = torch.from_numpy(np.ascontiguousarray(frames_np)).to(
+            self.device)
+        if self.stage_timer is not None:
+            self.stage_timer.start()
+        self.state, det_outs, track_outs = step(self.state, frames, n_valid)
+        if self.stage_timer is not None:
+            self.stage_timer.finish()
+        return det_outs, track_outs
+
+    @staticmethod
+    def _emit(det_outs, track_outs, base_index: int, count: int):
+        num, boxes, scores, labels, det_valid = (
+            t.cpu().numpy() for t in det_outs)
+        tlbr, ids, cls, conf, mask = (t.cpu().numpy() for t in track_outs)
+        results = []
+        for i in range(count):
+            v = det_valid[i]
+            results.append(FrameResult(
+                frame_index=base_index + i,
+                det_boxes=boxes[i][v],
+                det_scores=scores[i][v],
+                det_labels=labels[i][v].astype(np.int32),
+                tracks=_format_tracks(tlbr[i], ids[i], cls[i], conf[i],
+                                      mask[i]),
+            ))
+        return results
+
+    def process_frames(self, frames: Iterator[np.ndarray],
+                       chunk_size: int | None = None
+                       ) -> Iterator[FrameResult]:
+        """Stream frames through the tracker; yields a FrameResult per frame.
+        Frames are grouped into chunks of K and run by
+        :meth:`process_chunks`."""
+        k = chunk_size or self.chunk_size
+
+        def chunks():
+            buf = []
+            for frame in frames:
+                buf.append(frame)
+                if len(buf) == k:
+                    yield np.stack(buf)
+                    buf = []
+            if buf:
+                yield np.stack(buf)
+
+        yield from self.process_chunks(chunks(), k)
+
+    def process_chunks(self, chunks: Iterator[np.ndarray],
+                       chunk_size: int | None = None
+                       ) -> Iterator[FrameResult]:
+        """Stream chunks through the tracker: each item is an ``(n, H, W,
+        3)`` uint8 array with ``n <= K``. Yields a FrameResult per frame, one
+        chunk behind the dispatch. A partial chunk is padded to K with its
+        last frame; padding frames leave the tracker state untouched and
+        their results are dropped."""
+        k = chunk_size or self.chunk_size
+        pending = None
+        base = 0
+        for chunk in chunks:
+            n = chunk.shape[0]
+            if n == 0:
+                continue
+            if n > k:
+                raise ValueError(f"chunk of {n} frames exceeds the "
+                                 f"pipeline chunk_size {k}")
+            if n < k:
+                chunk = np.concatenate(
+                    [chunk, np.repeat(chunk[-1:], k - n, axis=0)], axis=0)
+            outs = self._dispatch_chunk(chunk, n_valid=n)
+            prev, pending = pending, (*outs, base, n)
+            base += n
+            if prev is not None:
+                yield from self._emit(*prev)
+        if pending is not None:
+            yield from self._emit(*pending)
+
+    def process_frame(self, frame_bgr: np.ndarray) -> FrameResult:
+        """Single-frame convenience API (a chunk of 1)."""
+        det_outs, track_outs = self._dispatch_chunk(frame_bgr[None])
+        return self._emit(det_outs, track_outs, 0, 1)[0]
+
+    def warm_up(self, frame_hw: Tuple[int, int],
+                chunk_size: int | None = None, iters: int = 2) -> float:
+        """Run the chunk step on blank frames (builds the kernel, warms the
+        allocator and cuDNN), then reset; returns seconds."""
+        t0 = time.perf_counter()
+        k = chunk_size or self.chunk_size
+        dummy = np.zeros((k, *frame_hw, 3), np.uint8)
+        for _ in range(iters):
+            self._dispatch_chunk(dummy)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.reset()
+        return time.perf_counter() - t0

@@ -1,0 +1,71 @@
+"""Seeded scenes of moving rectangles, in numpy, for smoke runs and tests.
+
+A small numpy counterpart of the JAX package's synthetic world: class-
+coloured, two-tone striped rectangles with a dark rim (person red, car blue,
+bus green, truck yellow, motorcycle magenta, in BGR) over a gradient-plus-
+noise background, each moving at a constant velocity and bouncing off the
+frame edges. The committed synthetic detector was trained on scenes of this
+kind, so it finds the rectangles.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# class id: (BGR base colour, aspect w/h range, height range as a fraction
+# of the frame height)
+_CLASSES = {
+    0: ((40, 40, 200), (0.25, 0.45), (0.13, 0.40)),   # person
+    2: ((200, 90, 40), (1.6, 2.6), (0.09, 0.24)),     # car
+    3: ((200, 60, 200), (0.5, 0.9), (0.09, 0.22)),    # motorcycle
+    5: ((50, 190, 60), (1.8, 3.0), (0.17, 0.44)),     # bus
+    7: ((40, 190, 200), (1.5, 2.5), (0.15, 0.40)),    # truck
+}
+
+
+def moving_rectangles(n_frames: int, hw=(540, 960), n_objects: int = 6,
+                      seed: int = 0) -> np.ndarray:
+    """``(n_frames, H, W, 3)`` uint8 BGR frames of ``n_objects`` moving
+    rectangles, made from ``seed``."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    cls = rng.choice(list(_CLASSES), n_objects)
+    objs = []
+    for c in cls:
+        color, (a_lo, a_hi), (h_lo, h_hi) = _CLASSES[int(c)]
+        bh = rng.uniform(h_lo, h_hi) * h
+        bw = min(bh * rng.uniform(a_lo, a_hi), 0.6 * w)
+        objs.append(dict(
+            size=np.array([bw, bh]),
+            pos=np.array([rng.uniform(0, w - bw), rng.uniform(0, h - bh)]),
+            vel=rng.uniform(-0.01, 0.01, 2) * np.array([w, h]),
+            c1=np.clip(np.array(color) + rng.uniform(-30, 30, 3), 0, 255),
+            c2=np.clip(np.array(color) * 0.7 + rng.uniform(-20, 20, 3),
+                       0, 255),
+            stripe=rng.uniform(4, 12) * w / 960.0))
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = rng.uniform(90, 160, 3)
+    grad = (xx[..., None] * rng.uniform(-30, 30, 3) / w
+            + yy[..., None] * rng.uniform(-30, 30) / h)
+    frames = np.empty((n_frames, h, w, 3), np.uint8)
+    for f in range(n_frames):
+        img = base + grad + rng.uniform(-12, 12, (h, w, 1))
+        for o in objs:
+            x1, y1 = o["pos"]
+            x2, y2 = o["pos"] + o["size"]
+            inside = (xx >= x1) & (xx < x2) & (yy >= y1) & (yy < y2)
+            stripes = (np.floor(xx / o["stripe"]) % 2)[..., None] > 0
+            fill = np.where(stripes, o["c2"], o["c1"])
+            rim = ((xx < x1 + 2) | (xx >= x2 - 2) | (yy < y1 + 2)
+                   | (yy >= y2 - 2))[..., None]
+            fill = np.where(rim, fill * 0.45, fill)
+            img = np.where(inside[..., None], fill, img)
+            # constant velocity, bouncing off the frame edges
+            o["pos"] = o["pos"] + o["vel"]
+            for ax, lim in ((0, w), (1, h)):
+                if o["pos"][ax] < 0 or o["pos"][ax] + o["size"][ax] > lim:
+                    o["vel"][ax] = -o["vel"][ax]
+                    o["pos"][ax] = np.clip(o["pos"][ax], 0,
+                                           lim - o["size"][ax])
+        frames[f] = np.clip(np.round(img), 0, 255).astype(np.uint8)
+    return frames

@@ -1,0 +1,89 @@
+"""Port: tests that need an NVIDIA GPU (the CUDA kernels have no CPU mode).
+
+They skip on a host without one. On the GPU host, which has no JAX (and
+``tests/conftest.py`` imports the JAX package, hence ``--noconftest``):
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q \
+        -p no:cacheprovider
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from aicamera_tpu_torch.ops import letterbox as lb  # noqa: E402
+from aicamera_tpu_torch.ops.preprocess import letterbox_spec  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers side by side, and
+    PyTorch's thread pool oversubscribes the cores (small convolutions then
+    run ~100x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the letterbox kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("src,dst,auto", [((540, 960), (640, 640), False),
+                                          ((1080, 1920), (640, 640), False),
+                                          ((640, 640), (640, 640), False),
+                                          ((240, 320), (640, 640), False),
+                                          ((540, 960), (640, 640), True),
+                                          ((37, 1999), (128, 96), False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_bitwise_equals_plain_version(cuda, src, dst, auto, dtype):
+    spec = letterbox_spec(src, dst, auto=auto)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    frames = torch.randint(0, 256, (3, *src, 3), dtype=torch.uint8,
+                           device=cuda, generator=gen)
+    launches = lb.KERNEL.launches
+    out = lb.letterbox(frames, spec, dtype)
+    assert lb.KERNEL.launches == launches + 1
+    ref = lb.letterbox_plain(frames, spec, dtype)
+    torch.cuda.synchronize()
+    assert out.shape == (3, 3, *spec.out_hw) and out.dtype == dtype
+    assert torch.equal(out, ref)  # tolerance: bitwise
+
+
+def test_kernel_rejects_bad_input(cuda):
+    spec = letterbox_spec((54, 96), (64, 64))
+    frames = torch.zeros((2, 54, 96, 3), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        lb.letterbox(frames.transpose(1, 2).contiguous().transpose(1, 2),
+                     spec)
+    with pytest.raises(TypeError):
+        lb.letterbox(frames.float(), spec)
+
+
+def test_pipeline_launches_the_kernel_once_per_chunk(cuda):
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.core.state import TrackerParams
+    from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline
+    from aicamera_tpu_torch.scenes import moving_rectangles
+    pipe = TrackingPipeline(
+        input_shape=(256, 256), chunk_size=2, synthetic_load=8,
+        max_reid_crops=4,
+        tracker_params=TrackerParams(max_tracks=16, max_detections=8,
+                                     nn_budget=4, max_age=10),
+        yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
+        reid_weights=str(config.REID_SYNTHETIC_PATH))
+    frames = moving_rectangles(6, (180, 320), n_objects=3, seed=3)
+    launches = lb.KERNEL.launches
+    results = list(pipe.process_frames(iter(frames)))
+    assert lb.KERNEL.launches == launches + 3
+    assert len(results) == 6
+    assert all(np.isfinite(r.det_boxes).all() for r in results)
+    assert len(results[-1].tracks) > 0

@@ -1,0 +1,190 @@
+"""Port: msgpack reader, Flax -> PyTorch weight mapping, import hygiene.
+
+The reader must decode the committed Flax checkpoints exactly as
+``flax.serialization.msgpack_restore`` does (bitwise, leaf by leaf), and the
+port must import nothing of JAX, Flax, msgpack, cv2 or the JAX package.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from aicamera_tpu_torch import config  # noqa: E402
+from aicamera_tpu_torch.models import ReIDNet, YOLOv8  # noqa: E402
+from aicamera_tpu_torch.runtime import params  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers side by side, and
+    PyTorch's thread pool oversubscribes the cores (small convolutions then
+    run ~100x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_DIR = ROOT / "aicamera_tpu_torch"
+SMOKE = ROOT / "chip_smoke.py"
+CHECKPOINTS = [*config.COMMITTED_CHECKPOINTS["yolo"],
+               *config.COMMITTED_CHECKPOINTS["reid"]]
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "cv2", "aicamera_tpu")
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+@pytest.mark.parametrize("path", CHECKPOINTS, ids=lambda p: p.name)
+def test_reader_matches_flax_msgpack_restore(path):
+    from flax import serialization
+    data = path.read_bytes()
+    ours = dict(_leaves(params.read_flax_msgpack(data)))
+    ref = dict(_leaves(serialization.msgpack_restore(data)))
+    assert ours.keys() == ref.keys()
+    for k, v in ref.items():
+        assert ours[k].dtype == v.dtype and ours[k].shape == v.shape, k
+        np.testing.assert_array_equal(ours[k], v)  # tolerance: bitwise
+
+
+def test_reader_covers_the_msgpack_subset():
+    """Every type family Flax can write, against the msgpack package's
+    encoder, including the multi-byte length forms."""
+    import msgpack
+    from flax import serialization
+    obj = {
+        "nil": None, "t": True, "f": False,
+        "ints": [0, 1, 127, 128, 255, 256, 65535, 65536, 2**32, -1, -32,
+                 -33, -128, -129, -32768, -32769, -2**31 - 1],
+        "floats": [0.5, -1e300],
+        "s": "x" * 40, "s16": "y" * 300, "b": b"\x00\x01\x02",
+        "arr16": list(range(20)), "map16": {str(i): i for i in range(20)},
+        "nd": np.arange(6, dtype=np.int16).reshape(2, 3),
+        "scalar": np.float32(2.5),
+    }
+    data = serialization.msgpack_serialize(obj)
+    ours = params.read_flax_msgpack(data)
+    ref = serialization.msgpack_restore(data)
+    assert ours.keys() == ref.keys()
+    for k in ref:
+        if isinstance(ref[k], np.ndarray):
+            np.testing.assert_array_equal(ours[k], ref[k])
+            assert ours[k].dtype == ref[k].dtype
+        else:
+            assert ours[k] == ref[k], k
+    with pytest.raises(ValueError):
+        params.read_flax_msgpack(msgpack.packb(1) + b"\x00")  # trailing
+
+
+@pytest.mark.parametrize("path", CHECKPOINTS, ids=lambda p: p.name)
+def test_committed_checkpoints_load_strictly(path):
+    tree = params.load_flax_msgpack(path)
+    if path in config.COMMITTED_CHECKPOINTS["yolo"]:
+        model, convert = YOLOv8("n"), params.yolo_state_dict_from_flax
+    else:
+        model, convert = ReIDNet(), params.reid_state_dict_from_flax
+    state = convert(tree)
+    params.load_state_strict(model, state)
+    # every leaf consumed, conv kernels HWIO -> OIHW
+    assert len(state) == len(list(_leaves(tree)))
+    k = tree["params"]["stem"]["conv"]["kernel"] if "stem" in tree["params"] \
+        else tree["params"]["backbone"]["stem"]["conv"]["kernel"]
+    w = (model.stem.conv.weight if isinstance(model, ReIDNet)
+         else model.backbone.stem.conv.weight)
+    np.testing.assert_array_equal(w.detach().numpy(),
+                                  k.transpose(3, 2, 0, 1))
+
+
+def test_strict_load_rejects_missing_extra_and_misshaped():
+    tree = params.load_flax_msgpack(config.REID_SYNTHETIC_PATH)
+    state = params.reid_state_dict_from_flax(tree)
+    missing = dict(state)
+    missing.pop("block0.cv2.weight")
+    with pytest.raises(KeyError):
+        params.load_state_strict(ReIDNet(), missing)
+    extra = dict(state, **{"block9.cv1.conv.bias": torch.zeros(3)})
+    with pytest.raises(KeyError):
+        params.load_state_strict(ReIDNet(), extra)
+    bad = dict(state, **{"stem.conv.bias": torch.zeros(3)})
+    with pytest.raises(ValueError):
+        params.load_state_strict(ReIDNet(), bad)
+
+
+def test_dense_kernel_is_transposed():
+    tree = {"params": {"fc": {"kernel": np.arange(6, dtype=np.float32)
+                              .reshape(2, 3), "bias": np.zeros(3)}}}
+    state = params.reid_state_dict_from_flax(tree)
+    np.testing.assert_array_equal(state["fc.weight"].numpy(),
+                                  tree["params"]["fc"]["kernel"].T)
+
+
+def test_missing_default_weights_warn_and_seed(tmp_path, monkeypatch):
+    monkeypatch.setattr(config, "REID_PARAMS_PATH", tmp_path / "none.msgpack")
+    with pytest.warns(UserWarning, match="seeded random init"):
+        a = params.resolve_reid_params(device="cpu")
+    with pytest.warns(UserWarning):
+        b = params.resolve_reid_params(device="cpu")
+    for pa, pb in zip(a.parameters(), b.parameters()):
+        assert torch.equal(pa, pb)  # deterministic from the seed
+    with pytest.raises(FileNotFoundError):
+        params.resolve_reid_params(weights_path=str(tmp_path / "x.msgpack"))
+    with pytest.raises(NotImplementedError):
+        params.resolve_reid_params(weights_path=str(tmp_path / "x.onnx"))
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_source_scan_finds_no_forbidden_import():
+    files = sorted(PORT_DIR.rglob("*.py")) + [SMOKE]
+    assert SMOKE.exists()
+    for f in files:
+        bad = set(_imported_roots(f)) & set(FORBIDDEN)
+        assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
+
+
+_BLOCKER = """
+import importlib.abc, sys
+FORBIDDEN = {forbidden!r}
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in FORBIDDEN:
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+import importlib, pkgutil, runpy
+import aicamera_tpu_torch
+
+for m in pkgutil.walk_packages(aicamera_tpu_torch.__path__,
+                               "aicamera_tpu_torch."):
+    importlib.import_module(m.name)
+runpy.run_path({smoke!r}, run_name="chip_smoke_imported")
+print("IMPORT-OK")
+"""
+
+
+def test_imports_with_jax_and_the_jax_package_blocked():
+    code = _BLOCKER.format(forbidden=FORBIDDEN, smoke=str(SMOKE))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "IMPORT-OK" in out.stdout

@@ -1,0 +1,123 @@
+"""Port: the whole slice (letterbox -> YOLOv8 -> NMS -> crops -> ReID ->
+DeepSORT) on the CPU against the JAX ``TrackingPipeline``."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from aicamera_tpu import config as jconfig  # noqa: E402
+from aicamera_tpu.core import state as jstate  # noqa: E402
+from aicamera_tpu_torch import config  # noqa: E402
+from aicamera_tpu_torch.core.state import TrackerParams  # noqa: E402
+from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline  # noqa: E402
+from aicamera_tpu_torch.scenes import moving_rectangles  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers side by side, and
+    PyTorch's thread pool oversubscribes the cores (small convolutions then
+    run ~100x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# tests/test_pipeline.py's sizes (shared JAX compile cache)
+SMALL = dict(max_tracks=16, max_detections=8, nn_budget=4, max_age=10,
+             feature_dim=jconfig.REID_FEATURE_DIM)
+FRAME_HW = (96, 128)
+INPUT_HW = (128, 128)
+KW = dict(input_shape=INPUT_HW, max_reid_crops=4, chunk_size=2,
+          synthetic_load=8, yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
+          reid_weights=str(config.REID_SYNTHETIC_PATH))
+
+
+def _frames(n=6, seed=3):
+    # seed 3: three rectangles the committed detector finds at this size
+    return list(moving_rectangles(n, FRAME_HW, n_objects=3, seed=seed))
+
+
+@pytest.fixture(scope="module")
+def port():
+    return TrackingPipeline(tracker_params=TrackerParams(**SMALL),
+                            device="cpu", **KW)
+
+
+def test_pipeline_matches_jax(port):
+    """Detections: counts and labels identical, boxes within 1e-3 px and
+    scores within 1e-5 (two f32 convolution stacks round differently).
+    Track tuples identical, conf within 1e-5 for the same reason."""
+    from aicamera_tpu.runtime.pipeline import TrackingPipeline as JaxPipeline
+    jax_pipe = JaxPipeline(tracker_params=jstate.TrackerParams(**SMALL), **KW)
+    frames = _frames()
+    ref = list(jax_pipe.process_frames(iter(frames)))
+    port.reset()
+    ours = list(port.process_frames(iter(frames)))
+    assert [r.frame_index for r in ours] == list(range(len(frames)))
+    n_tracks = n_dets = 0
+    for a, b in zip(ours, ref, strict=True):
+        assert len(a.det_boxes) == len(b.det_boxes), a.frame_index
+        np.testing.assert_array_equal(a.det_labels, b.det_labels)
+        np.testing.assert_allclose(a.det_boxes, b.det_boxes, atol=1e-3)
+        np.testing.assert_allclose(a.det_scores, b.det_scores, atol=1e-5)
+        assert len(a.tracks) == len(b.tracks), a.frame_index
+        for ta, tb in zip(a.tracks, b.tracks):
+            assert ta[:6] == tb[:6]
+            assert ta[6] == pytest.approx(tb[6], abs=1e-5)
+        n_tracks += len(a.tracks)
+        n_dets += len(a.det_boxes)
+    assert n_dets > 0 and n_tracks > 0
+    # the synthetic grid (exact inputs) gives bitwise-identical tuples
+    assert ours[-1].tracks[-1] == ref[-1].tracks[-1]
+
+
+def test_padding_and_chunk_api(port):
+    """A padded last chunk leaves no trace; process_chunks and process_frame
+    agree with process_frames (same chunk size)."""
+    frames = _frames(5, seed=2)
+    port.reset()
+    a = list(port.process_frames(iter(frames)))
+    state_a = {k: v.clone() for k, v in vars(port.state).items()}
+    port.reset()
+    b = list(port.process_chunks(iter([np.stack(frames[:2]),
+                                       np.stack(frames[2:4]),
+                                       np.stack(frames[4:])])))
+    assert [r.tracks for r in a] == [r.tracks for r in b]
+    for k, v in vars(port.state).items():
+        assert torch.equal(v, state_a[k]), k
+    with pytest.raises(ValueError):
+        list(port.process_chunks(iter([np.stack(frames[:3])])))
+    port.reset()
+    single = port.process_frame(frames[0])
+    assert single.frame_index == 0 and single.det_boxes.shape[1] == 4
+
+
+def test_warm_up_resets_state(port):
+    port.warm_up(FRAME_HW)
+    assert not port.state.active.any() and int(port.state.next_id) == 1
+
+
+def test_entry_point_defaults_to_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the no-GPU error cannot be shown")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrackingPipeline(input_shape=INPUT_HW)
+
+
+@pytest.mark.parametrize("kw", [dict(tracker="bytetrack"), dict(gmc="affine"),
+                                dict(reid_quant="int8"),
+                                dict(yolo_quant="int8")])
+def test_unported_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TrackingPipeline(input_shape=INPUT_HW, device="cpu", **kw)
+
+
+def test_argument_checks():
+    with pytest.raises(ValueError):
+        TrackingPipeline(device="cpu", detect_dtype="f16")
+    with pytest.raises(ValueError):
+        TrackingPipeline(device="cpu", nsa=True,
+                         tracker_params=TrackerParams(**SMALL))
