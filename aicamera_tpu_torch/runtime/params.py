@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..device import resolve_device
 from ..models.reid import ReIDNet
 from ..models.yolov8 import YOLOv8
 
@@ -214,6 +215,8 @@ def compute_dtype(device) -> torch.dtype:
 
 def _resolve(model, weights_path, default_path, convert, device, dtype,
              what: str):
+    device = resolve_device(device)  # None: the GPU, or raise without one
+    dtype = dtype or compute_dtype(device)
     if weights_path:
         path = Path(weights_path)
         if path.suffix == ".onnx":
@@ -238,19 +241,21 @@ def _resolve(model, weights_path, default_path, convert, device, dtype,
 
 
 def resolve_yolo_params(variant: str = "n", num_classes: int = 80,
-                        weights_path: str | None = None, device="cpu",
+                        weights_path: str | None = None, device=None,
                         dtype: torch.dtype | None = None) -> YOLOv8:
-    """The YOLOv8 detector with its weights, on ``device`` in ``dtype``."""
+    """The YOLOv8 detector with its weights, on ``device`` in ``dtype``.
+    ``device=None`` is the GPU (raises without one); the default ``dtype``
+    is bf16 there and f32 on the CPU."""
     return _resolve(YOLOv8(variant=variant, num_classes=num_classes),
                     weights_path, config.YOLO_PARAMS_PATH,
-                    yolo_state_dict_from_flax, device,
-                    dtype or compute_dtype(device), f"YOLOv8{variant}")
+                    yolo_state_dict_from_flax, device, dtype,
+                    f"YOLOv8{variant}")
 
 
-def resolve_reid_params(weights_path: str | None = None, device="cpu",
+def resolve_reid_params(weights_path: str | None = None, device=None,
                         dtype: torch.dtype | None = None) -> ReIDNet:
-    """The ReID embedder with its weights, on ``device`` in ``dtype``."""
+    """The ReID embedder with its weights, on ``device`` in ``dtype``
+    (defaults as in :func:`resolve_yolo_params`)."""
     return _resolve(ReIDNet(feature_dim=config.REID_FEATURE_DIM),
                     weights_path, config.REID_PARAMS_PATH,
-                    reid_state_dict_from_flax, device,
-                    dtype or compute_dtype(device), "ReID")
+                    reid_state_dict_from_flax, device, dtype, "ReID")

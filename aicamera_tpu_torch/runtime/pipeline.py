@@ -27,6 +27,7 @@ from .. import config
 from ..core import state as core_state
 from ..core import tracker as core_tracker
 from ..core.state import Detections, TrackerParams
+from ..device import resolve_device
 from ..ops.crops import extract_reid_crops
 from ..ops.letterbox import letterbox
 from ..ops.nms import fused_decode_nms
@@ -47,15 +48,6 @@ class FrameResult:
     det_scores: np.ndarray    # (n,)
     det_labels: np.ndarray    # (n,) int32
     tracks: list              # [(x1, y1, x2, y2, id, class_name, conf), ...]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the GPU; there is no silent CPU fallback."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the plain CPU path")
-    return dev
 
 
 @contextlib.contextmanager

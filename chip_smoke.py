@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``aicamera_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
 Needs one CUDA GPU, the CUDA toolkit (``nvcc``) and the repository around
 this file; exits non-zero otherwise. In order it:
@@ -10,8 +10,13 @@ this file; exits non-zero otherwise. In order it:
 2. builds every kernel of the main path from ``aicamera_tpu_torch/csrc``;
 3. holds each kernel, called through the public wrapper the pipeline calls,
    against its plain PyTorch version on the card, bitwise, at the main
-   path's geometries and more, and times kernel, plain version,
-   the nearest single PyTorch call, and the byte/operation bound;
+   path's geometries and more (misaligned and ragged shapes, both kernel
+   variants), and times it three ways at three shapes
+   (``device_ms``: a CUDA-graph replay over buffers larger than the L2;
+   ``ms``: per call through the wrapper; ``host_ms``: the host's share of a
+   call), next to the earlier design (``earlier_ms``, the scalar variant's
+   ``device_ms``), the plain version, the nearest single PyTorch call, and
+   the byte/operation bound;
 4. drives the main path at full width: ``TrackingPipeline(device="cuda")``
    with YOLOv8n at 640x640, T=128 track slots, N=64 detection slots, a
    100-feature gallery of 512-d features and 32 ReID crops, on seeded
@@ -23,11 +28,12 @@ this file; exits non-zero otherwise. In order it:
    plain CPU path, and compares detections and track tuples.
 
 The last two lines of output are the kernels' JSON record and the device
-JSON record.
+JSON record. ``--kernels-only`` stops after step 3.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -52,6 +58,13 @@ KERNEL_GEOMETRIES = [  # (src_hw, dst_hw, auto)
     ((240, 320), (640, 640), False),
     ((540, 960), (640, 640), True),
 ]
+
+
+def bench_shapes():
+    """(src_hw, out dtype) of the timed letterbox calls, K=8 each."""
+    import torch
+    return [((540, 960), torch.bfloat16), ((1080, 1920), torch.bfloat16),
+            ((540, 960), torch.float32)]
 
 
 class SmokeFailure(Exception):
@@ -86,6 +99,113 @@ def time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def time_host_ms(fn, bursts=20, burst=16, warmup=10):
+    """Host time of one call: bursts of back-to-back calls with the clock
+    stopped before the device is waited for, and a sync between bursts, so
+    that the launch queue is never full and no call waits for the device."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    host = 0.0
+    for _ in range(bursts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(burst):
+            fn()
+        host += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / (bursts * burst) * 1e3
+
+
+def time_device_ms(launch, n_sets, rounds=8, replays=5):
+    """A kernel's time on the device without its host side: ``rounds *
+    n_sets`` launches captured into one CUDA graph, CUDA events around a
+    replay, the median of ``replays`` replays over the launch count. It
+    holds the gap between two kernel nodes of a graph (about a microsecond),
+    so it bounds the kernel's own duration from above. ``launch(i)`` runs on
+    buffer set ``i``; the caller sizes the sets so that together they exceed
+    the L2 cache, so every launch finds its inputs in device memory."""
+    import torch
+
+    for i in range(n_sets):
+        launch(i)  # builds and caches whatever the first call sets up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            for i in range(n_sets):
+                launch(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[replays // 2] / (rounds * n_sets)
+
+
+L2_BYTES = 50e6  # H100: 50 MB
+
+
+def measure_letterbox(call, src_hw, dt, device, gen, k=CHUNK):
+    """Three times of one letterbox call at one shape, and its bound.
+
+    ``device_ms``: the kernel without the wrapper's host time (a graph
+    replay), rotating over buffer sets larger than the L2 together (a
+    device-memory reading, what the byte bound is held against). ``ms``:
+    per call through ``call`` back to back on one buffer (what the pipeline
+    pays per chunk once the queue runs). ``host_ms``: the host's share of
+    one call.
+
+    The bound's input bytes are the source rows that some output row taps
+    with a weight above 0, whole (``W * 3`` bytes each): at 1920x1080 to
+    640x360 every third row, at 960x540 every row."""
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch.ops.preprocess import (letterbox_spec,
+                                                   letterbox_taps)
+
+    spec = letterbox_spec(src_hw, (640, 640))
+    (y0, y1, wy0, wy1), _, _ = letterbox_taps(spec)
+    rows_read = len(np.union1d(y0[wy0 != 0], y1[wy1 != 0]))
+    in_bytes = k * rows_read * src_hw[1] * 3
+    n_out = k * 3 * spec.out_hw[0] * spec.out_hw[1]
+    out_bytes = n_out * torch.finfo(dt).bits // 8
+    n_sets = max(4, int(2.5 * L2_BYTES / (in_bytes + out_bytes)) + 1)
+    inputs = [torch.randint(0, 256, (k, *src_hw, 3), dtype=torch.uint8,
+                            device=device, generator=gen)
+              for _ in range(n_sets)]
+    outs = [None] * n_sets  # held, so the allocator rotates the outputs too
+
+    def launch(i):
+        outs[i] = call(inputs[i], spec, dt)
+
+    device_ms = time_device_ms(launch, n_sets)
+    del outs
+    # the host's first thousand calls of a process run slower: median of 3
+    ms = sorted(time_ms(lambda: call(inputs[0], spec, dt))
+                for _ in range(3))[1]
+    host_ms = sorted(time_host_ms(lambda: call(inputs[0], spec, dt))
+                     for _ in range(3))[1]
+    content = k * 3 * spec.unpad_hw[0] * spec.unpad_hw[1]
+    ops = content * 11 + (n_out - content)  # 6 mul + 3 add + round/clip/div
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return {"shape": f"{src_hw[1]}x{src_hw[0]}->{spec.out_hw[1]}x"
+                     f"{spec.out_hw[0]} K={k} "
+                     f"{'bf16' if dt == torch.bfloat16 else 'f32'}",
+            "device_ms": device_ms, "ms": ms, "host_ms": host_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": in_bytes + out_bytes, "source_rows_read": rows_read,
+            "ops": ops, "n_sets": n_sets}
+
+
 def build_kernels(kernels):
     """Build every kernel's source with nvcc and load it."""
     from aicamera_tpu_torch.ops import cuda_build
@@ -101,8 +221,21 @@ def build_kernels(kernels):
     return time.perf_counter() - t0
 
 
+# Shapes the vector variant does not take (a source row that is not a
+# multiple of 16 bytes), K=3: (src_hw, dst_hw).
+MISALIGNED_GEOMETRIES = [((37, 1999), (128, 96)), ((101, 333), (640, 640)),
+                         ((360, 636), (640, 640))]
+# Aligned shapes off the usual, K=3: a left pad that splits 8-pixel groups,
+# in blocks of two rows of threads; an odd output height; an integer ratio
+# (one staged source row per output row); a band beyond the 48 KB of shared
+# memory a block gets without asking.
+RAGGED_GEOMETRIES = [((100, 48), (128, 120)), ((37, 64), (31, 40)),
+                     ((108, 192), (64, 64)), ((16, 8208), (64, 640))]
+
+
 def kernel_phase(device):
-    """Letterbox kernel vs its plain version on the card, bitwise."""
+    """Letterbox kernel vs its plain version on the card, bitwise, then its
+    times."""
     import torch
     import torch.nn.functional as F
     from aicamera_tpu_torch.ops import letterbox as lb
@@ -110,62 +243,120 @@ def kernel_phase(device):
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     max_err = 0.0
-    n_checked = 0
+    n_checked = {"vector": 0, "scalar": 0}
+
+    def hold(frames, spec, dt, want, variant=None):
+        """One launch against the plain version; ``want``: the variant the
+        plan must have picked; ``variant``: force that one."""
+        nonlocal max_err
+        before = lb.KERNEL.launches
+        if variant:
+            out = lb.KERNEL(frames, spec, dt, variant=variant)
+        else:
+            out = lb.letterbox(frames, spec, dt)  # the pipeline's call
+        check(lb.KERNEL.launches == before + 1,
+              "letterbox() on a CUDA tensor did not launch the kernel")
+        plan = lb.KERNEL.last_plan
+        what = (f"{tuple(frames.shape)}->{spec.out_hw} {dt} {plan.variant} "
+                f"rows={plan.rows}")
+        check(want == plan.variant, f"{what}: expected the {want} variant "
+              f"({plan.reason})")
+        ref = lb.letterbox_plain(frames, spec, dt)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape == (frames.shape[0], 3, *spec.out_hw)
+              and out.dtype == dt, f"letterbox shape {tuple(out.shape)}")
+        err = (out.float() - ref.float()).abs().max().item()
+        max_err = max(max_err, err)
+        check(torch.equal(out, ref),
+              f"letterbox kernel != plain version: {what}: max |err| {err}")
+        n_checked[plan.variant] += 1
+
+    def random_frames(k, src):
+        return torch.randint(0, 256, (k, *src, 3), dtype=torch.uint8,
+                             device=device, generator=gen)
+
+    dtypes = (torch.float32, torch.bfloat16)
     for src, dst, auto in KERNEL_GEOMETRIES:
         spec = letterbox_spec(src, dst, auto=auto)
         for k in (1, 8):
-            frames = torch.randint(0, 256, (k, *src, 3), dtype=torch.uint8,
-                                   device=device, generator=gen)
-            for dt in (torch.float32, torch.bfloat16):
-                before = lb.KERNEL.launches
-                out = lb.letterbox(frames, spec, dt)  # the pipeline's call
-                check(lb.KERNEL.launches == before + 1,
-                      "letterbox() on a CUDA tensor did not launch the "
-                      "kernel")
-                ref = lb.letterbox_plain(frames, spec, dt)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                max_err = max(max_err, err)
-                check(out.shape == ref.shape == (k, 3, *spec.out_hw),
-                      f"letterbox shape {tuple(out.shape)}")
-                check(torch.equal(out, ref),
-                      f"letterbox kernel != plain version: {src}->"
-                      f"{spec.out_hw} K={k} {dt}: max |err| {err}")
-                n_checked += 1
+            frames = random_frames(k, src)
+            for dt in dtypes:
+                hold(frames, spec, dt, want="vector")
+        for dt in dtypes:  # the same shapes through the scalar variant
+            hold(frames, spec, dt, want="scalar", variant="scalar")
+    for src, dst in MISALIGNED_GEOMETRIES:
+        spec = letterbox_spec(src, dst)
+        frames = random_frames(3, src)
+        for dt in dtypes:
+            hold(frames, spec, dt, want="scalar")
+    for src, dst in RAGGED_GEOMETRIES:
+        spec = letterbox_spec(src, dst)
+        frames = random_frames(3, src)
+        for dt in dtypes:
+            hold(frames, spec, dt, want="vector")
+    # an aligned shape at a pointer off the 16-byte grid
+    spec = letterbox_spec(FRAME_HW, (640, 640))
+    n = 2 * FRAME_HW[0] * FRAME_HW[1] * 3
+    shifted = torch.randint(0, 256, (n + 1,), dtype=torch.uint8,
+                            device=device, generator=gen)[1:]
+    shifted = shifted.view(2, *FRAME_HW, 3)
+    check(shifted.data_ptr() % 16 != 0, "the shifted view is aligned")
+    for dt in dtypes:
+        hold(shifted, spec, dt, want="scalar")
     print(f"[kernel] letterbox: bitwise equal to the plain version on "
-          f"{n_checked} cases (6 geometries x K in (1, 8) x f32/bf16)")
+          f"{n_checked['vector']} vector and {n_checked['scalar']} scalar "
+          f"launches ({len(KERNEL_GEOMETRIES)} geometries x K in (1, 8) x "
+          f"f32/bf16 as the pipeline calls it, the same forced to the "
+          f"scalar variant, "
+          f"{len(MISALIGNED_GEOMETRIES)} misaligned and "
+          f"{len(RAGGED_GEOMETRIES)} ragged shapes, one unaligned pointer)")
 
-    # timing at the main path's shape: 960x540 -> 640x640, K=8, bf16
+    # timing: the main path's shape first (960x540 -> 640x640, K=8, bf16)
+    def scalar_call(frames, spec, dt):
+        return lb.KERNEL.launch(frames, spec, dt, variant="scalar")
+
+    def report(tag, r):
+        print(f"[kernel] letterbox {r['shape']} {tag}: device "
+              f"{r['device_ms']:.4f} ms (cold L2, {r['n_sets']} buffer "
+              f"sets), per call {r['ms']:.4f} ms, host {r['host_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes with "
+              f"{r['source_rows_read']} source rows a frame, {r['ops']} "
+              f"ops): "
+              f"{100 * r['bound_ms'] / r['device_ms']:.1f}% of the bound")
+
+    rows = []
+    for src, dt in bench_shapes():
+        r = measure_letterbox(lb.letterbox, src, dt, device, gen)
+        r["plan"] = repr(lb.KERNEL.last_plan)
+        check(lb.KERNEL.last_plan.variant == "vector", r["plan"])
+        report(f"rows={lb.KERNEL.last_plan.rows}x"
+               f"{lb.KERNEL.last_plan.block[1]}", r)
+        # the earlier design (one thread per pixel), now the scalar variant
+        e = measure_letterbox(scalar_call, src, dt, device, gen)
+        report("scalar variant", e)
+        r["earlier_ms"] = e["device_ms"]
+        rows.append(r)
+    main = rows[0]
     spec = letterbox_spec(FRAME_HW, (640, 640))
     frames = torch.randint(0, 256, (CHUNK, *FRAME_HW, 3), dtype=torch.uint8,
                            device=device, generator=gen)
-    dt = torch.bfloat16
-    ms = time_ms(lambda: lb.letterbox(frames, spec, dt))
-    plain_ms = time_ms(lambda: lb.letterbox_plain(frames, spec, dt),
-                       iters=10)
+    plain_ms = time_ms(lambda: lb.letterbox_plain(frames, spec,
+                                                  torch.bfloat16), iters=10)
     nchw = frames.permute(0, 3, 1, 2).float().contiguous()
     library_ms = time_ms(lambda: F.interpolate(
         nchw, size=spec.unpad_hw, mode="bilinear", align_corners=False))
-    in_bytes = frames.numel()
-    out_bytes = CHUNK * 3 * spec.out_hw[0] * spec.out_hw[1] * 2
-    content = CHUNK * 3 * spec.unpad_hw[0] * spec.unpad_hw[1]
-    pad = CHUNK * 3 * spec.out_hw[0] * spec.out_hw[1] - content
-    ops = content * 11 + pad  # 6 mul + 3 add + round/clip/div; pad: 1
-    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
     lb.KERNEL.launches = 0  # comparison and timing launches do not count
-    print(f"[kernel] letterbox 960x540->640x640 K={CHUNK} bf16: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.interpolate "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({in_bytes + out_bytes} bytes, {ops} ops)")
+    print(f"[kernel] letterbox {main['shape']}: plain {plain_ms:.4f} ms, "
+          f"F.interpolate {library_ms:.4f} ms (the resize only)")
     return {"name": "letterbox", "route": "cuda",
             "source": "aicamera_tpu_torch/csrc/letterbox.cu",
             "replaces": lb.KERNEL.replaces, "launches": None,
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "max_abs_err": max_err, "ms": main["ms"],
+            "device_ms": main["device_ms"], "host_ms": main["host_ms"],
+            "earlier_ms": main["earlier_ms"],
+            "plain_ms": plain_ms, "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": library_ms,
+            "shapes": rows}
 
 
 def make_pipeline(device, **kw):
@@ -333,6 +524,10 @@ def main() -> int:
         print("chip_smoke: the aicamera_tpu_torch package is not beside "
               "this script", file=sys.stderr)
         return 2
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel phase (build, compare, time)")
+    args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     from aicamera_tpu_torch.ops.letterbox import KERNEL as LETTERBOX
     from aicamera_tpu_torch.scenes import moving_rectangles
@@ -346,6 +541,9 @@ def main() -> int:
         build_s = build_kernels(kernels)
         print(f"[build] {len(kernels)} kernel(s) built in {build_s:.2f} s")
         record = kernel_phase(torch.device("cuda"))
+        if args.kernels_only:
+            print(json.dumps({"kernels": [record]}))
+            return 0
         frames = moving_rectangles(N_CHUNKS * CHUNK, FRAME_HW, n_objects=6,
                                    seed=SEED)
         launches = main_path_phase(torch.device("cuda"), frames, kernels)

@@ -42,7 +42,18 @@ def cuda():
                                           ((640, 640), (640, 640), False),
                                           ((240, 320), (640, 640), False),
                                           ((540, 960), (640, 640), True),
-                                          ((37, 1999), (128, 96), False)])
+                                          ((37, 1999), (128, 96), False),
+                                          # source rows off the 16-byte grid
+                                          ((101, 333), (640, 640), False),
+                                          ((360, 636), (640, 640), False),
+                                          # a left pad that splits groups
+                                          ((100, 48), (128, 120), False),
+                                          # an odd Dh: a ragged last tile
+                                          ((37, 64), (31, 40), False),
+                                          # ratio 3: one staged row a row
+                                          ((108, 192), (64, 64), False),
+                                          # a band beyond 48 KB
+                                          ((16, 8208), (64, 640), False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_bitwise_equals_plain_version(cuda, src, dst, auto, dtype):
     spec = letterbox_spec(src, dst, auto=auto)
@@ -52,10 +63,43 @@ def test_kernel_bitwise_equals_plain_version(cuda, src, dst, auto, dtype):
     launches = lb.KERNEL.launches
     out = lb.letterbox(frames, spec, dtype)
     assert lb.KERNEL.launches == launches + 1
+    # the variant that ran is the one the plan names for these shapes
+    assert lb.KERNEL.last_plan == lb.launch_plan(spec, 3, dtype)
+    assert lb.KERNEL.last_plan.variant == \
+        ("vector" if src[1] % 16 == 0 else "scalar")
     ref = lb.letterbox_plain(frames, spec, dtype)
     torch.cuda.synchronize()
     assert out.shape == (3, 3, *spec.out_hw) and out.dtype == dtype
     assert torch.equal(out, ref)  # tolerance: bitwise
+
+
+@pytest.mark.parametrize("variant", ["scalar", "vector"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_both_variants_agree(cuda, variant, dtype):
+    """An aligned shape through each variant by name. Tolerance: bitwise."""
+    spec = letterbox_spec((540, 960), (640, 640))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    frames = torch.randint(0, 256, (2, 540, 960, 3), dtype=torch.uint8,
+                           device=cuda, generator=gen)
+    out = lb.KERNEL(frames, spec, dtype, variant=variant)
+    assert lb.KERNEL.last_plan.variant == variant
+    ref = lb.letterbox_plain(frames, spec, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def test_unaligned_pointer_takes_the_scalar_variant(cuda):
+    spec = letterbox_spec((54, 96), (64, 64))
+    buf = torch.randint(0, 256, (2 * 54 * 96 * 3 + 1,), dtype=torch.uint8,
+                        device=cuda)
+    frames = buf[1:].view(2, 54, 96, 3)
+    assert frames.data_ptr() % 16 != 0
+    out = lb.letterbox(frames, spec)
+    assert lb.KERNEL.last_plan.variant == "scalar"
+    torch.cuda.synchronize()
+    assert torch.equal(out, lb.letterbox_plain(frames, spec))
+    with pytest.raises(ValueError, match="vector variant"):
+        lb.KERNEL(frames, spec, torch.float32, variant="vector")
 
 
 def test_kernel_rejects_bad_input(cuda):

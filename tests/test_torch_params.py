@@ -139,9 +139,41 @@ def test_missing_default_weights_warn_and_seed(tmp_path, monkeypatch):
     for pa, pb in zip(a.parameters(), b.parameters()):
         assert torch.equal(pa, pb)  # deterministic from the seed
     with pytest.raises(FileNotFoundError):
-        params.resolve_reid_params(weights_path=str(tmp_path / "x.msgpack"))
+        params.resolve_reid_params(weights_path=str(tmp_path / "x.msgpack"),
+                                   device="cpu")
     with pytest.raises(NotImplementedError):
-        params.resolve_reid_params(weights_path=str(tmp_path / "x.onnx"))
+        params.resolve_reid_params(weights_path=str(tmp_path / "x.onnx"),
+                                   device="cpu")
+
+
+LOADERS = [(params.resolve_yolo_params, config.YOLO_SYNTHETIC_PATH),
+           (params.resolve_reid_params, config.REID_SYNTHETIC_PATH)]
+LOADER_IDS = [f.__name__ for f, _ in LOADERS]
+
+
+@pytest.mark.parametrize("loader,weights", LOADERS, ids=LOADER_IDS)
+def test_loaders_default_to_the_gpu(loader, weights):
+    """Without a ``device`` a loader runs on the GPU or raises; it never
+    lands on the CPU silently."""
+    if torch.cuda.is_available():
+        p = next(loader(weights_path=str(weights)).parameters())
+        assert p.device.type == "cuda" and p.dtype == torch.bfloat16
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            loader()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            loader(weights_path=str(weights))
+
+
+@pytest.mark.parametrize("loader,weights", LOADERS, ids=LOADER_IDS)
+def test_loaders_load_on_the_cpu_when_asked(loader, weights):
+    model = loader(weights_path=str(weights), device="cpu")
+    assert not model.training
+    for p in model.parameters():
+        assert p.device.type == "cpu" and p.dtype == torch.float32
+    half = loader(weights_path=str(weights), device="cpu",
+                  dtype=torch.bfloat16)
+    assert next(half.parameters()).dtype == torch.bfloat16
 
 
 def _imported_roots(path: Path):

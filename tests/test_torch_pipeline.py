@@ -46,17 +46,20 @@ def port():
                             device="cpu", **KW)
 
 
-def test_pipeline_matches_jax(port):
+@pytest.fixture(scope="module")
+def jax_ref():
+    """The JAX pipeline's results on the six test frames (its chunk 2; its
+    f32 output does not depend on the chunk size)."""
+    from aicamera_tpu.runtime.pipeline import TrackingPipeline as JaxPipeline
+    jax_pipe = JaxPipeline(tracker_params=jstate.TrackerParams(**SMALL), **KW)
+    return list(jax_pipe.process_frames(iter(_frames())))
+
+
+def _assert_matches_jax(ours, ref):
     """Detections: counts and labels identical, boxes within 1e-3 px and
     scores within 1e-5 (two f32 convolution stacks round differently).
     Track tuples identical, conf within 1e-5 for the same reason."""
-    from aicamera_tpu.runtime.pipeline import TrackingPipeline as JaxPipeline
-    jax_pipe = JaxPipeline(tracker_params=jstate.TrackerParams(**SMALL), **KW)
-    frames = _frames()
-    ref = list(jax_pipe.process_frames(iter(frames)))
-    port.reset()
-    ours = list(port.process_frames(iter(frames)))
-    assert [r.frame_index for r in ours] == list(range(len(frames)))
+    assert [r.frame_index for r in ours] == list(range(len(ref)))
     n_tracks = n_dets = 0
     for a, b in zip(ours, ref, strict=True):
         assert len(a.det_boxes) == len(b.det_boxes), a.frame_index
@@ -72,6 +75,55 @@ def test_pipeline_matches_jax(port):
     assert n_dets > 0 and n_tracks > 0
     # the synthetic grid (exact inputs) gives bitwise-identical tuples
     assert ours[-1].tracks[-1] == ref[-1].tracks[-1]
+
+
+def test_pipeline_matches_jax(port, jax_ref):
+    """Detections: counts and labels identical, boxes within 1e-3 px and
+    scores within 1e-5 (two f32 convolution stacks round differently).
+    Track tuples identical, conf within 1e-5 for the same reason."""
+    port.reset()
+    _assert_matches_jax(list(port.process_frames(iter(_frames()))), jax_ref)
+
+
+def test_pipeline_chunk_3_matches_jax(port, jax_ref):
+    """The same frames in chunks of 3 against the same JAX results, with the
+    tolerances of the chunk-2 comparison."""
+    port.reset()
+    _assert_matches_jax(list(port.process_frames(iter(_frames()),
+                                                 chunk_size=3)), jax_ref)
+
+
+def test_f32_output_is_chunk_size_stable(port):
+    """The same 6 frames at chunk 1, 2 and 3 on the CPU in f32: detection
+    counts and labels identical; track tuples identical in id, class and
+    box; detection boxes within 1e-3 px, scores and track conf within 1e-5
+    (the convolution library may pick another f32 summation order for
+    another batch size)."""
+    frames = _frames()
+    runs = {}
+    for k in (1, 2, 3):
+        port.reset()
+        runs[k] = list(port.process_frames(iter(frames), chunk_size=k))
+        assert len(runs[k]) == len(frames)
+    worst = dict(box=0.0, score=0.0, conf=0.0)
+    for k in (1, 3):
+        for a, b in zip(runs[k], runs[2], strict=True):
+            assert len(a.det_boxes) == len(b.det_boxes), (k, a.frame_index)
+            np.testing.assert_array_equal(a.det_labels, b.det_labels)
+            np.testing.assert_allclose(a.det_boxes, b.det_boxes, atol=1e-3)
+            np.testing.assert_allclose(a.det_scores, b.det_scores, atol=1e-5)
+            assert [t[:6] for t in a.tracks] == [t[:6] for t in b.tracks], \
+                (k, a.frame_index)
+            for ta, tb in zip(a.tracks, b.tracks):
+                assert ta[6] == pytest.approx(tb[6], abs=1e-5)
+                worst["conf"] = max(worst["conf"], abs(ta[6] - tb[6]))
+            if len(a.det_boxes):
+                worst["box"] = max(worst["box"], float(np.abs(
+                    a.det_boxes - b.det_boxes).max()))
+                worst["score"] = max(worst["score"], float(np.abs(
+                    a.det_scores - b.det_scores).max()))
+    assert sum(len(r.tracks) for r in runs[2]) > 0
+    print(f"chunk 1 and 3 against chunk 2, worst |diff|: {worst}")
 
 
 def test_padding_and_chunk_api(port):
