@@ -57,6 +57,9 @@ MAX_TRACKS = 128        # padded track-slot capacity
 MAX_DETECTIONS = 64     # padded per-frame detection capacity (tracker)
 MAX_REID_CROPS = 32     # padded per-frame ReID crop batch
 
+# --- Video -------------------------------------------------------------------
+DEFAULT_OUTPUT_FPS = 30  # the frame rate assumed for a source that names none
+
 # --- Classes (COCO, YOLOv8 ordering) -----------------------------------------
 CLASSES = (
     'person', 'bicycle', 'car', 'motorcycle', 'airplane', 'bus', 'train',

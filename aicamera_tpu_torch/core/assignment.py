@@ -31,6 +31,27 @@ def _scatter_drop(arr: torch.Tensor, idx: torch.Tensor,
     return ext[:arr.shape[0]]
 
 
+def place_new_tracks(active: torch.Tensor, new_det: torch.Tensor):
+    """Slots for the detections that start tracks: the r-th new detection
+    takes the r-th lowest free slot. Returns ``(slot_for_det (N,) int64 with
+    the dump index T where nothing is placed, det_rank (N,) int64, n_new,
+    dropped)``, the last two 0-d int32."""
+    t = active.shape[0]
+    rows = torch.arange(t, device=active.device)
+    free = ~active
+    n_free = torch.sum(free)
+    slot_rank = torch.cumsum(free, 0) - 1
+    slot_of_rank = _scatter_drop(
+        torch.full((t,), t, dtype=torch.int64, device=active.device),
+        torch.where(free, slot_rank, t), rows)
+    det_rank = torch.cumsum(new_det, 0) - 1
+    can_place = new_det & (det_rank < n_free)
+    slot_for_det = torch.where(
+        can_place, slot_of_rank[torch.clamp(det_rank, 0, t - 1)], t)
+    return (slot_for_det, det_rank, torch.sum(can_place).to(torch.int32),
+            torch.sum(new_det & ~can_place).to(torch.int32))
+
+
 def _augment_row(i: int, cost, u, v, col4row, row4col):
     """Run one shortest augmenting path from row ``i`` and apply it."""
     n = cost.shape[0]

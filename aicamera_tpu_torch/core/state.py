@@ -105,6 +105,14 @@ def init_state(params: TrackerParams, device="cpu") -> TrackerState:
     )
 
 
+def pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` zero-padded along its leading axis to ``n`` rows."""
+    out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    out[:x.shape[0]] = x
+    return out
+
+
 def make_detections(tlwh, conf, class_id, feature=None, has_feature=None,
                     valid=None, *, params: TrackerParams,
                     device="cpu") -> Detections:
@@ -135,12 +143,51 @@ def make_detections(tlwh, conf, class_id, feature=None, has_feature=None,
     # A non-finite box would poison the cost matrices; drop it here.
     valid = valid & torch.isfinite(tlwh).all(-1)
 
-    def p(x):
-        out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype,
-                          device=device)
-        out[:k] = x
-        return out
+    return Detections(tlwh=pad_rows(tlwh, n), conf=pad_rows(conf, n),
+                      class_id=pad_rows(class_id, n),
+                      feature=pad_rows(feature, n),
+                      has_feature=pad_rows(has_feature, n),
+                      valid=pad_rows(valid, n))
 
-    return Detections(tlwh=p(tlwh), conf=p(conf), class_id=p(class_id),
-                      feature=p(feature), has_feature=p(has_feature),
-                      valid=p(valid))
+
+# --- slice/splice over any tracker-state family ------------------------------
+# The three cores (DeepSORT TrackerState, ByteTrackState, OCSortState) share
+# what the capacity-bucketed scan needs: every non-scalar field leads with the
+# track axis, new tracks take the lowest free slots, overflow shows up as a
+# ``dropped`` increment, and get_outputs emits zeros on masked lanes. The
+# scalar counters travel with whichever state is live.
+
+_SCALAR_STATE_FIELDS = frozenset(
+    {"next_id", "dropped", "frame_count", "frame_id"})
+
+
+def track_axis_field_names(state) -> tuple:
+    """Names of the per-track tensor fields of any tracker-state dataclass.
+    Optional fields holding ``None`` (the appearance bank of a motion-only
+    ByteTrack or OC-SORT state) are skipped."""
+    return tuple(f.name for f in dataclasses.fields(state)
+                 if f.name not in _SCALAR_STATE_FIELDS
+                 and getattr(state, f.name) is not None)
+
+
+def slice_any_tracks(state, t_small: int):
+    """The first ``t_small`` track slots of any core's state (views of the
+    master's tensors; the cores never write into their input state)."""
+    return dataclasses.replace(
+        state, **{f: getattr(state, f)[:t_small]
+                  for f in track_axis_field_names(state)})
+
+
+def splice_any_tracks(master, small):
+    """A copy of ``master`` with ``small`` written into its first slots and
+    ``small``'s scalar counters; ``master`` itself is left as it was."""
+    t_small = small.active.shape[0]
+    upd = {}
+    for f in track_axis_field_names(master):
+        out = getattr(master, f).clone()
+        out[:t_small] = getattr(small, f)
+        upd[f] = out
+    for f in _SCALAR_STATE_FIELDS:
+        if hasattr(master, f):
+            upd[f] = getattr(small, f)
+    return dataclasses.replace(master, **upd)

@@ -21,8 +21,9 @@ from __future__ import annotations
 import torch
 
 from . import kalman
-from .assignment import (TRACKER_SYNCS, _scatter_drop, matching_cascade,
-                         min_cost_matching)
+from .assignment import (TRACKER_SYNCS, _claim, _scatter_drop,
+                         matching_cascade, min_cost_matching,
+                         place_new_tracks)
 from .costs import (INFTY_COST, appearance_cost_matrix, iou_cost_matrix,
                     mean_to_tlwh, tlwh_to_tlbr, tlwh_to_xyah)
 from .state import CONFIRMED, TENTATIVE, Detections, TrackerParams, \
@@ -81,12 +82,7 @@ def _associate(state: TrackerState, dets: Detections, params: TrackerParams):
         iou_match = no_match
 
     match = torch.where(cascade_match >= 0, cascade_match, iou_match)
-    nd = dets.valid.shape[0]
-    claimed = _scatter_drop(
-        torch.zeros(nd, dtype=torch.bool, device=dev),
-        torch.where(iou_match >= 0, iou_match, torch.full_like(iou_match, nd)),
-        torch.ones_like(iou_match, dtype=torch.bool))
-    return match, det_unmatched & ~claimed
+    return match, _claim(iou_match, det_unmatched)
 
 
 def update(state: TrackerState, dets: Detections,
@@ -164,23 +160,10 @@ def update(state: TrackerState, dets: Detections,
     # --- Unmatched detections: initiate new tracks ---------------------------
     new_det = det_unmatched & dets.valid
     age, track_id = state.age, state.track_id
-    n_new = torch.zeros((), dtype=torch.int32, device=dev)
-    dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    n_new = dropped = torch.zeros((), dtype=torch.int32, device=dev)
     if TRACKER_SYNCS.flag(torch.any(new_det)):
-        free = ~active
-        n_free = torch.sum(free)
-        # slot_of_rank[r] = index of the r-th free slot
-        slot_rank = torch.cumsum(free, 0) - 1
-        slot_of_rank = _scatter_drop(
-            torch.full((t,), t, dtype=torch.int64, device=dev),
-            torch.where(free, slot_rank, torch.full_like(slot_rank, t)), rows)
-
-        det_rank = torch.cumsum(new_det, 0) - 1
-        can_place = new_det & (det_rank < n_free)
-        dropped = torch.sum(new_det & ~can_place).to(torch.int32)
-        slot_for_det = torch.where(
-            can_place, slot_of_rank[torch.clamp(det_rank, 0, t - 1)],
-            torch.full_like(det_rank, t))
+        slot_for_det, det_rank, n_new, dropped = place_new_tracks(
+            active, new_det)
 
         init_mean, init_cov = kalman.initiate(tlwh_to_xyah(dets.tlwh))
         new_ids = state.next_id + det_rank
@@ -213,7 +196,6 @@ def update(state: TrackerState, dets: Detections,
         gallery[:, 0] = gallery_slot0
         gallery_count = scatter(gallery_count, seed.to(torch.int32))
         gallery_next = scatter(gallery_next, seed.to(torch.int32) % g)
-        n_new = torch.sum(can_place).to(torch.int32)
 
     return state.replace(
         active=active, state=st, mean=mean, cov=cov,

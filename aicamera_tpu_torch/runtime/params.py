@@ -6,6 +6,9 @@ Two layers:
   that ``flax.serialization.to_bytes`` writes (maps, str, bin, arrays, ints,
   floats, nil/bool and the ndarray extension type). The GPU host has neither
   ``msgpack`` nor ``flax``, so the port carries its own reader.
+  :func:`write_flax_msgpack` is its counterpart for a dict of numpy arrays
+  (tracker-state checkpoints, ``runtime/checkpoint.py``), byte for byte what
+  Flax writes.
 - :func:`yolo_state_dict_from_flax` / :func:`reid_state_dict_from_flax` map
   a nested dict of numpy arrays (the Flax params tree) onto the port's module
   names: conv kernels HWIO -> OIHW, Dense ``(in, out)`` -> ``(out, in)``.
@@ -127,6 +130,66 @@ def read_flax_msgpack(data: bytes):
     if reader.pos != len(reader.buf):
         raise ValueError("trailing bytes after msgpack object")
     return out
+
+
+# --- msgpack writer ----------------------------------------------------------
+
+def _pack_len(n: int, fix, codes) -> bytes:
+    """A length header in the smallest form, as the msgpack package picks:
+    ``fix = (base, limit)`` for the one-byte form (None: there is none),
+    ``codes`` the type bytes of the 8-, 16- and 32-bit forms (None: that
+    form does not exist)."""
+    if fix and n < fix[1]:
+        return bytes([fix[0] | n])
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"),
+                                (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"object of length {n} is too large for msgpack")
+
+
+def _pack(obj) -> bytes:
+    if obj is None:
+        return b"\xc0"
+    if isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        return _pack_len(len(raw), (0xa0, 32), (0xd9, 0xda, 0xdb)) + raw
+    if isinstance(obj, bytes):
+        return _pack_len(len(obj), None, (0xc4, 0xc5, 0xc6)) + obj
+    if isinstance(obj, int) and not isinstance(obj, bool) and obj >= 0:
+        if obj < 128:
+            return bytes([obj])
+        for code, fmt in ((0xcc, ">B"), (0xcd, ">H"), (0xce, ">I"),
+                          (0xcf, ">Q")):
+            if obj < 1 << (8 * struct.calcsize(fmt)):
+                return bytes([code]) + struct.pack(fmt, obj)
+    if isinstance(obj, (tuple, list)):
+        return _pack_len(len(obj), (0x90, 16), (None, 0xdc, 0xdd)) \
+            + b"".join(_pack(x) for x in obj)
+    if isinstance(obj, dict):
+        return _pack_len(len(obj), (0x80, 16), (None, 0xde, 0xdf)) \
+            + b"".join(_pack(k) + _pack(v) for k, v in obj.items())
+    if isinstance(obj, np.ndarray):
+        if obj.dtype.hasobject or obj.dtype.names:
+            raise ValueError("object and structured arrays are not "
+                             "serializable")
+        payload = _pack((obj.shape, obj.dtype.name, obj.tobytes("C")))
+        fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+        head = (bytes([fixext[len(payload)]]) if len(payload) in fixext
+                else _pack_len(len(payload), None, (0xc7, 0xc8, 0xc9)))
+        return head + struct.pack(">b", _EXT_NDARRAY) + payload
+    raise TypeError(f"cannot serialize {type(obj).__name__}")
+
+
+def write_flax_msgpack(tree: dict) -> bytes:
+    """Encode a nested dict of numpy arrays (and ``None``) as
+    ``flax.serialization.to_bytes`` encodes the same state dict; arrays of a
+    gigabyte or more, which Flax splits into chunks, are refused."""
+    for _, leaf in _flatten(tree):
+        if isinstance(leaf, np.ndarray) and leaf.nbytes >= 2 ** 30:
+            raise ValueError("arrays of 2**30 bytes or more are not "
+                             "supported")
+    return _pack(tree)
 
 
 def load_flax_msgpack(path) -> dict:

@@ -1,13 +1,15 @@
 """The fused chunk pipeline: letterbox -> YOLOv8 -> decode+NMS -> crops ->
-ReID -> DeepSORT, K frames per dispatch.
+ReID -> tracker, K frames per dispatch.
 
-The port of ``aicamera_tpu/runtime/pipeline.py`` (DeepSORT branch). All
-batchable work (letterbox kernel, detector forward, decode+NMS, crop gather,
-ReID embedding) runs batched over the chunk on the device; the sequential
-tracker then runs frame by frame over the chunk, its state staying on the
-same device. Outputs follow the JAX package's contracts: per frame, the
-detections in frame coordinates and the confirmed, just-updated tracks as
-``(x1, y1, x2, y2, id, class_name, conf)`` tuples.
+The port of ``aicamera_tpu/runtime/pipeline.py`` with its three tracker
+cores (DeepSORT and its StrongSORT preset, ByteTrack and BoT-SORT, OC-SORT
+and Deep OC-SORT) and the capacity-bucketed tracker scan. All batchable work
+(letterbox kernel, detector forward, decode+NMS, crop gather, ReID embedding)
+runs batched over the chunk on the device; the sequential tracker then runs
+frame by frame over the chunk, its state staying on the same device. Outputs
+follow the JAX package's contracts: per frame, the detections in frame
+coordinates and the emitted tracks as ``(x1, y1, x2, y2, id, class_name,
+conf)`` tuples.
 
 On a CUDA device the letterbox always runs the hand-written kernel
 (``ops/letterbox.py``); on the CPU it runs the kernel's plain version.
@@ -23,7 +25,9 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, not_ported
+from ..core import bytetrack as bt_core
+from ..core import ocsort as oc_core
 from ..core import state as core_state
 from ..core import tracker as core_tracker
 from ..core.state import Detections, TrackerParams
@@ -38,6 +42,7 @@ from .params import resolve_reid_params, resolve_yolo_params
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 EMBED_SYNCS = SyncCounter()  # the ReID bucket choice: one read per chunk
+BUCKET_SYNCS = SyncCounter()  # the bucketed scan: one or two reads per chunk
 
 
 @dataclasses.dataclass
@@ -62,7 +67,7 @@ def full_f32():
         cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
-class StageTimer:
+class CudaStageTimer:
     """Per-stage time of each chunk on the GPU stream, from CUDA events.
     Attach one to ``TrackingPipeline.stage_timer``: each chunk then records
     an event at every stage boundary, and :meth:`finish` adds the stage
@@ -106,13 +111,54 @@ def _format_tracks(tlbr, ids, cls, conf, mask):
     return out
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to aicamera_tpu_torch yet (see ROADMAP.md)")
+def _bucketed_time_scan(state, scan, params, t_small: int, stats: dict):
+    """The per-frame tracker scan of one chunk at a reduced track capacity
+    when all activity fits, with exact fallbacks.
+
+    Generic over the three cores: any state whose non-scalar fields lead with
+    the track axis, that places new tracks at the lowest free slots, counts
+    overflow in ``dropped`` and emits zeros on masked output lanes
+    (``core/state.py::slice_any_tracks``). ``scan(state, params)`` runs the
+    chunk's frames at the capacity ``params.max_tracks`` and returns ``(state,
+    outs)``, ``outs`` five tensors shaped ``(K, T, ...)``.
+
+    The tracker's work per frame grows with the padded capacity, so a chunk
+    whose live tracks fit in ``t_small`` slots runs on a sliced state. Two
+    reads a chunk (``BUCKET_SYNCS``): whether it fits (no active slot at or
+    above ``t_small``, and a quarter of the small table free, since a load at
+    the boundary would overflow and pay the rerun every chunk), and after the
+    small pass whether ``dropped`` grew: the small table then ran out of
+    slots where the full one would not have, and the whole chunk reruns from
+    the untouched ``state`` at full capacity. ``stats`` counts the chunks
+    that took each way (``small``, ``skipped``, ``rerun``)."""
+    t_full = params.max_tracks
+    if not (t_small and t_small < t_full):
+        return scan(state, params)
+    headroom = max(4, t_small // 4)
+    fits = ~torch.any(state.active[t_small:]) \
+        & (torch.sum(state.active) <= t_small - headroom)
+    if BUCKET_SYNCS.flag(fits):
+        s_small, outs = scan(
+            core_state.slice_any_tracks(state, t_small),
+            dataclasses.replace(params, max_tracks=t_small))
+        if not BUCKET_SYNCS.flag(s_small.dropped > state.dropped):
+            stats["small"] += 1
+            padded = tuple(torch.cat([a, a.new_zeros(
+                (a.shape[0], t_full - t_small, *a.shape[2:]))], dim=1)
+                for a in outs)
+            return core_state.splice_any_tracks(state, s_small), padded
+        stats["rerun"] += 1
+    else:
+        stats["skipped"] += 1
+    return scan(state, params)
+
+
+_TRACKERS = ("deepsort", "bytetrack", "botsort", "ocsort", "deepocsort")
+_GMC_OFF = (False, None, "off", "none", "")
 
 
 class TrackingPipeline:
-    """End-to-end detector + DeepSORT tracker with chunked device steps."""
+    """End-to-end detector + tracker with chunked device steps."""
 
     def __init__(self,
                  variant: str = "n",
@@ -126,10 +172,14 @@ class TrackingPipeline:
                  tracker_params: TrackerParams | None = None,
                  max_reid_crops: int = config.MAX_REID_CROPS,
                  chunk_size: int = 8,
+                 preprocess_impl: str = "auto",
                  with_reid: bool = True,
                  synthetic_load: int = 0,
+                 scan_bucket: int | None = 32,
                  letterbox_auto: bool = False,
                  tracker: str = "deepsort",
+                 bytetrack_params: bt_core.ByteTrackParams | None = None,
+                 ocsort_params: oc_core.OCSortParams | None = None,
                  gmc: str | bool = False,
                  nsa: bool = False,
                  reid_quant: str | None = None,
@@ -137,34 +187,133 @@ class TrackingPipeline:
                  detect_dtype: str | None = None,
                  reid_dtype: str | None = None,
                  device=None):
-        """Arguments as in the JAX ``TrackingPipeline`` (DeepSORT branch).
+        """Arguments as in the JAX ``TrackingPipeline``, plus ``device``.
+
+        ``tracker``: ``"deepsort"`` (default), ``"strongsort"`` (the DeepSORT
+        core with the StrongSORT preset: EMA appearance bank, NSA Kalman,
+        and ``gmc="affine"`` unless ``gmc`` says otherwise; camera-motion
+        compensation is not ported, so the preset runs with ``gmc="off"``
+        only), ``"bytetrack"``, ``"botsort"`` (ByteTrack with BoT-SORT's
+        appearance fusion), ``"ocsort"`` or ``"deepocsort"`` (OC-SORT with
+        Deep OC-SORT's appearance fusion). ByteTrack and OC-SORT skip the
+        ReID stage. ByteTrack and BoT-SORT feed the tracker every
+        class-eligible detection above ``low_thresh`` whatever
+        ``conf_threshold`` says (which still governs the detection output
+        lists), and the NMS score floor drops to ``low_thresh``; OC-SORT
+        takes the detections above its strict ``det_thresh``.
+        ``bytetrack_params`` / ``ocsort_params`` replace the defaults of
+        their cores.
+
+        ``scan_bucket``: capacity-bucketed tracker scan
+        (:func:`_bucketed_time_scan`): while every active track lives in the
+        first ``scan_bucket`` slots with room to spare, the chunk's tracker
+        frames run on a state sliced to that many slots; exact by its two
+        fallbacks. ``None`` or 0 disables. ``scan_stats`` counts the chunks
+        that took each way since the last :meth:`reset`.
 
         ``synthetic_load=n`` fills the first n empty detection slots of every
         frame with a fixed grid of boxes (class person, conf 0.5) after NMS,
-        so the crop gather, ReID, cascade and lifecycle run every frame.
+        so the crop gather, ReID, association and lifecycle run every frame.
+        At default thresholds only the DeepSORT core takes those boxes: 0.5
+        is in neither of ByteTrack's score splits and below OC-SORT's
+        ``det_thresh``.
         ``letterbox_auto`` runs the detector on the stride-32 minimum
-        rectangle. ``detect_dtype`` / ``reid_dtype``: ``"f32"`` or
-        ``"bf16"``; the default is bf16 on the GPU and f32 on the CPU. In f32
-        the forwards run with TF32 off. ``reid_dtype`` also sets the crop
-        gather's dtype. ``device``: default ``"cuda"`` (raises without a
-        GPU); tests pass ``"cpu"``.
+        rectangle. ``preprocess_impl`` is accepted for signature parity and
+        has no effect: on a CUDA device the letterbox kernel always runs, on
+        the CPU its plain version. ``detect_dtype`` / ``reid_dtype``:
+        ``"f32"`` or ``"bf16"``; the default is bf16 on the GPU and f32 on
+        the CPU. In f32 the forwards run with TF32 off. ``reid_dtype`` also
+        sets the crop gather's dtype. ``nsa``: noise-scale-adaptive Kalman
+        update, DeepSORT core only. ``gmc`` other than off, ``reid_quant``
+        and ``yolo_quant`` are not ported. ``device``: default ``"cuda"``
+        (raises without a GPU); tests pass ``"cpu"``.
         """
-        if tracker != "deepsort":
-            raise _not_ported(f"tracker={tracker!r}")
-        if gmc not in (False, None, "off", "none", ""):
-            raise _not_ported("camera-motion compensation (gmc)")
-        if reid_quant not in (None, "", "none"):
-            raise _not_ported("reid_quant")
-        if yolo_quant not in (None, "", "none"):
-            raise _not_ported("yolo_quant")
+        self.tracker_kind = str(tracker)
+        if self.tracker_kind == "strongsort":
+            self.tracker_kind = "deepsort"
+            if gmc in (False, None):      # unset: the preset's default
+                gmc = "affine"
+            if tracker_params is None:
+                tracker_params = TrackerParams(
+                    max_cosine_distance=config.DEEPSORT_MAX_DIST,
+                    nn_budget=1,          # the EMA bank occupies slot 0 only
+                    max_iou_distance=config.DEEPSORT_MAX_IOU_DISTANCE,
+                    max_age=config.DEEPSORT_MAX_AGE,
+                    n_init=config.DEEPSORT_N_INIT,
+                    max_tracks=config.MAX_TRACKS,
+                    max_detections=config.MAX_DETECTIONS,
+                    feature_dim=config.REID_FEATURE_DIM,
+                    ema_alpha=0.9,
+                    nsa=True,
+                )
+                nsa = False   # folded into tracker_params above
+        if self.tracker_kind not in _TRACKERS:
+            raise ValueError(f"tracker must be 'deepsort', 'strongsort', "
+                             f"'bytetrack', 'botsort', 'ocsort' or "
+                             f"'deepocsort' (got {tracker})")
+        if nsa and self.tracker_kind != "deepsort":
+            raise ValueError("nsa=True requires tracker='deepsort' (the "
+                             "other cores take fixed-noise updates)")
         if nsa and tracker_params is not None:
             raise ValueError("pass nsa via tracker_params.nsa when "
                              "supplying explicit tracker_params")
+        bytetrack = self.tracker_kind in ("bytetrack", "botsort")
+        ocsort = self.tracker_kind in ("ocsort", "deepocsort")
+        appearance = self.tracker_kind in ("botsort", "deepocsort")
+        if bytetrack_params is not None and not bytetrack:
+            raise ValueError("bytetrack_params requires tracker='bytetrack' "
+                             "or 'botsort'")
+        if ocsort_params is not None and not ocsort:
+            raise ValueError("ocsort_params requires tracker='ocsort' "
+                             "or 'deepocsort'")
+        self.bytetrack_params = self.ocsort_params = None
+        core_defaults = dict(max_tracks=config.MAX_TRACKS,
+                             max_detections=config.MAX_DETECTIONS)
+        if appearance:
+            core_defaults.update(with_appearance=True,
+                                 feature_dim=config.REID_FEATURE_DIM)
+        if bytetrack:
+            self.bytetrack_params = bytetrack_params or \
+                bt_core.ByteTrackParams(**core_defaults)
+            core_params = self.bytetrack_params
+        elif ocsort:
+            self.ocsort_params = ocsort_params or \
+                oc_core.OCSortParams(**core_defaults)
+            core_params = self.ocsort_params
+        if bytetrack or ocsort:
+            name = "bytetrack_params" if bytetrack else "ocsort_params"
+            plain = "ByteTrack" if bytetrack else "OC-SORT"
+            if core_params.with_appearance and not appearance:
+                raise ValueError(
+                    f"with_appearance=True {name} require "
+                    f"tracker={'botsort' if bytetrack else 'deepocsort'!r}")
+            if appearance and not core_params.with_appearance:
+                raise ValueError(
+                    f"tracker={self.tracker_kind!r} requires "
+                    f"{name}.with_appearance=True (else it is plain "
+                    f"{plain})")
+            with_reid = appearance
+        if gmc in (True, "affine", "translation"):
+            raise not_ported("camera-motion compensation (gmc; pass "
+                             "gmc='off')")
+        if gmc not in _GMC_OFF:
+            raise ValueError(f"gmc must be off/affine/translation or a "
+                             f"bool (got {gmc!r})")
+        for name, quant in (("reid_quant", reid_quant),
+                            ("yolo_quant", yolo_quant)):
+            if quant == "int8":
+                raise not_ported(name)
+            if quant not in (None, "", "none"):
+                raise ValueError(f"{name} must be None or 'int8' "
+                                 f"(got {quant!r})")
         for name, dt in (("detect_dtype", detect_dtype),
                          ("reid_dtype", reid_dtype)):
             if dt not in (None, "bf16", "f32"):
                 raise ValueError(f"{name} must be None, 'bf16' or 'f32' "
                                  f"(got {dt!r})")
+        self.scan_bucket = int(scan_bucket or 0)
+        if self.scan_bucket < 0:
+            raise ValueError(f"scan_bucket must be >= 0 (got {scan_bucket})")
         self.device = resolve_device(device)
         default_dt = torch.bfloat16 if self.device.type == "cuda" \
             else torch.float32
@@ -195,16 +344,34 @@ class TrackingPipeline:
             feature_dim=config.REID_FEATURE_DIM,
             nsa=bool(nsa),
         )
+        #: the parameters of the core that runs (what a checkpoint of
+        #: ``state`` is loaded with)
+        self.core_params = core_params if bytetrack or ocsort \
+            else self.tracker_params
         # crops come from the detection slots: more crop capacity than
         # detection slots is unreachable
         self.max_reid_crops = min(int(max_reid_crops),
-                                  self.tracker_params.max_detections)
+                                  self.core_params.max_detections)
         self._track_class_ids = torch.tensor(
             config.CLASS_IDS_TO_TRACK, dtype=torch.int32, device=self.device)
+        # the boxes a core's own gate lets in must get past the NMS floor
         self._nms_score_floor = config.YOLO_NMS_SCORE_THRESHOLD
-        self.stage_timer: StageTimer | None = None
-        self.state = core_state.init_state(self.tracker_params, self.device)
+        if bytetrack:
+            self._nms_score_floor = min(self._nms_score_floor,
+                                        core_params.low_thresh)
+        elif ocsort:
+            self._nms_score_floor = min(self._nms_score_floor,
+                                        core_params.det_thresh)
+        self.stage_timer: CudaStageTimer | None = None
         self._steps = {}
+        self.reset()
+
+    def _init_tracker_state(self):
+        if self.tracker_kind in ("bytetrack", "botsort"):
+            return bt_core.init_state(self.bytetrack_params, self.device)
+        if self.tracker_kind in ("ocsort", "deepocsort"):
+            return oc_core.init_state(self.ocsort_params, self.device)
+        return core_state.init_state(self.tracker_params, self.device)
 
     # --- step construction --------------------------------------------------
 
@@ -215,9 +382,12 @@ class TrackingPipeline:
     def _make_chunk_step(self, frame_hw: Tuple[int, int], k: int):
         spec = letterbox_spec(frame_hw, self.input_shape,
                               auto=self.letterbox_auto)
-        p = self.tracker_params
-        n_det = p.max_detections
-        feature_dim = p.feature_dim
+        kind = self.tracker_kind
+        bytetrack = kind in ("bytetrack", "botsort")
+        ocsort = kind in ("ocsort", "deepocsort")
+        appearance = kind in ("botsort", "deepocsort")
+        n_det = self.core_params.max_detections
+        feature_dim = self.core_params.feature_dim
         n_crops = self.max_reid_crops
         dev = self.device
         n_syn = min(self.synthetic_load, n_det)
@@ -245,8 +415,20 @@ class TrackingPipeline:
             det_valid = present & (scores >= self.conf_threshold)
             trackable = torch.any(
                 labels[..., None] == self._track_class_ids, dim=-1)
-            elig = det_valid & trackable & \
-                (scores >= self.min_detection_confidence)
+            if bytetrack:
+                # every box above the low-score floor (strictly: at or below
+                # it no BYTE stage sees a box), whatever conf_threshold
+                # says, which only gates the detection output lists
+                elig = present & trackable & \
+                    (scores > self.bytetrack_params.low_thresh)
+            elif ocsort:
+                # the step applies the same strict gate itself; filtering
+                # here frees detection slots
+                elig = present & trackable & \
+                    (scores > self.ocsort_params.det_thresh)
+            else:
+                elig = det_valid & trackable & \
+                    (scores >= self.min_detection_confidence)
             rank = torch.cumsum(elig, dim=1) - 1
             slot = torch.where(elig & (rank < n_det), rank,
                                torch.full_like(rank, n_det))
@@ -317,17 +499,40 @@ class TrackingPipeline:
 
             tlwh = torch.cat([d_xyxy[..., :2],
                               d_xyxy[..., 2:] - d_xyxy[..., :2]], dim=-1)
-            outs = []
-            for i in range(k):
-                if i < n_valid:  # padding frames leave the state untouched
-                    dets = Detections(tlwh=tlwh[i], conf=d_conf[i],
-                                      class_id=d_cls[i], feature=d_feats[i],
-                                      has_feature=d_hasfeat[i],
-                                      valid=d_valid[i])
-                    state = core_tracker.predict(state, p)
-                    state = core_tracker.update(state, dets, p)
-                outs.append(core_tracker.get_outputs(state))
-            track_outs = tuple(torch.stack(x) for x in zip(*outs))
+
+            def frame_step(st, i, pp):
+                """One frame of the chunk through the core that runs."""
+                common = dict(score=d_conf[i], class_id=d_cls[i],
+                              valid=d_valid[i])
+                if appearance:
+                    common.update(feature=d_feats[i],
+                                  has_feature=d_hasfeat[i])
+                if bytetrack:
+                    return bt_core.step(st, bt_core.ByteDetections(
+                        tlwh=tlwh[i], **common), pp)
+                if ocsort:
+                    return oc_core.step(st, oc_core.OCSortDetections(
+                        xyxy=d_xyxy[i], **common), pp)
+                dets = Detections(tlwh=tlwh[i], conf=d_conf[i],
+                                  class_id=d_cls[i], feature=d_feats[i],
+                                  has_feature=d_hasfeat[i], valid=d_valid[i])
+                return core_tracker.update(core_tracker.predict(st, pp),
+                                           dets, pp)
+
+            def scan(st, pp):
+                """The chunk's frames at the capacity of ``pp``."""
+                outs = []
+                for i in range(k):
+                    if i < n_valid:  # padding frames leave the state as is
+                        st = frame_step(st, i, pp)
+                    outs.append(bt_core.get_outputs(st) if bytetrack
+                                else oc_core.get_outputs(st, pp) if ocsort
+                                else core_tracker.get_outputs(st))
+                return st, tuple(torch.stack(x) for x in zip(*outs))
+
+            state, track_outs = _bucketed_time_scan(
+                state, scan, self.core_params, self.scan_bucket,
+                self.scan_stats)
             mark("tracker")
             det_outs = (num, boxes_f, scores, labels, det_valid)
             return state, det_outs, track_outs
@@ -343,8 +548,9 @@ class TrackingPipeline:
     # --- host API -----------------------------------------------------------
 
     def reset(self):
-        """Fresh tracker state (ids restart at 1)."""
-        self.state = core_state.init_state(self.tracker_params, self.device)
+        """Fresh tracker state (ids restart at 1) and scan counts."""
+        self.state = self._init_tracker_state()
+        self.scan_stats = dict(small=0, skipped=0, rerun=0)
 
     def _dispatch_chunk(self, frames_np: np.ndarray,
                         n_valid: int | None = None):

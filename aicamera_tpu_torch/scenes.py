@@ -69,3 +69,59 @@ def moving_rectangles(n_frames: int, hw=(540, 960), n_objects: int = 6,
                                            lim - o["size"][ax])
         frames[f] = np.clip(np.round(img), 0, 255).astype(np.uint8)
     return frames
+
+
+def moving_boxes(n_frames: int, n_objects: int = 6, seed: int = 0,
+                 hw=(540, 960), miss: float = 0.1, low: float = 0.2,
+                 clutter: float = 0.3, gaps=()):
+    """Seeded per-frame detections of ``n_objects`` boxes at constant
+    velocity, for driving a tracker core without a detector: a list of
+    ``(xyxy (n, 4) f32, score (n,) f32, class_id (n,) int32)`` per frame.
+
+    Each object is missed with probability ``miss`` and scores below 0.5
+    with probability ``low`` (else 0.65 to 0.95). With probability
+    ``clutter`` a frame gets one stray box, and every seventh frame a
+    near-duplicate of its first box. ``gaps``: ``(object, first, last)``
+    frame ranges in which an object is hidden (an occlusion to be revived
+    from). Detections are shuffled."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    size = np.stack([rng.uniform(0.04, 0.12, n_objects) * w,
+                     rng.uniform(0.10, 0.30, n_objects) * h], 1)
+    pos = rng.uniform(0, 1, (n_objects, 2)) * (np.array([w, h]) - size)
+    vel = rng.uniform(-0.012, 0.012, (n_objects, 2)) * np.array([w, h])
+    cls = rng.choice([0, 2, 5], n_objects)
+    frames = []
+    for f in range(n_frames):
+        boxes, scores, classes = [], [], []
+        for o in range(n_objects):
+            hidden = any(g[0] == o and g[1] <= f <= g[2] for g in gaps)
+            seen = rng.uniform() >= miss
+            weak = rng.uniform() < low
+            jitter = rng.normal(0, 1.0, 4)
+            s = rng.uniform(0.15, 0.45) if weak else rng.uniform(0.65, 0.95)
+            if seen and not hidden:
+                boxes.append(np.concatenate([pos[o], pos[o] + size[o]])
+                             + jitter)
+                scores.append(s)
+                classes.append(cls[o])
+        if rng.uniform() < clutter:
+            xy = rng.uniform(0, 0.8, 2) * np.array([w, h])
+            boxes.append(np.concatenate([xy, xy + rng.uniform(20, 90, 2)]))
+            scores.append(rng.uniform(0.55, 0.9))
+            classes.append(0)
+        if f % 7 == 6 and boxes:
+            boxes.append(boxes[0] + 1.5)
+            scores.append(0.7)
+            classes.append(classes[0])
+        order = rng.permutation(len(boxes))
+        frames.append((
+            np.asarray(boxes, np.float32).reshape(-1, 4)[order],
+            np.asarray(scores, np.float32)[order],
+            np.asarray(classes, np.int32)[order]))
+        pos = pos + vel
+        for ax, lim in ((0, w), (1, h)):
+            out = (pos[:, ax] < 0) | (pos[:, ax] + size[:, ax] > lim)
+            vel[out, ax] = -vel[out, ax]
+            pos[:, ax] = np.clip(pos[:, ax], 0, lim - size[:, ax])
+    return frames

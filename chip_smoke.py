@@ -24,8 +24,25 @@ this file; exits non-zero otherwise. In order it:
    ``synthetic_load=24``; checks the kernel launch counts, confirmed tracks
    and finite outputs; prints FPS, per-stage times (CUDA events) and the GPU
    busy share of one more chunk under ``torch.profiler``;
-5. runs the first chunks through the card in f32 (TF32 off) and through the
-   plain CPU path, and compares detections and track tuples.
+5. ``[bucket]``: the main path with ``scan_bucket=32`` (the default) and
+   with ``scan_bucket=0`` in turns, at the main path's load and at a light
+   load where the small pass runs: identical track tuples, FPS and tracker
+   ms of both, and the chunks that took the small pass, the skip and the
+   rerun;
+6. ``[trackers]``: ByteTrack, BoT-SORT, OC-SORT, Deep OC-SORT and the
+   StrongSORT preset (``gmc="off"``) at full width, 32 frames each with the
+   cores' thresholds lowered to 0.4 so that the synthetic grid (conf 0.5)
+   starts tracks: FPS, tracker ms and host syncs per frame, tracks emitted,
+   the kernel once per chunk; then the first 16 frames on the card in f32
+   (TF32 off) against the plain CPU path;
+7. ``[cli]``: writes the 64 frames to a ``.npy`` in a temporary directory
+   and runs ``aicamera_tpu_torch.cli.main`` on it on the card with
+   ``--no_save --profile --checkpoint``, then a ``--resume`` run of 16
+   frames: frame counts, tracks, the checkpoint file, the kernel once per
+   chunk;
+8. ``[compare]``: runs the first chunks through the card in f32 (TF32 off)
+   and through the plain CPU path, and at chunk 4 against chunk 8 on the
+   card, and compares detections and track tuples.
 
 The last two lines of output are the kernels' JSON record and the device
 JSON record. ``--kernels-only`` stops after step 3.
@@ -34,9 +51,12 @@ JSON record. ``--kernels-only`` stops after step 3.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -46,6 +66,8 @@ N_CHUNKS = 8          # main-path chunks (the first two are also compared)
 CHUNK = 8
 FRAME_HW = (540, 960)
 COMPARE_CHUNKS = 2
+TRACKER_CHUNKS = 4    # frames of each tracker in the [trackers] phase / CHUNK
+WARM_UP_ITERS = 2     # chunk steps of TrackingPipeline.warm_up
 SEED = 0
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 outside the tensor cores
@@ -359,31 +381,36 @@ def kernel_phase(device):
             "shapes": rows}
 
 
-def make_pipeline(device, **kw):
+def make_pipeline(device, synthetic_load=24, **kw):
     from aicamera_tpu_torch import config
     from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline
     return TrackingPipeline(
         yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
         reid_weights=str(config.REID_SYNTHETIC_PATH),
-        chunk_size=CHUNK, synthetic_load=24, device=device, **kw)
+        chunk_size=CHUNK, synthetic_load=synthetic_load, device=device, **kw)
 
 
-def main_path_phase(device, frames, kernels):
-    """The full-width main path on the card, with launch counts."""
-    import numpy as np
-    import torch
+def sync_counters():
+    """The counters of the reads that data-dependent branches take."""
     from aicamera_tpu_torch.core.assignment import TRACKER_SYNCS
     from aicamera_tpu_torch.ops.nms import NMS_SYNCS
-    from aicamera_tpu_torch.runtime.pipeline import EMBED_SYNCS, StageTimer
+    from aicamera_tpu_torch.runtime.pipeline import BUCKET_SYNCS, EMBED_SYNCS
+    return {"NMS": NMS_SYNCS, "ReID bucket": EMBED_SYNCS,
+            "tracker": TRACKER_SYNCS, "scan bucket": BUCKET_SYNCS}
 
-    pipe = make_pipeline(device)
-    warm_s = pipe.warm_up(FRAME_HW)
-    print(f"[main] warm-up {warm_s:.2f} s")
-    # the counted run: every count at 0 just before, read just after
-    counters = (NMS_SYNCS, EMBED_SYNCS, TRACKER_SYNCS)
+
+def counted_run(pipe, frames, kernels, timed=False):
+    """One run of a path with every launch and sync count set to 0 just
+    before and read just after. Returns ``(results, wall seconds, launches by
+    kernel, syncs by counter, tracker ms per frame or None)``; ``timed`` puts
+    CUDA events at the stage boundaries."""
+    import torch
+    from aicamera_tpu_torch.runtime.pipeline import CudaStageTimer
+    counters = sync_counters()
+    pipe.stage_timer = CudaStageTimer() if timed else None
     for k in kernels:
         k.launches = 0
-    for c in counters:
+    for c in counters.values():
         c.count = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -391,43 +418,72 @@ def main_path_phase(device, frames, kernels):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
-    syncs = [c.count for c in counters]
+    syncs = {name: c.count for name, c in counters.items()}
+    tracker_ms = None
+    if timed:
+        tracker_ms = pipe.stage_timer.totals["tracker"] / len(frames)
+        pipe.stage_timer = None
+    check(len(results) == len(frames),
+          f"{len(results)} results for {len(frames)} frames")
+    return results, wall, launches, syncs, tracker_ms
 
-    n = len(frames)
-    check(len(results) == n, f"{len(results)} results for {n} frames")
-    check([r.frame_index for r in results] == list(range(n)),
-          "results out of order")
-    for k in kernels:
-        check(launches[k.name] == N_CHUNKS,
-              f"{k.name} launched {launches[k.name]} times over "
-              f"{N_CHUNKS} chunks")
-    n_init = pipe.tracker_params.n_init
+
+def check_launches(launches, n_chunks, what):
+    for name, n in launches.items():
+        check(n == n_chunks, f"{what}: {name} launched {n} times over "
+              f"{n_chunks} chunks")
+
+
+def summarize(results):
+    """(track outputs, distinct ids) of a run; fails on a non-finite value."""
+    import numpy as np
     for r in results:
         check(np.isfinite(r.det_boxes).all() and np.isfinite(
             r.det_scores).all(), f"non-finite detections at {r.frame_index}")
-        check(all(np.isfinite(t[6]) for t in r.tracks),
-              f"non-finite track conf at {r.frame_index}")
-        if r.frame_index >= n_init - 1:
-            check(len(r.tracks) > 0, f"no confirmed track at frame "
-                  f"{r.frame_index} (n_init={n_init})")
-    n_tracks = sum(len(r.tracks) for r in results)
+        check(all(np.isfinite(t[:4]).all() and np.isfinite(t[6])
+                  for t in r.tracks),
+              f"non-finite track at {r.frame_index}")
+    return (sum(len(r.tracks) for r in results),
+            len({t[4] for r in results for t in r.tracks}))
+
+
+def syncs_line(syncs, n):
+    return ", ".join(f"{name} {v / n:.3f}" for name, v in syncs.items())
+
+
+def main_path_phase(device, frames, kernels):
+    """The full-width main path on the card, with launch counts."""
+    from aicamera_tpu_torch.runtime.pipeline import CudaStageTimer
+
+    pipe = make_pipeline(device)
+    warm_s = pipe.warm_up(FRAME_HW)
+    print(f"[main] warm-up {warm_s:.2f} s")
+    results, wall, launches, syncs, _ = counted_run(pipe, frames, kernels)
+    n = len(frames)
+    check([r.frame_index for r in results] == list(range(n)),
+          "results out of order")
+    check_launches(launches, N_CHUNKS, "main path")
+    n_tracks, n_ids = summarize(results)
+    n_init = pipe.tracker_params.n_init
+    for r in results[n_init - 1:]:
+        check(len(r.tracks) > 0, f"no confirmed track at frame "
+              f"{r.frame_index} (n_init={n_init})")
     n_dets = sum(len(r.det_boxes) for r in results)
-    ids = {t[4] for r in results for t in r.tracks}
     print(f"[main] {n} frames in {wall:.3f} s: {n / wall:.2f} FPS "
-          f"(chunk {CHUNK}, {N_CHUNKS} chunks, after warm-up)")
+          f"(chunk {CHUNK}, {N_CHUNKS} chunks, after warm-up, scan_bucket "
+          f"{pipe.scan_bucket}: chunks {pipe.scan_stats})")
     print(f"[main] detections {n_dets}, track outputs {n_tracks}, distinct "
-          f"confirmed ids {len(ids)}; launches "
+          f"confirmed ids {n_ids}; launches "
           + ", ".join(f"{k} {v}" for k, v in launches.items())
           + " (one per chunk)")
-    print(f"[main] host syncs per frame: NMS {syncs[0] / n:.2f}, ReID "
-          f"bucket {syncs[1] / n:.3f}, tracker {syncs[2] / n:.2f} (plus one "
+    print(f"[main] host syncs per frame: {syncs_line(syncs, n)} (plus one "
           f"result read per chunk)")
     print("[main] sample tracks, last frame: "
           + repr(results[-1].tracks[:4]))
 
     # the same frames again with CUDA events at every stage boundary
     pipe.reset()
-    timer = StageTimer()
+    timer = CudaStageTimer()
     pipe.stage_timer = timer
     again = list(pipe.process_frames(iter(frames)))
     stage_ms = {s: v / timer.chunks for s, v in timer.totals.items()}
@@ -439,6 +495,155 @@ def main_path_phase(device, frames, kernels):
     print(f"[main] timed rerun: {same}/{n} frames with identical tracks")
     pipe.stage_timer = None
     profile_chunk(pipe, frames[-CHUNK:])
+    return launches
+
+
+def bucket_phase(device, frames, kernels):
+    """``scan_bucket=32`` against ``scan_bucket=0`` in one call, in turns
+    (32, 0, 0, 32), at the main path's load (24 synthetic boxes a frame, more
+    live tracks than the small pass admits) and at a light load (8, where
+    the small pass runs every chunk): identical track tuples, and the FPS
+    and tracker ms of both."""
+    launches = {}
+    for load in (24, 8):
+        pipes = {b: make_pipeline(device, synthetic_load=load, scan_bucket=b)
+                 for b in (32, 0)}
+        for p in pipes.values():
+            p.warm_up(FRAME_HW)
+        runs = {32: [], 0: []}
+        for b in (32, 0, 0, 32):
+            pipes[b].reset()
+            res, wall, launches, syncs, trk_ms = counted_run(
+                pipes[b], frames, kernels, timed=True)
+            check_launches(launches, N_CHUNKS, f"bucket phase ({b})")
+            runs[b].append((res, len(frames) / wall, trk_ms, syncs,
+                            dict(pipes[b].scan_stats)))
+        ref = runs[0][0][0]
+        for b in (32, 0):
+            for res, *_ in runs[b]:
+                check([r.tracks for r in res] == [r.tracks for r in ref],
+                      f"scan_bucket={b} at load {load}: track tuples differ "
+                      f"from the unbucketed run")
+        check(summarize(ref)[0] > 0, f"no track at load {load}")
+        stats = runs[32][0][4]
+        check(sum(stats.values()) == N_CHUNKS, f"scan counts {stats}")
+        check(not any(runs[0][0][4].values()), "scan_bucket=0 counted a pass")
+        if load == 8:
+            check(stats["small"] == N_CHUNKS,
+                  f"light load: the small pass did not run every chunk: "
+                  f"{stats}")
+        for b in (32, 0):
+            print(f"[bucket] load {load}, scan_bucket {b}: FPS "
+                  + " / ".join(f"{r[1]:.2f}" for r in runs[b])
+                  + ", tracker ms per frame "
+                  + " / ".join(f"{r[2]:.3f}" for r in runs[b])
+                  + f", syncs per frame: "
+                  f"{syncs_line(runs[b][0][3], len(frames))}")
+        print(f"[bucket] load {load}: chunks by way {stats}; track tuples "
+              f"identical over {len(frames)} frames in all four runs "
+              f"({summarize(ref)[0]} track outputs)")
+    return launches
+
+
+def tracker_configs():
+    """The new tracker paths: ``{name: pipeline keywords}``. The cores'
+    thresholds are lowered to 0.4: the synthetic grid's boxes carry conf 0.5,
+    which is in neither of ByteTrack's score splits at its default 0.5 and
+    below OC-SORT's default ``det_thresh`` of 0.6."""
+    from aicamera_tpu_torch.core.bytetrack import ByteTrackParams
+    from aicamera_tpu_torch.core.ocsort import OCSortParams
+    return {
+        "bytetrack": dict(bytetrack_params=ByteTrackParams(track_thresh=0.4)),
+        "botsort": dict(bytetrack_params=ByteTrackParams(
+            track_thresh=0.4, with_appearance=True)),
+        "ocsort": dict(ocsort_params=OCSortParams(det_thresh=0.4)),
+        "deepocsort": dict(ocsort_params=OCSortParams(
+            det_thresh=0.4, with_appearance=True)),
+        "strongsort": dict(gmc="off"),
+    }
+
+
+def trackers_phase(device, frames, kernels):
+    """Each new tracker at full width on the card, then against the CPU."""
+    import torch
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls run in TF32: the cores' cosine products need f32")
+    sub = frames[:TRACKER_CHUNKS * CHUNK]
+    by_tracker = {}
+    for name, kw in tracker_configs().items():
+        pipe = make_pipeline(device, tracker=name, **kw)
+        pipe.warm_up(FRAME_HW)
+        res, wall, launches, syncs, _ = counted_run(pipe, sub, kernels)
+        check_launches(launches, TRACKER_CHUNKS, f"tracker {name}")
+        by_tracker[name] = launches
+        n_tracks, n_ids = summarize(res)
+        check(n_tracks > 0, f"tracker {name} emitted no track")
+        stats = dict(pipe.scan_stats)
+        pipe.reset()
+        _, _, _, _, trk_ms = counted_run(pipe, sub, kernels, timed=True)
+        print(f"[trackers] {name}: {len(sub)} frames, {len(sub) / wall:.2f} "
+              f"FPS, tracker {trk_ms:.3f} ms per frame, syncs per frame: "
+              f"{syncs_line(syncs, len(sub))}; track outputs {n_tracks}, "
+              f"distinct ids {n_ids}, chunks {stats}, launches "
+              f"{launches} (one per chunk)")
+        compare_runs(
+            f"trackers] {name}",
+            list(make_pipeline("cuda", tracker=name, detect_dtype="f32",
+                               reid_dtype="f32", **kw).process_frames(
+                iter(sub[:COMPARE_CHUNKS * CHUNK]))),
+            list(make_pipeline("cpu", tracker=name, **kw).process_frames(
+                iter(sub[:COMPARE_CHUNKS * CHUNK]))), "CPU")
+    return by_tracker
+
+
+def cli_phase(frames, kernels):
+    """The CLI end to end on the card: a run with a checkpoint, then a
+    resumed run."""
+    import numpy as np
+    from aicamera_tpu_torch import cli, config
+    from aicamera_tpu_torch.runtime.checkpoint import load_state
+    from aicamera_tpu_torch.core.state import TrackerParams
+
+    def run(argv):
+        for k in kernels:
+            k.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        for ln in out.getvalue().splitlines():
+            print(f"[cli]   {ln}")
+        return out.getvalue(), {k.name: k.launches for k in kernels}
+
+    weights = ["--yolo_weights", str(config.YOLO_SYNTHETIC_PATH),
+               "--reid_weights", str(config.REID_SYNTHETIC_PATH)]
+    n = len(frames)
+    with tempfile.TemporaryDirectory() as tmp:
+        clip, ckpt = Path(tmp) / "frames.npy", Path(tmp) / "state.msgpack"
+        np.save(clip, frames)
+        text, launches = run(["--input", str(clip), "--no_save", "--profile",
+                              "--checkpoint", str(ckpt),
+                              "--checkpoint_interval", "24", *weights])
+        check(f"Processed {n} frames" in text, "the CLI's frame count")
+        avg = float(text.split("Average tracks per frame: ")[1].split()[0])
+        check(avg > 0, "the CLI run emitted no track")
+        check("detect+track" in text and "checkpoint" in text,
+              "--profile printed no stage table")
+        check(ckpt.exists(), "no checkpoint file")
+        # one launch per chunk, the warm-up's chunks included
+        check_launches(launches, n // CHUNK + WARM_UP_ITERS, "cli")
+        state = load_state(ckpt, TrackerParams())
+        check(bool(state.active.any()) and int(state.next_id) > 1,
+              "the checkpoint holds no track")
+        text, resumed = run(["--input", str(clip), "--no_save", "--resume",
+                             str(ckpt), "--max_frames", "16", *weights])
+        check(f"Resumed tracker state from {ckpt}" in text
+              and "Processed 16 frames" in text, "the resumed run")
+        check_launches(resumed, 16 // CHUNK + WARM_UP_ITERS, "cli --resume")
+    print(f"[cli] {n} frames through aicamera_tpu_torch.cli on the card: "
+          f"{avg} tracks per frame, checkpoint with next_id "
+          f"{int(state.next_id)} written and resumed for 16 frames; "
+          f"launches {launches} and {resumed} (one per chunk, "
+          f"{WARM_UP_ITERS} warm-up chunks each)")
     return launches
 
 
@@ -474,16 +679,13 @@ def profile_chunk(pipe, chunk):
               f"x{e.count:<5d} {e.key[:90]}")
 
 
-def compare_phase(frames):
-    """First chunks on the card in f32 (TF32 off) vs the plain CPU path."""
+def compare_runs(tag, ours, ref, ref_name):
+    """Two runs of the same frames: counts, labels and track tuples
+    identical, boxes within 1e-2 px, conf within 1e-4."""
     import numpy as np
-    sub = frames[:COMPARE_CHUNKS * CHUNK]
-    gpu = list(make_pipeline("cuda", detect_dtype="f32",
-                             reid_dtype="f32").process_frames(iter(sub)))
-    cpu = list(make_pipeline("cpu").process_frames(iter(sub)))
     box_err = 0.0
     exact = total = 0
-    for g, c in zip(gpu, cpu, strict=True):
+    for g, c in zip(ours, ref, strict=True):
         check(len(g.det_boxes) == len(c.det_boxes), f"frame {g.frame_index}:"
               f" {len(g.det_boxes)} vs {len(c.det_boxes)} detections")
         check(np.array_equal(g.det_labels, c.det_labels),
@@ -504,11 +706,25 @@ def compare_phase(frames):
                   f"frame {g.frame_index}: conf {tg[6]} vs {tc[6]}")
     # tolerance: the two f32 convolution stacks round differently
     check(box_err <= 1e-2, f"detection boxes differ by {box_err} px")
-    print(f"[compare] {len(sub)} frames, card f32 (TF32 off) vs CPU: "
+    check(total > 0, f"[{tag}: no track to compare")
+    print(f"[{tag}: {len(ours)} frames, card f32 (TF32 off) vs {ref_name}: "
           f"detection counts and labels identical, max box |diff| "
           f"{box_err:.3g} px (tolerance 1e-2); track tuples: ids, classes "
           f"and boxes identical on {total}, {exact} bitwise identical "
           f"including conf (conf tolerance 1e-4)")
+
+
+def compare_phase(frames):
+    """First chunks on the card in f32 (TF32 off) against the plain CPU
+    path, and at chunk 4 against chunk 8 on the card."""
+    sub = frames[:COMPARE_CHUNKS * CHUNK]
+    f32 = dict(detect_dtype="f32", reid_dtype="f32")
+    gpu = list(make_pipeline("cuda", **f32).process_frames(iter(sub)))
+    cpu = list(make_pipeline("cpu").process_frames(iter(sub)))
+    compare_runs("compare]", gpu, cpu, "CPU")
+    gpu4 = list(make_pipeline("cuda", **f32).process_frames(
+        iter(sub), chunk_size=CHUNK // 2))
+    compare_runs("compare] chunk 4", gpu4, gpu, "the card at chunk 8")
 
 
 def main() -> int:
@@ -546,12 +762,23 @@ def main() -> int:
             return 0
         frames = moving_rectangles(N_CHUNKS * CHUNK, FRAME_HW, n_objects=6,
                                    seed=SEED)
-        launches = main_path_phase(torch.device("cuda"), frames, kernels)
+        device = torch.device("cuda")
+        launches = main_path_phase(device, frames, kernels)
+        by_path = {"main": launches,
+                   "bucket": bucket_phase(device, frames, kernels),
+                   "trackers": trackers_phase(device, frames, kernels),
+                   "cli": cli_phase(frames, kernels)}
         compare_phase(frames)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     record["launches"] = launches[record["name"]]
+    # the other paths, each counted from 0: bucket (its last run), every
+    # tracker, the CLI (warm-up chunks included)
+    record["launches_by_path"] = {
+        path: ({t: v[record["name"]] for t, v in counts.items()}
+               if path == "trackers" else counts[record["name"]])
+        for path, counts in by_path.items()}
     print(ident)  # name, power limit: as nvidia-smi prints them
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {

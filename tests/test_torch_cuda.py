@@ -131,3 +131,44 @@ def test_pipeline_launches_the_kernel_once_per_chunk(cuda):
     assert len(results) == 6
     assert all(np.isfinite(r.det_boxes).all() for r in results)
     assert len(results[-1].tracks) > 0
+
+
+@pytest.mark.parametrize("tracker", ["bytetrack", "botsort", "ocsort",
+                                     "deepocsort", "strongsort"])
+def test_tracker_on_the_card_matches_the_cpu_path(cuda, tracker):
+    """Each tracker core, card f32 (TF32 off) against the CPU path on the
+    same frames: counts, labels and track tuples identical, boxes within
+    1e-2 px, conf within 1e-4; the kernel runs once per chunk."""
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.core.bytetrack import ByteTrackParams
+    from aicamera_tpu_torch.core.ocsort import OCSortParams
+    from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline
+    from aicamera_tpu_torch.scenes import moving_rectangles
+    cap = dict(max_tracks=16, max_detections=8)
+    app = dict(with_appearance=tracker in ("botsort", "deepocsort"))
+    kw = dict(input_shape=(256, 256), chunk_size=2, synthetic_load=8,
+              max_reid_crops=4, tracker=tracker,
+              yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
+              reid_weights=str(config.REID_SYNTHETIC_PATH))
+    if tracker in ("bytetrack", "botsort"):
+        kw["bytetrack_params"] = ByteTrackParams(track_thresh=0.4, **cap,
+                                                 **app)
+    elif tracker in ("ocsort", "deepocsort"):
+        kw["ocsort_params"] = OCSortParams(det_thresh=0.4, **cap, **app)
+    else:
+        kw["gmc"] = "off"
+    frames = moving_rectangles(6, (180, 320), n_objects=3, seed=3)
+    launches = lb.KERNEL.launches
+    gpu = list(TrackingPipeline(detect_dtype="f32", reid_dtype="f32",
+                                **kw).process_frames(iter(frames)))
+    assert lb.KERNEL.launches == launches + 3
+    cpu = list(TrackingPipeline(device="cpu", **kw).process_frames(
+        iter(frames)))
+    assert sum(len(r.tracks) for r in gpu) > 0
+    for g, c in zip(gpu, cpu, strict=True):
+        assert len(g.det_boxes) == len(c.det_boxes)
+        np.testing.assert_array_equal(g.det_labels, c.det_labels)
+        np.testing.assert_allclose(g.det_boxes, c.det_boxes, atol=1e-2)
+        assert [t[:6] for t in g.tracks] == [t[:6] for t in c.tracks]
+        for tg, tc in zip(g.tracks, c.tracks):
+            assert abs(tg[6] - tc[6]) <= 1e-4

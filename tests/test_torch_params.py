@@ -186,9 +186,16 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
+# modules the scan and the blocked import below must reach
+MUST_COVER = ("cli.py", "utils/__init__.py", "utils/video_io.py",
+              "core/bytetrack.py", "core/ocsort.py", "runtime/checkpoint.py",
+              "runtime/profiler.py", "runtime/pipeline.py")
+
+
 def test_source_scan_finds_no_forbidden_import():
     files = sorted(PORT_DIR.rglob("*.py")) + [SMOKE]
     assert SMOKE.exists()
+    assert {PORT_DIR / m for m in MUST_COVER} <= set(files)
     for f in files:
         bad = set(_imported_roots(f)) & set(FORBIDDEN)
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
@@ -206,16 +213,24 @@ sys.meta_path.insert(0, Block())
 import importlib, pkgutil, runpy
 import aicamera_tpu_torch
 
+seen = set()
 for m in pkgutil.walk_packages(aicamera_tpu_torch.__path__,
                                "aicamera_tpu_torch."):
     importlib.import_module(m.name)
+    seen.add(m.name)
+missing = set({must!r}) - seen
+assert not missing, missing
+from aicamera_tpu_torch.cli import main, parse_arguments
+assert parse_arguments(["--input", "x.npy"]).device == "cuda"
 runpy.run_path({smoke!r}, run_name="chip_smoke_imported")
 print("IMPORT-OK")
 """
 
 
 def test_imports_with_jax_and_the_jax_package_blocked():
-    code = _BLOCKER.format(forbidden=FORBIDDEN, smoke=str(SMOKE))
+    must = ["aicamera_tpu_torch." + m[:-3].replace("/", ".")
+            for m in MUST_COVER if not m.endswith("__init__.py")]
+    code = _BLOCKER.format(forbidden=FORBIDDEN, smoke=str(SMOKE), must=must)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]

@@ -1,5 +1,6 @@
 """Port: the whole slice (letterbox -> YOLOv8 -> NMS -> crops -> ReID ->
-DeepSORT) on the CPU against the JAX ``TrackingPipeline``."""
+tracker) on the CPU against the JAX ``TrackingPipeline``, for every tracker
+core."""
 
 import numpy as np
 import pytest
@@ -7,8 +8,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from aicamera_tpu import config as jconfig  # noqa: E402
+from aicamera_tpu.core import bytetrack as jbt  # noqa: E402
+from aicamera_tpu.core import ocsort as joc  # noqa: E402
 from aicamera_tpu.core import state as jstate  # noqa: E402
 from aicamera_tpu_torch import config  # noqa: E402
+from aicamera_tpu_torch.core import bytetrack as tbt  # noqa: E402
+from aicamera_tpu_torch.core import ocsort as toc  # noqa: E402
 from aicamera_tpu_torch.core.state import TrackerParams  # noqa: E402
 from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline  # noqa: E402
 from aicamera_tpu_torch.scenes import moving_rectangles  # noqa: E402
@@ -85,6 +90,43 @@ def test_pipeline_matches_jax(port, jax_ref):
     _assert_matches_jax(list(port.process_frames(iter(_frames()))), jax_ref)
 
 
+# The synthetic grid's boxes carry conf 0.5: in neither of ByteTrack's score
+# splits at its default threshold and below OC-SORT's det_thresh, so both
+# sides get thresholds of 0.4 and the grid starts tracks.
+CAP = dict(max_tracks=16, max_detections=8)
+BT = dict(CAP, track_thresh=0.4)
+OC = dict(CAP, det_thresh=0.4)
+APP = dict(with_appearance=True, feature_dim=jconfig.REID_FEATURE_DIM)
+# tracker: (port keywords, JAX keywords)
+TRACKERS = {
+    "bytetrack": (dict(bytetrack_params=tbt.ByteTrackParams(**BT)),
+                  dict(bytetrack_params=jbt.ByteTrackParams(**BT))),
+    "botsort": (dict(bytetrack_params=tbt.ByteTrackParams(**BT, **APP)),
+                dict(bytetrack_params=jbt.ByteTrackParams(**BT, **APP))),
+    "ocsort": (dict(ocsort_params=toc.OCSortParams(**OC)),
+               dict(ocsort_params=joc.OCSortParams(**OC))),
+    "deepocsort": (dict(ocsort_params=toc.OCSortParams(**OC, **APP)),
+                   dict(ocsort_params=joc.OCSortParams(**OC, **APP))),
+    # the preset's own TrackerParams (EMA bank, NSA) at full capacity
+    "strongsort": (dict(gmc="off"), dict(gmc="off")),
+}
+
+
+@pytest.mark.parametrize("tracker", sorted(TRACKERS))
+def test_tracker_pipeline_matches_jax(tracker):
+    """Each tracker core through the whole slice, with the tolerances of
+    :func:`_assert_matches_jax`; tracks must be emitted."""
+    from aicamera_tpu.runtime.pipeline import TrackingPipeline as JaxPipeline
+    ours_kw, jax_kw = TRACKERS[tracker]
+    ours = TrackingPipeline(tracker=tracker, device="cpu", **ours_kw, **KW)
+    ref = JaxPipeline(tracker=tracker, **jax_kw, **KW)
+    _assert_matches_jax(list(ours.process_frames(iter(_frames()))),
+                        list(ref.process_frames(iter(_frames()))))
+    assert ours.with_reid == ref.with_reid
+    assert ours._nms_score_floor == pytest.approx(ref._nms_score_floor)
+    assert ours.max_reid_crops == ref.max_reid_crops
+
+
 def test_pipeline_chunk_3_matches_jax(port, jax_ref):
     """The same frames in chunks of 3 against the same JAX results, with the
     tolerances of the chunk-2 comparison."""
@@ -159,7 +201,7 @@ def test_entry_point_defaults_to_the_gpu():
         TrackingPipeline(input_shape=INPUT_HW)
 
 
-@pytest.mark.parametrize("kw", [dict(tracker="bytetrack"), dict(gmc="affine"),
+@pytest.mark.parametrize("kw", [dict(tracker="strongsort"), dict(gmc="affine"),
                                 dict(reid_quant="int8"),
                                 dict(yolo_quant="int8")])
 def test_unported_options_raise(kw):
@@ -173,3 +215,37 @@ def test_argument_checks():
     with pytest.raises(ValueError):
         TrackingPipeline(device="cpu", nsa=True,
                          tracker_params=TrackerParams(**SMALL))
+
+
+@pytest.mark.parametrize("ours,theirs", [
+    (dict(tracker="sort"), None),
+    (dict(tracker="bytetrack", nsa=True), None),
+    (dict(tracker="ocsort", bytetrack_params=tbt.ByteTrackParams()),
+     dict(tracker="ocsort", bytetrack_params=jbt.ByteTrackParams())),
+    (dict(ocsort_params=toc.OCSortParams()),
+     dict(ocsort_params=joc.OCSortParams())),
+    (dict(tracker="bytetrack",
+          bytetrack_params=tbt.ByteTrackParams(with_appearance=True)),
+     dict(tracker="bytetrack",
+          bytetrack_params=jbt.ByteTrackParams(with_appearance=True))),
+    (dict(tracker="botsort", bytetrack_params=tbt.ByteTrackParams()),
+     dict(tracker="botsort", bytetrack_params=jbt.ByteTrackParams())),
+    (dict(tracker="ocsort",
+          ocsort_params=toc.OCSortParams(with_appearance=True)),
+     dict(tracker="ocsort",
+          ocsort_params=joc.OCSortParams(with_appearance=True))),
+    (dict(tracker="deepocsort", ocsort_params=toc.OCSortParams()),
+     dict(tracker="deepocsort", ocsort_params=joc.OCSortParams())),
+    (dict(gmc="rotation"), None),
+    (dict(reid_quant="int4"), None),
+    (dict(scan_bucket=-1), None),
+], ids=lambda kw: "-".join(kw) if kw else "same")
+def test_argument_validation_raises_as_jax(ours, theirs):
+    """The argument checks of the JAX constructor: the same exception type
+    and the same message."""
+    from aicamera_tpu.runtime.pipeline import TrackingPipeline as JaxPipeline
+    with pytest.raises(ValueError) as ref:
+        JaxPipeline(**(ours if theirs is None else theirs))
+    with pytest.raises(ValueError) as e:
+        TrackingPipeline(device="cpu", **ours)
+    assert str(e.value) == str(ref.value)
