@@ -5,13 +5,42 @@ Same layout as the JAX package (``cli``, ``config``, ``utils``, ``ops``,
 ``models``, ``core``, ``runtime``) plus ``csrc/`` for the hand-written CUDA
 kernels. The package imports PyTorch, numpy and the standard library only,
 never JAX or the JAX package. Entry points (``cli.main``,
-``runtime.pipeline.TrackingPipeline``) run on the GPU unless the caller
-passes ``device="cpu"`` (``--device cpu``).
+``runtime.pipeline.TrackingPipeline``, the reference-API facades
+``YOLODetector``, ``ReIDModel``, ``DeepSORT``, ``StrongSORT``,
+``ByteTrack``, ``BoTSORT``, ``OCSort`` and ``DeepOCSort``) run on the GPU
+unless the caller passes ``device="cpu"`` (``--device cpu``).
 """
 
 from . import config  # noqa: F401
 
-__all__ = ["config", "not_ported"]
+# Lazy top-level exports (PEP 562): the reference-compatible facades and the
+# pipeline, without importing PyTorch at package import time.
+_LAZY_EXPORTS = {
+    "YOLODetector": "aicamera_tpu_torch.detector",
+    "DeepSORT": "aicamera_tpu_torch.tracker_api",
+    "ReIDModel": "aicamera_tpu_torch.tracker_api",
+    "ByteTrack": "aicamera_tpu_torch.bytetrack_api",
+    "BoTSORT": "aicamera_tpu_torch.botsort_api",
+    "StrongSORT": "aicamera_tpu_torch.strongsort_api",
+    "OCSort": "aicamera_tpu_torch.ocsort_api",
+    "DeepOCSort": "aicamera_tpu_torch.deepocsort_api",
+    "TrackingPipeline": "aicamera_tpu_torch.runtime.pipeline",
+}
+
+__all__ = ["config", "not_ported", *sorted(_LAZY_EXPORTS)]
+
+
+def __getattr__(name):
+    target = _LAZY_EXPORTS.get(name)
+    if target is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    return getattr(importlib.import_module(target), name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY_EXPORTS))
 
 
 def not_ported(what: str) -> NotImplementedError:

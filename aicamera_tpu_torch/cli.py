@@ -63,8 +63,8 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         help="Tracking algorithm: 'deepsort' (appearance + "
                              "motion), 'strongsort' (DeepSORT + the "
                              "StrongSORT preset: EMA appearance bank, NSA "
-                             "Kalman, gmc=affine unless --gmc overrides; "
-                             "needs --gmc off here), 'bytetrack' (motion-"
+                             "Kalman, gmc=affine unless --gmc overrides), "
+                             "'bytetrack' (motion-"
                              "only two-pass association over high and low "
                              "score boxes; no ReID stage), 'botsort' "
                              "(ByteTrack + BoT-SORT appearance fusion), "
@@ -87,9 +87,10 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                              "only.")
     parser.add_argument("--gmc", type=str, default=None,
                         choices=("off", "affine", "translation"),
-                        help="Camera-motion compensation. Only 'off' is "
-                             "ported. Default: off ('affine' when "
-                             "--tracker strongsort).")
+                        help="Camera-motion compensation: block phase "
+                             "correlation + robust affine (or translation) "
+                             "fit on the device. Default: off ('affine' "
+                             "when --tracker strongsort).")
     parser.add_argument("--reid_quant", type=str, default=None,
                         choices=("none", "int8"),
                         help="ReID embedder precision ('int8' is not "
@@ -151,12 +152,6 @@ def _refuse_unported(args) -> None:
         (args.show_display, "--show_display", needs_cv),
         (args.draw_detections, "--draw_detections", needs_cv),
         (args.native_io, "--native_io", f"the native decoder: {needs_cv}"),
-        (args.gmc in ("affine", "translation"), f"--gmc {args.gmc}",
-         "camera-motion compensation is not ported; pass --gmc off"),
-        (args.tracker == "strongsort" and args.gmc is None,
-         "--tracker strongsort",
-         "its preset turns on --gmc affine, which is not ported; pass "
-         "--gmc off"),
         (args.reid_quant == "int8", "--reid_quant int8", "not ported"),
         (args.yolo_quant == "int8", "--yolo_quant int8", "not ported"),
     ]

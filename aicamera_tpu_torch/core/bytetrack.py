@@ -36,7 +36,7 @@ import dataclasses
 
 import torch
 
-from .. import not_ported
+from ..ops.gmc import warp_xyah_bank
 from . import kalman
 from .assignment import (TRACKER_SYNCS, _claim, _scatter_drop,
                          min_cost_matching, place_new_tracks)
@@ -186,10 +186,9 @@ def step(state: ByteTrackState, dets: ByteDetections,
          params: ByteTrackParams, gmc=None) -> ByteTrackState:
     """One ByteTrack frame update (predict, three association stages,
     lifecycle), after the official ``BYTETracker.update`` loop. Returns a new
-    state; ``state`` is left as it was. ``gmc`` (a camera affine) is not
-    ported."""
-    if gmc is not None:
-        raise not_ported("camera-motion compensation (gmc)")
+    state; ``state`` is left as it was. ``gmc``: the camera affine ``(A,
+    t)`` of this frame (``ops/gmc.py``), which warps the Kalman bank after
+    the prediction."""
     t = params.max_tracks
     dev = state.mean.device
     frame_id = state.frame_id + 1
@@ -204,6 +203,8 @@ def step(state: ByteTrackState, dets: ByteDetections,
     pm, pc = kalman.predict(mean0, state.cov)
     mean = torch.where(pool[:, None], pm, mean0)
     cov = torch.where(pool[:, None, None], pc, state.cov)
+    if gmc is not None:
+        mean, cov = warp_xyah_bank(mean, cov, gmc[0], gmc[1], state.active)
     tsu = torch.where(state.active, state.tsu + 1, state.tsu)
 
     # --- Score split (official: s > thresh high; low < s < thresh low;

@@ -46,7 +46,7 @@ from typing import Optional
 
 import torch
 
-from .. import not_ported
+from ..ops.gmc import warp_ocsort_state
 from . import kalman
 from .assignment import (TRACKER_SYNCS, _claim, _scatter_drop,
                          min_cost_matching, place_new_tracks)
@@ -394,9 +394,9 @@ def step(state: OCSortState, dets: OCSortDetections,
          params: OCSortParams, gmc=None) -> OCSortState:
     """One OC-SORT frame update (predict, OCM association, OCR recovery, ORU
     re-update, lifecycle), after ``OCSort.update``. Returns a new state;
-    ``state`` is left as it was. ``gmc`` (a camera affine) is not ported."""
-    if gmc is not None:
-        raise not_ported("camera-motion compensation (gmc)")
+    ``state`` is left as it was. ``gmc``: the camera affine ``(A, t)`` of
+    this frame (``ops/gmc.py``), which warps the Kalman bank and the
+    observation history after the prediction."""
     t = params.max_tracks
     k_ring = params.delta_t + 1
     dev = state.x.device
@@ -410,6 +410,9 @@ def step(state: OCSortState, dets: OCSortDetections,
     px, pp = kf_predict(state.x, state.p)
     x = torch.where(state.active[:, None], px, state.x)
     p = torch.where(state.active[:, None, None], pp, state.p)
+    if gmc is not None:
+        state = warp_ocsort_state(state.replace(x=x, p=p), gmc[0], gmc[1])
+        x, p = state.x, state.p
     hit_streak = torch.where(state.active & (state.tsu > 0), 0,
                              state.hit_streak)
     tsu = torch.where(state.active, state.tsu + 1, state.tsu)

@@ -45,6 +45,26 @@ def _pairwise_iou_xyxy(boxes: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(union, min=1e-7)
 
 
+def _pairwise_ios_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., K, 4) xyxy -> (..., K, K) intersection over the smaller area.
+
+    A small fragment fully inside a larger box scores about 1 whatever the
+    size ratio: the merge of tiled detections uses it to collapse
+    tile-boundary fragments against the full-frame detection."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = torch.clamp(x2 - x1, min=0) * torch.clamp(y2 - y1, min=0)
+    ix1 = torch.maximum(x1[..., :, None], x1[..., None, :])
+    iy1 = torch.maximum(y1[..., :, None], y1[..., None, :])
+    ix2 = torch.minimum(x2[..., :, None], x2[..., None, :])
+    iy2 = torch.minimum(y2[..., :, None], y2[..., None, :])
+    inter = torch.clamp(ix2 - ix1, min=0) * torch.clamp(iy2 - iy1, min=0)
+    smaller = torch.minimum(area[..., :, None], area[..., None, :])
+    return inter / torch.clamp(smaller, min=1e-7)
+
+
+_PAIRWISE = {"iou": _pairwise_iou_xyxy, "ios": _pairwise_ios_xyxy}
+
+
 def _greedy_keep(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Exact greedy-NMS keep set by fixpoint iteration, batched.
 
@@ -68,11 +88,18 @@ def _greedy_keep(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def _suppress_and_emit(k_boxes, k_score, k_cls, k_valid, iou_threshold,
                        top_k: int, max_det: int,
-                       class_offset: float = _CLASS_OFFSET):
+                       class_offset: float = _CLASS_OFFSET,
+                       criterion: str = "iou"):
     """Shared NMS tail over (B, K) score-ordered candidates: class shift,
-    greedy suppression, emit the top ``max_det`` kept candidates."""
+    greedy suppression, emit the top ``max_det`` kept candidates.
+    ``class_offset`` must exceed the largest box coordinate; ``criterion``
+    is the pairwise overlap measure, ``"iou"`` or ``"ios"``."""
+    pairwise = _PAIRWISE.get(criterion)
+    if pairwise is None:
+        raise ValueError(f"criterion must be 'iou' or 'ios', got "
+                         f"{criterion!r}")
     shifted = k_boxes + (k_cls.float() * class_offset)[..., None]
-    overlap = _pairwise_iou_xyxy(shifted) > iou_threshold
+    overlap = pairwise(shifted) > iou_threshold
     kept = _greedy_keep(overlap, k_valid)
 
     order_score = torch.where(kept, k_score, torch.full_like(k_score, -1.0))

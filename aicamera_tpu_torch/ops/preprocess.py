@@ -156,9 +156,12 @@ def _f32(value: float, device) -> torch.Tensor:
 def preprocess_yolo(frame_bgr_u8: torch.Tensor, spec: LetterboxSpec,
                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """uint8 BGR ``(H, W, 3)`` -> letterboxed normalized RGB
-    ``(1, Dh, Dw, 3)`` (the JAX package's public layout)."""
-    return letterbox_plain(frame_bgr_u8[None], spec, out_dtype).permute(
-        0, 2, 3, 1)
+    ``(1, Dh, Dw, 3)`` (the JAX package's public layout), through
+    ``ops.letterbox.letterbox``: the kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    from .letterbox import letterbox  # letterbox.py imports this module
+    frame = frame_bgr_u8.contiguous()
+    return letterbox(frame[None], spec, out_dtype).permute(0, 2, 3, 1)
 
 
 def scale_boxes_back(boxes_xyxy: torch.Tensor,

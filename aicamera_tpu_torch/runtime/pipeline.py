@@ -3,10 +3,11 @@ ReID -> tracker, K frames per dispatch.
 
 The port of ``aicamera_tpu/runtime/pipeline.py`` with its three tracker
 cores (DeepSORT and its StrongSORT preset, ByteTrack and BoT-SORT, OC-SORT
-and Deep OC-SORT) and the capacity-bucketed tracker scan. All batchable work
-(letterbox kernel, detector forward, decode+NMS, crop gather, ReID embedding)
-runs batched over the chunk on the device; the sequential tracker then runs
-frame by frame over the chunk, its state staying on the same device. Outputs
+and Deep OC-SORT), camera-motion compensation and the capacity-bucketed
+tracker scan. All batchable work (camera-motion estimate, letterbox kernel,
+detector forward, decode+NMS, crop gather, ReID embedding) runs batched
+over the chunk on the device; the sequential tracker then runs frame by frame
+over the chunk, its state staying on the same device. Outputs
 follow the JAX package's contracts: per frame, the detections in frame
 coordinates and the emitted tracks as ``(x1, y1, x2, y2, id, class_name,
 conf)`` tuples.
@@ -32,6 +33,7 @@ from ..core import state as core_state
 from ..core import tracker as core_tracker
 from ..core.state import Detections, TrackerParams
 from ..device import resolve_device
+from ..ops import gmc as gmc_ops
 from ..ops.crops import extract_reid_crops
 from ..ops.letterbox import letterbox
 from ..ops.nms import fused_decode_nms
@@ -67,13 +69,19 @@ def full_f32():
         cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
+def precision(dtype: torch.dtype):
+    """The context a forward in ``dtype`` runs in: :func:`full_f32` for
+    f32, nothing for bf16."""
+    return full_f32() if dtype == torch.float32 else contextlib.nullcontext()
+
+
 class CudaStageTimer:
     """Per-stage time of each chunk on the GPU stream, from CUDA events.
     Attach one to ``TrackingPipeline.stage_timer``: each chunk then records
     an event at every stage boundary, and :meth:`finish` adds the stage
     intervals to ``totals`` (ms over ``chunks`` chunks)."""
 
-    STAGES = ("letterbox", "yolo", "nms", "crops_reid", "tracker")
+    STAGES = ("gmc", "letterbox", "yolo", "nms", "crops_reid", "tracker")
 
     def __init__(self):
         self._events = []
@@ -154,7 +162,6 @@ def _bucketed_time_scan(state, scan, params, t_small: int, stats: dict):
 
 
 _TRACKERS = ("deepsort", "bytetrack", "botsort", "ocsort", "deepocsort")
-_GMC_OFF = (False, None, "off", "none", "")
 
 
 class TrackingPipeline:
@@ -191,11 +198,10 @@ class TrackingPipeline:
 
         ``tracker``: ``"deepsort"`` (default), ``"strongsort"`` (the DeepSORT
         core with the StrongSORT preset: EMA appearance bank, NSA Kalman,
-        and ``gmc="affine"`` unless ``gmc`` says otherwise; camera-motion
-        compensation is not ported, so the preset runs with ``gmc="off"``
-        only), ``"bytetrack"``, ``"botsort"`` (ByteTrack with BoT-SORT's
-        appearance fusion), ``"ocsort"`` or ``"deepocsort"`` (OC-SORT with
-        Deep OC-SORT's appearance fusion). ByteTrack and OC-SORT skip the
+        and ``gmc="affine"`` unless ``gmc`` says otherwise),
+        ``"bytetrack"``, ``"botsort"`` (ByteTrack with BoT-SORT's appearance
+        fusion), ``"ocsort"`` or ``"deepocsort"`` (OC-SORT with Deep
+        OC-SORT's appearance fusion). ByteTrack and OC-SORT skip the
         ReID stage. ByteTrack and BoT-SORT feed the tracker every
         class-eligible detection above ``low_thresh`` whatever
         ``conf_threshold`` says (which still governs the detection output
@@ -224,8 +230,13 @@ class TrackingPipeline:
         ``"f32"`` or ``"bf16"``; the default is bf16 on the GPU and f32 on
         the CPU. In f32 the forwards run with TF32 off. ``reid_dtype`` also
         sets the crop gather's dtype. ``nsa``: noise-scale-adaptive Kalman
-        update, DeepSORT core only. ``gmc`` other than off, ``reid_quant``
-        and ``yolo_quant`` are not ported. ``device``: default ``"cuda"``
+        update, DeepSORT core only. ``gmc``: camera-motion compensation
+        (``ops/gmc.py``), ``"affine"`` (or ``True``), ``"translation"`` or
+        off: each chunk estimates the camera motion of its frames on the
+        device (stage ``gmc``), the frame before the chunk carried over from
+        the previous chunk, and every tracker frame warps its state by it
+        after the prediction. ``reid_quant`` and ``yolo_quant`` ``"int8"``
+        are not ported. ``device``: default ``"cuda"``
         (raises without a GPU); tests pass ``"cpu"``.
         """
         self.tracker_kind = str(tracker)
@@ -293,12 +304,7 @@ class TrackingPipeline:
                     f"{name}.with_appearance=True (else it is plain "
                     f"{plain})")
             with_reid = appearance
-        if gmc in (True, "affine", "translation"):
-            raise not_ported("camera-motion compensation (gmc; pass "
-                             "gmc='off')")
-        if gmc not in _GMC_OFF:
-            raise ValueError(f"gmc must be off/affine/translation or a "
-                             f"bool (got {gmc!r})")
+        self.gmc_method = gmc_ops.gmc_method(gmc)
         for name, quant in (("reid_quant", reid_quant),
                             ("yolo_quant", yolo_quant)):
             if quant == "int8":
@@ -375,10 +381,6 @@ class TrackingPipeline:
 
     # --- step construction --------------------------------------------------
 
-    def _precision(self, dtype: torch.dtype):
-        return full_f32() if dtype == torch.float32 \
-            else contextlib.nullcontext()
-
     def _make_chunk_step(self, frame_hw: Tuple[int, int], k: int):
         spec = letterbox_spec(frame_hw, self.input_shape,
                               auto=self.letterbox_auto)
@@ -402,6 +404,9 @@ class TrackingPipeline:
                 axis=-1).astype(np.float32)).to(dev)
         buckets = [0] + [b for b in (4, 8, 12, 16, 24) if b < n_crops] \
             + [n_crops]
+        use_gmc = self.gmc_method is not None
+        if use_gmc:
+            gspec = gmc_ops.gmc_spec(frame_hw)
         fidx = torch.arange(k, device=dev)[:, None]
 
         def mark(stage):
@@ -461,17 +466,24 @@ class TrackingPipeline:
             crops, crop_valid = extract_reid_crops(
                 frames, d_xyxy[:, :b], out_hw=config.REID_INPUT_SHAPE,
                 compute_dtype=self.reid_dtype)
-            with self._precision(self.reid_dtype):
+            with precision(self.reid_dtype):
                 feats = self.reid(crops.reshape(k * b, *crops.shape[2:]))
             d_feats[:, :b] = feats.reshape(k, b, -1).float()
             d_hasfeat[:, :b] = crop_valid & d_valid[:, :b]
             return d_feats, d_hasfeat
 
         @torch.no_grad()
-        def step(state, frames, n_valid: int):
+        def step(state, frames, n_valid: int, prev_frame=None):
+            if use_gmc:
+                # camera motion per frame; without a frame before the chunk
+                # its own first frame (identity motion at the chunk head)
+                g_a, g_t = gmc_ops.estimate_chunk(
+                    frames[0] if prev_frame is None else prev_frame, frames,
+                    gspec, self.gmc_method)
+                mark("gmc")
             x = letterbox(frames, spec, self.detect_dtype)
             mark("letterbox")
-            with self._precision(self.detect_dtype):
+            with precision(self.detect_dtype):
                 levels = self.yolo(x)
             mark("yolo")
             num, nboxes, scores, labels = fused_decode_nms(
@@ -507,17 +519,24 @@ class TrackingPipeline:
                 if appearance:
                     common.update(feature=d_feats[i],
                                   has_feature=d_hasfeat[i])
+                f_gmc = (g_a[i], g_t[i]) if use_gmc else None
                 if bytetrack:
                     return bt_core.step(st, bt_core.ByteDetections(
-                        tlwh=tlwh[i], **common), pp)
+                        tlwh=tlwh[i], **common), pp, gmc=f_gmc)
                 if ocsort:
                     return oc_core.step(st, oc_core.OCSortDetections(
-                        xyxy=d_xyxy[i], **common), pp)
+                        xyxy=d_xyxy[i], **common), pp, gmc=f_gmc)
                 dets = Detections(tlwh=tlwh[i], conf=d_conf[i],
                                   class_id=d_cls[i], feature=d_feats[i],
                                   has_feature=d_hasfeat[i], valid=d_valid[i])
-                return core_tracker.update(core_tracker.predict(st, pp),
-                                           dets, pp)
+                st = core_tracker.predict(st, pp)
+                if use_gmc:
+                    # BoT-SORT ordering: predict, warp by the camera
+                    # affine, then associate
+                    mean, cov = gmc_ops.warp_xyah_bank(
+                        st.mean, st.cov, g_a[i], g_t[i], st.active)
+                    st = st.replace(mean=mean, cov=cov)
+                return core_tracker.update(st, dets, pp)
 
             def scan(st, pp):
                 """The chunk's frames at the capacity of ``pp``."""
@@ -548,9 +567,11 @@ class TrackingPipeline:
     # --- host API -----------------------------------------------------------
 
     def reset(self):
-        """Fresh tracker state (ids restart at 1) and scan counts."""
+        """Fresh tracker state (ids restart at 1), scan counts, and no
+        frame carried for the camera-motion estimate."""
         self.state = self._init_tracker_state()
         self.scan_stats = dict(small=0, skipped=0, rerun=0)
+        self._gmc_prev_frame = None
 
     def _dispatch_chunk(self, frames_np: np.ndarray,
                         n_valid: int | None = None):
@@ -560,9 +581,16 @@ class TrackingPipeline:
         step = self._get_step(frames_np.shape[1:3], k)
         frames = torch.from_numpy(np.ascontiguousarray(frames_np)).to(
             self.device)
+        prev = None
+        if self.gmc_method is not None:
+            # the frame before this chunk; the first chunk of a stream uses
+            # its own first frame (identity motion for frame 0)
+            prev = self._gmc_prev_frame
+            self._gmc_prev_frame = frames[n_valid - 1].clone()
         if self.stage_timer is not None:
             self.stage_timer.start()
-        self.state, det_outs, track_outs = step(self.state, frames, n_valid)
+        self.state, det_outs, track_outs = step(self.state, frames, n_valid,
+                                                prev)
         if self.stage_timer is not None:
             self.stage_timer.finish()
         return det_outs, track_outs

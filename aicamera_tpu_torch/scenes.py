@@ -5,7 +5,9 @@ coloured, two-tone striped rectangles with a dark rim (person red, car blue,
 bus green, truck yellow, motorcycle magenta, in BGR) over a gradient-plus-
 noise background, each moving at a constant velocity and bouncing off the
 frame edges. The committed synthetic detector was trained on scenes of this
-kind, so it finds the rectangles.
+kind, so it finds the rectangles. :func:`panning_rectangles` films such a
+scene with a panning camera over a textured background and returns the true
+camera motion, for camera-motion compensation.
 """
 
 from __future__ import annotations
@@ -23,12 +25,8 @@ _CLASSES = {
 }
 
 
-def moving_rectangles(n_frames: int, hw=(540, 960), n_objects: int = 6,
-                      seed: int = 0) -> np.ndarray:
-    """``(n_frames, H, W, 3)`` uint8 BGR frames of ``n_objects`` moving
-    rectangles, made from ``seed``."""
-    rng = np.random.RandomState(seed)
-    h, w = hw
+def _objects(rng, n_objects: int, h: int, w: int) -> list:
+    """Seeded rectangles of random classes in an ``h x w`` world."""
     cls = rng.choice(list(_CLASSES), n_objects)
     objs = []
     for c in cls:
@@ -43,6 +41,50 @@ def moving_rectangles(n_frames: int, hw=(540, 960), n_objects: int = 6,
             c2=np.clip(np.array(color) * 0.7 + rng.uniform(-20, 20, 3),
                        0, 255),
             stripe=rng.uniform(4, 12) * w / 960.0))
+    return objs
+
+
+def _draw_and_move(img, objs, xx, yy, h: int, w: int, x_off: int = 0):
+    """Draw every rectangle into ``img`` (screen pixels ``xx``, ``yy``; the
+    world is seen from ``x_off`` pixels to the right), then move each at its
+    constant velocity, bouncing off the edges of the ``h x w`` world."""
+    img = np.array(img, np.float64)
+    for o in objs:
+        x1, y1 = o["pos"]
+        x2, y2 = o["pos"] + o["size"]
+        # the pixels of the box's bounding rows and columns (and one more
+        # on each side); the tests below decide which are inside
+        ya, yb = max(0, int(np.floor(y1))), min(yy.shape[0],
+                                                int(np.ceil(y2)) + 1)
+        xa = max(0, int(np.floor(x1)) - x_off)
+        xb = min(xx.shape[1], int(np.ceil(x2)) + 1 - x_off)
+        if ya >= yb or xa >= xb:
+            continue
+        sy, sx = yy[ya:yb, xa:xb], xx[ya:yb, xa:xb] + x_off
+        inside = (sx >= x1) & (sx < x2) & (sy >= y1) & (sy < y2)
+        stripes = (np.floor(sx / o["stripe"]) % 2)[..., None] > 0
+        fill = np.where(stripes, o["c2"], o["c1"])
+        rim = ((sx < x1 + 2) | (sx >= x2 - 2) | (sy < y1 + 2)
+               | (sy >= y2 - 2))[..., None]
+        fill = np.where(rim, fill * 0.45, fill)
+        img[ya:yb, xa:xb] = np.where(inside[..., None], fill,
+                                     img[ya:yb, xa:xb])
+        o["pos"] = o["pos"] + o["vel"]
+        for ax, lim in ((0, w), (1, h)):
+            if o["pos"][ax] < 0 or o["pos"][ax] + o["size"][ax] > lim:
+                o["vel"][ax] = -o["vel"][ax]
+                o["pos"][ax] = np.clip(o["pos"][ax], 0,
+                                       lim - o["size"][ax])
+    return img
+
+
+def moving_rectangles(n_frames: int, hw=(540, 960), n_objects: int = 6,
+                      seed: int = 0) -> np.ndarray:
+    """``(n_frames, H, W, 3)`` uint8 BGR frames of ``n_objects`` moving
+    rectangles, made from ``seed``."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    objs = _objects(rng, n_objects, h, w)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     base = rng.uniform(90, 160, 3)
     grad = (xx[..., None] * rng.uniform(-30, 30, 3) / w
@@ -50,25 +92,69 @@ def moving_rectangles(n_frames: int, hw=(540, 960), n_objects: int = 6,
     frames = np.empty((n_frames, h, w, 3), np.uint8)
     for f in range(n_frames):
         img = base + grad + rng.uniform(-12, 12, (h, w, 1))
-        for o in objs:
-            x1, y1 = o["pos"]
-            x2, y2 = o["pos"] + o["size"]
-            inside = (xx >= x1) & (xx < x2) & (yy >= y1) & (yy < y2)
-            stripes = (np.floor(xx / o["stripe"]) % 2)[..., None] > 0
-            fill = np.where(stripes, o["c2"], o["c1"])
-            rim = ((xx < x1 + 2) | (xx >= x2 - 2) | (yy < y1 + 2)
-                   | (yy >= y2 - 2))[..., None]
-            fill = np.where(rim, fill * 0.45, fill)
-            img = np.where(inside[..., None], fill, img)
-            # constant velocity, bouncing off the frame edges
-            o["pos"] = o["pos"] + o["vel"]
-            for ax, lim in ((0, w), (1, h)):
-                if o["pos"][ax] < 0 or o["pos"][ax] + o["size"][ax] > lim:
-                    o["vel"][ax] = -o["vel"][ax]
-                    o["pos"][ax] = np.clip(o["pos"][ax], 0,
-                                           lim - o["size"][ax])
+        img = _draw_and_move(img, objs, xx, yy, h, w)
         frames[f] = np.clip(np.round(img), 0, 255).astype(np.uint8)
     return frames
+
+
+def _smooth_noise(rng, h: int, w: int, width: int = 5,
+                  passes: int = 2) -> np.ndarray:
+    """``(h, w)`` seeded Gaussian noise blurred by ``passes`` box filters of
+    ``width`` pixels along each axis (edges clamped), rescaled to unit
+    standard deviation."""
+    x = rng.normal(0.0, 1.0, (h, w))
+    r = width // 2
+    for _ in range(passes):
+        for ax in (0, 1):
+            pad = [(0, 0), (0, 0)]
+            pad[ax] = (r + 1, r)
+            c = np.cumsum(np.pad(x, pad, mode="edge"), axis=ax)
+            n = x.shape[ax]
+            x = (np.take(c, np.arange(width, width + n), axis=ax)
+                 - np.take(c, np.arange(n), axis=ax)) / width
+    return x / x.std()
+
+
+def panning_rectangles(n_frames: int, hw=(540, 960), n_objects: int = 6,
+                       seed: int = 0, pan: int = 24, texture: float = 24.0,
+                       speed: float = 0.25):
+    """Moving rectangles filmed by a panning camera, for camera-motion
+    compensation: ``(frames (n_frames, H, W, 3) uint8 BGR, shifts (n_frames,
+    2) f32)``.
+
+    The world is ``pan`` pixels wider than the frame: the rectangles of
+    :func:`moving_rectangles`, at ``speed`` times their velocity, over a
+    gradient and a fixed texture (seeded noise, blurred so that 64-pixel
+    blocks correlate, ``texture`` levels standard deviation). The camera's window oscillates between the world's
+    left edge and ``pan`` pixels to the right, a flip every frame, as a
+    shaking camera. ``shifts[i]`` is the true camera motion from frame
+    ``i - 1`` to frame ``i`` in the ``(A, t)`` convention of
+    ``ops/gmc.py`` (``A`` the identity): a point at ``p`` in frame ``i - 1``
+    is at ``p + shifts[i]`` in frame ``i``; ``shifts[0]`` is zero."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    ww = w + pan
+    objs = _objects(rng, n_objects, h, ww)
+    for o in objs:
+        o["vel"] = o["vel"] * speed
+    wy, wx = np.mgrid[0:h, 0:ww].astype(np.float32)
+    world = (rng.uniform(90, 160, 3)
+             + wx[..., None] * rng.uniform(-30, 30, 3) / ww
+             + wy[..., None] * rng.uniform(-30, 30) / h
+             + texture * _smooth_noise(rng, h, ww)[..., None])
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = np.empty((n_frames, h, w, 3), np.uint8)
+    shifts = np.zeros((n_frames, 2), np.float32)
+    off = 0
+    for f in range(n_frames):
+        if f:
+            new = pan if off == 0 else 0
+            shifts[f, 0] = off - new
+            off = new
+        img = world[:, off:off + w] + rng.uniform(-3, 3, (h, w, 1))
+        img = _draw_and_move(img, objs, xx, yy, h, ww, x_off=off)
+        frames[f] = np.clip(np.round(img), 0, 255).astype(np.uint8)
+    return frames, shifts
 
 
 def moving_boxes(n_frames: int, n_objects: int = 6, seed: int = 0,

@@ -11,7 +11,8 @@ this file; exits non-zero otherwise. In order it:
 3. holds each kernel, called through the public wrapper the pipeline calls,
    against its plain PyTorch version on the card, bitwise, at the main
    path's geometries and more (misaligned and ragged shapes, both kernel
-   variants), and times it three ways at three shapes
+   variants, the facades' K=1 frame and 2x2 tiles of a 960x540 frame), and
+   times it three ways at five shapes
    (``device_ms``: a CUDA-graph replay over buffers larger than the L2;
    ``ms``: per call through the wrapper; ``host_ms``: the host's share of a
    call), next to the earlier design (``earlier_ms``, the scalar variant's
@@ -24,25 +25,38 @@ this file; exits non-zero otherwise. In order it:
    ``synthetic_load=24``; checks the kernel launch counts, confirmed tracks
    and finite outputs; prints FPS, per-stage times (CUDA events) and the GPU
    busy share of one more chunk under ``torch.profiler``;
-5. ``[bucket]``: the main path with ``scan_bucket=32`` (the default) and
-   with ``scan_bucket=0`` in turns, at the main path's load and at a light
-   load where the small pass runs: identical track tuples, FPS and tracker
-   ms of both, and the chunks that took the small pass, the skip and the
-   rerun;
+5. ``[bucket]``: the main path with ``scan_bucket=32`` (the default), then
+   with ``scan_bucket=0``, at the main path's load and at a light load where
+   the small pass runs: identical track tuples, FPS and tracker ms of both,
+   and the chunks that took the small pass, the skip and the rerun;
 6. ``[trackers]``: ByteTrack, BoT-SORT, OC-SORT, Deep OC-SORT and the
-   StrongSORT preset (``gmc="off"``) at full width, 32 frames each with the
-   cores' thresholds lowered to 0.4 so that the synthetic grid (conf 0.5)
-   starts tracks: FPS, tracker ms and host syncs per frame, tracks emitted,
-   the kernel once per chunk; then the first 16 frames on the card in f32
-   (TF32 off) against the plain CPU path;
-7. ``[cli]``: writes the 64 frames to a ``.npy`` in a temporary directory
+   StrongSORT preset (its default ``gmc="affine"``) at full width, 16
+   frames each with the cores' thresholds lowered to 0.4 so that the
+   synthetic grid (conf 0.5) starts tracks: FPS, tracker ms and host syncs
+   per frame, tracks emitted, the kernel once per chunk; then the same 16
+   frames on the card in f32 (TF32 off) against the plain CPU path;
+7. ``[gmc]``: a seeded panning scene (``scenes.panning_rectangles``, 32
+   frames at 960x540): ``estimate_chunk`` on the card with CUDA's sync debug
+   mode set to "error" (no read back), against the CPU (A within 1e-4, t
+   within 1e-2 px) and against the true camera shift (within 0.5 px), its
+   time per chunk; then the pipeline with ``gmc="affine"`` and without for
+   DeepSORT, ByteTrack and OC-SORT: FPS, the ``gmc`` stage ms, distinct ids
+   per object;
+8. ``[facades]``: the reference loop ``YOLODetector.detect`` ->
+   ``<facade>.update`` for DeepSORT, StrongSORT, ByteTrack, BoT-SORT,
+   OC-SORT and Deep OC-SORT, 32 frames each at full width: FPS, syncs per
+   frame, the kernel once per frame; one ``detect_tiled`` frame (two
+   launches); then 8 frames through every facade on the card in f32 against
+   the CPU (identical tuples);
+9. ``[cli]``: writes the 64 frames to a ``.npy`` in a temporary directory
    and runs ``aicamera_tpu_torch.cli.main`` on it on the card with
    ``--no_save --profile --checkpoint``, then a ``--resume`` run of 16
-   frames: frame counts, tracks, the checkpoint file, the kernel once per
+   frames, then ``--tracker strongsort`` (its default ``--gmc affine``) for
+   16 frames: frame counts, tracks, the checkpoint file, the kernel once per
    chunk;
-8. ``[compare]``: runs the first chunks through the card in f32 (TF32 off)
-   and through the plain CPU path, and at chunk 4 against chunk 8 on the
-   card, and compares detections and track tuples.
+10. ``[compare]``: runs the first chunks through the card in f32 (TF32 off)
+    and through the plain CPU path, and at chunk 4 against chunk 8 on the
+    card, and compares detections and track tuples.
 
 The last two lines of output are the kernels' JSON record and the device
 JSON record. ``--kernels-only`` stops after step 3.
@@ -66,7 +80,10 @@ N_CHUNKS = 8          # main-path chunks (the first two are also compared)
 CHUNK = 8
 FRAME_HW = (540, 960)
 COMPARE_CHUNKS = 2
-TRACKER_CHUNKS = 4    # frames of each tracker in the [trackers] phase / CHUNK
+TRACKER_CHUNKS = 2    # frames of each tracker in the [trackers] phase / CHUNK
+GMC_CHUNKS = 4        # frames of the panning scene in the [gmc] phase / CHUNK
+FACADE_FRAMES = 32    # frames of each facade in the [facades] phase
+FACADE_COMPARE = 8    # of them, compared card f32 against the CPU
 WARM_UP_ITERS = 2     # chunk steps of TrackingPipeline.warm_up
 SEED = 0
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -87,6 +104,15 @@ def bench_shapes():
     import torch
     return [((540, 960), torch.bfloat16), ((1080, 1920), torch.bfloat16),
             ((540, 960), torch.float32)]
+
+
+def facade_shapes():
+    """(path, src_hw, K) of the facades' letterbox launches on a 960x540
+    frame: ``detect`` at K=1, ``detect_tiled``'s 2x2 tiles (its full frame
+    is the K=1 launch)."""
+    from aicamera_tpu_torch.ops.tiling import tile_layout
+    origins, tile_hw = tile_layout(FRAME_HW, (2, 2), 0.2)
+    return [("detect", FRAME_HW, 1), ("detect_tiled", tile_hw, len(origins))]
 
 
 class SmokeFailure(Exception):
@@ -316,6 +342,27 @@ def kernel_phase(device):
         frames = random_frames(3, src)
         for dt in dtypes:
             hold(frames, spec, dt, want="vector")
+    # the facades' launches, the tiles cut from a frame as detect_tiled does
+    from aicamera_tpu_torch.ops.tiling import extract_tiles, tile_layout
+    origins, tile_hw = tile_layout(FRAME_HW, (2, 2), 0.2)
+    for path, src, k in facade_shapes():
+        spec = letterbox_spec(src, (640, 640))
+        frames = random_frames(k, src) if path == "detect" else extract_tiles(
+            random_frames(1, FRAME_HW)[0], origins, tile_hw)
+        for dt in dtypes:
+            want = lb.launch_plan(spec, k, dt,
+                                  frames.data_ptr() % 16 == 0).variant
+            hold(frames, spec, dt, want=want)
+    # the public single-frame preprocess is the kernel on a CUDA tensor
+    from aicamera_tpu_torch.ops.preprocess import preprocess_yolo
+    spec = letterbox_spec(FRAME_HW, (640, 640))
+    frame = random_frames(1, FRAME_HW)[0]
+    before = lb.KERNEL.launches
+    out = preprocess_yolo(frame, spec)
+    check(lb.KERNEL.launches == before + 1,
+          "preprocess_yolo on a CUDA tensor did not launch the kernel")
+    check(torch.equal(out, lb.letterbox_plain(frame[None], spec).permute(
+        0, 2, 3, 1)), "preprocess_yolo != the plain version")
     # an aligned shape at a pointer off the 16-byte grid
     spec = letterbox_spec(FRAME_HW, (640, 640))
     n = 2 * FRAME_HW[0] * FRAME_HW[1] * 3
@@ -331,7 +378,9 @@ def kernel_phase(device):
           f"f32/bf16 as the pipeline calls it, the same forced to the "
           f"scalar variant, "
           f"{len(MISALIGNED_GEOMETRIES)} misaligned and "
-          f"{len(RAGGED_GEOMETRIES)} ragged shapes, one unaligned pointer)")
+          f"{len(RAGGED_GEOMETRIES)} ragged shapes, the facades' K=1 frame "
+          f"and 2x2 tiles, one unaligned pointer); preprocess_yolo on a CUDA "
+          f"frame launched it once")
 
     # timing: the main path's shape first (960x540 -> 640x640, K=8, bf16)
     def scalar_call(frames, spec, dt):
@@ -357,6 +406,13 @@ def kernel_phase(device):
         e = measure_letterbox(scalar_call, src, dt, device, gen)
         report("scalar variant", e)
         r["earlier_ms"] = e["device_ms"]
+        rows.append(r)
+    for path, src, k in facade_shapes():
+        r = measure_letterbox(lb.letterbox, src, torch.bfloat16, device, gen,
+                              k=k)
+        r["plan"] = repr(lb.KERNEL.last_plan)
+        r["path"] = path
+        report(f"{path}, {lb.KERNEL.last_plan.variant} variant", r)
         rows.append(r)
     main = rows[0]
     spec = letterbox_spec(FRAME_HW, (640, 640))
@@ -402,8 +458,8 @@ def sync_counters():
 def counted_run(pipe, frames, kernels, timed=False):
     """One run of a path with every launch and sync count set to 0 just
     before and read just after. Returns ``(results, wall seconds, launches by
-    kernel, syncs by counter, tracker ms per frame or None)``; ``timed`` puts
-    CUDA events at the stage boundaries."""
+    kernel, syncs by counter, ms per chunk by stage or None)``; ``timed``
+    puts CUDA events at the stage boundaries."""
     import torch
     from aicamera_tpu_torch.runtime.pipeline import CudaStageTimer
     counters = sync_counters()
@@ -419,13 +475,14 @@ def counted_run(pipe, frames, kernels, timed=False):
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
     syncs = {name: c.count for name, c in counters.items()}
-    tracker_ms = None
+    stage_ms = None
     if timed:
-        tracker_ms = pipe.stage_timer.totals["tracker"] / len(frames)
+        stage_ms = {s: v / pipe.stage_timer.chunks
+                    for s, v in pipe.stage_timer.totals.items()}
         pipe.stage_timer = None
     check(len(results) == len(frames),
           f"{len(results)} results for {len(frames)} frames")
-    return results, wall, launches, syncs, tracker_ms
+    return results, wall, launches, syncs, stage_ms
 
 
 def check_launches(launches, n_chunks, what):
@@ -499,11 +556,11 @@ def main_path_phase(device, frames, kernels):
 
 
 def bucket_phase(device, frames, kernels):
-    """``scan_bucket=32`` against ``scan_bucket=0`` in one call, in turns
-    (32, 0, 0, 32), at the main path's load (24 synthetic boxes a frame, more
-    live tracks than the small pass admits) and at a light load (8, where
-    the small pass runs every chunk): identical track tuples, and the FPS
-    and tracker ms of both."""
+    """``scan_bucket=32`` against ``scan_bucket=0`` in one call, one run
+    each, at the main path's load (24 synthetic boxes a frame, more live
+    tracks than the small pass admits) and at a light load (8, where the
+    small pass runs every chunk): identical track tuples, and the FPS and
+    tracker ms of both."""
     launches = {}
     for load in (24, 8):
         pipes = {b: make_pipeline(device, synthetic_load=load, scan_bucket=b)
@@ -511,12 +568,13 @@ def bucket_phase(device, frames, kernels):
         for p in pipes.values():
             p.warm_up(FRAME_HW)
         runs = {32: [], 0: []}
-        for b in (32, 0, 0, 32):
+        for b in (32, 0):
             pipes[b].reset()
-            res, wall, launches, syncs, trk_ms = counted_run(
+            res, wall, launches, syncs, stage_ms = counted_run(
                 pipes[b], frames, kernels, timed=True)
             check_launches(launches, N_CHUNKS, f"bucket phase ({b})")
-            runs[b].append((res, len(frames) / wall, trk_ms, syncs,
+            runs[b].append((res, len(frames) / wall,
+                            stage_ms["tracker"] / CHUNK, syncs,
                             dict(pipes[b].scan_stats)))
         ref = runs[0][0][0]
         for b in (32, 0):
@@ -540,7 +598,7 @@ def bucket_phase(device, frames, kernels):
                   + f", syncs per frame: "
                   f"{syncs_line(runs[b][0][3], len(frames))}")
         print(f"[bucket] load {load}: chunks by way {stats}; track tuples "
-              f"identical over {len(frames)} frames in all four runs "
+              f"identical over {len(frames)} frames in both runs "
               f"({summarize(ref)[0]} track outputs)")
     return launches
 
@@ -559,7 +617,7 @@ def tracker_configs():
         "ocsort": dict(ocsort_params=OCSortParams(det_thresh=0.4)),
         "deepocsort": dict(ocsort_params=OCSortParams(
             det_thresh=0.4, with_appearance=True)),
-        "strongsort": dict(gmc="off"),
+        "strongsort": dict(),   # the preset's default gmc="affine"
     }
 
 
@@ -580,11 +638,14 @@ def trackers_phase(device, frames, kernels):
         check(n_tracks > 0, f"tracker {name} emitted no track")
         stats = dict(pipe.scan_stats)
         pipe.reset()
-        _, _, _, _, trk_ms = counted_run(pipe, sub, kernels, timed=True)
+        stage_ms = counted_run(pipe, sub, kernels, timed=True)[4]
+        gmc = (f", gmc {pipe.gmc_method} {stage_ms['gmc']:.3f} ms per chunk"
+               if pipe.gmc_method else "")
         print(f"[trackers] {name}: {len(sub)} frames, {len(sub) / wall:.2f} "
-              f"FPS, tracker {trk_ms:.3f} ms per frame, syncs per frame: "
-              f"{syncs_line(syncs, len(sub))}; track outputs {n_tracks}, "
-              f"distinct ids {n_ids}, chunks {stats}, launches "
+              f"FPS, tracker {stage_ms['tracker'] / CHUNK:.3f} ms per "
+              f"frame{gmc}, syncs per "
+              f"frame: {syncs_line(syncs, len(sub))}; track outputs "
+              f"{n_tracks}, distinct ids {n_ids}, chunks {stats}, launches "
               f"{launches} (one per chunk)")
         compare_runs(
             f"trackers] {name}",
@@ -594,6 +655,181 @@ def trackers_phase(device, frames, kernels):
             list(make_pipeline("cpu", tracker=name, **kw).process_frames(
                 iter(sub[:COMPARE_CHUNKS * CHUNK]))), "CPU")
     return by_tracker
+
+
+def gmc_phase(device, kernels):
+    """Camera-motion compensation on a panning scene: the estimate on the
+    card against the CPU and the true shift, with no read back; then the
+    pipeline with and without it for the three cores."""
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch.ops import gmc
+    from aicamera_tpu_torch.scenes import panning_rectangles
+
+    n_obj = 6
+    frames, shifts = panning_rectangles(GMC_CHUNKS * CHUNK, FRAME_HW,
+                                        n_objects=n_obj, seed=SEED)
+    spec = gmc.gmc_spec(FRAME_HW)
+    centre = torch.tensor([FRAME_HW[1] / 2.0, FRAME_HW[0] / 2.0])
+    f_gpu = torch.from_numpy(frames).to(device)
+    gmc.estimate_chunk(f_gpu[0], f_gpu[:CHUNK], spec)  # FFT plans
+    torch.cuda.synchronize()
+    err_a = err_t = err_true = err_centre = 0.0
+    for c in range(GMC_CHUNKS):
+        lo = c * CHUNK
+        prev = lo - 1 if c else 0
+        torch.cuda.set_sync_debug_mode("error")  # a read back raises
+        try:
+            a, t = gmc.estimate_chunk(f_gpu[prev], f_gpu[lo:lo + CHUNK],
+                                      spec)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        a_cpu, t_cpu = gmc.estimate_chunk(
+            torch.from_numpy(frames[prev]),
+            torch.from_numpy(frames[lo:lo + CHUNK]), spec)
+        a, t = a.cpu(), t.cpu()
+        err_a = max(err_a, float((a - a_cpu).abs().max()))
+        err_t = max(err_t, float((t - t_cpu).abs().max()))
+        true = torch.from_numpy(shifts[lo:lo + CHUNK])
+        err_true = max(err_true, float((t - true).abs().max()))
+        err_centre = max(err_centre, float(
+            (a @ centre + t - centre - true).abs().max()))
+    check(err_a <= 1e-4 and err_t <= 1e-2, f"gmc on the card vs the CPU: "
+          f"A {err_a}, t {err_t} px")
+    check(err_true <= 0.5 and err_centre <= 0.5,
+          f"gmc vs the true shift: t {err_true} px, centre {err_centre} px")
+    est_ms = time_ms(lambda: gmc.estimate_chunk(f_gpu[0], f_gpu[:CHUNK],
+                                                spec), iters=20)
+    print(f"[gmc] estimate_chunk on {GMC_CHUNKS} chunks of {CHUNK} panning "
+          f"{FRAME_HW[1]}x{FRAME_HW[0]} frames (pool {spec.pool}, "
+          f"{spec.n_blocks} blocks of {spec.block} px): card vs CPU max "
+          f"|dA| {err_a:.3g} (tolerance 1e-4), |dt| {err_t:.3g} px "
+          f"(1e-2); vs the true shift max |dt| {err_true:.3f} px, frame "
+          f"centre {err_centre:.3f} px (0.5); reads back 0 per chunk (sync "
+          f"debug mode 'error'); {est_ms:.3f} ms per chunk")
+
+    launches = {}
+    for name in ("deepsort", "bytetrack", "ocsort"):
+        line = []
+        for mode in ("affine", "off"):
+            pipe = make_pipeline(device, synthetic_load=0, tracker=name,
+                                 gmc=mode)
+            pipe.warm_up(FRAME_HW)
+            res, wall, counts, _, stage_ms = counted_run(
+                pipe, frames, kernels, timed=True)
+            check_launches(counts, GMC_CHUNKS, f"gmc {name} {mode}")
+            n_tracks, n_ids = summarize(res)
+            check(n_tracks > 0, f"gmc {name} {mode}: no track")
+            line.append(f"{mode}: {len(frames) / wall:.2f} FPS, gmc "
+                        f"{stage_ms['gmc']:.3f} ms per chunk, "
+                        f"{n_ids / n_obj:.2f} ids per object, {n_tracks} "
+                        f"track outputs")
+            if mode == "affine":
+                launches[name] = counts
+        print(f"[gmc] {name} on the panning scene ({len(frames)} frames, "
+              f"{n_obj} objects, real detections only): " + "; ".join(line))
+    return launches
+
+
+def facade_configs():
+    """``{name: (facade class, keywords)}``: the six tracker facades at
+    their defaults with the committed ReID weights."""
+    import aicamera_tpu_torch as port
+    from aicamera_tpu_torch import config
+    reid = dict(reid_model_path=str(config.REID_SYNTHETIC_PATH))
+    return {"DeepSORT": (port.DeepSORT, reid),
+            "StrongSORT": (port.StrongSORT, reid),
+            "ByteTrack": (port.ByteTrack, {}),
+            "BoTSORT": (port.BoTSORT, reid),
+            "OCSort": (port.OCSort, {}),
+            "DeepOCSort": (port.DeepOCSort, reid)}
+
+
+def facades_phase(device, frames, kernels):
+    """The reference API's per-frame loop, ``YOLODetector.detect`` ->
+    ``<facade>.update``, for the six tracker facades at full width; one
+    ``detect_tiled`` frame; then card f32 against the CPU."""
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.detector import YOLODetector
+
+    def quiet(make):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return make()
+
+    yolo = str(config.YOLO_SYNTHETIC_PATH)
+    counters = sync_counters()
+    det = quiet(lambda: YOLODetector(yolo, device=device))
+    det.warm_up(FRAME_HW, iters=2)
+    sub = frames[:FACADE_FRAMES]
+    launches = {}
+    for name, (cls, kw) in facade_configs().items():
+        tracker = quiet(lambda: cls(device=device, **kw))
+        tracker.update(*det.detect(sub[0])[:3], sub[0])  # warm-up
+        tracker.reset()
+        for k in kernels:
+            k.launches = 0
+        for c in counters.values():
+            c.count = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [tracker.update(*det.detect(f)[:3], f) for f in sub]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = {k.name: k.launches for k in kernels}
+        check_launches(launches[name], len(sub), f"facade {name} (detect "
+                       f"calls)")
+        n_tracks = sum(map(len, outs))
+        check(n_tracks > 0, f"facade {name} emitted no track")
+        check(all(np.isfinite(t[:4]).all() and np.isfinite(t[6])
+                  for o in outs for t in o), f"facade {name}: non-finite")
+        syncs = {n: c.count for n, c in counters.items()}
+        print(f"[facades] {name}: {len(sub)} frames, {len(sub) / wall:.2f} "
+              f"FPS (detect + update), syncs per frame: "
+              f"{syncs_line(syncs, len(sub))} (plus the reads of the "
+              f"detections and the tuples); track outputs {n_tracks}, "
+              f"distinct ids {len({t[4] for o in outs for t in o})}; "
+              f"launches {launches[name]} (one per detect call)")
+    for k in kernels:
+        k.launches = 0
+    tiled = det.detect_tiled(sub[0])
+    launches["detect_tiled"] = {k.name: k.launches for k in kernels}
+    check_launches(launches["detect_tiled"], 2, "detect_tiled (one frame)")
+    print(f"[facades] detect_tiled 2x2 + full frame: {len(tiled[0])} "
+          f"detections (detect: {len(det.detect(sub[0])[0])}); launches 2")
+
+    # card f32 (TF32 off) against the CPU: the same frames through both
+    # detectors, each facade fed by its own device's detections
+    f32 = dict(detect_dtype="f32")
+    gpu_det = quiet(lambda: YOLODetector(yolo, device=device, **f32))
+    cpu_det = quiet(lambda: YOLODetector(yolo, device="cpu"))
+    cmp = sub[:FACADE_COMPARE]
+    dets_gpu = [gpu_det.detect(f)[:3] for f in cmp]
+    dets_cpu = [cpu_det.detect(f)[:3] for f in cmp]
+    for g, c in zip(dets_gpu, dets_cpu):
+        check(len(g[0]) == len(c[0]) and np.array_equal(g[2], c[2]),
+              "facade detections: card f32 vs CPU counts or labels differ")
+        check(np.abs(g[0] - c[0]).max(initial=0) <= 1e-2,
+              "facade detection boxes differ by more than 1e-2 px")
+    total = 0
+    for name, (cls, kw) in facade_configs().items():
+        kw = dict(kw, reid_dtype="f32") if kw else kw
+        tr_g = quiet(lambda: cls(device=device, **kw))
+        tr_c = quiet(lambda: cls(device="cpu", **kw))
+        for f, dg, dc in zip(cmp, dets_gpu, dets_cpu):
+            og, oc = tr_g.update(*dg, f), tr_c.update(*dc, f)
+            check([t[:6] for t in og] == [t[:6] for t in oc],
+                  f"facade {name}: card f32 {og} vs CPU {oc}")
+            check(all(abs(a[6] - b[6]) <= 1e-4 for a, b in zip(og, oc)),
+                  f"facade {name}: conf differs")
+            total += len(og)
+    check(total > 0, "facades: no track to compare")
+    print(f"[facades] {len(cmp)} frames through all six facades, card f32 "
+          f"(TF32 off) vs CPU: detection counts and labels identical, "
+          f"{total} track tuples identical in ids, classes and boxes, conf "
+          f"within 1e-4")
+    return launches
 
 
 def cli_phase(frames, kernels):
@@ -639,10 +875,16 @@ def cli_phase(frames, kernels):
         check(f"Resumed tracker state from {ckpt}" in text
               and "Processed 16 frames" in text, "the resumed run")
         check_launches(resumed, 16 // CHUNK + WARM_UP_ITERS, "cli --resume")
+        text, strong = run(["--input", str(clip), "--no_save", "--tracker",
+                            "strongsort", "--max_frames", "16", *weights])
+        check("Processed 16 frames" in text, "the strongsort run")
+        check_launches(strong, 16 // CHUNK + WARM_UP_ITERS,
+                       "cli --tracker strongsort")
     print(f"[cli] {n} frames through aicamera_tpu_torch.cli on the card: "
           f"{avg} tracks per frame, checkpoint with next_id "
           f"{int(state.next_id)} written and resumed for 16 frames; "
-          f"launches {launches} and {resumed} (one per chunk, "
+          f"--tracker strongsort (default --gmc affine) for 16 frames; "
+          f"launches {launches}, {resumed} and {strong} (one per chunk, "
           f"{WARM_UP_ITERS} warm-up chunks each)")
     return launches
 
@@ -749,6 +991,7 @@ def main() -> int:
     from aicamera_tpu_torch.scenes import moving_rectangles
 
     kernels = [LETTERBOX]
+    t_start = time.perf_counter()
     try:
         ident = gpu_identity()
         print(f"[gpu] {ident}")
@@ -767,6 +1010,8 @@ def main() -> int:
         by_path = {"main": launches,
                    "bucket": bucket_phase(device, frames, kernels),
                    "trackers": trackers_phase(device, frames, kernels),
+                   "gmc": gmc_phase(device, kernels),
+                   "facades": facades_phase(device, frames, kernels),
                    "cli": cli_phase(frames, kernels)}
         compare_phase(frames)
     except SmokeFailure as e:
@@ -774,11 +1019,14 @@ def main() -> int:
         return 1
     record["launches"] = launches[record["name"]]
     # the other paths, each counted from 0: bucket (its last run), every
-    # tracker, the CLI (warm-up chunks included)
+    # tracker, the GMC pipelines, every facade (one launch per detect call;
+    # detect_tiled two), the CLI (warm-up chunks included)
     record["launches_by_path"] = {
         path: ({t: v[record["name"]] for t, v in counts.items()}
-               if path == "trackers" else counts[record["name"]])
+               if path in ("trackers", "gmc", "facades")
+               else counts[record["name"]])
         for path, counts in by_path.items()}
+    print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(ident)  # name, power limit: as nvidia-smi prints them
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {

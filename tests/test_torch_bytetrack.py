@@ -175,11 +175,22 @@ def test_make_detections_matches_jax():
 
 
 def test_gmc_argument_is_not_ported():
+    """The ``gmc`` argument is ported now (``tests/test_torch_gmc_tracking.py``
+    holds it against JAX): the identity camera leaves a step bitwise as it
+    is without one."""
     tp = tbt.ByteTrackParams(**SMALL)
-    dets = tbt.make_detections(np.zeros((0, 4)), [], [], params=tp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbt.step(tbt.init_state(tp), dets, tp,
-                 gmc=(torch.eye(2), torch.zeros(2)))
+    scene = moving_boxes(3, seed=5)
+    st = st_gmc = tbt.init_state(tp)
+    for xyxy, score, cls in scene:
+        dets = tbt.make_detections(_tlwh(xyxy[:16]), score[:16], cls[:16],
+                                   params=tp)
+        st = tbt.step(st, dets, tp)
+        st_gmc = tbt.step(st_gmc, dets, tp,
+                          gmc=(torch.eye(2), torch.zeros(2)))
+    assert st.active.any()
+    for f in dataclasses.fields(st):
+        a, b = getattr(st, f.name), getattr(st_gmc, f.name)
+        assert (a is None and b is None) or torch.equal(a, b), f.name
     assert tbt.ByteTrackParams().new_track_thresh == pytest.approx(0.6)
     assert jnp.float32(jbt.ByteTrackParams().new_track_thresh) == \
         jnp.float32(tbt.ByteTrackParams().new_track_thresh)

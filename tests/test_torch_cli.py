@@ -98,6 +98,27 @@ def test_main_prints_what_the_pipeline_gives(clip, capsys, tracker):
            f"{N_FRAMES} frames)" in text
 
 
+@pytest.mark.parametrize("flags,tracker,gmc", [
+    (["--tracker", "strongsort"], "strongsort", None),
+    (["--gmc", "affine"], "deepsort", "affine"),
+    (["--tracker", "ocsort", "--gmc", "translation"], "ocsort",
+     "translation")])
+def test_gmc_and_strongsort_default_run(clip, capsys, flags, tracker, gmc):
+    """Camera-motion compensation is ported: ``--gmc affine|translation``
+    and a bare ``--tracker strongsort`` (its preset turns on ``affine``) run
+    and print what the pipeline gives with the same ``gmc``."""
+    cli.main(_run(clip, *flags))
+    text = capsys.readouterr().out
+    pipe = TrackingPipeline(
+        input_shape=(128, 128), chunk_size=2, tracker=tracker, gmc=gmc,
+        yolo_weights=WEIGHTS[1], reid_weights=WEIGHTS[3], device="cpu")
+    assert pipe.gmc_method == (gmc or "affine")
+    frames = np.load(clip)
+    n_tracks = sum(len(r.tracks) for r in pipe.process_frames(iter(frames)))
+    assert f"Processed {N_FRAMES} frames in" in text
+    assert f"Average tracks per frame: {n_tracks / N_FRAMES:.1f}\n" in text
+
+
 @pytest.mark.parametrize("tracker", ["deepsort", "bytetrack", "deepocsort"])
 def test_checkpoint_then_resume(clip, tmp_path, capsys, tracker):
     """As the JAX package's CLI test: periodic and final snapshots, then a
@@ -135,9 +156,12 @@ def test_checkpoint_then_resume(clip, tmp_path, capsys, tracker):
     (["--no_save", "--show_display"], "--show_display"),
     (["--no_save", "--draw_detections"], "--draw_detections"),
     (["--no_save", "--native_io"], "--native_io"),
-    (["--no_save", "--gmc", "affine"], "--gmc affine"),
-    (["--no_save", "--gmc", "translation"], "--gmc translation"),
-    (["--no_save", "--tracker", "strongsort"], "--tracker strongsort"),
+    # (--gmc affine|translation and a bare --tracker strongsort run now:
+    # test_gmc_and_strongsort_default_run)
+    (["--no_save", "--yolo_weights", "m.onnx"], "ONNX"),
+    (["--no_save", "--reid_weights", "m.onnx"], "ONNX"),
+    (["--no_save", "--native_io", "--draw_detections"],
+     "--draw_detections"),
     (["--no_save", "--reid_quant", "int8"], "--reid_quant int8"),
     (["--no_save", "--yolo_quant", "int8"], "--yolo_quant int8"),
 ])

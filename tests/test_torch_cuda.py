@@ -138,7 +138,8 @@ def test_pipeline_launches_the_kernel_once_per_chunk(cuda):
 def test_tracker_on_the_card_matches_the_cpu_path(cuda, tracker):
     """Each tracker core, card f32 (TF32 off) against the CPU path on the
     same frames: counts, labels and track tuples identical, boxes within
-    1e-2 px, conf within 1e-4; the kernel runs once per chunk."""
+    1e-2 px, conf within 1e-4; the kernel runs once per chunk. StrongSORT
+    runs its preset's camera-motion compensation."""
     from aicamera_tpu_torch import config
     from aicamera_tpu_torch.core.bytetrack import ByteTrackParams
     from aicamera_tpu_torch.core.ocsort import OCSortParams
@@ -155,8 +156,6 @@ def test_tracker_on_the_card_matches_the_cpu_path(cuda, tracker):
                                                  **app)
     elif tracker in ("ocsort", "deepocsort"):
         kw["ocsort_params"] = OCSortParams(det_thresh=0.4, **cap, **app)
-    else:
-        kw["gmc"] = "off"
     frames = moving_rectangles(6, (180, 320), n_objects=3, seed=3)
     launches = lb.KERNEL.launches
     gpu = list(TrackingPipeline(detect_dtype="f32", reid_dtype="f32",
@@ -172,3 +171,63 @@ def test_tracker_on_the_card_matches_the_cpu_path(cuda, tracker):
         assert [t[:6] for t in g.tracks] == [t[:6] for t in c.tracks]
         for tg, tc in zip(g.tracks, c.tracks):
             assert abs(tg[6] - tc[6]) <= 1e-4
+
+
+def test_preprocess_yolo_launches_the_kernel(cuda):
+    """The public single-frame preprocess on a CUDA tensor is the kernel (one
+    launch), bitwise equal to the plain version in the JAX layout."""
+    from aicamera_tpu_torch.ops.preprocess import preprocess_yolo
+    spec = letterbox_spec((540, 960), (640, 640))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    frame = torch.randint(0, 256, (540, 960, 3), dtype=torch.uint8,
+                          device=cuda, generator=gen)
+    launches = lb.KERNEL.launches
+    out = preprocess_yolo(frame, spec)
+    assert lb.KERNEL.launches == launches + 1
+    ref = lb.letterbox_plain(frame[None], spec).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 640, 640, 3) and torch.equal(out, ref)
+
+
+def test_detector_launches_the_kernel_per_call(cuda):
+    """``detect``: one launch (K=1); ``detect_tiled``: two (the tiles, then
+    the full frame); card f32 against the CPU facade: identical counts and
+    labels, boxes within 1e-2 px, scores within 1e-4."""
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.detector import YOLODetector
+    from aicamera_tpu_torch.scenes import moving_rectangles
+    kw = dict(input_shape=(256, 256), detect_dtype="f32")
+    gpu = YOLODetector(str(config.YOLO_SYNTHETIC_PATH), **kw)
+    cpu = YOLODetector(str(config.YOLO_SYNTHETIC_PATH), device="cpu", **kw)
+    frame = moving_rectangles(1, (180, 320), n_objects=3, seed=3)[0]
+    for call, n in (("detect", 1), ("detect_tiled", 2)):
+        launches = lb.KERNEL.launches
+        g = getattr(gpu, call)(frame)
+        assert lb.KERNEL.launches == launches + n
+        c = getattr(cpu, call)(frame)
+        assert len(g[0]) == len(c[0]) > 0
+        np.testing.assert_array_equal(g[2], c[2])
+        np.testing.assert_allclose(g[0], c[0], atol=1e-2)
+        np.testing.assert_allclose(g[1], c[1], atol=1e-4)
+
+
+def test_gmc_on_the_card_matches_the_cpu_without_a_sync(cuda):
+    """``estimate_chunk`` on the card reads nothing back (sync debug mode
+    "error" raises on any synchronizing call) and agrees with the CPU: A
+    within 1e-4, t within 1e-2 px."""
+    from aicamera_tpu_torch.ops import gmc
+    from aicamera_tpu_torch.scenes import panning_rectangles
+    frames, _ = panning_rectangles(5, (540, 960), seed=1)
+    spec = gmc.gmc_spec((540, 960))
+    f_gpu = torch.from_numpy(frames).to(cuda)
+    gmc.estimate_chunk(f_gpu[0], f_gpu, spec)  # plans and workspaces
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, t = gmc.estimate_chunk(f_gpu[0], f_gpu, spec)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    a_cpu, t_cpu = gmc.estimate_chunk(torch.from_numpy(frames[0]),
+                                      torch.from_numpy(frames), spec)
+    np.testing.assert_allclose(a.cpu().numpy(), a_cpu.numpy(), atol=1e-4)
+    np.testing.assert_allclose(t.cpu().numpy(), t_cpu.numpy(), atol=1e-2)

@@ -207,11 +207,25 @@ def test_adaptive_weights_match_jax():
 
 
 def test_gmc_argument_is_not_ported():
+    """The ``gmc`` argument is ported now (``tests/test_torch_gmc_tracking.py``
+    holds it against JAX): the identity camera leaves a step bitwise as it
+    is without one, but for the momentum direction, which the warp
+    renormalizes (the core stores ``d / (|d| + 1e-6)``): within 1e-6."""
     tp = toc.OCSortParams(**SMALL)
-    dets = toc.make_detections(np.zeros((0, 4)), [], [], params=tp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toc.step(toc.init_state(tp), dets, tp,
-                 gmc=(torch.eye(2), torch.zeros(2)))
+    st = st_gmc = toc.init_state(tp)
+    for xyxy, score, cls in moving_boxes(4, seed=5):
+        dets = toc.make_detections(xyxy[:16], score[:16], cls[:16],
+                                   params=tp)
+        st = toc.step(st, dets, tp)
+        st_gmc = toc.step(st_gmc, dets, tp,
+                          gmc=(torch.eye(2), torch.zeros(2)))
+    assert st.active.any()
+    for name, a in vars(st).items():
+        b = getattr(st_gmc, name)
+        if name == "velocity":
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+            continue
+        assert (a is None and b is None) or torch.equal(a, b), name
     with pytest.raises(ValueError, match="exceed capacity"):
         toc.make_detections(np.zeros((17, 4)), np.zeros(17), np.zeros(17),
                             params=tp)

@@ -189,7 +189,10 @@ def _imported_roots(path: Path):
 # modules the scan and the blocked import below must reach
 MUST_COVER = ("cli.py", "utils/__init__.py", "utils/video_io.py",
               "core/bytetrack.py", "core/ocsort.py", "runtime/checkpoint.py",
-              "runtime/profiler.py", "runtime/pipeline.py")
+              "runtime/profiler.py", "runtime/pipeline.py", "detector.py",
+              "tracker_api.py", "bytetrack_api.py", "botsort_api.py",
+              "ocsort_api.py", "deepocsort_api.py", "strongsort_api.py",
+              "ops/gmc.py", "ops/tiling.py")
 
 
 def test_source_scan_finds_no_forbidden_import():

@@ -201,7 +201,10 @@ def test_entry_point_defaults_to_the_gpu():
         TrackingPipeline(input_shape=INPUT_HW)
 
 
-@pytest.mark.parametrize("kw", [dict(tracker="strongsort"), dict(gmc="affine"),
+# (strongsort's default gmc="affine" and gmc= itself run now:
+# tests/test_torch_gmc_tracking.py)
+@pytest.mark.parametrize("kw", [dict(yolo_weights="m.onnx"),
+                                dict(reid_weights="m.onnx"),
                                 dict(reid_quant="int8"),
                                 dict(yolo_quant="int8")])
 def test_unported_options_raise(kw):
