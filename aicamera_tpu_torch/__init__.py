@@ -2,13 +2,17 @@
 H100.
 
 Same layout as the JAX package (``cli``, ``config``, ``utils``, ``ops``,
-``models``, ``core``, ``runtime``) plus ``csrc/`` for the hand-written CUDA
-kernels. The package imports PyTorch, numpy and the standard library only,
-never JAX or the JAX package. Entry points (``cli.main``,
-``runtime.pipeline.TrackingPipeline``, the reference-API facades
-``YOLODetector``, ``ReIDModel``, ``DeepSORT``, ``StrongSORT``,
-``ByteTrack``, ``BoTSORT``, ``OCSort`` and ``DeepOCSort``) run on the GPU
-unless the caller passes ``device="cpu"`` (``--device cpu``).
+``models``, ``core``, ``runtime``, ``parallel``, ``serving``, ``server``)
+plus ``csrc/`` for the hand-written CUDA kernels. The package imports
+PyTorch, numpy and the standard library only, never JAX or the JAX package.
+Entry points (``cli.main``, ``runtime.pipeline.TrackingPipeline``,
+``parallel.MultiStreamPipeline``, ``serving.TrackingService`` and
+``MultiTenantTrackingService``, ``server.main`` and
+``TrackingHTTPServer``, ``runtime.checkpoint.load_state``, the
+reference-API facades ``YOLODetector``, ``ReIDModel``, ``DeepSORT``,
+``StrongSORT``, ``ByteTrack``, ``BoTSORT``, ``OCSort`` and ``DeepOCSort``)
+run on the GPU unless the caller passes ``device="cpu"`` (``--device
+cpu``).
 """
 
 from . import config  # noqa: F401
@@ -25,6 +29,7 @@ _LAZY_EXPORTS = {
     "OCSort": "aicamera_tpu_torch.ocsort_api",
     "DeepOCSort": "aicamera_tpu_torch.deepocsort_api",
     "TrackingPipeline": "aicamera_tpu_torch.runtime.pipeline",
+    "MultiStreamPipeline": "aicamera_tpu_torch.parallel",
 }
 
 __all__ = ["config", "not_ported", *sorted(_LAZY_EXPORTS)]

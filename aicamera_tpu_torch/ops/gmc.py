@@ -270,13 +270,16 @@ def estimate_chunk(prev_frame_u8: torch.Tensor, frames_u8: torch.Tensor,
                    spec: GMCSpec, method: str = "affine"):
     """Per-frame camera motion across a chunk, batched over its frames.
 
-    ``prev_frame_u8`` ``(H, W, 3)``: the frame before the chunk (for the
-    first chunk of a stream, its own first frame: the estimate is then the
-    identity). ``frames_u8`` ``(K, H, W, 3)``. Returns ``A (K, 2, 2)``,
-    ``t (K, 2)``: frame i-1 -> frame i coordinates."""
-    grays = gray_pooled(torch.cat([prev_frame_u8[None], frames_u8]), spec)
-    blocks = _windowed_blocks(grays, spec)
-    disp, conf = _phase_correlate(blocks[:-1], blocks[1:], spec.block)
+    ``prev_frame_u8`` ``(..., H, W, 3)``: the frame before the chunk (for
+    the first chunk of a stream, its own first frame: the estimate is then
+    the identity). ``frames_u8`` ``(..., K, H, W, 3)``. Returns ``A (..., K,
+    2, 2)``, ``t (..., K, 2)``: frame i-1 -> frame i coordinates. Leading
+    axes (several streams' chunks) are batched too."""
+    grays = gray_pooled(torch.cat([prev_frame_u8.unsqueeze(-4), frames_u8],
+                                  dim=-4), spec)
+    blocks = _windowed_blocks(grays, spec)                # (..., K+1, B, b, b)
+    disp, conf = _phase_correlate(blocks[..., :-1, :, :, :],
+                                  blocks[..., 1:, :, :, :], spec.block)
     return _fit_motion(disp, conf, spec, method)
 
 

@@ -5,7 +5,9 @@ The port of ``aicamera_tpu/runtime/checkpoint.py``. The whole tracker state
 goes into one file, so that a long-running stream survives a restart with its
 track identities. The file format is the JAX package's: the Flax msgpack of
 the state's field dict (``runtime/params.py`` holds the reader and the
-writer), so a checkpoint written by either package loads in the other.
+writer), so a checkpoint written by either package loads in the other; the
+stacked states of several streams are the same dict with a leading stream
+axis on every field.
 """
 
 from __future__ import annotations
@@ -16,15 +18,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import not_ported
 from ..core import bytetrack as _bt
 from ..core import ocsort as _oc
 from ..core.state import init_state
+from ..device import resolve_device
 from .params import load_flax_msgpack, write_flax_msgpack
 
 
 def save_state(path: str | Path, state) -> None:
-    """Write a tracker state (DeepSORT, ByteTrack or OC-SORT) to ``path``.
+    """Write a tracker state (DeepSORT, ByteTrack or OC-SORT; one stream's,
+    or the stacked states of several, ``MultiStreamPipeline.states``) to
+    ``path``.
 
     The write is atomic (a temporary file beside the target, then a rename),
     so a periodic snapshot never leaves a torn file behind if the process
@@ -41,16 +45,17 @@ def save_state(path: str | Path, state) -> None:
 
 
 def load_state(path: str | Path, params, n_streams: int | None = None,
-               device="cpu"):
-    """Load a tracker state onto ``device``; shapes and dtypes must match
-    the given params.
+               device=None):
+    """Load a tracker state onto ``device`` (default the GPU; raises without
+    one, pass ``"cpu"`` there); shapes and dtypes must match the given
+    params.
 
     ``params`` selects the state family: ``TrackerParams`` loads a DeepSORT
     ``TrackerState``, ``ByteTrackParams`` a ``ByteTrackState``,
-    ``OCSortParams`` an ``OCSortState``. ``n_streams`` (stacked per-stream
-    states) is not ported."""
-    if n_streams is not None:
-        raise not_ported("multi-stream tracker state (n_streams)")
+    ``OCSortParams`` an ``OCSortState``. ``n_streams=S`` loads S stacked
+    states: every field with a leading stream axis of S, as
+    ``MultiStreamPipeline.states`` holds them."""
+    device = resolve_device(device)
     if isinstance(params, _bt.ByteTrackParams):
         template = _bt.init_state(params)
     elif isinstance(params, _oc.OCSortParams):
@@ -63,19 +68,31 @@ def load_state(path: str | Path, params, n_streams: int | None = None,
         raise ValueError(
             f"{path} does not hold a {type(template).__name__}: fields "
             f"{sorted(tree) if isinstance(tree, dict) else type(tree)}")
-    fields = {}
-    for name in names:
-        want, got = getattr(template, name), tree[name]
+    fields = {name: None if tree[name] is None
+              else torch.from_numpy(np.array(tree[name]))  # a writable copy
+              for name in names}
+    lead = () if n_streams is None else (int(n_streams),)
+    return state_like(template, fields, lead, device, where=str(path))
+
+
+def state_like(template, fields: dict, lead: tuple, device, where: str):
+    """``fields`` (name -> tensor or None) as a state of ``template``'s
+    family on ``device``, each tensor checked against the template's shape
+    (after the leading axes ``lead``, e.g. ``(S,)`` for stacked streams)
+    and dtype."""
+    out = {}
+    for f in dataclasses.fields(template):
+        want, got = getattr(template, f.name), fields[f.name]
         if (want is None) != (got is None):
-            raise ValueError(f"{path}: field {name} does not match the "
+            raise ValueError(f"{where}: field {f.name} does not match the "
                              f"params (with_appearance differs)")
         if want is None:
-            fields[name] = None
+            out[f.name] = None
             continue
-        got = torch.from_numpy(np.array(got))  # a writable copy
-        if got.shape != want.shape or got.dtype != want.dtype:
+        shape = (*lead, *want.shape)
+        if tuple(got.shape) != shape or got.dtype != want.dtype:
             raise ValueError(
-                f"{path}: field {name} is {got.dtype}{tuple(got.shape)}, "
-                f"the params give {want.dtype}{tuple(want.shape)}")
-        fields[name] = got.to(device)
-    return type(template)(**fields)
+                f"{where}: field {f.name} is {got.dtype}{tuple(got.shape)}, "
+                f"the params give {want.dtype}{shape}")
+        out[f.name] = got.to(device)
+    return type(template)(**out)

@@ -57,6 +57,30 @@ class FrameResult:
     tracks: list              # [(x1, y1, x2, y2, id, class_name, conf), ...]
 
 
+@dataclasses.dataclass(frozen=True)
+class TrackerInputs:
+    """The tracker's inputs for a batch of frames, each ``(B, N, ...)`` over
+    the N detection slots: boxes (xyxy and tlwh), scores, classes, the slot
+    mask, the ReID features and where they exist; and the camera motion per
+    frame, ``(B, 2, 2)`` and ``(B, 2)`` (``None`` without GMC)."""
+    xyxy: torch.Tensor
+    tlwh: torch.Tensor
+    conf: torch.Tensor
+    cls: torch.Tensor
+    valid: torch.Tensor
+    feats: torch.Tensor
+    hasfeat: torch.Tensor
+    gmc_a: torch.Tensor | None = None
+    gmc_t: torch.Tensor | None = None
+
+    def frames(self, lo: int, hi: int) -> "TrackerInputs":
+        """Frames ``lo:hi`` of the batch (views)."""
+        return TrackerInputs(**{
+            f.name: None if getattr(self, f.name) is None
+            else getattr(self, f.name)[lo:hi]
+            for f in dataclasses.fields(self)})
+
+
 @contextlib.contextmanager
 def full_f32():
     """Full-precision f32 convolutions and matmuls (TF32 off) inside."""
@@ -369,7 +393,7 @@ class TrackingPipeline:
             self._nms_score_floor = min(self._nms_score_floor,
                                         core_params.det_thresh)
         self.stage_timer: CudaStageTimer | None = None
-        self._steps = {}
+        self._stages = {}
         self.reset()
 
     def _init_tracker_state(self):
@@ -379,9 +403,23 @@ class TrackingPipeline:
             return oc_core.init_state(self.ocsort_params, self.device)
         return core_state.init_state(self.tracker_params, self.device)
 
-    # --- step construction --------------------------------------------------
+    # --- the chunk step's stages ---------------------------------------------
 
-    def _make_chunk_step(self, frame_hw: Tuple[int, int], k: int):
+    def _make_stages(self, frame_hw: Tuple[int, int]):
+        """The two halves of a chunk step for frames of ``frame_hw``, shared
+        with ``parallel.MultiStreamPipeline``:
+
+        ``detect(frames)``: a batch of ``(B, H, W, 3)`` uint8 frames on the
+        device -> ``(TrackerInputs, det_outs)``: letterbox kernel, YOLOv8,
+        decode+NMS, compaction into the detection slots, the synthetic load
+        and the load-bucketed crop gather + ReID, all batched over B (one
+        ReID bucket for the whole batch).
+
+        ``track(state, inputs, valid)``: one stream's frames through the
+        tracker core, frame by frame, with the capacity-bucketed scan;
+        ``valid[i]`` False leaves the state as it is at frame i (its output
+        lane repeats the unchanged state's outputs). Returns ``(state, outs)``,
+        ``outs`` five tensors shaped ``(len(valid), T, ...)``."""
         spec = letterbox_spec(frame_hw, self.input_shape,
                               auto=self.letterbox_auto)
         kind = self.tracker_kind
@@ -404,17 +442,11 @@ class TrackingPipeline:
                 axis=-1).astype(np.float32)).to(dev)
         buckets = [0] + [b for b in (4, 8, 12, 16, 24) if b < n_crops] \
             + [n_crops]
-        use_gmc = self.gmc_method is not None
-        if use_gmc:
-            gspec = gmc_ops.gmc_spec(frame_hw)
-        fidx = torch.arange(k, device=dev)[:, None]
-
-        def mark(stage):
-            if self.stage_timer is not None:
-                self.stage_timer.mark(stage)
+        mark = self._mark
 
         def compact_dets(num, boxes, scores, labels):
             """Per frame: compact tracker-eligible dets into padded slots."""
+            k = boxes.shape[0]
             present = torch.arange(boxes.shape[1], device=dev)[None] \
                 < num[:, None]
             det_valid = present & (scores >= self.conf_threshold)
@@ -437,6 +469,7 @@ class TrackingPipeline:
             rank = torch.cumsum(elig, dim=1) - 1
             slot = torch.where(elig & (rank < n_det), rank,
                                torch.full_like(rank, n_det))
+            fidx = torch.arange(k, device=dev)[:, None]
 
             def compact(vals):
                 arr = torch.zeros((k, n_det + 1) + tuple(vals.shape[2:]),
@@ -450,8 +483,9 @@ class TrackingPipeline:
 
         def embed(frames, d_xyxy, d_valid):
             """Load-bucketed crop gather + ReID: embed only as many crop
-            slots as the busiest frame of the chunk needs (the bucket choice
-            reads one value back per chunk)."""
+            slots as the busiest frame of the batch needs (the bucket choice
+            reads one value back per batch)."""
+            k = frames.shape[0]
             d_feats = torch.zeros((k, n_det, feature_dim),
                                   dtype=torch.float32, device=dev)
             d_hasfeat = torch.zeros((k, n_det), dtype=torch.bool,
@@ -472,15 +506,7 @@ class TrackingPipeline:
             d_hasfeat[:, :b] = crop_valid & d_valid[:, :b]
             return d_feats, d_hasfeat
 
-        @torch.no_grad()
-        def step(state, frames, n_valid: int, prev_frame=None):
-            if use_gmc:
-                # camera motion per frame; without a frame before the chunk
-                # its own first frame (identity motion at the chunk head)
-                g_a, g_t = gmc_ops.estimate_chunk(
-                    frames[0] if prev_frame is None else prev_frame, frames,
-                    gspec, self.gmc_method)
-                mark("gmc")
+        def detect(frames):
             x = letterbox(frames, spec, self.detect_dtype)
             mark("letterbox")
             with precision(self.detect_dtype):
@@ -505,64 +531,72 @@ class TrackingPipeline:
                 d_cls = torch.where(fill, torch.zeros_like(d_cls), d_cls)
                 d_valid = d_valid | fill
             mark("nms")
-
             d_feats, d_hasfeat = embed(frames, d_xyxy, d_valid)
             mark("crops_reid")
-
             tlwh = torch.cat([d_xyxy[..., :2],
                               d_xyxy[..., 2:] - d_xyxy[..., :2]], dim=-1)
+            inputs = TrackerInputs(xyxy=d_xyxy, tlwh=tlwh, conf=d_conf,
+                                   cls=d_cls, valid=d_valid, feats=d_feats,
+                                   hasfeat=d_hasfeat)
+            return inputs, (num, boxes_f, scores, labels, det_valid)
 
-            def frame_step(st, i, pp):
-                """One frame of the chunk through the core that runs."""
-                common = dict(score=d_conf[i], class_id=d_cls[i],
-                              valid=d_valid[i])
-                if appearance:
-                    common.update(feature=d_feats[i],
-                                  has_feature=d_hasfeat[i])
-                f_gmc = (g_a[i], g_t[i]) if use_gmc else None
-                if bytetrack:
-                    return bt_core.step(st, bt_core.ByteDetections(
-                        tlwh=tlwh[i], **common), pp, gmc=f_gmc)
-                if ocsort:
-                    return oc_core.step(st, oc_core.OCSortDetections(
-                        xyxy=d_xyxy[i], **common), pp, gmc=f_gmc)
-                dets = Detections(tlwh=tlwh[i], conf=d_conf[i],
-                                  class_id=d_cls[i], feature=d_feats[i],
-                                  has_feature=d_hasfeat[i], valid=d_valid[i])
-                st = core_tracker.predict(st, pp)
-                if use_gmc:
-                    # BoT-SORT ordering: predict, warp by the camera
-                    # affine, then associate
-                    mean, cov = gmc_ops.warp_xyah_bank(
-                        st.mean, st.cov, g_a[i], g_t[i], st.active)
-                    st = st.replace(mean=mean, cov=cov)
-                return core_tracker.update(st, dets, pp)
+        def frame_step(st, inp, i, pp):
+            """One frame through the core that runs."""
+            common = dict(score=inp.conf[i], class_id=inp.cls[i],
+                          valid=inp.valid[i])
+            if appearance:
+                common.update(feature=inp.feats[i], has_feature=inp.hasfeat[i])
+            f_gmc = None if inp.gmc_a is None else (inp.gmc_a[i],
+                                                    inp.gmc_t[i])
+            if bytetrack:
+                return bt_core.step(st, bt_core.ByteDetections(
+                    tlwh=inp.tlwh[i], **common), pp, gmc=f_gmc)
+            if ocsort:
+                return oc_core.step(st, oc_core.OCSortDetections(
+                    xyxy=inp.xyxy[i], **common), pp, gmc=f_gmc)
+            dets = Detections(tlwh=inp.tlwh[i], conf=inp.conf[i],
+                              class_id=inp.cls[i], feature=inp.feats[i],
+                              has_feature=inp.hasfeat[i], valid=inp.valid[i])
+            st = core_tracker.predict(st, pp)
+            if f_gmc is not None:
+                # BoT-SORT ordering: predict, warp by the camera affine,
+                # then associate
+                mean, cov = gmc_ops.warp_xyah_bank(
+                    st.mean, st.cov, f_gmc[0], f_gmc[1], st.active)
+                st = st.replace(mean=mean, cov=cov)
+            return core_tracker.update(st, dets, pp)
 
+        def outputs(st, pp):
+            return (bt_core.get_outputs(st) if bytetrack
+                    else oc_core.get_outputs(st, pp) if ocsort
+                    else core_tracker.get_outputs(st))
+
+        def track(state, inp, valid):
             def scan(st, pp):
-                """The chunk's frames at the capacity of ``pp``."""
+                """The frames at the capacity of ``pp``."""
                 outs = []
-                for i in range(k):
-                    if i < n_valid:  # padding frames leave the state as is
-                        st = frame_step(st, i, pp)
-                    outs.append(bt_core.get_outputs(st) if bytetrack
-                                else oc_core.get_outputs(st, pp) if ocsort
-                                else core_tracker.get_outputs(st))
+                for i, v in enumerate(valid):
+                    if v:  # an invalid frame leaves the state as it is
+                        st = frame_step(st, inp, i, pp)
+                    outs.append(outputs(st, pp))
                 return st, tuple(torch.stack(x) for x in zip(*outs))
 
-            state, track_outs = _bucketed_time_scan(
-                state, scan, self.core_params, self.scan_bucket,
-                self.scan_stats)
-            mark("tracker")
-            det_outs = (num, boxes_f, scores, labels, det_valid)
-            return state, det_outs, track_outs
+            if not any(valid):
+                return scan(state, self.core_params)
+            return _bucketed_time_scan(state, scan, self.core_params,
+                                       self.scan_bucket, self.scan_stats)
 
-        return step
+        return detect, track
 
-    def _get_step(self, frame_hw: Tuple[int, int], k: int):
-        key = (tuple(frame_hw), k)
-        if key not in self._steps:
-            self._steps[key] = self._make_chunk_step(key[0], k)
-        return self._steps[key]
+    def _get_stages(self, frame_hw: Tuple[int, int]):
+        key = tuple(frame_hw)
+        if key not in self._stages:
+            self._stages[key] = self._make_stages(key)
+        return self._stages[key]
+
+    def _mark(self, stage: str):
+        if self.stage_timer is not None:
+            self.stage_timer.mark(stage)
 
     # --- host API -----------------------------------------------------------
 
@@ -575,22 +609,33 @@ class TrackingPipeline:
 
     def _dispatch_chunk(self, frames_np: np.ndarray,
                         n_valid: int | None = None):
-        """Upload one (K, H, W, 3) uint8 chunk and run the chunk step."""
+        """Upload one (K, H, W, 3) uint8 chunk and run the chunk step: its
+        first ``n_valid`` frames advance the tracker, the rest are padding.
+        Returns ``(det_outs, track_outs)`` on the device."""
         k = frames_np.shape[0]
         n_valid = k if n_valid is None else n_valid
-        step = self._get_step(frames_np.shape[1:3], k)
+        detect, track = self._get_stages(frames_np.shape[1:3])
         frames = torch.from_numpy(np.ascontiguousarray(frames_np)).to(
             self.device)
-        prev = None
-        if self.gmc_method is not None:
-            # the frame before this chunk; the first chunk of a stream uses
-            # its own first frame (identity motion for frame 0)
-            prev = self._gmc_prev_frame
-            self._gmc_prev_frame = frames[n_valid - 1].clone()
         if self.stage_timer is not None:
             self.stage_timer.start()
-        self.state, det_outs, track_outs = step(self.state, frames, n_valid,
-                                                prev)
+        with torch.no_grad():
+            g_a = g_t = None
+            if self.gmc_method is not None:
+                # camera motion per frame, from the frame before the chunk;
+                # the first chunk of a stream uses its own first frame
+                # (identity motion for frame 0)
+                prev = self._gmc_prev_frame
+                g_a, g_t = gmc_ops.estimate_chunk(
+                    frames[0] if prev is None else prev, frames,
+                    gmc_ops.gmc_spec(frames_np.shape[1:3]), self.gmc_method)
+                self._gmc_prev_frame = frames[n_valid - 1].clone()
+                self._mark("gmc")
+            inputs, det_outs = detect(frames)
+            inputs = dataclasses.replace(inputs, gmc_a=g_a, gmc_t=g_t)
+            self.state, track_outs = track(self.state, inputs,
+                                           [i < n_valid for i in range(k)])
+            self._mark("tracker")
         if self.stage_timer is not None:
             self.stage_timer.finish()
         return det_outs, track_outs

@@ -11,8 +11,9 @@ this file; exits non-zero otherwise. In order it:
 3. holds each kernel, called through the public wrapper the pipeline calls,
    against its plain PyTorch version on the card, bitwise, at the main
    path's geometries and more (misaligned and ragged shapes, both kernel
-   variants, the facades' K=1 frame and 2x2 tiles of a 960x540 frame), and
-   times it three ways at five shapes
+   variants, the facades' K=1 frame and 2x2 tiles of a 960x540 frame, the
+   multi-stream dispatch's 32 frames of 720p), and times it three ways at
+   six shapes
    (``device_ms``: a CUDA-graph replay over buffers larger than the L2;
    ``ms``: per call through the wrapper; ``host_ms``: the host's share of a
    call), next to the earlier design (``earlier_ms``, the scalar variant's
@@ -56,7 +57,26 @@ this file; exits non-zero otherwise. In order it:
    chunk;
 10. ``[compare]``: runs the first chunks through the card in f32 (TF32 off)
     and through the plain CPU path, and at chunk 4 against chunk 8 on the
-    card, and compares detections and track tuples.
+    card, and compares detections and track tuples;
+11. ``[streams]``: ``MultiStreamPipeline(device="cuda")`` at BASELINE.json
+    config 4's width, 8 streams of 720x1280 (each a seed of
+    ``scenes.moving_rectangles``), chunk 4, the main path's model widths and
+    DeepSORT defaults: stream-frames per second and ms per dispatch over 4
+    dispatches after a warm-up, per-stage ms, tracker ms and syncs per
+    stream-frame, the kernel once per dispatch (K=32); a dispatch with two
+    streams masked leaves their states bitwise; in f32 (TF32 off) each
+    stream equals a ``TrackingPipeline`` on that stream alone; 2 streams x
+    1 chunk card f32 against the CPU for DeepSORT, ByteTrack and the
+    StrongSORT preset (GMC); StrongSORT's batched GMC ms per dispatch;
+12. ``[serving]``: ``TrackingService`` over the main scene against
+    ``process_frames``; ``MultiTenantTrackingService`` at its defaults (4
+    slots, 720x1280, chunk 4, 30 ms SLA; f32) with four tenant threads (one
+    burst, three paced at 30, 15 and 8 frames/s for 2 s): every tenant
+    against a ``TrackingPipeline`` over its frames, a re-leased slot from id
+    1, the stats and the queue-wait and cycle percentiles;
+13. ``[server]``: ``TrackingHTTPServer`` on 127.0.0.1: health names the
+    GPU, 16 raw-frame POSTs against the service itself after a reset,
+    stats, and a JPEG body answered 400.
 
 The last two lines of output are the kernels' JSON record and the device
 JSON record. ``--kernels-only`` stops after step 3.
@@ -86,6 +106,14 @@ FACADE_FRAMES = 32    # frames of each facade in the [facades] phase
 FACADE_COMPARE = 8    # of them, compared card f32 against the CPU
 WARM_UP_ITERS = 2     # chunk steps of TrackingPipeline.warm_up
 SEED = 0
+STREAMS = 8           # [streams]: BASELINE.json config 4, 8 streams of 720p
+STREAM_HW = (720, 1280)
+STREAM_CHUNK = 4
+STREAM_DISPATCHES = 4  # timed dispatches of [streams], after the warm-up
+TENANT_SECONDS = 2.0   # [serving]: how long the paced tenants submit
+TENANT_PACES = (None, 30.0, 15.0, 8.0)  # frames/s; None: one burst
+SERVER_FRAMES = 16     # [server]: raw-frame POSTs
+SERVER_CHUNK = 4
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 outside the tensor cores
 
@@ -113,6 +141,25 @@ def facade_shapes():
     from aicamera_tpu_torch.ops.tiling import tile_layout
     origins, tile_hw = tile_layout(FRAME_HW, (2, 2), 0.2)
     return [("detect", FRAME_HW, 1), ("detect_tiled", tile_hw, len(origins))]
+
+
+def stream_shape():
+    """(path, src_hw, K) of the multi-stream dispatch's letterbox launch:
+    all S*K frames of a dispatch in one launch."""
+    return ("streams", STREAM_HW, STREAMS * STREAM_CHUNK)
+
+
+def library_call(spec, frames):
+    """The single PyTorch call nearest to the letterbox of ``frames``: the
+    bilinear resize (``F.interpolate``) where the geometry resizes, else
+    the constant-114 padding (``F.pad``), on NCHW f32 frames."""
+    import torch.nn.functional as F
+    nchw = frames.permute(0, 3, 1, 2).float().contiguous()
+    if tuple(spec.unpad_hw) != tuple(spec.src_hw):
+        return "F.interpolate", lambda: F.interpolate(
+            nchw, size=spec.unpad_hw, mode="bilinear", align_corners=False)
+    pad = (spec.left, spec.right, spec.top, spec.bottom)
+    return "F.pad", lambda: F.pad(nchw, pad, value=114.0)
 
 
 class SmokeFailure(Exception):
@@ -353,6 +400,13 @@ def kernel_phase(device):
             want = lb.launch_plan(spec, k, dt,
                                   frames.data_ptr() % 16 == 0).variant
             hold(frames, spec, dt, want=want)
+    # the multi-stream dispatch: 8 streams x 4 frames of 720p in one launch
+    _, src, k = stream_shape()
+    spec = letterbox_spec(src, (640, 640))
+    frames = random_frames(k, src)
+    for dt in dtypes:
+        hold(frames, spec, dt, want="vector")
+    del frames
     # the public single-frame preprocess is the kernel on a CUDA tensor
     from aicamera_tpu_torch.ops.preprocess import preprocess_yolo
     spec = letterbox_spec(FRAME_HW, (640, 640))
@@ -379,8 +433,9 @@ def kernel_phase(device):
           f"scalar variant, "
           f"{len(MISALIGNED_GEOMETRIES)} misaligned and "
           f"{len(RAGGED_GEOMETRIES)} ragged shapes, the facades' K=1 frame "
-          f"and 2x2 tiles, one unaligned pointer); preprocess_yolo on a CUDA "
-          f"frame launched it once")
+          f"and 2x2 tiles, the multi-stream dispatch's K={k} 720p batch, one "
+          f"unaligned pointer); preprocess_yolo on a CUDA frame launched it "
+          f"once")
 
     # timing: the main path's shape first (960x540 -> 640x640, K=8, bf16)
     def scalar_call(frames, spec, dt):
@@ -407,12 +462,23 @@ def kernel_phase(device):
         report("scalar variant", e)
         r["earlier_ms"] = e["device_ms"]
         rows.append(r)
-    for path, src, k in facade_shapes():
+    for path, src, k in [*facade_shapes(), stream_shape()]:
         r = measure_letterbox(lb.letterbox, src, torch.bfloat16, device, gen,
                               k=k)
         r["plan"] = repr(lb.KERNEL.last_plan)
         r["path"] = path
         report(f"{path}, {lb.KERNEL.last_plan.variant} variant", r)
+        spec = letterbox_spec(src, (640, 640))
+        frames = torch.randint(0, 256, (k, *src, 3), dtype=torch.uint8,
+                               device=device, generator=gen)
+        r["plain_ms"] = time_ms(lambda: lb.letterbox_plain(
+            frames, spec, torch.bfloat16), iters=10)
+        r["library"], call = library_call(spec, frames)
+        r["library_ms"] = time_ms(call)
+        del frames
+        print(f"[kernel] letterbox {r['shape']} ({path}): plain "
+              f"{r['plain_ms']:.4f} ms, {r['library']} {r['library_ms']:.4f} "
+              f"ms")
         rows.append(r)
     main = rows[0]
     spec = letterbox_spec(FRAME_HW, (640, 640))
@@ -889,6 +955,437 @@ def cli_phase(frames, kernels):
     return launches
 
 
+def stream_scenes(n_frames, n_streams=None):
+    """``(n_streams, n_frames, 720, 1280, 3)``: each stream a different seed
+    of ``scenes.moving_rectangles`` (made in threads: numpy releases the
+    GIL in its array arithmetic)."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from aicamera_tpu_torch.scenes import moving_rectangles
+    n_streams = n_streams or STREAMS
+    with ThreadPoolExecutor(n_streams) as ex:
+        return np.stack(list(ex.map(
+            lambda s: moving_rectangles(n_frames, STREAM_HW, n_objects=6,
+                                        seed=SEED + 1 + s),
+            range(n_streams))))
+
+
+def make_streams(device, n_streams=None, **kw):
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.parallel import MultiStreamPipeline
+    return MultiStreamPipeline(
+        n_streams=n_streams or STREAMS, frame_hw=STREAM_HW,
+        yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
+        reid_weights=str(config.REID_SYNTHETIC_PATH), device=device, **kw)
+
+
+def stream_tuples(outs, si):
+    """Stream ``si``'s track tuples, frame by frame, over a list of
+    ``step_chunk`` outputs (each ``(S, K, ...)``)."""
+    from aicamera_tpu_torch.runtime.pipeline import _format_tracks
+    host = [tuple(x[si].cpu().numpy() for x in o) for o in outs]
+    return [_format_tracks(*(x[t] for x in h))
+            for h in host for t in range(h[0].shape[0])]
+
+
+def same_tracks(tag, got, want, conf_tol=1e-4):
+    """Two runs' track tuples, frame by frame: ids, classes and boxes
+    identical, conf within ``conf_tol``. Returns (tuples, bitwise equal)."""
+    import numpy as np
+    check(len(got) == len(want), f"{tag}: {len(got)} vs {len(want)} frames")
+    total = exact = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check([t[:6] for t in g] == [t[:6] for t in w],
+              f"{tag}: frame {i}: {g} vs {w}")
+        check(all(np.isfinite(t[:4]).all() and abs(a[6] - t[6]) <= conf_tol
+                  for a, t in zip(g, w)), f"{tag}: frame {i}: conf")
+        total += len(g)
+        exact += sum(a == b for a, b in zip(g, w))
+    return total, exact
+
+
+def reset_counts(kernels):
+    import torch
+    for k in kernels:
+        k.launches = 0
+    for c in sync_counters().values():
+        c.count = 0
+    torch.cuda.synchronize()
+
+
+def streams_phase(device, kernels):
+    """``MultiStreamPipeline`` at BASELINE config 4's width: 8 streams of
+    720p, chunk 4, DeepSORT defaults; then its checks."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.runtime.pipeline import (CudaStageTimer,
+                                                     TrackingPipeline)
+
+    s, k, d = STREAMS, STREAM_CHUNK, STREAM_DISPATCHES
+    t0 = time.perf_counter()
+    scenes = stream_scenes(d * k)
+    chunks = [scenes[:, i * k:(i + 1) * k] for i in range(d)]
+    print(f"[streams] {s} scenes of {d * k} frames at {STREAM_HW[1]}x"
+          f"{STREAM_HW[0]} made in {time.perf_counter() - t0:.2f} s")
+    pipe = make_streams(device)
+    t0 = time.perf_counter()
+    blank = np.zeros((s, k, *STREAM_HW, 3), np.uint8)
+    for _ in range(WARM_UP_ITERS):
+        pipe.step_chunk(blank)
+    for i in range(s):
+        pipe.reset_stream(i)
+    torch.cuda.synchronize()
+    print(f"[streams] warm-up {time.perf_counter() - t0:.2f} s")
+
+    def run(timer=None):
+        for i in range(s):
+            pipe.reset_stream(i)
+        pipe.scan_stats.update(dict.fromkeys(pipe.scan_stats, 0))
+        pipe.stage_timer = timer
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        outs = [tuple(x.cpu() for x in pipe.step_chunk(c)) for c in chunks]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pipe.stage_timer = None
+        return (outs, wall, {kn.name: kn.launches for kn in kernels},
+                {n: c.count for n, c in sync_counters().items()})
+
+    outs, wall, launches, syncs = run()
+    check_launches(launches, d, "streams (one launch per dispatch)")
+    tuples = [stream_tuples(outs, si) for si in range(s)]
+    n_tracks = [sum(map(len, t)) for t in tuples]
+    check(all(n > 0 for n in n_tracks), f"a stream emitted no track: "
+          f"{n_tracks}")
+    check(all(np.isfinite(t[:4]).all() and np.isfinite(t[6])
+              for ts in tuples for f in ts for t in f), "non-finite track")
+    timer = CudaStageTimer()
+    again = run(timer)[0]
+    stage_ms = {st: v / timer.chunks for st, v in timer.totals.items()}
+    same = all(stream_tuples(again, si) == tuples[si] for si in range(s))
+    n_sf = s * k * d
+    print(f"[streams] {s} streams x {d} dispatches of {k} frames: "
+          f"{n_sf / wall:.2f} stream-frames/s, {wall / d * 1e3:.2f} ms per "
+          f"dispatch (after warm-up, bf16, scan_bucket {pipe.scan_bucket}: "
+          f"chunks {pipe.scan_stats}); launches {launches} ({d} dispatches)")
+    print(f"[streams] per-dispatch stage ms (CUDA events): "
+          + ", ".join(f"{st} {v:.3f}" for st, v in stage_ms.items())
+          + f"; tracker per stream-frame {stage_ms['tracker'] / (s * k):.3f}"
+          f" ms; timed rerun identical: {same}")
+    print(f"[streams] host syncs per stream-frame: {syncs_line(syncs, n_sf)};"
+          f" track outputs per stream {n_tracks}")
+
+    # two streams masked for a whole dispatch keep their states bit for bit
+    before = pipe.states
+    valid = np.ones((s, k), bool)
+    valid[:2] = False
+    pipe.step_chunk(chunks[0], frame_valid=valid)
+    after = pipe.states
+    for f in dataclasses.fields(before):
+        a, b = getattr(before, f.name), getattr(after, f.name)
+        if a is not None:
+            check(torch.equal(a[:2], b[:2]), f"masked streams: {f.name} "
+                  f"changed")
+    check(not torch.equal(before.age[2:], after.age[2:]),
+          "the unmasked streams did not advance")
+
+    # each stream against a single-stream pipeline on the card: bf16 (the
+    # detector batch is S*K frames here, K there: reported), then f32 (TF32
+    # off), which must agree
+    def single(**kw):
+        return TrackingPipeline(
+            yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
+            reid_weights=str(config.REID_SYNTHETIC_PATH), chunk_size=k,
+            device=device, **kw)
+
+    n_cmp = 2 * k
+    ref = single()
+    bf16_exact = bf16_total = 0
+    for si in range(s):
+        ref.reset()
+        want = [r.tracks for r in ref.process_frames(iter(scenes[si,
+                                                                 :n_cmp]))]
+        got = tuples[si][:n_cmp]
+        bf16_total += sum(map(len, want))
+        bf16_exact += sum(g == w for gf, wf in zip(got, want)
+                          for g, w in zip(gf, wf))
+    f32 = dict(detect_dtype="f32", reid_dtype="f32")
+    pipe32 = make_streams(device, **f32)
+    outs32 = [pipe32.step_chunk(c) for c in chunks[:2]]
+    ref = single(**f32)
+    total = exact = 0
+    for si in range(s):
+        ref.reset()
+        want = [r.tracks for r in ref.process_frames(iter(scenes[si,
+                                                                 :n_cmp]))]
+        t, e = same_tracks(f"streams f32 stream {si} vs TrackingPipeline",
+                           stream_tuples(outs32, si), want)
+        total, exact = total + t, exact + e
+    check(total > 0, "streams f32: no track to compare")
+    print(f"[streams] each stream vs TrackingPipeline on that stream alone "
+          f"({n_cmp} frames each): f32 (TF32 off): ids, classes and boxes "
+          f"identical on {total} tuples, {exact} bitwise with conf (conf "
+          f"tolerance 1e-4); bf16: {bf16_exact} of {bf16_total} tuples "
+          f"bitwise identical (batch-shape dependent, not checked)")
+
+    # card f32 against the CPU: 2 streams x 1 chunk, three cores
+    lines = []
+    for name in ("deepsort", "bytetrack", "strongsort"):
+        kw = dict(tracker=name)
+        card = make_streams(device, n_streams=2, **f32, **kw)
+        cpu = make_streams("cpu", n_streams=2, **kw)
+        o_card = [card.step_chunk(scenes[:2, :k])]
+        o_cpu = [cpu.step_chunk(scenes[:2, :k])]
+        total = 0
+        for si in range(2):
+            total += same_tracks(f"streams {name} card f32 vs CPU",
+                                 stream_tuples(o_card, si),
+                                 stream_tuples(o_cpu, si))[0]
+        check(total > 0, f"streams {name}: no track to compare")
+        gmc = f" (gmc {card.gmc_method})" if card.gmc_method else ""
+        lines.append(f"{name}{gmc} {total} tuples")
+    print(f"[streams] card f32 (TF32 off) vs CPU, 2 streams x {k} frames: "
+          f"ids, classes and boxes identical, conf within 1e-4: "
+          + ", ".join(lines))
+
+    # StrongSORT (camera-motion compensation on) at full width: gmc ms
+    strong = make_streams(device, tracker="strongsort")
+    strong.step_chunk(chunks[0])  # FFT plans, cuDNN
+    timer = CudaStageTimer()
+    strong.stage_timer = timer
+    t0 = time.perf_counter()
+    for c in chunks[1:]:
+        strong.step_chunk(c)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    strong.stage_timer = None
+    g_ms = {st: v / timer.chunks for st, v in timer.totals.items()}
+    print(f"[streams] strongsort (gmc {strong.gmc_method}), {s} streams, "
+          f"{d - 1} dispatches: {s * k * (d - 1) / wall:.2f} stream-frames/s;"
+          f" per dispatch gmc {g_ms['gmc']:.3f} ms (all {s} streams in one "
+          f"batched estimate), tracker {g_ms['tracker']:.3f} ms")
+    return launches
+
+
+def tenant_frames(scenes, pace):
+    """A tenant's frames: its scene, looped to TENANT_SECONDS at ``pace``
+    frames/s (a burst: twice the scene)."""
+    n = (2 * scenes.shape[0] if pace is None
+         else int(round(TENANT_SECONDS * pace)))
+    return [scenes[i % scenes.shape[0]] for i in range(n)]
+
+
+def serving_phase(device, frames, kernels):
+    """``TrackingService`` over the main scene, then
+    ``MultiTenantTrackingService`` at its defaults with four tenants."""
+    import threading
+    import numpy as np
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline
+    from aicamera_tpu_torch.serving import (MultiTenantTrackingService,
+                                            TrackingService)
+
+    # --- TrackingService: 64 frames submitted at once ride full chunks
+    pipe = make_pipeline(device)
+    pipe.warm_up(FRAME_HW)
+    svc = TrackingService(pipeline=pipe, chunk_size=CHUNK)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    futs = [svc.submit(f) for f in frames]
+    got = [f.result(timeout=300) for f in futs]
+    wall = time.perf_counter() - t0
+    svc.shutdown()
+    single = {kn.name: kn.launches for kn in kernels}
+    check_launches(single, N_CHUNKS, "TrackingService")
+    check([r.frame_index for r in got] == list(range(len(frames))),
+          "TrackingService: frame indices")
+    pipe.reset()
+    want = [r.tracks for r in pipe.process_frames(iter(frames))]
+    total, exact = same_tracks("TrackingService vs process_frames",
+                               [r.tracks for r in got], want)
+    check(total > 0, "TrackingService: no track")
+    print(f"[serving] TrackingService: {len(frames)} frames in {wall:.3f} s "
+          f"({len(frames) / wall:.2f} FPS, chunk {CHUNK}, the main path's "
+          f"pipeline); launches {single}; vs process_frames: {total} tuples, "
+          f"{exact} bitwise identical")
+
+    # --- the multi-tenant service at its defaults (4 slots, 720x1280, chunk
+    # 4, 30 ms), f32 with TF32 off so that every tenant can be held against
+    # a single-stream run (bf16 detections depend on the batch's shape)
+    f32 = dict(detect_dtype="f32", reid_dtype="f32")
+    weights = dict(yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
+                   reid_weights=str(config.REID_SYNTHETIC_PATH))
+    mt = MultiTenantTrackingService(device=device, **weights, **f32)
+    scenes = stream_scenes(4 * mt.chunk_size, n_streams=mt.n_streams)
+    try:
+        # warm-up: one full dispatch of blank frames on every slot
+        sids = [mt.open_stream() for _ in range(mt.n_streams)]
+        blank = np.zeros((*mt.frame_hw, 3), np.uint8)
+        warm = [mt.submit(sid, blank) for sid in sids
+                for _ in range(mt.chunk_size)]
+        for f in warm:
+            f.result(timeout=300)
+        for sid in sids:
+            mt.close_stream(sid)
+        mt.wait_idle(timeout=300)
+        stats0 = dict(mt.stats)
+        reset_counts(kernels)
+        results = {}
+
+        def tenant(key, pace):
+            sid = mt.open_stream()
+            futs = []
+            t_start = time.perf_counter()
+            for i, fr in enumerate(tenant_frames(scenes[key], pace)):
+                if pace is not None:
+                    time.sleep(max(0.0, t_start + i / pace
+                                   - time.perf_counter()))
+                futs.append(mt.submit(sid, fr))
+            results[key] = (sid, [f.result(timeout=300) for f in futs])
+            mt.close_stream(sid)
+
+        threads = [threading.Thread(target=tenant, args=(i, pace))
+                   for i, pace in enumerate(TENANT_PACES)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        mt.wait_idle(timeout=300)
+        wall = time.perf_counter() - t0
+        multi = {kn.name: kn.launches for kn in kernels}
+        stats = {n: v - stats0[n] for n, v in mt.stats.items()}
+        check(len(results) == len(TENANT_PACES), "a tenant did not finish")
+        check_launches(multi, stats["dispatches"],
+                       "MultiTenantTrackingService (one per dispatch)")
+        ref = TrackingPipeline(chunk_size=mt.chunk_size, device=device,
+                               **weights, **f32)
+        total = exact = 0
+        waits, cycles = [], []
+        for key, pace in enumerate(TENANT_PACES):
+            sid, res = results[key]
+            check([r.frame_index for r in res] == list(range(len(res))),
+                  f"tenant {key}: frame indices")
+            ref.reset()
+            want = [r.tracks for r in ref.process_frames(
+                iter(tenant_frames(scenes[key], pace)))]
+            t, e = same_tracks(f"tenant {key} vs TrackingPipeline",
+                               [r.tracks for r in res], want)
+            total, exact = total + t, exact + e
+            waits += [r.dispatch_ts - r.arrival_ts for r in res]
+            cycles += [r.resolve_ts - r.dispatch_ts for r in res]
+        check(total > 0, "tenants: no track")
+        # a closed, re-leased slot starts over: ids from 1, the tuples of a
+        # fresh single-stream run
+        sid = mt.open_stream()
+        again = [f.result(timeout=300).tracks for f in
+                 [mt.submit(sid, fr) for fr in scenes[0][:mt.chunk_size]]]
+        mt.close_stream(sid)
+        mt.wait_idle(timeout=300)
+        ref.reset()
+        same_tracks("re-leased slot", again, [r.tracks for r in
+                    ref.process_frames(iter(scenes[0][:mt.chunk_size]))])
+        ids = [t[4] for f in again for t in f]
+        check(ids and min(ids) == 1, f"re-leased slot: ids {ids}")
+    finally:
+        mt.shutdown()
+    n = sum(len(r) for _, r in results.values())
+
+    def pct(v, q):
+        return 1e3 * float(np.percentile(np.asarray(v), q))
+
+    print(f"[serving] MultiTenantTrackingService (4 slots, {mt.frame_hw[1]}x"
+          f"{mt.frame_hw[0]}, chunk {mt.chunk_size}, 30 ms SLA, f32 with "
+          f"TF32 off): tenants at " + ", ".join(
+              "burst" if p is None else f"{p:g}/s" for p in TENANT_PACES)
+          + f", {n} frames in {wall:.3f} s ({n / wall:.2f} frames/s); stats "
+          f"{stats}; launches {multi}")
+    print(f"[serving] queue wait (dispatch - arrival) p50 {pct(waits, 50):.2f}"
+          f" ms, p99 {pct(waits, 99):.2f} ms; cycle (resolve - dispatch) p50 "
+          f"{pct(cycles, 50):.2f} ms, p99 {pct(cycles, 99):.2f} ms")
+    print(f"[serving] every tenant vs TrackingPipeline over its frames: ids, "
+          f"classes and boxes identical on {total} tuples, {exact} bitwise "
+          f"(conf tolerance 1e-4); a re-leased slot restarts at id 1 "
+          f"({len(ids)} track outputs over {mt.chunk_size} frames)")
+    return single, multi
+
+
+def server_phase(device, frames, kernels):
+    """``TrackingHTTPServer`` on 127.0.0.1 over a TrackingService on the
+    card: health, raw-frame POSTs against the service itself, stats, reset,
+    an encoded image."""
+    import json
+    import urllib.error
+    import urllib.request
+    import torch
+    from aicamera_tpu_torch.server import TrackingHTTPServer
+    from aicamera_tpu_torch.serving import TrackingService
+
+    pipe = make_pipeline(device, synthetic_load=0)
+    pipe.warm_up(FRAME_HW, chunk_size=SERVER_CHUNK)
+    svc = TrackingService(pipeline=pipe, chunk_size=SERVER_CHUNK,
+                          max_latency_ms=5.0)
+    srv = TrackingHTTPServer(host="127.0.0.1", port=0, service=svc).start()
+    base = f"http://127.0.0.1:{srv.port}"
+    raw = {"X-Frame-Height": str(FRAME_HW[0]),
+           "X-Frame-Width": str(FRAME_HW[1])}
+
+    def call(path, body=None, headers=None):
+        req = urllib.request.Request(base + path, data=body,
+                                     headers=headers or {},
+                                     method="GET" if body is None
+                                     else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    sub = frames[:SERVER_FRAMES]
+    try:
+        status, health = call("/v1/healthz")
+        check(status == 200 and health["backend"] == "cuda"
+              and health["device"] == torch.cuda.get_device_name(0),
+              f"healthz: {health}")
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        posted = []
+        for f in sub:
+            status, body = call("/v1/track", f.tobytes(), raw)
+            check(status == 200, f"POST /v1/track: {status} {body}")
+            posted.append(body)
+        wall = time.perf_counter() - t0
+        launches = {kn.name: kn.launches for kn in kernels}
+        check_launches(launches, len(sub), "server (one per request)")
+        _, stats = call("/v1/stats")
+        check(stats["frames"] == len(sub), f"stats: {stats}")
+        status, body = call("/v1/reset", b"")
+        check(status == 200 and body == {"status": "reset"}, f"reset: {body}")
+        # the same frames through the service itself, one at a time as the
+        # requests came: after the reset, the same tracks and ids
+        direct = [svc.submit(f).result(timeout=60) for f in sub]
+        want = [[[int(v) for v in t[:5]] + [t[5], round(float(t[6]), 4)]
+                 for t in r.tracks] for r in direct]
+        check([b["tracks"] for b in posted] == want,
+              "server tracks != the service's")
+        n_tracks = sum(map(len, want))
+        check(n_tracks > 0, "server: no track")
+        status, body = call("/v1/track", b"\xff\xd8\xff\xe0",
+                            {"Content-Type": "image/jpeg"})
+        check(status == 400, f"image/jpeg: {status} {body}")
+    finally:
+        srv.shutdown()
+    print(f"[server] healthz {health}; {len(sub)} raw {FRAME_HW[1]}x"
+          f"{FRAME_HW[0]} POSTs in {wall:.3f} s ({len(sub) / wall:.2f} "
+          f"requests/s, one at a time, chunk {SERVER_CHUNK}); launches "
+          f"{launches}; stats {stats}; after /v1/reset the service itself "
+          f"gave the same {n_tracks} tracks and ids; image/jpeg answered "
+          f"400")
+    return launches
+
+
 def profile_chunk(pipe, chunk):
     """GPU busy share of one more chunk, from a torch.profiler trace: the
     sum of kernel and copy times over the host wall time of the chunk."""
@@ -1006,27 +1503,44 @@ def main() -> int:
         frames = moving_rectangles(N_CHUNKS * CHUNK, FRAME_HW, n_objects=6,
                                    seed=SEED)
         device = torch.device("cuda")
-        launches = main_path_phase(device, frames, kernels)
-        by_path = {"main": launches,
-                   "bucket": bucket_phase(device, frames, kernels),
-                   "trackers": trackers_phase(device, frames, kernels),
-                   "gmc": gmc_phase(device, kernels),
-                   "facades": facades_phase(device, frames, kernels),
-                   "cli": cli_phase(frames, kernels)}
-        compare_phase(frames)
+        phase_s = {}
+
+        def timed(name, fn, *a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            phase_s[name] = time.perf_counter() - t0
+            return out
+
+        launches = timed("main", main_path_phase, device, frames, kernels)
+        by_path = {"main": launches}
+        for name, fn, a in (("bucket", bucket_phase, (device, frames)),
+                            ("trackers", trackers_phase, (device, frames)),
+                            ("gmc", gmc_phase, (device,)),
+                            ("facades", facades_phase, (device, frames)),
+                            ("cli", cli_phase, (frames,))):
+            by_path[name] = timed(name, fn, *a, kernels)
+        timed("compare", compare_phase, frames)
+        by_path["streams"] = timed("streams", streams_phase, device, kernels)
+        by_path["serving"], by_path["multi_tenant"] = timed(
+            "serving", serving_phase, device, frames, kernels)
+        by_path["server"] = timed("server", server_phase, device, frames,
+                                  kernels)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     record["launches"] = launches[record["name"]]
     # the other paths, each counted from 0: bucket (its last run), every
     # tracker, the GMC pipelines, every facade (one launch per detect call;
-    # detect_tiled two), the CLI (warm-up chunks included)
+    # detect_tiled two), the CLI (warm-up chunks included), the multi-stream
+    # dispatches, the two services and the server's requests
     record["launches_by_path"] = {
         path: ({t: v[record["name"]] for t, v in counts.items()}
                if path in ("trackers", "gmc", "facades")
                else counts[record["name"]])
         for path, counts in by_path.items()}
-    print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+    print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s;"
+          f" by phase: " + ", ".join(f"{n} {v:.1f}"
+                                     for n, v in phase_s.items()))
     print(ident)  # name, power limit: as nvidia-smi prints them
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {

@@ -102,7 +102,7 @@ def test_port_checkpoint_loads_in_jax_and_back(family, tmp_path):
     _assert_leaves_equal(st, in_jax)
     assert ours.read_bytes() == serialization.to_bytes(in_jax)
     jckpt.save_state(theirs, in_jax)
-    back = ckpt.load_state(theirs, tp)
+    back = ckpt.load_state(theirs, tp, device="cpu")
     _assert_leaves_equal(back, in_jax)
     for f in dataclasses.fields(st):
         a, b = getattr(st, f.name), getattr(back, f.name)
@@ -143,7 +143,7 @@ def test_failed_write_leaves_the_old_file_whole(tmp_path, monkeypatch):
     monkeypatch.undo()
     # a torn temporary file beside it does not matter either
     path.with_name(path.name + ".tmp").write_bytes(b"\x00torn")
-    same = ckpt.load_state(path, tp)
+    same = ckpt.load_state(path, tp, device="cpu")
     assert torch.equal(same.track_id, st.track_id)
 
 
@@ -154,13 +154,60 @@ def test_load_rejects_a_state_of_another_shape_or_family(tmp_path):
     ckpt.save_state(path, st)
     with pytest.raises(ValueError, match="field"):
         ckpt.load_state(path, bt.ByteTrackParams(max_tracks=16,
-                                                 max_detections=8))
+                                                 max_detections=8),
+                        device="cpu")
     with pytest.raises(ValueError, match="with_appearance"):
-        ckpt.load_state(path, FAMILIES["botsort"][0])
+        ckpt.load_state(path, FAMILIES["botsort"][0], device="cpu")
     with pytest.raises(ValueError, match="does not hold"):
-        ckpt.load_state(path, FAMILIES["ocsort"][0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ckpt.load_state(path, tp, n_streams=2)
+        ckpt.load_state(path, FAMILIES["ocsort"][0], device="cpu")
+    # a single stream's state is not a stack of two
+    with pytest.raises(ValueError, match="field"):
+        ckpt.load_state(path, tp, n_streams=2, device="cpu")
+
+
+def _stack(states):
+    first = states[0]
+    return dataclasses.replace(first, **{
+        f.name: None if getattr(first, f.name) is None
+        else torch.stack([getattr(s, f.name) for s in states])
+        for f in dataclasses.fields(first)})
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_stacked_states_load_in_jax_and_back(family, tmp_path):
+    """Two streams' states stacked on a leading axis (the multi-stream
+    layout): save (port) -> load (JAX, ``n_streams=2``) -> save (JAX) ->
+    load (port, ``n_streams=2``), the same leaves all the way, and the
+    port's file byte for byte what Flax writes."""
+    tp, jp = FAMILIES[family]
+    lived, _, _ = _lived_in_state(tp)
+    stacked = _stack([lived, _init(tp)])
+    ours, theirs = tmp_path / "port.msgpack", tmp_path / "jax.msgpack"
+    ckpt.save_state(ours, stacked)
+    in_jax = jckpt.load_state(ours, jp, n_streams=2)
+    _assert_leaves_equal(stacked, in_jax)
+    assert ours.read_bytes() == serialization.to_bytes(in_jax)
+    jckpt.save_state(theirs, in_jax)
+    back = ckpt.load_state(theirs, tp, n_streams=2, device="cpu")
+    _assert_leaves_equal(back, in_jax)
+    assert int(back.next_id[0]) > 1 and int(back.next_id[1]) == 1
+    with pytest.raises(ValueError, match="field"):
+        ckpt.load_state(theirs, tp, n_streams=3, device="cpu")
+    with pytest.raises(ValueError, match="field"):
+        ckpt.load_state(theirs, tp, device="cpu")
+
+
+def test_load_defaults_to_the_gpu(tmp_path):
+    """Without a ``device`` the state goes to the GPU, or the load raises;
+    it never lands on the CPU silently."""
+    tp, _ = FAMILIES["deepsort"]
+    path = tmp_path / "s.msgpack"
+    ckpt.save_state(path, _init(tp))
+    if torch.cuda.is_available():
+        assert ckpt.load_state(path, tp).active.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ckpt.load_state(path, tp)
 
 
 def test_writer_matches_flax_on_the_msgpack_subset():

@@ -135,7 +135,7 @@ def test_checkpoint_then_resume(clip, tmp_path, capsys, tracker):
     ref = TrackingPipeline(input_shape=(128, 128), chunk_size=2,
                            tracker=tracker, device="cpu",
                            yolo_weights=WEIGHTS[1], reid_weights=WEIGHTS[3])
-    first = load_state(ckpt, ref.core_params)
+    first = load_state(ckpt, ref.core_params, device="cpu")
     assert int(first.next_id) > 1
 
     again = tmp_path / "again.msgpack"
@@ -144,7 +144,7 @@ def test_checkpoint_then_resume(clip, tmp_path, capsys, tracker):
     text = capsys.readouterr().out
     assert f"Resumed tracker state from {ckpt}" in text
     assert "Processed 3 frames" in text
-    second = load_state(again, ref.core_params)
+    second = load_state(again, ref.core_params, device="cpu")
     assert int(second.next_id) >= int(first.next_id)
     kept = set(first.track_id[first.active].tolist()) \
         & set(second.track_id[second.active].tolist())

@@ -231,3 +231,52 @@ def test_gmc_on_the_card_matches_the_cpu_without_a_sync(cuda):
                                       torch.from_numpy(frames), spec)
     np.testing.assert_allclose(a.cpu().numpy(), a_cpu.numpy(), atol=1e-4)
     np.testing.assert_allclose(t.cpu().numpy(), t_cpu.numpy(), atol=1e-2)
+
+
+def test_multistream_on_the_card_matches_single_streams_and_the_cpu(cuda):
+    """``MultiStreamPipeline`` on the card: one letterbox launch per
+    dispatch for all S*K frames; in f32 (TF32 off) each stream's track
+    tuples equal a single-stream ``TrackingPipeline`` on the card (ids,
+    classes, boxes identical, conf within 1e-4) and the CPU path's; a
+    masked stream's state is bitwise unchanged."""
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.core.state import TrackerParams
+    from aicamera_tpu_torch.parallel import MultiStreamPipeline
+    from aicamera_tpu_torch.runtime.pipeline import (TrackingPipeline,
+                                                     _format_tracks)
+    from aicamera_tpu_torch.scenes import moving_rectangles
+    kw = dict(input_shape=(256, 256), max_reid_crops=4,
+              tracker_params=TrackerParams(max_tracks=16, max_detections=8,
+                                           nn_budget=4, max_age=10),
+              yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
+              reid_weights=str(config.REID_SYNTHETIC_PATH),
+              detect_dtype="f32", reid_dtype="f32")
+    frames = np.stack([moving_rectangles(4, (180, 320), n_objects=3,
+                                         seed=s) for s in (3, 5)])
+    pipes = {d: MultiStreamPipeline(2, (180, 320), device=d, **kw)
+             for d in ("cuda", "cpu")}
+    launches = lb.KERNEL.launches
+    outs = {d: [p.step_chunk(frames[:, :2]), p.step_chunk(frames[:, 2:])]
+            for d, p in pipes.items()}
+    assert lb.KERNEL.launches == launches + 2
+    before = pipes["cuda"].states
+    pipes["cuda"].step_chunk(frames[:, 2:], frame_valid=np.array(
+        [[True, True], [False, False]]))
+    after = pipes["cuda"].states
+    assert torch.equal(before.gallery[1], after.gallery[1])
+    assert torch.equal(before.mean[1], after.mean[1])
+
+    def tuples(o, si):
+        return [_format_tracks(*(x[si, t].cpu().numpy() for x in o[c]))
+                for c in range(2) for t in range(2)]
+
+    n = 0
+    for si in range(2):
+        single = TrackingPipeline(chunk_size=2, device="cuda", **kw)
+        want = [r.tracks for r in single.process_frames(iter(frames[si]))]
+        for ref in (want, tuples(outs["cpu"], si)):
+            for g, w in zip(tuples(outs["cuda"], si), ref, strict=True):
+                assert [t[:6] for t in g] == [t[:6] for t in w]
+                assert all(abs(a[6] - b[6]) <= 1e-4 for a, b in zip(g, w))
+        n += sum(map(len, want))
+    assert n > 0

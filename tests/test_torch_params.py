@@ -192,7 +192,8 @@ MUST_COVER = ("cli.py", "utils/__init__.py", "utils/video_io.py",
               "runtime/profiler.py", "runtime/pipeline.py", "detector.py",
               "tracker_api.py", "bytetrack_api.py", "botsort_api.py",
               "ocsort_api.py", "deepocsort_api.py", "strongsort_api.py",
-              "ops/gmc.py", "ops/tiling.py")
+              "ops/gmc.py", "ops/tiling.py", "parallel/__init__.py",
+              "parallel/multistream.py", "serving.py", "server.py")
 
 
 def test_source_scan_finds_no_forbidden_import():
@@ -225,6 +226,10 @@ missing = set({must!r}) - seen
 assert not missing, missing
 from aicamera_tpu_torch.cli import main, parse_arguments
 assert parse_arguments(["--input", "x.npy"]).device == "cuda"
+from aicamera_tpu_torch.parallel import MultiStreamPipeline
+from aicamera_tpu_torch.serving import (MultiTenantTrackingService,
+                                        TrackingService)
+from aicamera_tpu_torch.server import TrackingHTTPServer, main as serve
 runpy.run_path({smoke!r}, run_name="chip_smoke_imported")
 print("IMPORT-OK")
 """
