@@ -78,7 +78,8 @@ class TrackingService:
     def reset(self) -> Future:
         """Fresh tracker state (ids restart at 1) once every frame submitted
         before it has been dispatched. The worker resets the pipeline
-        between two dispatches; returns a Future that resolves then."""
+        between two dispatches; returns a Future that resolves once the
+        results of those frames have resolved too."""
         fut: Future = Future()
         with self._state_lock:
             if not self._running:
@@ -153,9 +154,11 @@ class TrackingService:
                 # between dispatches: no step is running over the state
                 try:
                     self.pipeline.reset()
-                    reset.future.set_result(None)
                 except Exception as e:
                     reset.future.set_exception(e)
+                else:
+                    # the resolver, FIFO, resolves it after earlier chunks
+                    self._resolve_q.put(reset)
         # reject anything left in the queue
         try:
             while True:
@@ -192,7 +195,10 @@ class TrackingService:
                 item = self._resolve_q.get()
                 if item is None:
                     break
-                self._resolve(item)
+                if isinstance(item, _Reset):
+                    item.future.set_result(None)
+                else:
+                    self._resolve(item)
 
 
 @dataclasses.dataclass

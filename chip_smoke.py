@@ -76,7 +76,24 @@ this file; exits non-zero otherwise. In order it:
     1, the stats and the queue-wait and cycle percentiles;
 13. ``[server]``: ``TrackingHTTPServer`` on 127.0.0.1: health names the
     GPU, 16 raw-frame POSTs against the service itself after a reset,
-    stats, and a JPEG body answered 400.
+    stats, and a JPEG body answered 400;
+14. ``[quality]``: BASELINE config 9's world (``synthetic.TemporalWorld``,
+    10 objects, seed 4, speed 3, 960x540), 96 frames rendered on the card
+    and held against the CPU rendering (bitwise expected; at most 1 level
+    on 0.01% of the pixels) and against the JAX golden's frame digests
+    (``tests/data/quality_golden.json``, from
+    ``scripts/make_quality_golden.py``); then ``TrackingPipeline`` at full
+    width with the trained weights and no synthetic boxes, in bf16 and in
+    f32 (TF32 off): FPS, stage ms, syncs and live tracks a frame, MOTA,
+    MOTP, ID switches, FP, FN, HOTA, DetA, AssA, IDF1 (scored from frame 5)
+    and AP50 and mAP@[.5:.95] over the detections; gates: f32 within 0.005
+    of the golden's MOTA, HOTA and IDF1 and within 1 of its ID switches,
+    bf16 MOTA at least the golden's minus 0.05 and ID switches at most its
+    plus 4;
+15. ``[mot]``: a MOTChallenge layout of 48 PNG frames (a second seed of the
+    world) with its ``gt.txt``, then ``aicamera_tpu_torch.mot.main(--run
+    --gsi)`` on the card: its report equals an in-process scoring of the
+    result file, the result and GSI files exist.
 
 The last two lines of output are the kernels' JSON record and the device
 JSON record. ``--kernels-only`` stops after step 3.
@@ -86,12 +103,15 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -114,6 +134,9 @@ TENANT_SECONDS = 2.0   # [serving]: how long the paced tenants submit
 TENANT_PACES = (None, 30.0, 15.0, 8.0)  # frames/s; None: one burst
 SERVER_FRAMES = 16     # [server]: raw-frame POSTs
 SERVER_CHUNK = 4
+QUALITY_GOLDEN = ROOT / "tests" / "data" / "quality_golden.json"
+MOT_FRAMES = 48        # [mot]: PNG frames of a second seed of the world
+MOT_SEED = 7
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 outside the tensor cores
 
@@ -1386,6 +1409,250 @@ def server_phase(device, frames, kernels):
     return launches
 
 
+def load_golden():
+    """The JAX package's f32 quality on config 9's world
+    (``scripts/make_quality_golden.py``)."""
+    golden = json.loads(QUALITY_GOLDEN.read_text())
+    check(golden["frames"] % CHUNK == 0, "golden frames not whole chunks")
+    return golden
+
+
+def temporal_world(world, device, seed=None):
+    from aicamera_tpu_torch.synthetic import TemporalWorld, WorldSpec
+    return TemporalWorld(
+        WorldSpec(hw=tuple(world["hw"]), max_objects=world["max_objects"],
+                  presence=world["presence"]),
+        seed=world["seed"] if seed is None else seed, speed=world["speed"],
+        device=device)
+
+
+def frame_digest(frame, boxes, ids, cls):
+    """SHA-256 of a frame and its valid ground truth (the golden's
+    ``frame_sha256``, written by ``scripts/make_quality_golden.py``)."""
+    import numpy as np
+    h = hashlib.sha256(np.ascontiguousarray(frame).tobytes())
+    h.update(np.ascontiguousarray(boxes, np.float32).tobytes())
+    h.update(np.ascontiguousarray(ids, np.int64).tobytes())
+    h.update(np.ascontiguousarray(cls, np.int32).tobytes())
+    return h.hexdigest()
+
+
+def render_world(world, n):
+    """``n`` steps of a ``TemporalWorld``: ``(steps, seconds per step)``,
+    each step ``(frame, boxes, ids, cls, valid)`` as ``step`` returns it."""
+    steps, secs = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        steps.append(world.step())
+        secs.append(time.perf_counter() - t0)
+    return steps, secs
+
+
+def score_run(results, steps, score_from):
+    """CLEAR-MOT, HOTA and IDF1 of a run's tracks from ``score_from`` on,
+    detection AP over all its frames (``benchmarks/run_configs.py::
+    _replay_quality`` and config 9), and each frame's ``[x1, y1, x2, y2,
+    id]`` tracks."""
+    import numpy as np
+    from aicamera_tpu_torch.eval import (evaluate_detections, evaluate_hota,
+                                         evaluate_identity, evaluate_mot)
+    gt = [(b[v], ids[v]) for _, b, ids, _, v in steps]
+    gt_det = [(b[v], c[v]) for _, b, _, c, v in steps]
+    hyp = [(np.asarray([t[:4] for t in r.tracks],
+                       np.float32).reshape(-1, 4),
+            np.asarray([t[4] for t in r.tracks], np.int64)) for r in results]
+    preds = [(r.det_boxes, r.det_scores, r.det_labels) for r in results]
+    w = slice(score_from, len(steps))
+    return dict(mot=evaluate_mot(gt[w], hyp[w]),
+                hota=evaluate_hota(gt[w], hyp[w]),
+                ident=evaluate_identity(gt[w], hyp[w]),
+                ap=evaluate_detections(gt_det, preds),
+                tracks=[[[int(v) for v in t[:5]] for t in r.tracks]
+                        for r in results])
+
+
+def quality_line(tag, s):
+    m, h, i, a = s["mot"], s["hota"], s["ident"], s["ap"]
+    print(f"[quality] {tag}: MOTA {m.mota:.4f}, MOTP {m.motp:.4f}, ID "
+          f"switches {m.id_switches}, FP {m.false_positives}, FN "
+          f"{m.misses}, matches {m.matches} of {m.num_gt}; HOTA "
+          f"{h.hota:.4f} (DetA {h.det_a:.4f}, AssA {h.ass_a:.4f}); IDF1 "
+          f"{i.idf1:.4f}; AP50 {a.ap50:.4f}, mAP@[.5:.95] {a.map_5095:.4f} "
+          f"({a.num_pred} detections)")
+
+
+def quality_phase(device, kernels):
+    """Config 9's world rendered on the card (against the CPU), then the
+    trained detector and DeepSORT at full width over it, in bf16 and in f32
+    (TF32 off), scored against the ground truth and the JAX golden."""
+    import numpy as np
+    golden = load_golden()
+    world, n, s0 = golden["world"], golden["frames"], golden["score_from"]
+    card, secs = render_world(temporal_world(world, device), n)
+    cpu, _ = render_world(temporal_world(world, "cpu"), n)
+    diff_px = 0
+    for t, (a, b) in enumerate(zip(card, cpu)):
+        for x, y in zip(a[1:], b[1:]):
+            check(np.array_equal(x, y), f"frame {t}: card ground truth != "
+                  f"the CPU's")
+        d = np.abs(a[0].astype(np.int16) - b[0].astype(np.int16))
+        check(d.max() <= 1, f"frame {t}: card pixels {d.max()} levels off")
+        diff_px += int((d > 0).any(-1).sum())
+    n_px = n * world["hw"][0] * world["hw"][1]
+    check(diff_px <= 1e-4 * n_px, f"{diff_px} card pixels != the CPU's")
+    same_jax = sum(frame_digest(f, b[v], i[v], c[v]) == want for (
+        f, b, i, c, v), want in zip(card, golden["frame_sha256"]))
+    live = sum(int(s[4].sum()) for s in card) / n
+    print(f"[quality] config 9's world (960x540, 10 objects, seed "
+          f"{world['seed']}, speed {world['speed']}): {n} frames rendered on "
+          f"the card, {1e3 * np.mean(secs[1:]):.3f} ms a frame (median "
+          f"{1e3 * np.median(secs[1:]):.3f}; first {1e3 * secs[0]:.1f}; "
+          f"host motion, device render and ground truth, one read); "
+          f"{diff_px} of {n_px} pixels differ from the CPU rendering"
+          f"{' (bitwise equal)' if diff_px == 0 else ''}, ground truth "
+          f"bitwise; {same_jax}/{n} frames equal the JAX golden's SHA-256; "
+          f"{live:.2f} visible objects a frame")
+    frames = [s[0] for s in card]
+    launches = {}
+    scores = {}
+    for tag, kw in (("bf16", {}),
+                    ("f32", dict(detect_dtype="f32", reid_dtype="f32"))):
+        pipe = make_pipeline(device, synthetic_load=0, **kw)
+        pipe.warm_up(FRAME_HW)
+        res, wall, launches[tag], syncs, _ = counted_run(pipe, frames,
+                                                         kernels)
+        check_launches(launches[tag], n // CHUNK, f"quality {tag}")
+        summarize(res)
+        scores[tag] = s = score_run(res, card, s0)
+        tracks = sum(len(r.tracks) for r in res) / n
+        if tag == "bf16":
+            pipe.reset()
+            _, _, _, _, stage_ms = counted_run(pipe, frames, kernels,
+                                               timed=True)
+            print(f"[quality] bf16: {n} frames in {wall:.3f} s: {n / wall:.2f}"
+                  f" FPS (chunk {CHUNK}, no synthetic boxes); per-chunk "
+                  f"stage ms " + ", ".join(f"{k} {v:.3f}"
+                                           for k, v in stage_ms.items()))
+        else:
+            print(f"[quality] f32 (TF32 off): {n} frames in {wall:.3f} s: "
+                  f"{n / wall:.2f} FPS")
+        print(f"[quality] {tag}: {tracks:.2f} live tracks a frame; host syncs"
+              f" a frame: {syncs_line(syncs, n)}; launches "
+              f"{launches[tag]} (one per chunk)")
+        quality_line(f"{tag}, scored from frame {s0}", s)
+    gm, gi = golden["mot"], golden["identity"]
+    gh = golden["hota"]["hota"]
+    print(f"[quality] JAX golden (f32, CPU): MOTA {gm['mota']:.4f}, ID "
+          f"switches {gm['id_switches']}, HOTA {gh:.4f}, IDF1 "
+          f"{gi['idf1']:.4f}, AP50 {golden['detection']['ap50']:.4f}")
+    f32 = scores["f32"]
+    flips = [(t, sorted(map(tuple, set(map(tuple, a)) ^ set(map(tuple, b)))))
+             for t, (a, b) in enumerate(zip(f32["tracks"], golden["tracks"]))
+             if a != b]
+    print(f"[quality] f32 vs the JAX golden: tracks identical on "
+          f"{n - len(flips)}/{n} frames" + "".join(
+              f"; frame {t}: [x1, y1, x2, y2, id] in one run only {d[:4]}"
+              for t, d in flips[:5]))
+    deltas = dict(MOTA=f32["mot"].mota - gm["mota"],
+                  HOTA=f32["hota"].hota - gh,
+                  IDF1=f32["ident"].idf1 - gi["idf1"])
+    for k, v in deltas.items():
+        check(abs(v) <= 0.005, f"f32 {k} {v:+.4f} off the golden")
+    check(abs(f32["mot"].id_switches - gm["id_switches"]) <= 1,
+          f"f32 ID switches {f32['mot'].id_switches} vs the golden's "
+          f"{gm['id_switches']}")
+    bf16 = scores["bf16"]["mot"]
+    check(bf16.mota >= gm["mota"] - 0.05,
+          f"bf16 MOTA {bf16.mota:.4f} below the golden's minus 0.05")
+    check(bf16.id_switches <= gm["id_switches"] + 4,
+          f"bf16 ID switches {bf16.id_switches} above the golden's plus 4")
+    print("[quality] gates passed: f32 " + ", ".join(
+        f"{k} {v:+.4f}" for k, v in deltas.items())
+        + f", ID switches {f32['mot'].id_switches - gm['id_switches']:+d} "
+        f"(limits 0.005 and 1); bf16 MOTA {bf16.mota - gm['mota']:+.4f} "
+        f"(limit -0.05), ID switches "
+        f"{bf16.id_switches - gm['id_switches']:+d} (limit +4)")
+    return launches
+
+
+def write_png(path, bgr):
+    """A minimal PNG writer (8-bit RGB, filter 0, zlib): the GPU host has
+    no OpenCV."""
+    import numpy as np
+    h, w, _ = bgr.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           bgr[..., ::-1].reshape(h, w * 3)], axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0,
+                                                  0, 0))
+                     + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+                     + chunk(b"IEND", b""))
+
+
+def mot_phase(device, kernels):
+    """``python -m aicamera_tpu_torch.mot --run --gsi`` on the card over a
+    PNG sequence of a second seed of config 9's world, its report against
+    an in-process scoring of the same hypotheses."""
+    import numpy as np
+    from aicamera_tpu_torch import config, mot
+    from aicamera_tpu_torch.utils.png import read_png
+    world = load_golden()["world"]
+    steps, _ = render_world(temporal_world(world, device, seed=MOT_SEED),
+                            MOT_FRAMES)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out = Path(tmp) / "data", Path(tmp) / "out"
+        seq = data / "SYN-01"
+        (seq / "img1").mkdir(parents=True)
+        (seq / "gt").mkdir()
+        rows = []
+        for t, (frame, boxes, ids, _, valid) in enumerate(steps, 1):
+            write_png(seq / "img1" / f"{t:06d}.png", frame)
+            for (x1, y1, x2, y2), i in zip(boxes[valid], ids[valid]):
+                rows.append(f"{t},{i},{x1 + 1:.4f},{y1 + 1:.4f},"
+                            f"{x2 - x1:.4f},{y2 - y1:.4f},1,1,1")
+        (seq / "gt" / "gt.txt").write_text("\n".join(rows) + "\n")
+        check(np.array_equal(read_png(seq / "img1" / "000001.png"),
+                             steps[0][0]), "the PNG round trip")
+        reset_counts(kernels)
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            report = mot.main([
+                "--data", str(data), "--out", str(out), "--run", "--gsi",
+                "--yolo_weights", str(config.YOLO_SYNTHETIC_PATH),
+                "--reid_weights", str(config.REID_SYNTHETIC_PATH)])
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        check_launches(launches, MOT_FRAMES // CHUNK, "mot --run")
+        res, gsi = out / "SYN-01.txt", out / "SYN-01.gsi.txt"
+        check(res.exists() and gsi.exists(), "mot wrote no result files")
+        gt = seq / "gt" / "gt.txt"
+        m = mot.evaluate_sequence(gt, res)
+        h = mot.evaluate_sequence_hota(gt, res)
+        i = mot.evaluate_sequence_identity(gt, res)
+        row = report["SYN-01"]
+        check(row["mota"] == m.mota and row["hota"] == round(h.hota, 4)
+              and row["idf1"] == round(i.idf1, 4)
+              and row["id_switches"] == m.id_switches,
+              f"mot's report {row} != the in-process scores")
+        check(m.matches > 0, "mot --run matched no ground truth")
+        n_boxes = len(res.read_text().splitlines())
+    print(f"[mot] python -m aicamera_tpu_torch.mot --run --gsi on the card: "
+          f"{MOT_FRAMES} PNG frames of seed {MOT_SEED} in {wall:.3f} s "
+          f"(pipeline construction, PNG decode and scoring included), "
+          f"{n_boxes} result rows; MOTA {m.mota:.4f}, ID switches "
+          f"{m.id_switches}, HOTA {h.hota:.4f}, IDF1 {i.idf1:.4f}, GSI MOTA "
+          f"{row['gsi_mota']:.4f}, GSI HOTA {row['gsi_hota']:.4f}: the report "
+          f"equals an in-process scoring of the written hypotheses; "
+          f"launches {launches} (one per chunk)")
+    return launches
+
+
 def profile_chunk(pipe, chunk):
     """GPU busy share of one more chunk, from a torch.profiler trace: the
     sum of kernel and copy times over the host wall time of the chunk."""
@@ -1525,6 +1792,8 @@ def main() -> int:
             "serving", serving_phase, device, frames, kernels)
         by_path["server"] = timed("server", server_phase, device, frames,
                                   kernels)
+        by_path["quality"] = timed("quality", quality_phase, device, kernels)
+        by_path["mot"] = timed("mot", mot_phase, device, kernels)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1532,10 +1801,11 @@ def main() -> int:
     # the other paths, each counted from 0: bucket (its last run), every
     # tracker, the GMC pipelines, every facade (one launch per detect call;
     # detect_tiled two), the CLI (warm-up chunks included), the multi-stream
-    # dispatches, the two services and the server's requests
+    # dispatches, the two services, the server's requests, the quality runs
+    # (bf16, f32) and mot --run
     record["launches_by_path"] = {
         path: ({t: v[record["name"]] for t, v in counts.items()}
-               if path in ("trackers", "gmc", "facades")
+               if path in ("trackers", "gmc", "facades", "quality")
                else counts[record["name"]])
         for path, counts in by_path.items()}
     print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s;"

@@ -280,3 +280,22 @@ def test_multistream_on_the_card_matches_single_streams_and_the_cpu(cuda):
                 assert all(abs(a[6] - b[6]) <= 1e-4 for a, b in zip(g, w))
         n += sum(map(len, want))
     assert n > 0
+
+
+def test_synthetic_world_on_the_card_matches_the_cpu(cuda):
+    """The threefry draws, the rendering and the ground truth give the same
+    bits on the card as on the CPU (integer hash, float64 multiply-adds)."""
+    from aicamera_tpu_torch import prng
+    from aicamera_tpu_torch.synthetic import TemporalWorld, WorldSpec
+    kd = prng.PRNGKey(5)
+    for lo, hi in ((0.0, 1.0), (-12.0, 12.0)):
+        assert torch.equal(prng.uniform(kd, (1000,), lo, hi, cuda).cpu(),
+                           prng.uniform(kd, (1000,), lo, hi, "cpu"))
+    assert torch.equal(prng.randint(kd, (64,), 6, 18, cuda).cpu(),
+                       prng.randint(kd, (64,), 6, 18, "cpu"))
+    spec = WorldSpec(max_objects=10, presence=1.0)
+    card = TemporalWorld(spec, seed=4, speed=3.0, device=cuda)
+    host = TemporalWorld(spec, seed=4, speed=3.0, device="cpu")
+    for _ in range(4):
+        for a, b in zip(card.step(), host.step()):
+            np.testing.assert_array_equal(a, b)

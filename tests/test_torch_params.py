@@ -193,7 +193,9 @@ MUST_COVER = ("cli.py", "utils/__init__.py", "utils/video_io.py",
               "tracker_api.py", "bytetrack_api.py", "botsort_api.py",
               "ocsort_api.py", "deepocsort_api.py", "strongsort_api.py",
               "ops/gmc.py", "ops/tiling.py", "parallel/__init__.py",
-              "parallel/multistream.py", "serving.py", "server.py")
+              "parallel/multistream.py", "serving.py", "server.py",
+              "prng.py", "synthetic.py", "eval.py", "postprocess.py",
+              "mot.py", "utils/png.py")
 
 
 def test_source_scan_finds_no_forbidden_import():
@@ -230,6 +232,8 @@ from aicamera_tpu_torch.parallel import MultiStreamPipeline
 from aicamera_tpu_torch.serving import (MultiTenantTrackingService,
                                         TrackingService)
 from aicamera_tpu_torch.server import TrackingHTTPServer, main as serve
+from aicamera_tpu_torch.mot import main as mot_main
+from aicamera_tpu_torch.synthetic import TemporalWorld, WorldSpec
 runpy.run_path({smoke!r}, run_name="chip_smoke_imported")
 print("IMPORT-OK")
 """
