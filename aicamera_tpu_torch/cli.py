@@ -93,12 +93,18 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                              "when --tracker strongsort).")
     parser.add_argument("--reid_quant", type=str, default=None,
                         choices=("none", "int8"),
-                        help="ReID embedder precision ('int8' is not "
-                             "ported). Default: bf16.")
+                        help="ReID embedder precision: 'int8' runs the "
+                             "W8A8 post-training-quantized embed stage "
+                             "(per-channel int8 weights, per-crop dynamic "
+                             "activation scales, int32 accumulation). "
+                             "Default: bf16.")
     parser.add_argument("--yolo_quant", type=str, default=None,
                         choices=("none", "int8"),
-                        help="Detector precision ('int8' is not ported). "
-                             "Default: bf16.")
+                        help="Detector precision: 'int8' runs the static-"
+                             "calibrated W8A8 detector twin (activations "
+                             "int8 between convolutions), calibrated once "
+                             "at startup on synthetic scenes. Default: "
+                             "bf16.")
     parser.add_argument("--detect_dtype", type=str, default=None,
                         choices=("bf16", "f32"),
                         help="Detect-forward precision: default bf16 on the "
@@ -152,8 +158,6 @@ def _refuse_unported(args) -> None:
         (args.show_display, "--show_display", needs_cv),
         (args.draw_detections, "--draw_detections", needs_cv),
         (args.native_io, "--native_io", f"the native decoder: {needs_cv}"),
-        (args.reid_quant == "int8", "--reid_quant int8", "not ported"),
-        (args.yolo_quant == "int8", "--yolo_quant int8", "not ported"),
     ]
     for hit, flag, why in refusals:
         if hit:
@@ -225,6 +229,10 @@ def main(argv=None):
                 gmc=args.gmc,
                 detect_dtype=args.detect_dtype,
                 reid_dtype=args.reid_dtype,
+                reid_quant=(None if args.reid_quant in (None, "none")
+                            else args.reid_quant),
+                yolo_quant=(None if args.yolo_quant in (None, "none")
+                            else args.yolo_quant),
                 device=args.device.lower(),
                 **extra,
             )

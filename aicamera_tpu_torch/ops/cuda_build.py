@@ -2,9 +2,10 @@
 
 Each source has a plain C interface and is loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries go to ``aicamera_tpu_torch/
-_build/`` (git-ignored), named by a hash of the source and the flags, so a
-changed source is rebuilt and an unchanged one is reused. Nothing here runs
-at import time.
+_build/`` (git-ignored; :func:`set_build_dir` moves it, see
+``runtime.engine.enable_persistent_cache``), named by a hash of the source
+and the flags, so a changed source is rebuilt and an unchanged one is
+reused. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,6 +24,12 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")  # -v: registers, shared memory, spills
+
+
+def set_build_dir(path) -> None:
+    """Build and look up the kernel libraries in ``path`` from now on."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
 
 
 def nvcc_path() -> str:

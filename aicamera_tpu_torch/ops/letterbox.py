@@ -32,7 +32,7 @@ from . import cuda_build
 from .preprocess import LetterboxSpec, letterbox_plain, letterbox_taps
 
 __all__ = ["KERNEL", "LaunchPlan", "launch_plan", "letterbox",
-           "letterbox_plain"]
+           "letterbox_plain", "traffic"]
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -309,16 +309,50 @@ def check_args(frames: torch.Tensor, spec: LetterboxSpec,
 KERNEL = LetterboxKernel()
 
 
+def traffic(spec: LetterboxSpec, k: int, out_dtype: torch.dtype):
+    """The bytes a letterbox of ``k`` frames must move, the count that its
+    bound (``chip_smoke.py``) and ``runtime.profiler.device_cost`` read:
+    ``(in_bytes, out_bytes, rows_read)``. The input is the source rows that
+    some output row taps with a weight above 0, whole (``W * 3`` bytes
+    each), read once (at 1920x1080 to 640x360 every third row, at 960x540
+    every row); the output is written once."""
+    (y0, y1, wy0, wy1), _, _ = letterbox_taps(spec)
+    rows_read = len(np.union1d(y0[wy0 != 0], y1[wy1 != 0]))
+    in_bytes = k * rows_read * spec.src_hw[1] * 3
+    out_bytes = (k * 3 * spec.out_hw[0] * spec.out_hw[1]
+                 * torch.finfo(out_dtype).bits // 8)
+    return in_bytes, out_bytes, rows_read
+
+
+def _cost_mode():
+    """The active ``runtime.profiler.CostMode``, if any: the dispatcher
+    never sees the kernel's launch (it goes through ``ctypes``), so the
+    letterbox reports its own bytes to it."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    mode = _get_current_dispatch_mode()
+    return mode if hasattr(mode, "opaque") else None
+
+
 def letterbox(frames: torch.Tensor, spec: LetterboxSpec,
               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """uint8 BGR ``(K, H, W, 3)`` -> letterboxed RGB ``(K, 3, Dh, Dw)``.
 
     CUDA tensor: the kernel. CPU tensor: the plain version. Anything else
-    raises."""
+    raises. Under a ``CostMode`` the call counts as the kernel's
+    :func:`traffic` on either device."""
     check_args(frames, spec, out_dtype)
-    if frames.device.type == "cpu":
-        return letterbox_plain(frames, spec, out_dtype)
-    if frames.device.type != "cuda":
+    if frames.device.type not in ("cpu", "cuda"):
         raise ValueError(f"letterbox runs on CUDA or CPU tensors (got "
                          f"{frames.device})")
+    mode = _cost_mode()
+    if mode is None:
+        return _letterbox(frames, spec, out_dtype)
+    in_bytes, out_bytes, _ = traffic(spec, frames.shape[0], out_dtype)
+    with mode.opaque(KERNEL.name, in_bytes + out_bytes):
+        return _letterbox(frames, spec, out_dtype)
+
+
+def _letterbox(frames, spec, out_dtype):
+    if frames.device.type == "cpu":
+        return letterbox_plain(frames, spec, out_dtype)
     return KERNEL.launch(frames, spec, out_dtype)

@@ -9,10 +9,14 @@ promises no order). Labels come from the argmax over logits (first maximum).
 The greedy keep is the JAX package's fixpoint iteration, run batched over the
 chunk: a frame that has converged stays fixed under further iterations, so
 iterating until every frame has converged gives each frame's own fixpoint.
-Each iteration costs one host sync (``NMS_SYNCS`` counts them).
+Each iteration costs one host sync (``NMS_SYNCS`` counts them). With
+``fixed_iters=True`` it runs K iterations and reads nothing, for steps that
+a CUDA graph captures (``runtime/engine.py``); the result is the same.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -65,18 +69,30 @@ def _pairwise_ios_xyxy(boxes: torch.Tensor) -> torch.Tensor:
 _PAIRWISE = {"iou": _pairwise_iou_xyxy, "ios": _pairwise_ios_xyxy}
 
 
-def _greedy_keep(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def _greedy_keep(overlap: torch.Tensor, valid: torch.Tensor,
+                 fixed_iters: bool = False) -> torch.Tensor:
     """Exact greedy-NMS keep set by fixpoint iteration, batched.
 
     ``overlap`` (B, K, K) bool, ``valid`` (B, K) bool over score-ordered
     candidates. The greedy scan is the unique fixpoint of
     ``kept[i] = valid[i] and not any_{j<i}(kept[j] and overlap[j, i])``;
-    Jacobi iteration from ``kept = valid`` reaches it in at most K steps.
+    Jacobi iteration from ``kept = valid`` reaches it in at most K steps
+    (``kept[i]`` is final once every ``kept[j<i]`` is, so after ``i + 1``
+    steps). The eager path stops at the fixpoint, one read a step;
+    ``fixed_iters`` runs all K steps with no read: the steps after the
+    fixpoint change nothing.
     """
     k = overlap.shape[-1]
     lower = torch.tril(torch.ones((k, k), dtype=torch.bool,
                                   device=overlap.device), diagonal=-1)
     ov_lower = (overlap & lower.T).float()  # ov_lower[j, i]: j < i
+    if fixed_iters:
+        valid_f = valid.float()
+        kept_f = valid_f
+        for _ in range(k):
+            hits = torch.matmul(kept_f[..., None, :], ov_lower)[..., 0, :]
+            kept_f = valid_f * (hits == 0)  # hits count kept j < i
+        return kept_f > 0
     kept, prev = valid, ~valid
     it = 0
     while it < k and NMS_SYNCS.flag(torch.any(kept != prev)):
@@ -89,18 +105,19 @@ def _greedy_keep(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 def _suppress_and_emit(k_boxes, k_score, k_cls, k_valid, iou_threshold,
                        top_k: int, max_det: int,
                        class_offset: float = _CLASS_OFFSET,
-                       criterion: str = "iou"):
+                       criterion: str = "iou", fixed_iters: bool = False):
     """Shared NMS tail over (B, K) score-ordered candidates: class shift,
     greedy suppression, emit the top ``max_det`` kept candidates.
     ``class_offset`` must exceed the largest box coordinate; ``criterion``
-    is the pairwise overlap measure, ``"iou"`` or ``"ios"``."""
+    is the pairwise overlap measure, ``"iou"`` or ``"ios"``;
+    ``fixed_iters`` as in :func:`_greedy_keep`."""
     pairwise = _PAIRWISE.get(criterion)
     if pairwise is None:
         raise ValueError(f"criterion must be 'iou' or 'ios', got "
                          f"{criterion!r}")
     shifted = k_boxes + (k_cls.float() * class_offset)[..., None]
     overlap = pairwise(shifted) > iou_threshold
-    kept = _greedy_keep(overlap, k_valid)
+    kept = _greedy_keep(overlap, k_valid, fixed_iters)
 
     order_score = torch.where(kept, k_score, torch.full_like(k_score, -1.0))
     if max_det > top_k:  # more output slots than candidates: pad
@@ -123,9 +140,11 @@ def _suppress_and_emit(k_boxes, k_score, k_cls, k_valid, iou_threshold,
     return num, out_boxes, out_score, out_cls
 
 
+@functools.lru_cache(maxsize=64)
 def _anchor_tables(level_hw, strides, device):
     """Flat per-anchor (cx, cy) cell centres and strides, row-major over
-    (h, w) per level."""
+    (h, w) per level; uploaded once per ``(level_hw, strides, device)`` and
+    shared (read only)."""
     centers, stride_tab = [], []
     for (h, w), s in zip(level_hw, strides):
         ys = np.arange(h, dtype=np.float32) + 0.5
@@ -138,13 +157,15 @@ def _anchor_tables(level_hw, strides, device):
 
 def fused_decode_nms(level_outputs, score_threshold: float = 0.25,
                      iou_threshold: float = 0.5, top_k: int = 300,
-                     max_det: int = 100, strides=(8, 16, 32)):
+                     max_det: int = 100, strides=(8, 16, 32),
+                     fixed_iters: bool = False):
     """Decode + NMS fused: DFL box decoding only for the top-k candidates.
 
     ``level_outputs``: per level ``(box_bins (B, h, w, 4*reg_max),
     cls_logits (B, h, w, C))`` NHWC. Returns ``num (B,) int32, boxes
     (B, max_det, 4) f32, scores (B, max_det) f32, labels (B, max_det)
-    int32`` in letterboxed coordinates.
+    int32`` in letterboxed coordinates. ``fixed_iters``: the greedy keep
+    without reads (the same result), for a captured step.
     """
     reg_max = level_outputs[0][0].shape[-1] // 4
     level_hw = tuple((bb.shape[1], bb.shape[2]) for bb, _ in level_outputs)
@@ -156,7 +177,8 @@ def fused_decode_nms(level_outputs, score_threshold: float = 0.25,
     logits = torch.cat([cl.reshape(batch, -1, cl.shape[-1])
                         for _, cl in level_outputs], dim=1)
     k = min(top_k, bins.shape[1])
-    centers, stride_tab = _anchor_tables(level_hw, strides, device)
+    centers, stride_tab = _anchor_tables(level_hw, tuple(strides),
+                                         device)
     dfl_bins = torch.arange(reg_max, dtype=torch.float32, device=device)
 
     best_logit = torch.amax(logits, dim=-1)
@@ -180,4 +202,5 @@ def fused_decode_nms(level_outputs, score_threshold: float = 0.25,
     k_cls = torch.gather(best_cls, 1, k_idx)
     k_valid = k_score > 0
     return _suppress_and_emit(k_boxes, k_score, k_cls, k_valid,
-                              iou_threshold, k, max_det)
+                              iou_threshold, k, max_det,
+                              fixed_iters=fixed_iters)

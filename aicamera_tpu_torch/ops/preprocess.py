@@ -12,6 +12,7 @@ half-to-even, clip, pad, BGR->RGB and a true division by 255.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -149,8 +150,17 @@ def letterbox_plain(frames_bgr_u8: torch.Tensor, spec: LetterboxSpec,
     return (canvas / _f32(255.0, dev)).to(out_dtype)
 
 
+@functools.lru_cache(maxsize=256)
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small constant tensor (a number or a tuple of numbers), uploaded
+    once per ``(values, dtype, device)`` and shared by every caller, who must
+    not write to it. Steps that a CUDA graph captures take their constants
+    from here: a capture cannot copy from host memory."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _f32(value: float, device) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    return device_constant(float(value), torch.float32, torch.device(device))
 
 
 def preprocess_yolo(frame_bgr_u8: torch.Tensor, spec: LetterboxSpec,

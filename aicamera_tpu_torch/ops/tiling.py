@@ -18,6 +18,7 @@ from typing import List, Tuple
 import torch
 
 from .nms import _CLASS_OFFSET, _suppress_and_emit, _topk_stable
+from .preprocess import device_constant
 
 
 def tile_layout(frame_hw: Tuple[int, int], grid: Tuple[int, int],
@@ -63,15 +64,15 @@ def extract_tiles(frame_u8: torch.Tensor, origins: List[Tuple[int, int]],
 
 def offset_boxes(boxes_xyxy: torch.Tensor, y0: int, x0: int) -> torch.Tensor:
     """Shift tile-local xyxy boxes into frame coordinates."""
-    return boxes_xyxy + torch.tensor([x0, y0, x0, y0], dtype=boxes_xyxy.dtype,
-                                     device=boxes_xyxy.device)
+    return boxes_xyxy + device_constant((x0, y0, x0, y0), boxes_xyxy.dtype,
+                                        boxes_xyxy.device)
 
 
 def merge_detections(boxes: torch.Tensor, scores: torch.Tensor,
                      cls: torch.Tensor, valid: torch.Tensor,
                      iou_threshold: float, max_det: int,
                      frame_hw: Tuple[int, int] | None = None,
-                     criterion: str = "iou"):
+                     criterion: str = "iou", fixed_iters: bool = False):
     """Global class-aware NMS over concatenated per-tile detections.
 
     ``boxes`` ``(N, 4)`` xyxy in frame coordinates (already offset);
@@ -79,7 +80,8 @@ def merge_detections(boxes: torch.Tensor, scores: torch.Tensor,
     boxes live in; the class offset then scales with it (it must exceed
     every coordinate). ``criterion``: ``"iou"`` (the in-model NMS's
     measure) or ``"ios"`` (intersection over the smaller area, which
-    collapses tile-boundary fragments).
+    collapses tile-boundary fragments). ``fixed_iters``: the greedy keep
+    without reads, as in ``ops.nms.fused_decode_nms``.
 
     Returns ``(num, boxes (max_det, 4), scores (max_det,), labels
     (max_det,))``, the contract of ``fused_decode_nms`` for one image.
@@ -96,5 +98,6 @@ def merge_detections(boxes: torch.Tensor, scores: torch.Tensor,
     num, out_boxes, out_scores, out_cls = _suppress_and_emit(
         boxes[k_idx][None], k_score[None], cls[k_idx][None],
         (k_score > 0)[None], iou_threshold, n, max_det,
-        class_offset=class_offset, criterion=criterion)
+        class_offset=class_offset, criterion=criterion,
+        fixed_iters=fixed_iters)
     return num[0], out_boxes[0], out_scores[0], out_cls[0]

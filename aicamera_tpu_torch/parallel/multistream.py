@@ -24,8 +24,7 @@ share a dispatch: a masked frame leaves its stream's state as it was. The
 mask is host data and is never uploaded.
 
 Not ported: ``mesh=`` (sharding streams over several devices),
-``make_mesh``, ``make_stream_mesh`` and ``reid_quant="int8"``; they raise
-the not-ported error.
+``make_mesh`` and ``make_stream_mesh``; they raise the not-ported error.
 """
 
 from __future__ import annotations
@@ -85,9 +84,9 @@ class MultiStreamPipeline:
         ``detect_dtype``/``reid_dtype`` and ``device`` as in
         :class:`TrackingPipeline` (default the GPU; raises without one).
         The tracker names, their parameters and presets, ``gmc``,
-        ``scan_bucket`` (decided per stream) and ``letterbox_auto`` mean
-        what they mean there. ``mesh`` and ``reid_quant="int8"`` are not
-        ported."""
+        ``scan_bucket`` (decided per stream), ``letterbox_auto`` and
+        ``reid_quant="int8"`` (the W8A8 embed stage over every stream's
+        crops) mean what they mean there. ``mesh`` is not ported."""
         if mesh is not None:
             raise not_ported("mesh= (streams sharded over devices)")
         self.n_streams = int(n_streams)
@@ -111,6 +110,7 @@ class MultiStreamPipeline:
         eng.state = None
         self.device = eng.device
         self.tracker_kind = eng.tracker_kind
+        self.reid_quant = eng.reid_quant
         self.tracker_params = eng.tracker_params
         self.bytetrack_params = eng.bytetrack_params
         self.ocsort_params = eng.ocsort_params

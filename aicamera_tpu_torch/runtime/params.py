@@ -231,6 +231,31 @@ def _state_dict_from_flax(tree) -> dict:
     return out
 
 
+def flax_tree(model: torch.nn.Module) -> dict:
+    """A module's weights as the Flax params tree, f32 numpy (the inverse of
+    :func:`_state_dict_from_flax`): conv kernels OIHW -> HWIO, Dense
+    ``(out, in)`` -> ``(in, out)``; what an engine file stores."""
+    tree = {}
+    for key, t in model.state_dict().items():
+        *mods, leaf = key.split(".")
+        arr = t.detach().float().cpu().numpy()
+        if leaf == "weight":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            leaf = "kernel"
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": tree}
+
+
+def tensor_tree(tree) -> dict:
+    """A nested dict of numpy arrays as CPU tensors (an engine file's int8
+    trees)."""
+    return {k: tensor_tree(v) if isinstance(v, dict) else torch.from_numpy(v)
+            for k, v in tree.items()}
+
+
 def yolo_state_dict_from_flax(tree) -> dict:
     """YOLOv8 Flax params tree -> ``models.yolov8.YOLOv8`` state dict."""
     return _state_dict_from_flax(tree)
@@ -282,6 +307,17 @@ def _resolve(model, weights_path, default_path, convert, device, dtype,
     dtype = dtype or compute_dtype(device)
     if weights_path:
         path = Path(weights_path)
+        from .engine import (is_engine_file, is_xla_engine_file,
+                             xla_engine_error)
+        if is_xla_engine_file(path):
+            raise xla_engine_error(path)
+        if is_engine_file(path):
+            raise ValueError(
+                f"{path} is a serialized engine artifact (.cudae): it bakes "
+                "weights + preprocess into a fixed batch-1 program and "
+                "cannot initialize a weight-based pipeline. Load it with "
+                "YOLODetector(engine_path=...) / ReIDModel(engine_path=...),"
+                " or pass the .msgpack/.onnx weights file here instead.")
         if path.suffix == ".onnx":
             raise NotImplementedError(
                 "ONNX import is not ported yet (see ROADMAP.md)")

@@ -26,7 +26,7 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from .. import config, not_ported
+from .. import config
 from ..core import bytetrack as bt_core
 from ..core import ocsort as oc_core
 from ..core import state as core_state
@@ -259,9 +259,15 @@ class TrackingPipeline:
         off: each chunk estimates the camera motion of its frames on the
         device (stage ``gmc``), the frame before the chunk carried over from
         the previous chunk, and every tracker frame warps its state by it
-        after the prediction. ``reid_quant`` and ``yolo_quant`` ``"int8"``
-        are not ported. ``device``: default ``"cuda"``
-        (raises without a GPU); tests pass ``"cpu"``.
+        after the prediction. ``reid_quant="int8"``: the ReID stage runs
+        the W8A8 twin (``models/quant.py``: per-channel int8 weights,
+        per-crop dynamic activation scales, int32 accumulation), the crops
+        in f32. ``yolo_quant="int8"``: the detector runs the
+        static-calibrated W8A8 twin (``models/quant_yolo.py``), calibrated
+        once here on synthetic scenes, on an f32 letterbox; its detections
+        differ a little from bf16's. Either conflicts with the f32 dtype of
+        its stage. ``device``: default ``"cuda"`` (raises without a GPU);
+        tests pass ``"cpu"``.
         """
         self.tracker_kind = str(tracker)
         if self.tracker_kind == "strongsort":
@@ -331,9 +337,7 @@ class TrackingPipeline:
         self.gmc_method = gmc_ops.gmc_method(gmc)
         for name, quant in (("reid_quant", reid_quant),
                             ("yolo_quant", yolo_quant)):
-            if quant == "int8":
-                raise not_ported(name)
-            if quant not in (None, "", "none"):
+            if quant not in (None, "", "none", "int8"):
                 raise ValueError(f"{name} must be None or 'int8' "
                                  f"(got {quant!r})")
         for name, dt in (("detect_dtype", detect_dtype),
@@ -341,14 +345,25 @@ class TrackingPipeline:
             if dt not in (None, "bf16", "f32"):
                 raise ValueError(f"{name} must be None, 'bf16' or 'f32' "
                                  f"(got {dt!r})")
+        if detect_dtype == "f32" and yolo_quant == "int8":
+            raise ValueError("detect_dtype='f32' and yolo_quant='int8' "
+                             "conflict")
+        if reid_dtype == "f32" and reid_quant == "int8":
+            raise ValueError("reid_dtype='f32' and reid_quant='int8' "
+                             "conflict")
+        self.reid_quant = reid_quant if reid_quant == "int8" else None
+        self.yolo_quant = yolo_quant if yolo_quant == "int8" else None
         self.scan_bucket = int(scan_bucket or 0)
         if self.scan_bucket < 0:
             raise ValueError(f"scan_bucket must be >= 0 (got {scan_bucket})")
         self.device = resolve_device(device)
         default_dt = torch.bfloat16 if self.device.type == "cuda" \
             else torch.float32
-        self.detect_dtype = _DTYPES.get(detect_dtype, default_dt)
-        self.reid_dtype = _DTYPES.get(reid_dtype, default_dt)
+        # int8 stages quantize from the f32 weights and take f32 inputs
+        self.detect_dtype = torch.float32 if self.yolo_quant \
+            else _DTYPES.get(detect_dtype, default_dt)
+        self.reid_dtype = torch.float32 if self.reid_quant \
+            else _DTYPES.get(reid_dtype, default_dt)
         self.synthetic_load = int(synthetic_load)
         self.input_shape = tuple(input_shape)
         self.letterbox_auto = bool(letterbox_auto)
@@ -363,6 +378,16 @@ class TrackingPipeline:
         self.reid = resolve_reid_params(weights_path=reid_weights,
                                         device=self.device,
                                         dtype=self.reid_dtype)
+        if self.reid_quant:
+            from ..models.quant import QuantReIDNet, quantize_reid_params
+            self.reid = QuantReIDNet(
+                quantize_reid_params(self.reid),
+                feature_dim=config.REID_FEATURE_DIM).to(self.device)
+        if self.yolo_quant:
+            from ..models.quant_yolo import quantize_yolo_synthetic
+            self.yolo, _ = quantize_yolo_synthetic(
+                self.yolo, variant, self.yolo.num_classes, self.input_shape,
+                letterbox_auto=self.letterbox_auto)
         self.tracker_params = tracker_params or TrackerParams(
             max_cosine_distance=config.DEEPSORT_MAX_DIST,
             nn_budget=config.DEEPSORT_NN_BUDGET,

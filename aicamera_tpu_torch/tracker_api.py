@@ -10,7 +10,10 @@ association and lifecycle run on the facade's device.
 ``ReIDModel`` mirrors the reference's ``reid_model.py``: batched feature
 extraction from host crop lists, padded to power-of-two batch buckets. Its
 host resize is :func:`resize_linear_u8`, this package's copy of OpenCV's
-``INTER_LINEAR`` for uint8 images (the port does not use OpenCV).
+``INTER_LINEAR`` for uint8 images (the port does not use OpenCV). It runs
+the float net, the W8A8 twin (``quant="int8"``, ``models/quant.py``) or a
+``.cudae`` engine file, captured per batch size on a GPU
+(``runtime/engine.py``).
 
 :class:`_TrackerFacade` holds the host side every tracker facade shares:
 the class and score prefilter, the capacity truncation with its one-time
@@ -25,16 +28,20 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import config, not_ported
+from . import config
 from .core import state as core_state
 from .core import tracker as core_tracker
 from .core.costs import mean_to_tlwh, tlwh_to_tlbr
 from .core.state import Detections, TrackerParams
-from .detector import is_engine_file
 from .device import resolve_device
 from .ops import gmc as gmc_ops
 from .ops.crops import extract_reid_crops
-from .runtime.params import resolve_reid_params
+from .runtime.engine import (SerializedEngine, TensorInfo, export_engine,
+                             is_engine_file, is_xla_engine_file,
+                             xla_engine_error)
+from .runtime.params import (flax_tree, load_state_strict,
+                             reid_state_dict_from_flax, resolve_reid_params,
+                             tensor_tree)
 from .runtime.pipeline import _format_tracks, precision
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -85,6 +92,29 @@ def resize_linear_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     return np.clip((v + 2) >> 2, 0, 255).astype(np.uint8)
 
 
+def serialized_step(header: dict, weights: dict, device: torch.device):
+    """Rebuild a ``reid_embed`` engine file's step (``runtime.engine``):
+    normalized f32 NHWC crops -> f32 features."""
+    if header["settings"].get("quant") == "int8":
+        from .models.quant import QuantReIDNet
+        model = QuantReIDNet(tensor_tree(weights),
+                             header["metadata"]["feature_dim"]).to(device)
+        dtype = torch.float32
+    else:
+        from .models.reid import ReIDNet
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[
+            header.get("dtype", "f32")]
+        model = ReIDNet(feature_dim=header["metadata"]["feature_dim"])
+        load_state_strict(model, reid_state_dict_from_flax(weights))
+        model = model.to(device=device, dtype=dtype).eval()
+
+    def embed(crops_f32):
+        with precision(dtype):
+            return model(crops_f32).float()
+
+    return embed
+
+
 class ReIDModel:
     """Appearance feature extractor with the reference's host-crop API."""
 
@@ -96,10 +126,11 @@ class ReIDModel:
                  device=None,
                  quant: str | None = None,
                  reid_dtype: str | None = None):
-        """``engine_path``: ``.msgpack`` weights. ``reid_dtype``: ``None``
-        (bf16 on the GPU, f32 on the CPU), ``"bf16"`` or ``"f32"`` (TF32
-        off: features stable across batch shapes). ``device``: default the
-        GPU."""
+        """``engine_path``: ``.msgpack`` weights or a ``.cudae`` engine file
+        (its batch axis dynamic or fixed, as exported). ``quant="int8"``: the
+        W8A8 twin, quantized at load. ``reid_dtype``: ``None`` (bf16 on the
+        GPU, f32 on the CPU), ``"bf16"`` or ``"f32"`` (TF32 off: features
+        stable across batch shapes). ``device``: default the GPU."""
         if quant not in (None, "", "none", "int8"):
             raise ValueError(f"quant must be None or 'int8' (got {quant!r})")
         if reid_dtype not in (None, "bf16", "f32"):
@@ -107,15 +138,39 @@ class ReIDModel:
                              f"(got {reid_dtype!r})")
         if reid_dtype == "f32" and quant == "int8":
             raise ValueError("reid_dtype='f32' and quant='int8' conflict")
-        if quant == "int8":
-            raise not_ported("quant='int8' (models/quant.py)")
-        if is_engine_file(engine_path):
-            raise not_ported("serialized .xlae engines (runtime/engine.py)")
+        if quant == "int8" and (is_engine_file(engine_path)
+                                or is_xla_engine_file(engine_path)):
+            raise ValueError("quant='int8' needs weights, not a serialized "
+                             ".cudae engine (quantization happens at load)")
+        if is_xla_engine_file(engine_path):
+            raise xla_engine_error(engine_path)
         self.input_shape = tuple(input_shape)
         self.device = resolve_device(device)
+        self._serialized: SerializedEngine | None = None
+        self.quant = quant if quant == "int8" else None
+        if is_engine_file(engine_path):
+            # weights baked in; a dynamic batch axis captures once per size
+            self._serialized = SerializedEngine.load(engine_path,
+                                                     device=self.device)
+            out = self._serialized.get_output_details()[0]
+            self.feature_dim = int(out.shape[-1])
+            in_shape = self._serialized.get_input_details()[0].shape
+            self.input_shape = (int(in_shape[1]), int(in_shape[2]))
+            self.model = None
+            self.quant = self._serialized.settings.get("quant")
+            self.dtype = torch.float32   # the engine's input contract
+            return
+        dtype = torch.float32 if self.quant else _DTYPES.get(reid_dtype)
         self.model = resolve_reid_params(engine_path, device=self.device,
-                                         dtype=_DTYPES.get(reid_dtype))
-        self.dtype = next(self.model.parameters()).dtype
+                                         dtype=dtype)
+        if self.quant:
+            from .models.quant import QuantReIDNet, quantize_reid_params
+            self.model = QuantReIDNet(
+                quantize_reid_params(self.model),
+                feature_dim=config.REID_FEATURE_DIM).to(self.device)
+            self.dtype = self.model.dtype
+        else:
+            self.dtype = next(self.model.parameters()).dtype
         self.feature_dim = config.REID_FEATURE_DIM
 
     def _preprocess(self, crop_bgr: np.ndarray) -> np.ndarray:
@@ -127,13 +182,40 @@ class ReIDModel:
     @torch.no_grad()
     def device_apply(self, crops: torch.Tensor) -> torch.Tensor:
         """``(B, H, W, 3)`` normalized crops on the device -> ``(B,
-        feature_dim)`` f32 L2-normalized features, on the device."""
+        feature_dim)`` f32 L2-normalized features, on the device (through
+        the engine when one is loaded)."""
+        if self._serialized is not None:
+            return self._serialized(crops.float())
         with precision(self.dtype):
             return self.model(crops)
 
     def export_engine(self, path, name: str = "reid_embed",
                       dynamic_batch: bool = True, batch: int = 8):
-        raise not_ported("ReIDModel.export_engine (runtime/engine.py)")
+        """Write the embedder (weights or int8 tree baked in) to a ``.cudae``
+        engine file. ``dynamic_batch=True`` leaves the batch axis free (the
+        reference engine's dynamic batch 1..8 without its ceiling; a GPU
+        captures once per size), else it is ``batch``. The input is
+        normalized f32 NHWC crops (ImageNet mean/std, RGB), what both
+        :meth:`extract_features_batched` and :meth:`device_apply` take."""
+        if self._serialized is not None:
+            raise ValueError("this ReIDModel was itself loaded from a "
+                             "serialized engine; nothing new to export")
+        b = None if dynamic_batch else int(batch)
+        if self.quant:
+            weights, settings = self.model.qparams(), {"quant": "int8"}
+        else:
+            weights, settings = flax_tree(self.model), {}
+        return export_engine(
+            path, "reid_embed", weights,
+            [TensorInfo("input_0", (b, *self.input_shape, 3),
+                        torch.float32)],
+            [TensorInfo("output_0", (b, self.feature_dim), torch.float32)],
+            name=name,
+            metadata={"input_shape": list(self.input_shape),
+                      "feature_dim": self.feature_dim,
+                      "dynamic_batch": bool(dynamic_batch)},
+            dtype="bf16" if self.dtype == torch.bfloat16 else "f32",
+            settings=settings)
 
     def extract_features_batched(self, crops_bgr: List[np.ndarray]
                                  ) -> np.ndarray:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``aicamera_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only] [--only PHASE,...]
 
 Needs one CUDA GPU, the CUDA toolkit (``nvcc``) and the repository around
 this file; exits non-zero otherwise. In order it:
@@ -46,9 +46,19 @@ this file; exits non-zero otherwise. In order it:
 8. ``[facades]``: the reference loop ``YOLODetector.detect`` ->
    ``<facade>.update`` for DeepSORT, StrongSORT, ByteTrack, BoT-SORT,
    OC-SORT and Deep OC-SORT, 32 frames each at full width: FPS, syncs per
-   frame, the kernel once per frame; one ``detect_tiled`` frame (two
+   frame, the kernel once per frame (each ``detect`` a replay of its
+   captured engine, counted per replay); one ``detect_tiled`` frame (two
    launches); then 8 frames through every facade on the card in f32 against
    the CPU (identical tuples);
+   ``[engine]``: ``runtime.engine`` on the facades' frames: the detect
+   (K=1) and tiled engines replayed against their eager steps (f32 with
+   TF32 off: identical outputs; bf16: identical counts and labels), the
+   captured letterbox bitwise against its plain version, ``.cudae`` round
+   trips in a temporary directory (detect and ReID, bitwise), the ReID
+   engine at batches 1, 5 and 32, a capture that reads the GPU (it must
+   raise); times of the eager step and the replay, the fixed-K NMS keep
+   alone, the output copies, the capture, ``device_cost`` beside the
+   replay, and the graph nodes;
 9. ``[cli]``: writes the 64 frames to a ``.npy`` in a temporary directory
    and runs ``aicamera_tpu_torch.cli.main`` on it on the card with
    ``--no_save --profile --checkpoint``, then a ``--resume`` run of 16
@@ -90,13 +100,24 @@ this file; exits non-zero otherwise. In order it:
     of the golden's MOTA, HOTA and IDF1 and within 1 of its ID switches,
     bf16 MOTA at least the golden's minus 0.05 and ID switches at most its
     plus 4;
+    ``[int8]``: W8A8 on the card: the int32 accumulators of every
+    distinct conv of ``QuantReIDNet`` (8 crops) and ``QuantYOLOv8`` (one
+    640x640 frame) bitwise against the CPU, the nets' outputs against the
+    CPU (ReID features within 1e-5; at most 1e-3 of the YOLOv8 int8
+    activations a level off), the calibration frames bitwise the CPU's;
+    bf16 against int8 replay times for the embed at 32 crops and YOLOv8n
+    at K=8; then the quality world with ``yolo_quant`` and ``reid_quant``
+    "int8", scored like the bf16 run; gates: AP50 at least bf16's minus
+    0.01, MOTA at least the golden's minus 0.05, ID switches at most its
+    plus 4;
 15. ``[mot]``: a MOTChallenge layout of 48 PNG frames (a second seed of the
     world) with its ``gt.txt``, then ``aicamera_tpu_torch.mot.main(--run
     --gsi)`` on the card: its report equals an in-process scoring of the
     result file, the result and GSI files exist.
 
 The last two lines of output are the kernels' JSON record and the device
-JSON record. ``--kernels-only`` stops after step 3.
+JSON record. ``--kernels-only`` stops after step 3; ``--only`` runs the
+kernel phase and the named phases (``int8`` brings ``quality`` along).
 """
 
 from __future__ import annotations
@@ -139,6 +160,8 @@ MOT_FRAMES = 48        # [mot]: PNG frames of a second seed of the world
 MOT_SEED = 7
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # H100 SXM, dense bf16 tensor cores
+PEAK_INT8_OPS = 1979e12      # H100 SXM, dense int8 tensor cores
 
 KERNEL_GEOMETRIES = [  # (src_hw, dst_hw, auto)
     ((540, 960), (640, 640), False),
@@ -280,20 +303,16 @@ def measure_letterbox(call, src_hw, dt, device, gen, k=CHUNK):
     pays per chunk once the queue runs). ``host_ms``: the host's share of
     one call.
 
-    The bound's input bytes are the source rows that some output row taps
-    with a weight above 0, whole (``W * 3`` bytes each): at 1920x1080 to
-    640x360 every third row, at 960x540 every row."""
-    import numpy as np
+    The bound's bytes are ``ops.letterbox.traffic``'s (the count that
+    ``runtime.profiler.device_cost`` reads too): the source rows that some
+    output row taps with a weight above 0, whole, and the output."""
     import torch
-    from aicamera_tpu_torch.ops.preprocess import (letterbox_spec,
-                                                   letterbox_taps)
+    from aicamera_tpu_torch.ops.letterbox import traffic
+    from aicamera_tpu_torch.ops.preprocess import letterbox_spec
 
     spec = letterbox_spec(src_hw, (640, 640))
-    (y0, y1, wy0, wy1), _, _ = letterbox_taps(spec)
-    rows_read = len(np.union1d(y0[wy0 != 0], y1[wy1 != 0]))
-    in_bytes = k * rows_read * src_hw[1] * 3
+    in_bytes, out_bytes, rows_read = traffic(spec, k, dt)
     n_out = k * 3 * spec.out_hw[0] * spec.out_hw[1]
-    out_bytes = n_out * torch.finfo(dt).bits // 8
     n_sets = max(4, int(2.5 * L2_BYTES / (in_bytes + out_bytes)) + 1)
     inputs = [torch.randint(0, 256, (k, *src_hw, 3), dtype=torch.uint8,
                             device=device, generator=gen)
@@ -820,6 +839,12 @@ def gmc_phase(device, kernels):
     return launches
 
 
+def quiet(make):
+    """``make()`` with its constructor prints swallowed."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return make()
+
+
 def facade_configs():
     """``{name: (facade class, keywords)}``: the six tracker facades at
     their defaults with the committed ReID weights."""
@@ -842,10 +867,6 @@ def facades_phase(device, frames, kernels):
     import torch
     from aicamera_tpu_torch import config
     from aicamera_tpu_torch.detector import YOLODetector
-
-    def quiet(make):
-        with contextlib.redirect_stdout(io.StringIO()):
-            return make()
 
     yolo = str(config.YOLO_SYNTHETIC_PATH)
     counters = sync_counters()
@@ -879,14 +900,17 @@ def facades_phase(device, frames, kernels):
               f"{syncs_line(syncs, len(sub))} (plus the reads of the "
               f"detections and the tuples); track outputs {n_tracks}, "
               f"distinct ids {len({t[4] for o in outs for t in o})}; "
-              f"launches {launches[name]} (one per detect call)")
+              f"launches {launches[name]} (one per detect call, replayed "
+              f"from its captured engine)")
+    det.detect_tiled(sub[0])  # builds and captures its engine
     for k in kernels:
         k.launches = 0
     tiled = det.detect_tiled(sub[0])
     launches["detect_tiled"] = {k.name: k.launches for k in kernels}
     check_launches(launches["detect_tiled"], 2, "detect_tiled (one frame)")
     print(f"[facades] detect_tiled 2x2 + full frame: {len(tiled[0])} "
-          f"detections (detect: {len(det.detect(sub[0])[0])}); launches 2")
+          f"detections (detect: {len(det.detect(sub[0])[0])}); launches 2 "
+          f"(one replay of its captured engine)")
 
     # card f32 (TF32 off) against the CPU: the same frames through both
     # detectors, each facade fed by its own device's detections
@@ -1572,7 +1596,396 @@ def quality_phase(device, kernels):
         f"(limits 0.005 and 1); bf16 MOTA {bf16.mota - gm['mota']:+.4f} "
         f"(limit -0.05), ID switches "
         f"{bf16.id_switches - gm['id_switches']:+d} (limit +4)")
+    return launches, dict(steps=card, golden=golden, scores=scores)
+
+
+ENGINE_FRAMES = 8     # [engine]: facade frames through each engine
+ENGINE_TIMED = 30     # [engine]: timed calls of each way
+REID_BATCHES = (1, 5, 32)
+
+
+def wall_ms(fn, n=ENGINE_TIMED, warmup=3):
+    """Host wall time of one ``fn()`` call that ends in a sync."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def graph_of(engine):
+    """The (single) captured graph of an engine."""
+    (cap,) = engine._graphs.values()
+    return cap
+
+
+def engine_phase(device, frames, kernels):
+    """``runtime.engine`` on the card: the detect and tiled engines against
+    their eager steps, the captured letterbox against its plain version,
+    ``.cudae`` round trips, the ReID engine, a capture that reads the GPU,
+    and the times of each way."""
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.detector import (YOLODetector, detect_step,
+                                             tiled_step)
+    from aicamera_tpu_torch.ops import letterbox as lb
+    from aicamera_tpu_torch.ops.nms import _greedy_keep
+    from aicamera_tpu_torch.ops.preprocess import letterbox_spec
+    from aicamera_tpu_torch.ops.tiling import extract_tiles, tile_layout
+    from aicamera_tpu_torch.runtime.engine import CUDAGraphEngine
+    from aicamera_tpu_torch.tracker_api import ReIDModel
+
+    yolo, reid = str(config.YOLO_SYNTHETIC_PATH), str(config.REID_SYNTHETIC_PATH)
+    up = [torch.from_numpy(f).to(device) for f in frames[:ENGINE_FRAMES]]
+    dets = {}
+    for tag, kw in (("f32", dict(detect_dtype="f32")), ("bf16", {})):
+        det = dets[tag] = quiet(lambda: YOLODetector(yolo, device=device,
+                                                     **kw))
+        eng = det.get_engine(FRAME_HW)
+        teng = det._tiled_engine(FRAME_HW, (2, 2), 0.2, True, "iou")
+        ways = (("detect", eng, detect_step(
+                    det.model, det._dtype, det._spec(FRAME_HW),
+                    det.conf_threshold, det.nms_threshold, False)),
+                ("detect_tiled", teng, tiled_step(
+                    det.model, det._dtype, FRAME_HW, det.input_shape, (2, 2),
+                    0.2, True, "iou", det.conf_threshold, det.nms_threshold,
+                    False)))
+        for path, e, eager in ways:
+            bitwise = n_det = 0
+            for f in up:
+                with torch.no_grad():
+                    want = eager(f)
+                got = e(f)
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                valid = got[3]
+                check(torch.equal(valid, want[3]) and torch.equal(
+                    got[2][valid], want[2][valid]), f"[engine] {tag} {path}: "
+                    f"replay and eager step differ in counts or labels")
+                if tag == "f32":
+                    check(same, f"[engine] f32 {path}: replay != the eager "
+                          f"step (TF32 off: identical expected)")
+                bitwise += same
+                n_det += int(valid.sum())
+            print(f"[engine] {tag} {path} (960x540): replay vs the eager step "
+                  f"(early-exit NMS) on {len(up)} frames: counts and labels "
+                  f"identical, outputs bitwise on {bitwise}/{len(up)}; "
+                  f"{n_det} detections; captured in {e.compile_seconds:.3f} "
+                  f"s after {e.warmup_seconds:.3f} s of warm-up passes; "
+                  f"{e.graph_nodes()} graph nodes a replay")
+    # the captured letterbox, bitwise against the plain version; each replay
+    # counts one launch
+    origins, tile_hw = tile_layout(FRAME_HW, (2, 2), 0.2)
+    n_held = 0
+    for path, src, k in facade_shapes():
+        spec = letterbox_spec(src, (640, 640))
+        for dt in (torch.float32, torch.bfloat16):
+            if path == "detect":
+                def cut(f):
+                    return f[None]
+            else:
+                def cut(f):
+                    return extract_tiles(f, origins, tile_hw)
+            e = CUDAGraphEngine(lambda f: lb.letterbox(cut(f), spec, dt),
+                                [up[0]], name=f"letterbox_{path}",
+                                warmup_iters=1, device=device)
+            before = lb.KERNEL.launches
+            for f in up[:3]:
+                out = e(f)
+                check(torch.equal(out, lb.letterbox_plain(cut(f), spec, dt)),
+                      f"[engine] captured letterbox ({path}, {dt}) != the "
+                      f"plain version")
+                n_held += 1
+            check(lb.KERNEL.launches == before + 3,
+                  f"[engine] 3 replays of the captured letterbox counted "
+                  f"{lb.KERNEL.launches - before} launches")
+    print(f"[engine] captured letterbox: bitwise equal to the plain version "
+          f"on {n_held} replays (K=1 frame and 2x2 tiles, f32 and bf16); "
+          f"each replay counted one launch")
+
+    # .cudae round trips, in a temporary directory
+    rm = quiet(lambda: ReIDModel(reid, device=device, reid_dtype="f32"))
+    rng = np.random.RandomState(SEED)
+    crops = {b: torch.from_numpy(rng.randn(b, *config.REID_INPUT_SHAPE, 3)
+                                 .astype(np.float32)).to(device)
+             for b in REID_BATCHES}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "det.cudae"
+        dets["f32"].export_engine(FRAME_HW, path)
+        size = path.stat().st_size
+        loaded = quiet(lambda: YOLODetector(str(path), device=device))
+        for f in frames[:ENGINE_FRAMES]:
+            a, b = dets["f32"].detect(f), loaded.detect(f)
+            check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+                  "[engine] the reloaded .cudae detector differs")
+        rpath = Path(tmp) / "reid.cudae"
+        rm.export_engine(rpath)
+        rm2 = ReIDModel(str(rpath), device=device)
+        for b, x in crops.items():
+            check(torch.equal(rm.device_apply(x), rm2.device_apply(x)),
+                  f"[engine] the reloaded ReID engine differs at batch {b}")
+    print(f"[engine] .cudae round trips: the f32 detect engine ({size} bytes)"
+          f" reloaded gives bitwise equal detections on {ENGINE_FRAMES} "
+          f"frames; the f32 ReID engine reloaded gives bitwise equal "
+          f"features at batches {REID_BATCHES} (one capture each)")
+
+    # times, bf16 (the facades' default) at K=1
+    det = dets["bf16"]
+    eng = det.get_engine(FRAME_HW)
+    eager = detect_step(det.model, det._dtype, det._spec(FRAME_HW),
+                        det.conf_threshold, det.nms_threshold, False)
+    fixed = detect_step(det.model, det._dtype, det._spec(FRAME_HW),
+                        det.conf_threshold, det.nms_threshold, True)
+    cap = graph_of(eng)
+    with torch.no_grad():
+        t_eager = wall_ms(lambda: eager(up[0]))
+        t_fixed = wall_ms(lambda: fixed(up[0]))
+    t_call = wall_ms(lambda: eng(up[0]))
+    t_host_call = wall_ms(lambda: eng(torch.from_numpy(frames[0])))
+    t_detect = wall_ms(lambda: det.detect(frames[0]))
+    t_replay = time_ms(cap.graph.replay, iters=ENGINE_TIMED)
+    t_copies = time_ms(lambda: [o.clone() for o in cap.outputs], iters=200)
+    h_copies = time_host_ms(lambda: [o.clone() for o in cap.outputs])
+    cost = eng.cost_analysis()
+    bound = max(cost["flops"] / PEAK_BF16_FLOPS,
+                cost["bytes accessed"] / PEAK_BYTES_PER_S) * 1e3
+    # the fixed-K greedy keep alone, at the detect step's top_k=300
+    g = torch.Generator(device=device).manual_seed(SEED)
+    k = config.YOLO_NMS_TOPK
+    ov = torch.rand((1, k, k), device=device, generator=g) < 0.02
+    ov = ov | ov.transpose(1, 2)
+    va = torch.ones((1, k), dtype=torch.bool, device=device)
+    nms_eng = CUDAGraphEngine(lambda o, v: _greedy_keep(o, v, True),
+                              [ov, va], name="greedy_keep_fixed",
+                              warmup_iters=1, device=device)
+    check(torch.equal(nms_eng(ov, va), _greedy_keep(ov, va)),
+          "[engine] fixed-K greedy keep != the early-exit keep")
+    t_nms = time_ms(graph_of(nms_eng).graph.replay, iters=ENGINE_TIMED)
+    t_nms_eager = wall_ms(lambda: _greedy_keep(ov, va))
+    print(f"[engine] bf16 detect at K=1 (960x540): eager step "
+          f"{t_eager:.3f} ms (early-exit NMS, reads), eager with fixed-K NMS "
+          f"{t_fixed:.3f} ms; engine call {t_call:.3f} ms from a device "
+          f"frame, {t_host_call:.3f} ms from a host frame; facade detect() "
+          f"{t_detect:.3f} ms (upload, replay, four reads); replay alone "
+          f"{t_replay:.3f} ms on the device ({cap.nodes} graph nodes); "
+          f"output copies {t_copies:.4f} ms device, {h_copies:.4f} ms host; "
+          f"capture {eng.compile_seconds:.3f} s, warm-up "
+          f"{eng.warmup_seconds:.3f} s")
+    print(f"[engine] device_cost of the detect step: {cost['flops']:.4g} "
+          f"FLOPs, {cost['bytes accessed']:.4g} bytes (letterbox included): "
+          f"bound {bound:.4f} ms against the replay's {t_replay:.3f} ms")
+    print(f"[engine] fixed-K greedy keep alone (K={k}, 1 frame): replay "
+          f"{t_nms:.3f} ms ({graph_of(nms_eng).nodes} graph nodes); the "
+          f"early-exit keep {t_nms_eager:.3f} ms wall with its reads")
+
+    # the ReID engine at batches 1, 5, 32 (bf16, the default)
+    rb = quiet(lambda: ReIDModel(reid, device=device))
+    with tempfile.TemporaryDirectory() as tmp:
+        rpath = Path(tmp) / "reid.cudae"
+        rb.export_engine(rpath)
+        rb2 = ReIDModel(str(rpath), device=device)
+    rows = []
+    for b, x in crops.items():
+        same = torch.equal(rb.device_apply(x), rb2.device_apply(x))
+        check(torch.allclose(rb.device_apply(x), rb2.device_apply(x),
+                             atol=1e-2), f"[engine] bf16 ReID engine at {b}")
+        rows.append(f"{b}: eager {wall_ms(lambda: rb.device_apply(x)):.3f} "
+                    f"ms, engine {wall_ms(lambda: rb2.device_apply(x)):.3f} "
+                    f"ms{' (bitwise)' if same else ''}")
+    print("[engine] bf16 ReID engine (dynamic batch) vs eager, wall per call "
+          "at batch " + "; ".join(rows))
+
+    # a capture that reads the GPU raises; the card keeps working
+    try:
+        CUDAGraphEngine(eager, [up[0]], name="reads", warmup_iters=1,
+                        device=device)
+        check(False, "[engine] capturing the eager step (it reads the GPU) "
+              "did not raise")
+    except RuntimeError as e:
+        check("capture failed" in str(e), f"[engine] unexpected error {e}")
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(eng(up[0]), eng(up[0]))),
+          "[engine] the engine after a failed capture")
+    print("[engine] capturing the eager step (its NMS reads the GPU) raised "
+          "RuntimeError; the card kept working")
+    reset_counts(kernels)
+    for f in frames[:ENGINE_FRAMES]:
+        det.detect(f)
+    launches = {"detect": {kk.name: kk.launches for kk in kernels}}
+    check_launches(launches["detect"], ENGINE_FRAMES, "[engine] detect")
+    check(eng.replays > 0, "no replay counted")
     return launches
+
+
+def int8_phase(device, kernels, world):
+    """W8A8 on the card: the int8 accumulators and the quantized nets
+    against the CPU, bf16 against int8 throughput, and config 9's world
+    tracked with both stages in int8."""
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.models.quant import (QConv, QuantReIDNet,
+                                                 int8_conv,
+                                                 quantize_reid_params)
+    from aicamera_tpu_torch.models.quant_yolo import (QuantYOLOv8,
+                                                      calibration_frames,
+                                                      quantize_yolo_synthetic)
+    from aicamera_tpu_torch.ops.letterbox import letterbox
+    from aicamera_tpu_torch.ops.preprocess import letterbox_spec
+    from aicamera_tpu_torch.runtime.engine import CUDAGraphEngine
+    from aicamera_tpu_torch.runtime.params import (resolve_reid_params,
+                                                   resolve_yolo_params)
+    from aicamera_tpu_torch.runtime.pipeline import precision
+
+    f32 = torch.float32
+    reid = resolve_reid_params(str(config.REID_SYNTHETIC_PATH),
+                               device=device, dtype=f32)
+    qreid = QuantReIDNet(quantize_reid_params(reid)).to(device)
+    qreid_cpu = QuantReIDNet(quantize_reid_params(reid))
+    yolo = resolve_yolo_params("n", weights_path=str(
+        config.YOLO_SYNTHETIC_PATH), device=device, dtype=f32)
+    t0 = time.perf_counter()
+    qyolo, _ = quantize_yolo_synthetic(yolo)
+    t_cal = time.perf_counter() - t0
+    qyolo_cpu = QuantYOLOv8().bind(qyolo.qparams, qyolo.scales, "cpu")
+    cal_cpu = calibration_frames(device="cpu")
+    check(torch.equal(calibration_frames(device=device).cpu(), cal_cpu),
+          "[int8] calibration frames: card != CPU")
+    rng = np.random.RandomState(SEED)
+    u8 = rng.randint(0, 256, (32, *config.REID_INPUT_SHAPE, 3)).astype(
+        np.float32) / 255.0
+    crops = torch.from_numpy(((u8 - np.array([0.485, 0.456, 0.406],
+                                             np.float32))
+                              / np.array([0.229, 0.224, 0.225],
+                                         np.float32)).astype(np.float32))
+    spec = letterbox_spec(FRAME_HW, (640, 640))
+    steps = world["steps"]
+    x8 = letterbox(torch.stack([torch.from_numpy(s[0]) for s in steps[:8]])
+                   .to(device), spec, f32)
+
+    # every distinct conv (kernel, stride, input shape) of both nets: the
+    # card's int32 accumulators against the CPU's, bitwise
+    seen = {}
+    accumulate = QConv.accumulate
+
+    def record(self, xq, stride=None):
+        out = accumulate(self, xq, stride)
+        key = (self.kh, stride or self.stride, tuple(xq.shape),
+               tuple(self.wmat.shape))
+        if key not in seen:
+            seen[key] = (self, xq, out, stride or self.stride)
+        return out
+
+    QConv.accumulate = record
+    try:
+        with torch.no_grad():
+            f_card = qreid(crops[:8].to(device))
+            lv_card = qyolo(x8[:1])
+    finally:
+        QConv.accumulate = accumulate
+    macs = 0
+    for (kh, s, shape, wshape), (m, xq, out, _) in seen.items():
+        ref = int8_conv(xq.cpu(), m.wmat.cpu(), kh, kh, s, kh // 2, m.n_out)
+        check(torch.equal(out.cpu(), ref), f"[int8] int32 accumulators of "
+              f"a {kh}x{kh}/{s} conv on {shape}: card != CPU")
+        macs += out.numel() * wshape[1]
+    with torch.no_grad():
+        f_cpu = qreid_cpu(crops[:8])
+        rec_card, rec_cpu = {}, {}
+        lv_card = qyolo.apply(qyolo.qparams, x8[:1], record=rec_card)
+        lv_cpu = qyolo_cpu.apply(qyolo_cpu.qparams, x8[:1].cpu(),
+                                 record=rec_cpu)
+    f_err = (f_card.cpu() - f_cpu).abs().max().item()
+    check(f_err <= 1e-5, f"[int8] QuantReIDNet card vs CPU: {f_err}")
+    flips = total = 0
+    for key, a in rec_card.items():
+        if a.dtype == torch.int8:
+            flips += int((a.cpu() != rec_cpu[key]).sum())
+            total += a.numel()
+    lv_err = max((a.cpu() - b).abs().max().item()
+                 for pa, pb in zip(lv_card, lv_cpu) for a, b in zip(pa, pb))
+    check(flips <= 1e-3 * total, f"[int8] QuantYOLOv8 card vs CPU: {flips} "
+          f"of {total} int8 activations differ")
+    print(f"[int8] int32 accumulators bitwise equal card vs CPU for "
+          f"{len(seen)} distinct convs (QuantReIDNet on 8 crops, QuantYOLOv8n"
+          f" on one 640x640 frame; {macs / 1e9:.2f} G int8 MACs); "
+          f"QuantReIDNet features card vs CPU max |diff| {f_err:.3g} "
+          f"(tolerance 1e-5); QuantYOLOv8 card vs CPU: {flips} of {total} "
+          f"int8 activations differ (tolerance 1e-3 of them), levels max "
+          f"|diff| {lv_err:.4g}; calibration {t_cal:.2f} s on the card, its "
+          f"frames bitwise the CPU's")
+
+    # raw throughput, bf16 against int8, each captured and replayed
+    bf = torch.bfloat16
+    reid_bf = resolve_reid_params(str(config.REID_SYNTHETIC_PATH),
+                                  device=device, dtype=bf)
+    yolo_bf = resolve_yolo_params("n", weights_path=str(
+        config.YOLO_SYNTHETIC_PATH), device=device, dtype=bf)
+
+    def fwd(model, dt):
+        def run(x):
+            with precision(dt):
+                return model(x)
+        return run
+
+    rows = {}
+    for name, model, dt, x in (
+            ("embed bf16", reid_bf, bf, crops.to(device)),
+            ("embed int8", qreid, f32, crops.to(device)),
+            ("yolov8n bf16", yolo_bf, bf, x8.to(bf)),
+            ("yolov8n int8", qyolo, f32, x8)):
+        e = CUDAGraphEngine(fwd(model, dt), [x], name=name, warmup_iters=2,
+                            device=device)
+        cost = e.cost_analysis()
+        rows[name] = (time_ms(graph_of(e).graph.replay, iters=20),
+                      time_ms(lambda: fwd(model, dt)(x), iters=10), cost)
+    for what, n in (("embed", 32), ("yolov8n", 8)):
+        (rb, eb, cb), (ri, ei, ci) = rows[f"{what} bf16"], rows[f"{what} int8"]
+        print(f"[int8] {what} at {n}: bf16 {rb:.3f} ms replayed "
+              f"({n / rb * 1e3:.0f}/s; eager {eb:.3f}), int8 {ri:.3f} ms "
+              f"replayed ({n / ri * 1e3:.0f}/s; eager {ei:.3f}): int8/bf16 "
+              f"time {ri / rb:.2f}; device_cost bound (each "
+              f"implementation's own FLOPs and bytes) bf16 "
+              f"{max(cb['flops'] / PEAK_BF16_FLOPS, cb['bytes accessed'] / PEAK_BYTES_PER_S) * 1e3:.4f} ms, int8 "
+              f"{max(ci['flops'] / PEAK_INT8_OPS, ci['bytes accessed'] / PEAK_BYTES_PER_S) * 1e3:.4f} ms "
+              f"({ci['bytes accessed'] / 1e6:.1f} MB vs {cb['bytes accessed'] / 1e6:.1f} MB moved)")
+
+    # config 9's world with both stages in int8, scored like the bf16 run
+    golden, n = world["golden"], len(steps)
+    s0 = golden["score_from"]
+    pipe = make_pipeline(device, synthetic_load=0, yolo_quant="int8",
+                         reid_quant="int8")
+    pipe.warm_up(FRAME_HW)
+    frames = [s[0] for s in steps]
+    res, wall, launches, syncs, _ = counted_run(pipe, frames, kernels)
+    check_launches(launches, n // CHUNK, "int8 quality")
+    summarize(res)
+    sc = score_run(res, steps, s0)
+    pipe.reset()
+    _, _, _, _, stage_ms = counted_run(pipe, frames, kernels, timed=True)
+    print(f"[int8] config 9's world, yolo_quant and reid_quant int8: {n} "
+          f"frames in {wall:.3f} s: {n / wall:.2f} FPS; per-chunk stage ms "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+          + f"; launches {launches}")
+    quality_line("int8, scored from frame " + str(s0), sc)
+    bf16 = world["scores"]["bf16"]
+    gm = golden["mot"]
+    d_ap = sc["ap"].ap50 - bf16["ap"].ap50
+    check(d_ap >= -0.01, f"[int8] AP50 {sc['ap'].ap50:.4f} below bf16's "
+          f"{bf16['ap'].ap50:.4f} minus 0.01")
+    check(sc["mot"].mota >= gm["mota"] - 0.05, f"[int8] MOTA "
+          f"{sc['mot'].mota:.4f} below the golden's minus 0.05")
+    check(sc["mot"].id_switches <= gm["id_switches"] + 4, f"[int8] ID "
+          f"switches {sc['mot'].id_switches} above the golden's plus 4")
+    print(f"[int8] gates passed: AP50 {d_ap:+.4f} vs bf16 (limit -0.01), "
+          f"MOTA {sc['mot'].mota - gm['mota']:+.4f} vs the golden (limit "
+          f"-0.05), ID switches {sc['mot'].id_switches - gm['id_switches']:+d}"
+          f" (limit +4)")
+    return {"int8": launches}
 
 
 def write_png(path, bgr):
@@ -1749,6 +2162,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phase (build, compare, time)")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run after the kernel "
+                         "phase (main, bucket, trackers, gmc, facades, "
+                         "engine, cli, compare, streams, serving, server, "
+                         "quality, int8, mot); default all")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     from aicamera_tpu_torch.ops.letterbox import KERNEL as LETTERBOX
@@ -1778,26 +2196,39 @@ def main() -> int:
             phase_s[name] = time.perf_counter() - t0
             return out
 
-        launches = timed("main", main_path_phase, device, frames, kernels)
-        by_path = {"main": launches}
+        only = set(args.only.split(",")) if args.only else None
+        if only and "int8" in only:
+            only.add("quality")  # int8 tracks the quality phase's world
+
+        def run(name, fn, *a):
+            if only is None or name in only:
+                by_path[name] = timed(name, fn, *a)
+
+        by_path, world = {}, {}
+        run("main", main_path_phase, device, frames, kernels)
         for name, fn, a in (("bucket", bucket_phase, (device, frames)),
                             ("trackers", trackers_phase, (device, frames)),
                             ("gmc", gmc_phase, (device,)),
                             ("facades", facades_phase, (device, frames)),
+                            ("engine", engine_phase, (device, frames)),
                             ("cli", cli_phase, (frames,))):
-            by_path[name] = timed(name, fn, *a, kernels)
-        timed("compare", compare_phase, frames)
-        by_path["streams"] = timed("streams", streams_phase, device, kernels)
-        by_path["serving"], by_path["multi_tenant"] = timed(
-            "serving", serving_phase, device, frames, kernels)
-        by_path["server"] = timed("server", server_phase, device, frames,
-                                  kernels)
-        by_path["quality"] = timed("quality", quality_phase, device, kernels)
-        by_path["mot"] = timed("mot", mot_phase, device, kernels)
+            run(name, fn, *a, kernels)
+        if only is None or "compare" in only:
+            timed("compare", compare_phase, frames)
+        run("streams", streams_phase, device, kernels)
+        if only is None or "serving" in only:
+            by_path["serving"], by_path["multi_tenant"] = timed(
+                "serving", serving_phase, device, frames, kernels)
+        run("server", server_phase, device, frames, kernels)
+        if "quality" in (only or {"quality"}):
+            by_path["quality"], world = timed("quality", quality_phase,
+                                              device, kernels)
+        run("int8", int8_phase, device, kernels, world)
+        run("mot", mot_phase, device, kernels)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    record["launches"] = launches[record["name"]]
+    record["launches"] = by_path.get("main", {}).get(record["name"])
     # the other paths, each counted from 0: bucket (its last run), every
     # tracker, the GMC pipelines, every facade (one launch per detect call;
     # detect_tiled two), the CLI (warm-up chunks included), the multi-stream
@@ -1805,7 +2236,8 @@ def main() -> int:
     # (bf16, f32) and mot --run
     record["launches_by_path"] = {
         path: ({t: v[record["name"]] for t, v in counts.items()}
-               if path in ("trackers", "gmc", "facades", "quality")
+               if path in ("trackers", "gmc", "facades", "engine",
+                           "quality", "int8")
                else counts[record["name"]])
         for path, counts in by_path.items()}
     print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s;"

@@ -191,8 +191,10 @@ def test_preprocess_yolo_launches_the_kernel(cuda):
 
 def test_detector_launches_the_kernel_per_call(cuda):
     """``detect``: one launch (K=1); ``detect_tiled``: two (the tiles, then
-    the full frame); card f32 against the CPU facade: identical counts and
-    labels, boxes within 1e-2 px, scores within 1e-4."""
+    the full frame), counted through the replays of their captured engines
+    (the first call of each builds and captures it); card f32 against the
+    CPU facade: identical counts and labels, boxes within 1e-2 px, scores
+    within 1e-4."""
     from aicamera_tpu_torch import config
     from aicamera_tpu_torch.detector import YOLODetector
     from aicamera_tpu_torch.scenes import moving_rectangles
@@ -201,6 +203,7 @@ def test_detector_launches_the_kernel_per_call(cuda):
     cpu = YOLODetector(str(config.YOLO_SYNTHETIC_PATH), device="cpu", **kw)
     frame = moving_rectangles(1, (180, 320), n_objects=3, seed=3)[0]
     for call, n in (("detect", 1), ("detect_tiled", 2)):
+        getattr(gpu, call)(frame)   # builds and captures the engine
         launches = lb.KERNEL.launches
         g = getattr(gpu, call)(frame)
         assert lb.KERNEL.launches == launches + n
@@ -299,3 +302,72 @@ def test_synthetic_world_on_the_card_matches_the_cpu(cuda):
     for _ in range(4):
         for a, b in zip(card.step(), host.step()):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_captured_detect_equals_the_eager_step(cuda, tiled):
+    """The detect (or tiled) engine replayed from its CUDA graph against the
+    eager step with the early-exit NMS, f32 with TF32 off: bitwise; each
+    replay counts the letterbox launches it repeats (1, or 2 tiled)."""
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.detector import (YOLODetector, detect_step,
+                                             tiled_step)
+    from aicamera_tpu_torch.scenes import moving_rectangles
+    det = YOLODetector(str(config.YOLO_SYNTHETIC_PATH),
+                       input_shape=(256, 256), detect_dtype="f32")
+    hw = (180, 320)
+    if tiled:
+        eng = det._tiled_engine(hw, (2, 2), 0.2, True, "iou")
+        eager = tiled_step(det.model, det._dtype, hw, det.input_shape,
+                           (2, 2), 0.2, True, "iou", det.conf_threshold,
+                           det.nms_threshold, False)
+    else:
+        eng = det.get_engine(hw)
+        eager = detect_step(det.model, det._dtype, det._spec(hw),
+                            det.conf_threshold, det.nms_threshold, False)
+    n = 0
+    for f in moving_rectangles(3, hw, n_objects=3, seed=3):
+        frame = torch.from_numpy(f).to(cuda)
+        launches = lb.KERNEL.launches
+        got = eng(frame)
+        assert lb.KERNEL.launches == launches + (2 if tiled else 1)
+        with torch.no_grad():
+            want = eager(frame)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        n += int(got[3].sum())
+    assert n > 0 and eng.replays == 3
+
+
+def test_a_capture_that_reads_the_gpu_raises(cuda):
+    """The eager step reads the GPU (its NMS's early exit): capturing it
+    raises, with no eager fallback, and the card keeps working."""
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.detector import YOLODetector, detect_step
+    from aicamera_tpu_torch.runtime.engine import CUDAGraphEngine
+    det = YOLODetector(str(config.YOLO_SYNTHETIC_PATH),
+                       input_shape=(256, 256))
+    eager = detect_step(det.model, det._dtype, det._spec((180, 320)),
+                        det.conf_threshold, det.nms_threshold, False)
+    frame = torch.zeros((180, 320, 3), dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        CUDAGraphEngine(eager, [frame], warmup_iters=1)
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    assert det.get_engine((180, 320))(frame)[0].shape == (100, 4)
+
+
+@pytest.mark.parametrize("shape,k,stride", [
+    ((2, 128, 64, 3), 3, 1), ((8, 64, 32, 64), 3, 2),
+    ((8, 32, 16, 128), 1, 2), ((1, 4, 2, 256), 3, 1),   # 8 rows < 17
+    ((1, 80, 80, 40), 1, 1)])
+def test_int8_conv_on_the_card_equals_the_cpu(cuda, shape, k, stride):
+    """``torch._int_mm`` (cuBLASLt) int32 accumulators of the int8 im2col
+    convolution, card against CPU: bitwise (integer sums are exact)."""
+    from aicamera_tpu_torch.models.quant import gemm_weight, int8_conv
+    rng = np.random.RandomState(sum(shape) + k)
+    xq = torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
+    w = torch.from_numpy(rng.randint(-127, 128, (k, k, shape[-1], 48))
+                         .astype(np.int8))
+    wm = gemm_weight(w)
+    cpu = int8_conv(xq, wm, k, k, stride, k // 2, 48)
+    gpu = int8_conv(xq.to(cuda), wm.to(cuda), k, k, stride, k // 2, 48)
+    assert torch.equal(gpu.cpu(), cpu)

@@ -85,18 +85,27 @@ def test_warm_up_and_empty_frame(detectors):
     assert boxes.shape == (len(idx), 4) and len(scores) == len(labels)
 
 
-@pytest.mark.parametrize("kw", [dict(quant="int8"),
+@pytest.mark.parametrize("kw", [dict(engine_path="det.onnx"),
                                 dict(engine_path="det.xlae")])
 def test_detector_not_ported_raises(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdet.YOLODetector(device="cpu", **kw)
+    """ONNX weights are not ported (NotImplementedError); a JAX ``.xlae``
+    engine cannot be (an XLA executable): a ValueError naming the format.
+    (``quant="int8"`` runs now: tests/test_torch_quant.py.)"""
+    if kw["engine_path"].endswith(".xlae"):
+        with pytest.raises(ValueError, match=r"\.xlae.*XLA executable"):
+            tdet.YOLODetector(device="cpu", **kw)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tdet.YOLODetector(device="cpu", **kw)
 
 
 def test_detector_engine_methods_not_ported(detectors):
+    """``get_engine`` and ``export_engine`` run now (tests/test_torch_
+    engine.py); the port writes ``.cudae`` files, never a ``.xlae``."""
     ours, _ = detectors
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ours.get_engine((96, 128))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    eng = ours.get_engine((96, 128))
+    assert eng.get_input_details()[0].shape == (96, 128, 3)
+    with pytest.raises(ValueError, match=r"\.xlae"):
         ours.export_engine((96, 128), "x.xlae")
 
 
@@ -164,11 +173,13 @@ def test_reid_features_match_jax(reid_models, n):
 
 
 def test_reid_device_apply_and_not_ported(reid_models):
+    """``device_apply``; a JAX ``.xlae`` is refused on export and load
+    (``export_engine`` to ``.cudae`` and ``quant="int8"`` run now:
+    tests/test_torch_engine.py, tests/test_torch_quant.py)."""
     ours, _ = reid_models
     x = torch.zeros((2, 128, 64, 3))
     assert ours.device_apply(x).shape == (2, config.REID_FEATURE_DIM)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=r"\.xlae"):
         ours.export_engine("reid.xlae")
-    for kw in (dict(quant="int8"), dict(engine_path="reid.xlae")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tapi.ReIDModel(device="cpu", **kw)
+    with pytest.raises(ValueError, match=r"\.xlae.*XLA executable"):
+        tapi.ReIDModel(device="cpu", engine_path="reid.xlae")

@@ -174,8 +174,14 @@ def test_deepsort_argument_checks(kw):
 
 
 def test_deepsort_reid_quant_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.DeepSORT(device="cpu", reid_quant="int8")
+    """``reid_quant="int8"`` is ported now: the facade's ReID model is the
+    W8A8 twin (held to JAX in tests/test_torch_quant.py); a bad value
+    raises."""
+    from aicamera_tpu_torch.models.quant import QuantReIDNet
+    ds = T.DeepSORT(REID, device="cpu", reid_quant="int8")
+    assert isinstance(ds.reid_model.model, QuantReIDNet)
+    with pytest.raises(ValueError, match="quant"):
+        T.DeepSORT(REID, device="cpu", reid_quant="int4")
 
 
 def test_facades_default_to_the_gpu():

@@ -238,6 +238,31 @@ def test_gmc_matches_jax():
     assert ours[-1][0][4].any(), "no track emitted"
 
 
+def test_released_slot_keeps_the_old_tenants_gmc_frame():
+    """``reset_stream`` resets only the tracker state, as JAX's does
+    (``parallel/multistream.py::reset_stream``): the stream's carried GMC
+    frame stays the old tenant's, so the new tenant's first warp is taken
+    against the old tenant's last frame. Port against JAX; parity keeps the
+    behaviour (``ROADMAP.md`` Queue C)."""
+    old = _pan_scenes(2)
+    new = np.stack([_pan_scenes(4)[0, 2:4],
+                    moving_rectangles(2, FRAME_HW, n_objects=3, seed=9)])
+    every = np.ones((S, 2), bool)
+    runs = []
+    for pipe in (MultiStreamPipeline(device="cpu", **KW, **GMC[0]),
+                 _jax_pipe(**GMC[1])):
+        pipe.step_chunk(old, frame_valid=every)
+        pipe.reset_stream(1)
+        np.testing.assert_array_equal(np.asarray(pipe._gmc_prev[1]),
+                                      old[1, -1])
+        outs = pipe.step_chunk(new, frame_valid=every)
+        runs.append((_host(tuple(outs)), _host(pipe.states)))
+    (o_out, o_st), (r_out, r_st) = runs
+    _assert_outputs_match(o_out, r_out)
+    _assert_states_match(o_st, r_st)
+    assert o_st["next_id"][1] > 1   # the new tenant's tracks started
+
+
 # --- the port's own invariants (no JAX) ------------------------------------
 
 ALL_TRACKERS = {
@@ -383,8 +408,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MultiStreamPipeline(n_streams=S, frame_hw=FRAME_HW, mesh=object(),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiStreamPipeline(device="cpu", reid_quant="int8", **KW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_mesh(2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

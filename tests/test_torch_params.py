@@ -195,7 +195,8 @@ MUST_COVER = ("cli.py", "utils/__init__.py", "utils/video_io.py",
               "ops/gmc.py", "ops/tiling.py", "parallel/__init__.py",
               "parallel/multistream.py", "serving.py", "server.py",
               "prng.py", "synthetic.py", "eval.py", "postprocess.py",
-              "mot.py", "utils/png.py")
+              "mot.py", "utils/png.py", "runtime/engine.py",
+              "models/quant.py", "models/quant_yolo.py", "export_engines.py")
 
 
 def test_source_scan_finds_no_forbidden_import():

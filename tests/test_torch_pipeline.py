@@ -203,10 +203,9 @@ def test_entry_point_defaults_to_the_gpu():
 
 # (strongsort's default gmc="affine" and gmc= itself run now:
 # tests/test_torch_gmc_tracking.py)
+# (reid_quant and yolo_quant "int8" run now: tests/test_torch_quant.py)
 @pytest.mark.parametrize("kw", [dict(yolo_weights="m.onnx"),
-                                dict(reid_weights="m.onnx"),
-                                dict(reid_quant="int8"),
-                                dict(yolo_quant="int8")])
+                                dict(reid_weights="m.onnx")])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrackingPipeline(input_shape=INPUT_HW, device="cpu", **kw)

@@ -497,3 +497,56 @@ def test_services_default_to_the_gpu(service):
         pytest.skip("a GPU is present; the no-GPU error cannot be shown")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         service(input_shape=(128, 128))
+
+
+def test_masked_lane_is_a_black_frame_to_gmc_as_in_jax():
+    """The multi-tenant gather fills a masked lane with zeros
+    (``MultiTenantTrackingService._gather``, as JAX's), and the camera-motion
+    estimate pairs consecutive lanes, so a valid lane after a masked one
+    takes its warp from a black frame. The StrongSORT preset (affine GMC)
+    over such a dispatch, port against JAX's ``MultiStreamPipeline``:
+    identical outputs and states (ids, classes, rounded boxes exact; boxes
+    within 1e-3 px, conf within 1e-5, state floats within 1e-3). Parity
+    keeps the behaviour (``ROADMAP.md`` Queue C)."""
+    from aicamera_tpu.core.state import TrackerParams as JaxParams
+    from aicamera_tpu.parallel import MultiStreamPipeline as JaxMulti
+    from aicamera_tpu_torch.scenes import panning_rectangles
+    small = dict(max_tracks=16, max_detections=8, nn_budget=1, max_age=10,
+                 feature_dim=config.REID_FEATURE_DIM, ema_alpha=0.9,
+                 nsa=True)
+    kw = dict(n_streams=2, frame_hw=FRAME_HW, input_shape=(128, 128),
+              max_reid_crops=4, tracker="strongsort",
+              yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
+              reid_weights=str(config.REID_SYNTHETIC_PATH))
+    scenes = np.stack([panning_rectangles(4, FRAME_HW, n_objects=3, seed=s,
+                                          pan=8)[0] for s in (3, 5)])
+    second = scenes[:, 2:4].copy()
+    second[1, 0] = 0                  # stream 1's lane 0: masked, zeros
+    mask = np.array([[True, True], [False, True]])
+    every = np.ones((2, 2), bool)
+    runs = []
+    for pipe in (MultiStreamPipeline(
+            device="cpu", tracker_params=TrackerParams(**small), **kw),
+            JaxMulti(tracker_params=JaxParams(**small), **kw)):
+        pipe.step_chunk(scenes[:, :2], frame_valid=every)
+        outs = pipe.step_chunk(second, frame_valid=mask)
+        st = pipe.states
+        runs.append(([np.asarray(o) for o in outs],
+                     {f: np.asarray(getattr(st, f)) for f in
+                      ("mean", "cov", "track_id", "active", "next_id")}))
+    (o_out, o_st), (r_out, r_st) = runs
+    tlbr, ids, cls, conf, live = o_out
+    np.testing.assert_array_equal(live, r_out[4])
+    np.testing.assert_array_equal(ids, r_out[1])
+    np.testing.assert_array_equal(cls, r_out[2])
+    np.testing.assert_array_equal(np.round(tlbr[live]),
+                                  np.round(r_out[0][live]))
+    np.testing.assert_allclose(tlbr, r_out[0], atol=1e-3)
+    np.testing.assert_allclose(conf, r_out[3], atol=1e-5)
+    for f, a in o_st.items():
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, r_st[f], rtol=1e-4, atol=1e-3,
+                                       err_msg=f)
+        else:
+            np.testing.assert_array_equal(a, r_st[f], err_msg=f)
+    assert live[1].any()   # stream 1 has tracks the black-frame warp moved
