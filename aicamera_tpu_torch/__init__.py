@@ -10,9 +10,10 @@ Entry points (``cli.main``, ``runtime.pipeline.TrackingPipeline``,
 ``MultiTenantTrackingService``, ``server.main`` and
 ``TrackingHTTPServer``, ``runtime.checkpoint.load_state``, the
 reference-API facades ``YOLODetector``, ``ReIDModel``, ``DeepSORT``,
-``StrongSORT``, ``ByteTrack``, ``BoTSORT``, ``OCSort`` and ``DeepOCSort``)
-run on the GPU unless the caller passes ``device="cpu"`` (``--device
-cpu``).
+``StrongSORT``, ``ByteTrack``, ``BoTSORT``, ``OCSort`` and ``DeepOCSort``,
+the trainers ``train.train_detector``, ``train_reid`` and
+``finetune_on_clip`` and ``train_synthetic.main``) run on the GPU unless
+the caller passes ``device="cpu"`` (``--device cpu``).
 """
 
 from . import config  # noqa: F401

@@ -45,10 +45,10 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                              "not ported: pass this flag).")
     parser.add_argument("--yolo_weights", "--yolo_engine", type=str,
                         default=None, dest="yolo_weights",
-                        help="YOLO weights (.msgpack).")
+                        help="YOLO weights (.msgpack or .onnx).")
     parser.add_argument("--reid_weights", "--reid_engine", type=str,
                         default=None, dest="reid_weights",
-                        help="ReID weights (.msgpack).")
+                        help="ReID weights (.msgpack or .onnx).")
     parser.add_argument("--conf_thresh", type=float,
                         default=config.YOLO_CONF_THRESHOLD,
                         help="Confidence threshold for YOLO detections.")
@@ -217,27 +217,24 @@ def main(argv=None):
             )
         elif args.nsa:
             extra["nsa"] = True
-        try:
-            pipeline = TrackingPipeline(
-                variant=args.variant,
-                conf_threshold=args.conf_thresh,
-                yolo_weights=args.yolo_weights,
-                reid_weights=args.reid_weights,
-                chunk_size=chunk,
-                letterbox_auto=args.auto_input,
-                tracker=args.tracker,
-                gmc=args.gmc,
-                detect_dtype=args.detect_dtype,
-                reid_dtype=args.reid_dtype,
-                reid_quant=(None if args.reid_quant in (None, "none")
-                            else args.reid_quant),
-                yolo_quant=(None if args.yolo_quant in (None, "none")
-                            else args.yolo_quant),
-                device=args.device.lower(),
-                **extra,
-            )
-        except NotImplementedError as e:  # e.g. .onnx weights
-            raise SystemExit(str(e)) from e
+        pipeline = TrackingPipeline(
+            variant=args.variant,
+            conf_threshold=args.conf_thresh,
+            yolo_weights=args.yolo_weights,
+            reid_weights=args.reid_weights,
+            chunk_size=chunk,
+            letterbox_auto=args.auto_input,
+            tracker=args.tracker,
+            gmc=args.gmc,
+            detect_dtype=args.detect_dtype,
+            reid_dtype=args.reid_dtype,
+            reid_quant=(None if args.reid_quant in (None, "none")
+                        else args.reid_quant),
+            yolo_quant=(None if args.yolo_quant in (None, "none")
+                        else args.yolo_quant),
+            device=args.device.lower(),
+            **extra,
+        )
         print("Warming up the detect+track step (builds the CUDA kernel on "
               "first use)...")
         secs = pipeline.warm_up((reader.height, reader.width))

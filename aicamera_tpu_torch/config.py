@@ -12,12 +12,16 @@ from pathlib import Path
 PROJECT_ROOT = Path(__file__).resolve().parent.parent
 
 # --- Model weights -----------------------------------------------------------
-# Default checkpoint locations (msgpack of Flax params). These two files are
-# not in the repo; resolution then falls back to a seeded random init with a
-# warning, as the JAX package does.
+# Default checkpoint locations (msgpack of Flax params). These files and the
+# ONNX exports below are not in the repo; resolution then falls back to a
+# seeded random init with a warning, as the JAX package does.
 _MODELS = PROJECT_ROOT / "models"
 YOLO_PARAMS_PATH = _MODELS / "detection/yolov8n.msgpack"
 REID_PARAMS_PATH = _MODELS / "reid/deepsort_reid.msgpack"
+# The reference's ONNX exports (reference src/config.py:12-13), imported on
+# first use and cached at the paths above.
+YOLO_ONNX_PATH = _MODELS / "detection/yolov8n.onnx"
+REID_ONNX_PATH = _MODELS / "reid/deepsort_reid.onnx"
 # Committed checkpoints (tracked in git).
 YOLO_SYNTHETIC_PATH = _MODELS / "detection/yolov8n_synthetic.msgpack"
 YOLO_SYNTHETIC_CROWD_PATH = (_MODELS

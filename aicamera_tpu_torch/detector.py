@@ -149,11 +149,11 @@ class YOLODetector:
                  device=None,
                  quant: str | None = None,
                  detect_dtype: str | None = None):
-        """``engine_path``: ``.msgpack`` weights (``None``: the default
-        checkpoint, else a seeded random init with a warning) or a ``.cudae``
-        engine file (weights, letterbox and thresholds baked in; constructor
-        values that differ from the baked ones are replaced with a
-        warning). ``quant="int8"``: the static-calibrated W8A8 detector,
+        """``engine_path``: ``.msgpack`` or ``.onnx`` weights (``None``: the
+        default checkpoint, else a seeded random init with a warning) or a
+        ``.cudae`` engine file (weights, letterbox and thresholds baked in;
+        constructor values that differ from the baked ones are replaced with
+        a warning). ``quant="int8"``: the static-calibrated W8A8 detector,
         calibrated at load on synthetic scenes. ``detect_dtype``: ``None``
         (bf16 on the GPU, f32 on the CPU), ``"bf16"`` or ``"f32"`` (TF32
         off: scores stable across batch shapes). ``device``: default the GPU

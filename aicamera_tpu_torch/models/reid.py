@@ -44,6 +44,14 @@ class _BasicBlock(nn.Module):
         return F.relu(x + y)
 
 
+class _F32Linear(nn.Linear):
+    """The embedding head in f32 whatever the module's dtype, as the Flax
+    ``Dense`` (f32 params) runs on the f32 pooled features."""
+
+    def forward(self, x):
+        return F.linear(x.float(), self.weight.float(), self.bias.float())
+
+
 _STAGES = [(64, False), (64, False), (128, True), (128, False),
            (256, True), (256, False), (512, True), (512, False)]
 
@@ -58,7 +66,7 @@ class ReIDNet(nn.Module):
         for i, (feats, down) in enumerate(_STAGES):
             self.add_module(f"block{i}", _BasicBlock(c_in, feats, down))
             c_in = feats
-        self.fc = (nn.Linear(c_in, feature_dim)
+        self.fc = (_F32Linear(c_in, feature_dim)
                    if feature_dim != c_in else None)
 
     def forward(self, x):
@@ -68,6 +76,6 @@ class ReIDNet(nn.Module):
             x = getattr(self, f"block{i}")(x)
         x = x.mean(dim=(2, 3)).float()
         if self.fc is not None:
-            x = F.linear(x, self.fc.weight.float(), self.fc.bias.float())
+            x = self.fc(x)
         norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
         return x / torch.clamp(norm, min=1e-7)

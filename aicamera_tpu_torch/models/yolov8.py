@@ -103,10 +103,12 @@ class DetectHead(nn.Module):
     def forward(self, feats):
         outs = []
         for i, x in enumerate(feats):
-            r = x
-            c = x
+            # the Flax order (box branch, then class branch): the order an
+            # ONNX export lists the convs in (models/onnx_import.py)
+            r, c = x, x
             for part in ("cv1", "cv2", "out"):
                 r = getattr(self, f"reg{i}_{part}")(r)
+            for part in ("cv1", "cv2", "out"):
                 c = getattr(self, f"cls{i}_{part}")(c)
             outs.append((r.permute(0, 2, 3, 1).contiguous(),
                          c.permute(0, 2, 3, 1).contiguous()))

@@ -240,10 +240,10 @@ def main(argv=None):
                     help="device of the --run pipeline: 'cuda' (default) "
                          "or 'cpu'")
     ap.add_argument("--yolo_weights", default=None,
-                    help="detector weights (.msgpack) for --run; default "
-                         "config.YOLO_PARAMS_PATH")
+                    help="detector weights (.msgpack or .onnx) for --run; "
+                         "default config.YOLO_PARAMS_PATH")
     ap.add_argument("--reid_weights", default=None,
-                    help="ReID weights (.msgpack) for --run; default "
+                    help="ReID weights (.msgpack or .onnx) for --run; default "
                          "config.REID_PARAMS_PATH")
     ap.add_argument("--gsi", action="store_true",
                     help="also score GSI-post-processed results "

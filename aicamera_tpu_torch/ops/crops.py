@@ -17,6 +17,8 @@ from typing import Tuple
 
 import torch
 
+from .preprocess import device_constant
+
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -96,9 +98,9 @@ def extract_reid_crops(frames_bgr: torch.Tensor, boxes_xyxy: torch.Tensor,
     r1 = torch.gather(cols, 2, gi1).float()
     crops = (r0 * (1.0 - fy) + r1 * fy).to(compute_dtype)
     crops = crops.flip(-1)                                 # BGR -> RGB
-    mean = torch.tensor(_IMAGENET_MEAN, dtype=compute_dtype, device=dev)
-    std = torch.tensor(_IMAGENET_STD, dtype=compute_dtype, device=dev)
-    c255 = torch.tensor(255.0, dtype=compute_dtype, device=dev)
+    mean = device_constant(_IMAGENET_MEAN, compute_dtype, dev)
+    std = device_constant(_IMAGENET_STD, compute_dtype, dev)
+    c255 = device_constant(255.0, compute_dtype, dev)
     crops = (crops / c255 - mean) / std
     crops = torch.where(valid[..., None, None, None], crops,
                         torch.zeros_like(crops))

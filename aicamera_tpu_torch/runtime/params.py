@@ -14,8 +14,10 @@ Two layers:
   names: conv kernels HWIO -> OIHW, Dense ``(in, out)`` -> ``(out, in)``.
   Loading is strict: every leaf must be consumed and every parameter filled.
 
-Resolution mirrors the JAX package: an explicit path must exist; a missing
-default checkpoint falls back to a seeded random init with a warning.
+Resolution mirrors the JAX package: an explicit path (``.msgpack`` or
+``.onnx``) must exist; without one, the default checkpoint, then the default
+ONNX file (imported by ``models/onnx_import.py`` and cached as msgpack), then
+a seeded random init with a warning.
 """
 
 from __future__ import annotations
@@ -301,8 +303,12 @@ def compute_dtype(device) -> torch.dtype:
         else torch.float32
 
 
-def _resolve(model, weights_path, default_path, convert, device, dtype,
-             what: str):
+def _resolve(model, weights_path, default_path, default_onnx, convert,
+             example_input, cache_path, device, dtype, what: str):
+    """The JAX package's lookup: an explicit path must exist and is never
+    cached; else the default ``.msgpack``, then the default ``.onnx``
+    (imported and cached as msgpack at ``cache_path``), then a seeded random
+    init with a warning."""
     device = resolve_device(device)  # None: the GPU, or raise without one
     dtype = dtype or compute_dtype(device)
     if weights_path:
@@ -318,23 +324,32 @@ def _resolve(model, weights_path, default_path, convert, device, dtype,
                 "cannot initialize a weight-based pipeline. Load it with "
                 "YOLODetector(engine_path=...) / ReIDModel(engine_path=...),"
                 " or pass the .msgpack/.onnx weights file here instead.")
-        if path.suffix == ".onnx":
-            raise NotImplementedError(
-                "ONNX import is not ported yet (see ROADMAP.md)")
-        if path.suffix != ".msgpack":
+        if path.suffix not in (".msgpack", ".onnx"):
             raise ValueError(f"unsupported weights file {path}: expected a "
-                             ".msgpack Flax checkpoint")
+                             ".msgpack Flax checkpoint or a .onnx export")
         if not path.exists():
             raise FileNotFoundError(
                 f"weights file not found: {path} (an explicit path does not "
                 "fall back to random init)")
     else:
         path = default_path
-    if path.exists():
+    onnx_path = path if path.suffix == ".onnx" else default_onnx
+    if path.suffix == ".msgpack" and path.exists():
         load_state_strict(model, convert(load_flax_msgpack(path)))
+    elif onnx_path.exists():
+        from ..models.onnx_import import import_conv_net_params
+        tree = import_conv_net_params(onnx_path, flax_tree(model), model,
+                                      example_input)
+        if not weights_path:
+            # only the default location caches: an explicit path (tests,
+            # experiments) must not overwrite it
+            cache_path.parent.mkdir(parents=True, exist_ok=True)
+            cache_path.write_bytes(write_flax_msgpack(tree))
+        load_state_strict(model, convert(tree))
     else:
-        warnings.warn(f"No {what} weights found at {path}; using seeded "
-                      "random init (outputs will be meaningless).")
+        warnings.warn(f"No {what} weights found at {path} / {onnx_path}; "
+                      "using seeded random init (outputs will be "
+                      "meaningless).")
         seeded_init_(model)
     return model.to(device=device, dtype=dtype).eval()
 
@@ -343,18 +358,25 @@ def resolve_yolo_params(variant: str = "n", num_classes: int = 80,
                         weights_path: str | None = None, device=None,
                         dtype: torch.dtype | None = None) -> YOLOv8:
     """The YOLOv8 detector with its weights, on ``device`` in ``dtype``.
-    ``device=None`` is the GPU (raises without one); the default ``dtype``
-    is bf16 there and f32 on the CPU."""
+    ``weights_path``: a ``.msgpack`` checkpoint or a ``.onnx`` export; none:
+    the default checkpoint, else the default ONNX file (cached as msgpack),
+    else a seeded init. ``device=None`` is the GPU (raises without one); the
+    default ``dtype`` is bf16 there and f32 on the CPU."""
+    cache = (config.YOLO_PARAMS_PATH if variant == "n" else
+             config.YOLO_PARAMS_PATH.with_name(f"yolov8{variant}.msgpack"))
     return _resolve(YOLOv8(variant=variant, num_classes=num_classes),
                     weights_path, config.YOLO_PARAMS_PATH,
-                    yolo_state_dict_from_flax, device, dtype,
+                    config.YOLO_ONNX_PATH, yolo_state_dict_from_flax,
+                    torch.zeros(1, 3, 64, 64), cache, device, dtype,
                     f"YOLOv8{variant}")
 
 
 def resolve_reid_params(weights_path: str | None = None, device=None,
                         dtype: torch.dtype | None = None) -> ReIDNet:
     """The ReID embedder with its weights, on ``device`` in ``dtype``
-    (defaults as in :func:`resolve_yolo_params`)."""
+    (lookup and defaults as in :func:`resolve_yolo_params`)."""
     return _resolve(ReIDNet(feature_dim=config.REID_FEATURE_DIM),
                     weights_path, config.REID_PARAMS_PATH,
-                    reid_state_dict_from_flax, device, dtype, "ReID")
+                    config.REID_ONNX_PATH, reid_state_dict_from_flax,
+                    torch.zeros(1, *config.REID_INPUT_SHAPE, 3),
+                    config.REID_PARAMS_PATH, device, dtype, "ReID")

@@ -107,9 +107,9 @@ class CudaStageTimer:
 
     STAGES = ("gmc", "letterbox", "yolo", "nms", "crops_reid", "tracker")
 
-    def __init__(self):
+    def __init__(self, stages=STAGES):
         self._events = []
-        self.totals = dict.fromkeys(self.STAGES, 0.0)
+        self.totals = dict.fromkeys(stages, 0.0)
         self.chunks = 0
 
     def start(self):

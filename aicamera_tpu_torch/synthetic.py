@@ -21,12 +21,14 @@ where XLA fused differently (``PERF.md`` counts them).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from . import prng
+from .prng import _fma
 from .device import resolve_device
 
 # Tracked classes (reference config.py:53): COCO ids.
@@ -71,16 +73,15 @@ class WorldSpec:
     size_scale: float = 1.0           # object size multiplier on the priors
 
 
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """``a * b + c`` rounded once to float32, as a fused multiply-add; a
-    Python number is a float32 constant, as in JAX."""
-    b, c = (float(np.float32(v)) if isinstance(v, (int, float)) else
-            v.double() for v in (b, c))
-    return (a.double() * b + c).float()
+_TABLES = {"prior": _PRIOR_TABLE, "color_base": _COLOR_BASE,
+           "color_span": _COLOR_SPAN, "cls": _CLS_TABLE}
 
 
-def _table(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(a).to(device)
+@functools.lru_cache(maxsize=None)
+def _table(name: str, device) -> torch.Tensor:
+    """A class table on ``device``, uploaded once and shared (read only): a
+    copy from host memory would wait for the device on every scene."""
+    return torch.from_numpy(_TABLES[name]).to(device)
 
 
 def random_objects(key: np.ndarray, spec: WorldSpec, device=None) -> dict:
@@ -96,7 +97,7 @@ def random_objects(key: np.ndarray, spec: WorldSpec, device=None) -> dict:
     ks = prng.split(key, 8)
     valid = prng.bernoulli(ks[0], spec.presence, (n,), dev)
     ci = prng.randint(ks[1], (n,), 0, len(CLASS_IDS), dev)
-    pri = _table(_PRIOR_TABLE, dev)[ci]                       # (N, 4)
+    pri = _table("prior", dev)[ci]                            # (N, 4)
     u = prng.uniform(ks[2], (n, 2), device=dev)
     bh = _fma(u[:, 0], pri[:, 1] - pri[:, 0], pri[:, 0])
     if spec.size_scale != 1.0:
@@ -110,8 +111,8 @@ def random_objects(key: np.ndarray, spec: WorldSpec, device=None) -> dict:
                         cx + half_w, cy + half_h], dim=-1)
     jit1 = prng.uniform(ks[4], (n, 3), -1.0, 1.0, device=dev)
     jit2 = prng.uniform(ks[5], (n, 3), -1.0, 1.0, device=dev)
-    color = torch.clamp(_fma(jit1, _table(_COLOR_SPAN, dev)[ci],
-                             _table(_COLOR_BASE, dev)[ci]), 0, 255)
+    color = torch.clamp(_fma(jit1, _table("color_span", dev)[ci],
+                             _table("color_base", dev)[ci]), 0, 255)
     color2 = torch.clamp(color * _fma(jit2, 0.25, 0.55), 0, 255)
     phase = prng.uniform(ks[6], (n,), maxval=64.0, device=dev)
     stripe = prng.randint(ks[7], (n,), 6, 18, dev).float()
@@ -207,7 +208,7 @@ def ground_truth(objects: dict, spec: WorldSpec, min_visible: float = 0.25):
     valid = objects["valid"] & (carea / area >= min_visible)
     if spec.occlusion_aware_gt:
         valid = valid & (visibility(objects, spec) >= min_visible)
-    cls = _table(_CLS_TABLE, b.device)[objects["cls"].long()]
+    cls = _table("cls", b.device)[objects["cls"].long()]
     return cl, cls, valid
 
 

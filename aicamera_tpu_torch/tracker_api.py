@@ -126,11 +126,11 @@ class ReIDModel:
                  device=None,
                  quant: str | None = None,
                  reid_dtype: str | None = None):
-        """``engine_path``: ``.msgpack`` weights or a ``.cudae`` engine file
-        (its batch axis dynamic or fixed, as exported). ``quant="int8"``: the
-        W8A8 twin, quantized at load. ``reid_dtype``: ``None`` (bf16 on the
-        GPU, f32 on the CPU), ``"bf16"`` or ``"f32"`` (TF32 off: features
-        stable across batch shapes). ``device``: default the GPU."""
+        """``engine_path``: ``.msgpack``/``.onnx`` weights or a ``.cudae``
+        engine file (its batch axis dynamic or fixed, as exported).
+        ``quant="int8"``: the W8A8 twin, quantized at load. ``reid_dtype``:
+        ``None`` (bf16 on the GPU, f32 on the CPU), ``"bf16"`` or ``"f32"``
+        (TF32 off: features stable across batch shapes). ``device``: default the GPU."""
         if quant not in (None, "", "none", "int8"):
             raise ValueError(f"quant must be None or 'int8' (got {quant!r})")
         if reid_dtype not in (None, "bf16", "f32"):

@@ -10,10 +10,11 @@ this file; exits non-zero otherwise. In order it:
 2. builds every kernel of the main path from ``aicamera_tpu_torch/csrc``;
 3. holds each kernel, called through the public wrapper the pipeline calls,
    against its plain PyTorch version on the card, bitwise, at the main
-   path's geometries and more (misaligned and ragged shapes, both kernel
-   variants, the facades' K=1 frame and 2x2 tiles of a 960x540 frame, the
-   multi-stream dispatch's 32 frames of 720p), and times it three ways at
-   six shapes
+   path's geometries at K 1, 2, 4 and 8 frames a launch (the training
+   steps' counts among them) and more (misaligned and ragged shapes, both
+   kernel variants, the facades' K=1 frame and 2x2 tiles of a 960x540
+   frame, the multi-stream dispatch's 32 frames of 720p), and times it
+   three ways at six shapes
    (``device_ms``: a CUDA-graph replay over buffers larger than the L2;
    ``ms``: per call through the wrapper; ``host_ms``: the host's share of a
    call), next to the earlier design (``earlier_ms``, the scalar variant's
@@ -113,7 +114,30 @@ this file; exits non-zero otherwise. In order it:
 15. ``[mot]``: a MOTChallenge layout of 48 PNG frames (a second seed of the
     world) with its ``gt.txt``, then ``aicamera_tpu_torch.mot.main(--run
     --gsi)`` on the card: its report equals an in-process scoring of the
-    result file, the result and GSI files exist.
+    result file, the result and GSI files exist;
+16. ``[train]``: one dispatch of ``train.make_train_step`` at full width
+    (YOLOv8n 640x640, the 540x960 world, batch 2, scan 3, warm-up 1, so
+    that steps 2 and 3 take full updates) in f32 with TF32 off on the card
+    and on the CPU from the committed weights: losses within rtol 1e-4,
+    parameters within rtol 5e-3 and atol 1e-5, which the starting
+    parameters must fail (the largest difference printed); then two
+    dispatches in bf16 of ``TrainConfig()`` (batch 8, scan 25, its 200-step
+    warm-up) from the seeded init: ms a step, images/s, CUDA-event ms of
+    render, letterbox, forward, backward and optimizer, peak memory, and
+    the share of the bf16 peak (3x the forward's ``device_cost`` FLOPs over
+    the step), one letterbox launch a step, one read a dispatch and no sync
+    flagged by CUDA's sync debug mode in the second, its mean loss below
+    the first's; ``train_detector`` warm-started from the committed
+    detector (25 steps, a 5-step warm-up to lr 5e-4, then the cosine
+    decay) with ``train_synthetic.evaluate`` on 48 scenes before and after
+    (precision and recall at least 0.85, the script's save gate);
+    ``train_reid`` from the committed embedder (25 steps) with
+    ``evaluate_reid`` (intra_p95 at most 0.15, inter_p5 at least 0.25);
+    ``finetune_on_clip`` on 16 frames of config 9's world labelled with
+    its ground truth (the same 25 steps; two letterbox launches a step);
+    ``.onnx`` files written from the committed checkpoints in a temporary
+    directory, loaded by ``YOLODetector`` and ``ReIDModel``: outputs
+    bitwise the msgpack-loaded ones on 4 frames.
 
 The last two lines of output are the kernels' JSON record and the device
 JSON record. ``--kernels-only`` stops after step 3; ``--only`` runs the
@@ -158,11 +182,23 @@ SERVER_CHUNK = 4
 QUALITY_GOLDEN = ROOT / "tests" / "data" / "quality_golden.json"
 MOT_FRAMES = 48        # [mot]: PNG frames of a second seed of the world
 MOT_SEED = 7
+TRAIN_F32_BATCH = 2    # [train]: the card-vs-CPU dispatch at full width,
+TRAIN_F32_SCAN = 3     # its warm-up 1: step 1 at lr 0, steps 2-3 at lr 2e-3
+TRAIN_BF16_DISPATCHES = 2  # [train]: bf16 dispatches of TrainConfig()
+TRAIN_TUNE_STEPS = 25  # [train]: warm-start and clip fine-tunes, one dispatch
+TRAIN_TUNE_WARMUP = 5  # of them, at lr 5e-4 from step 5 on
+TRAIN_EVAL_SCENES = 48  # train_synthetic.evaluate's default
+TRAIN_CLIP_FRAMES = 16  # [train]: frames of config 9's world for the clip
+TRAIN_ONNX_FRAMES = 4
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12     # H100 SXM, dense bf16 tensor cores
 PEAK_INT8_OPS = 1979e12      # H100 SXM, dense int8 tensor cores
 
+# frames a launch: one (the facades), two (the f32 training dispatch of
+# [train]), four (each of the clip step's two launches), eight (a chunk, a
+# detector training step)
+KERNEL_K = (1, 2, 4, 8)
 KERNEL_GEOMETRIES = [  # (src_hw, dst_hw, auto)
     ((540, 960), (640, 640), False),
     ((720, 1280), (640, 640), False),
@@ -415,7 +451,7 @@ def kernel_phase(device):
     dtypes = (torch.float32, torch.bfloat16)
     for src, dst, auto in KERNEL_GEOMETRIES:
         spec = letterbox_spec(src, dst, auto=auto)
-        for k in (1, 8):
+        for k in KERNEL_K:
             frames = random_frames(k, src)
             for dt in dtypes:
                 hold(frames, spec, dt, want="vector")
@@ -470,9 +506,9 @@ def kernel_phase(device):
         hold(shifted, spec, dt, want="scalar")
     print(f"[kernel] letterbox: bitwise equal to the plain version on "
           f"{n_checked['vector']} vector and {n_checked['scalar']} scalar "
-          f"launches ({len(KERNEL_GEOMETRIES)} geometries x K in (1, 8) x "
-          f"f32/bf16 as the pipeline calls it, the same forced to the "
-          f"scalar variant, "
+          f"launches ({len(KERNEL_GEOMETRIES)} geometries x K in "
+          f"{KERNEL_K} x f32/bf16 as the pipeline calls it, the same "
+          f"forced to the scalar variant, "
           f"{len(MISALIGNED_GEOMETRIES)} misaligned and "
           f"{len(RAGGED_GEOMETRIES)} ragged shapes, the facades' K=1 frame "
           f"and 2x2 tiles, the multi-stream dispatch's K={k} 720p batch, one "
@@ -2066,6 +2102,379 @@ def mot_phase(device, kernels):
     return launches
 
 
+# --- [train]: the trainers on the card, and .onnx weights --------------------
+#
+# A copy of the protobuf writer of tests/test_torch_onnx_import.py (the GPU
+# host has no onnx package): enough of the wire format for Conv and Gemm
+# nodes with float32 initializers.
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _field(num: int, wire: int, payload: bytes) -> bytes:
+    key = _varint((num << 3) | wire)
+    if wire == 2:
+        return key + _varint(len(payload)) + payload
+    return key + payload
+
+
+def _str_field(num: int, s: str) -> bytes:
+    return _field(num, 2, s.encode())
+
+
+def _tensor_proto(name: str, arr) -> bytes:
+    import numpy as np
+    out = b"".join(_field(1, 0, _varint(d)) for d in arr.shape)
+    out += _field(2, 0, _varint(1))  # data_type float32
+    out += _str_field(8, name)
+    return out + _field(9, 2, np.asarray(arr, np.float32).tobytes())
+
+
+def _node(op: str, inputs, outputs) -> bytes:
+    return (b"".join(_str_field(1, i) for i in inputs)
+            + b"".join(_str_field(2, o) for o in outputs)
+            + _str_field(4, op))
+
+
+def write_checkpoint_onnx(tree, order, path, dfl=False):
+    """A Flax-layout params tree as an ONNX file: one Conv (OIHW) or Gemm
+    per ``forward_param_order`` entry, chained, a Relu between, and with
+    ``dfl`` the detector's fixed arange(16) DFL conv at the end."""
+    import numpy as np
+    tree = tree.get("params", tree)
+    nodes, inits, prev = [], {}, "images"
+    for i, (path_, kind) in enumerate(order):
+        leaf = tree
+        for k in path_:
+            leaf = leaf[k]
+        w = np.asarray(leaf["kernel"], np.float32)
+        inits[f"w{i}"] = w.transpose(3, 2, 0, 1) if kind == "conv" else w
+        inits[f"b{i}"] = np.asarray(leaf["bias"], np.float32)
+        nodes.append(_node("Conv" if kind == "conv" else "Gemm",
+                           [prev, f"w{i}", f"b{i}"], [f"y{i}"]))
+        nodes.append(_node("Relu", [f"y{i}"], [f"r{i}"]))
+        prev = f"r{i}"
+    if dfl:
+        inits["dfl"] = np.arange(16, dtype=np.float32).reshape(1, 16, 1, 1)
+        nodes.append(_node("Conv", [prev, "dfl"], ["output0"]))
+    graph = b"".join(_field(1, 2, n) for n in nodes)
+    graph += b"".join(_field(5, 2, _tensor_proto(k, a))
+                      for k, a in inits.items())
+    graph += _str_field(2, "checkpoint")
+    Path(path).write_bytes(_field(1, 0, _varint(8)) + _field(7, 2, graph))
+    return path
+
+
+def train_dispatch(step, key, kernels, *args, sync_check=False):
+    """One training dispatch, every launch count and the trainer's read
+    count set to 0 just before: ``(losses, aux, launches, reads, wall s,
+    sync warnings)``. The wall time ends with the dispatch's one read of
+    its losses; ``sync_check`` runs the dispatch under CUDA's sync debug
+    mode "warn" and returns what it flagged."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch import train as tt
+    reset_counts(kernels)
+    tt.TRAIN_SYNCS.count = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn" if sync_check else "default")
+        try:
+            out = step(key, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    losses, aux = out if isinstance(out, tuple) else (out, {})
+    ls, ax = tt._read(losses, aux)
+    wall = time.perf_counter() - t0
+    check(np.isfinite(ls).all() and all(np.isfinite(v).all()
+                                        for v in ax.values()),
+          f"[train] non-finite losses {ls}")
+    syncs = [str(w.message) for w in caught
+             if "synchroniz" in str(w.message)]
+    return (ls, ax, {k.name: k.launches for k in kernels},
+            tt.TRAIN_SYNCS.count, wall, syncs)
+
+
+def _params_np(model):
+    return {k: v.detach().float().cpu().numpy()
+            for k, v in model.state_dict().items()}
+
+
+def _quiet(_):
+    pass
+
+
+def train_phase(device, kernels):
+    """The trainers on the card: a full-width detector dispatch in f32
+    against the CPU; detector training in bf16 at ``TrainConfig``'s widths
+    (its parts timed by CUDA events, peak memory, share of the bf16 peak);
+    a warm-started fine-tune and the ReID trainer, each held to
+    ``train_synthetic``'s save gates; ``finetune_on_clip`` on config 9's
+    world; ``.onnx`` weights against the msgpack they were written from."""
+    import copy
+
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch import config, prng
+    from aicamera_tpu_torch import train as tt
+    from aicamera_tpu_torch import train_synthetic as tts
+    from aicamera_tpu_torch.detector import YOLODetector
+    from aicamera_tpu_torch.models.onnx_import import forward_param_order
+    from aicamera_tpu_torch.models.reid import ReIDNet
+    from aicamera_tpu_torch.models.yolov8 import YOLOv8
+    from aicamera_tpu_torch.ops.preprocess import letterbox_spec
+    from aicamera_tpu_torch.runtime.engine import CUDAGraphEngine
+    from aicamera_tpu_torch.runtime.params import (load_flax_msgpack,
+                                                   resolve_reid_params,
+                                                   resolve_yolo_params,
+                                                   seeded_init_)
+    from aicamera_tpu_torch.runtime.pipeline import CudaStageTimer, full_f32
+    from aicamera_tpu_torch.runtime.profiler import device_cost
+    from aicamera_tpu_torch.synthetic import WorldSpec
+    from aicamera_tpu_torch.tracker_api import ReIDModel
+
+    name = kernels[0].name
+    world, in_hw = WorldSpec(), (640, 640)
+    spec = letterbox_spec(world.hw, in_hw)
+    counts = {}
+
+    def committed(loader, path):
+        return loader(weights_path=str(path), device=device,
+                      dtype=torch.float32)
+
+    # 1. one full-width dispatch in f32 (TF32 off), card against the CPU,
+    #    both from the committed detector's weights; at warm-up 1 steps 2
+    #    and 3 take full updates, and step 3's loss reads step 2's
+    cfg = tt.TrainConfig(batch=TRAIN_F32_BATCH, scan=TRAIN_F32_SCAN,
+                         warmup=1)
+    base = resolve_yolo_params("n", weights_path=str(
+        config.YOLO_SYNTHETIC_PATH), device="cpu")
+    p0 = _params_np(base)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(base).to(dev)
+        opt = tt.make_optimizer(model, cfg.lr, cfg.warmup, cfg.steps,
+                                cfg.weight_decay)
+        step = tt.make_train_step(model, world, spec, in_hw, cfg, opt,
+                                  dtype=torch.float32)
+        with full_f32():
+            ls, _, launches, reads, wall, _ = train_dispatch(
+                step, prng.PRNGKey(cfg.seed), kernels)
+        runs[dev] = (ls, _params_np(model), wall)
+        if dev == "cuda":
+            counts["f32"] = launches[name]
+            check(launches[name] == cfg.scan, f"[train] f32: {name} "
+                  f"launched {launches[name]} times in {cfg.scan} steps")
+            check(reads == 1, f"[train] f32: {reads} reads in a dispatch")
+    (lg, pg, wg), (lc, pc, wc) = runs["cuda"], runs["cpu"]
+    check(np.allclose(lg, lc, rtol=1e-4, atol=0),
+          f"[train] f32 losses card {lg} != CPU {lc}")
+
+    def beyond(a):
+        """How far ``a`` lies outside rtol 5e-3, atol 1e-5 of the CPU's
+        parameters (above 0: outside)."""
+        return max(float((np.abs(a[k] - pc[k]) - 1e-5
+                          - 5e-3 * np.abs(pc[k])).max()) for k in pc)
+    worst = beyond(pg)
+    check(worst <= 0, f"[train] f32 params card vs CPU beyond rtol 5e-3, "
+          f"atol 1e-5 (by {worst:.3g})")
+    # the tolerance tells a trained state from the start: the card's
+    # parameters left as they began would fail it
+    check(beyond(p0) > 0, "[train] f32: the dispatch moved the parameters "
+          "less than the tolerance")
+    diff = max(float(np.abs(pg[k] - pc[k]).max()) for k in pc)
+    moved = max(float(np.abs(pc[k] - p0[k]).max()) for k in pc)
+    same = "bitwise equal" if diff == 0 else f"max |diff| {diff:.3g}"
+    print(f"[train] f32 dispatch (YOLOv8n 640x640, 540x960 world, batch "
+          f"{cfg.batch}, scan {cfg.scan}, warm-up 1, TF32 off) card vs CPU: "
+          f"losses {lg.tolist()} vs {lc.tolist()} (max rel "
+          f"{float((np.abs(lg - lc) / np.abs(lc)).max()):.3g}); params "
+          f"{same}, within rtol 5e-3, atol 1e-5 (margin {-worst:.3g}); the "
+          f"steps moved them by up to {moved:.3g} (the start lies "
+          f"{beyond(p0):.3g} outside the tolerance); "
+          f"{wg * 1e3 / cfg.scan:.1f} ms a step on the card, "
+          f"{wc * 1e3 / cfg.scan:.1f} on the CPU; {name} once a step")
+
+    # 2. bf16 training: the first dispatches of TrainConfig() (its schedule:
+    #    a 200-step warm-up to lr 2e-3 over 3000 steps), from the seeded
+    #    init. (A 10-step warm-up made single steps spike to 1e4-1e9 times
+    #    their neighbours' loss, on the card and the CPU alike: the net has
+    #    no normalization layer to train with.)
+    cfg = tt.TrainConfig()
+    model = YOLOv8("n")
+    seeded_init_(model)
+    model = model.to(device)
+    opt = tt.make_optimizer(model, cfg.lr, cfg.warmup, cfg.steps,
+                            cfg.weight_decay)
+    timer = CudaStageTimer(tt.TRAIN_STAGES)
+    steps = [tt.make_train_step(model, world, spec, in_hw, cfg, opt),
+             tt.make_train_step(model, world, spec, in_hw, cfg, opt,
+                                stage_timer=timer)]
+    key, means, walls = prng.PRNGKey(cfg.seed), [], []
+    for i in range(TRAIN_BF16_DISPATCHES):
+        key, sub = prng.split(key)
+        last = i == TRAIN_BF16_DISPATCHES - 1
+        if last:
+            torch.cuda.reset_peak_memory_stats()
+        ls, ax, launches, reads, wall, syncs = train_dispatch(
+            steps[last], sub, kernels, sync_check=True)
+        if last:
+            timer.finish()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            counts["bf16"] = launches[name]
+            # the first dispatch uploads the step's constants once
+            check(not syncs, f"[train] bf16 dispatch {i + 1} synced: "
+                  f"{syncs[:3]}")
+        check(launches[name] == cfg.scan, f"[train] bf16: {name} launched "
+              f"{launches[name]} times in {cfg.scan} steps")
+        check(reads == 1, f"[train] bf16: {reads} reads in a dispatch")
+        means.append(float(ls.mean()))
+        walls.append(wall)
+        print(f"[train] bf16 dispatch {i + 1}: mean loss {means[-1]:.4f} "
+              f"(cls {ax['cls'].mean():.4f}, iou {ax['iou'].mean():.4f}, "
+              f"dfl {ax['dfl'].mean():.4f}), {wall * 1e3 / cfg.scan:.1f} ms "
+              f"a step, {len(syncs)} syncs flagged")
+    check(means[-1] < means[0], f"[train] bf16 mean loss did not fall: "
+          f"{means}")
+    ms_step = walls[-1] * 1e3 / cfg.scan
+    stage = {s: v / cfg.scan for s, v in timer.totals.items() if v}
+    x = torch.zeros(cfg.batch, 3, *in_hw, dtype=torch.bfloat16,
+                    device=device)
+    engine = CUDAGraphEngine(lambda t: tt._forward(model, t, torch.bfloat16),
+                             [x], name="train_forward", warmup_iters=1,
+                             device=device)
+    fwd_flops = device_cost(engine)["flops"]
+    del engine
+    share = 3 * fwd_flops / (ms_step / 1e3) / PEAK_BF16_FLOPS
+    print(f"[train] bf16 detector (batch {cfg.batch}, scan {cfg.scan}, "
+          f"the first {TRAIN_BF16_DISPATCHES} dispatches of {cfg.steps} "
+          f"steps, seeded init): {ms_step:.1f} ms a step, "
+          f"{cfg.batch * 1e3 / ms_step:.1f} images/s; CUDA-event ms a step: "
+          + ", ".join(f"{s} {v:.2f}" for s, v in stage.items())
+          + f"; peak memory {peak_gb:.2f} GB; forward {fwd_flops:.4g} FLOPs "
+          f"(device_cost), 3x that over the step = {100 * share:.2f}% of "
+          f"the bf16 peak ({PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s); "
+          f"{name} once a step, one read a dispatch")
+
+    # 3. warm start from the committed detector: the save gate holds
+    tune = tt.TrainConfig(steps=TRAIN_TUNE_STEPS, scan=TRAIN_TUNE_STEPS,
+                          lr=5e-4, warmup=TRAIN_TUNE_WARMUP)
+    sched = tt.warmup_cosine_schedule(tune.lr, tune.warmup, tune.steps,
+                                      tune.lr / 20)
+    lrs = [sched(c) for c in range(tune.steps)]
+    check(abs(max(lrs) - tune.lr) <= 1e-6 * tune.lr, f"[train] the "
+          f"fine-tune's learning rate peaks at {max(lrs)}, not {tune.lr}")
+    model = committed(resolve_yolo_params, config.YOLO_SYNTHETIC_PATH)
+    before = tts.evaluate(model, world, in_hw, n_scenes=TRAIN_EVAL_SCENES)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    model = tt.train_detector(world=world, input_hw=in_hw, log=_quiet,
+                              model=model, device=device, cfg=tune)
+    wall = time.perf_counter() - t0
+    counts["finetune"] = kernels[0].launches
+    check(counts["finetune"] == TRAIN_TUNE_STEPS, f"[train] fine-tune: "
+          f"{counts['finetune']} launches in {TRAIN_TUNE_STEPS} steps")
+    after = tts.evaluate(model, world, in_hw, n_scenes=TRAIN_EVAL_SCENES)
+    for tag, r in (("before", before), ("after", after)):
+        check(r[0] >= 0.85 and r[1] >= 0.85, f"[train] warm start {tag}: "
+              f"precision {r[0]:.4f}, recall {r[1]:.4f} below 0.85")
+    print(f"[train] warm start ({TRAIN_TUNE_STEPS} steps, warm-up "
+          f"{tune.warmup} to lr {tune.lr:g}, mean lr {np.mean(lrs):.3g}, "
+          f"train_detector): {wall * 1e3 / TRAIN_TUNE_STEPS:.1f} ms a step "
+          f"(one dispatch, its first); {TRAIN_EVAL_SCENES} scenes before: "
+          f"precision {before[0]:.4f} recall {before[1]:.4f} AP50 "
+          f"{before[5].ap50:.4f}; after: precision {after[0]:.4f} recall "
+          f"{after[1]:.4f} AP50 {after[5].ap50:.4f} (gate 0.85)")
+
+    # 4. the ReID trainer from the committed embedder
+    model = committed(resolve_reid_params, config.REID_SYNTHETIC_PATH)
+    reid_cfg = tt.ReIDTrainConfig(steps=tt.ReIDTrainConfig.scan)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    model = tt.train_reid(world=world, cfg=reid_cfg, model=model,
+                          log=_quiet, device=device)
+    wall = time.perf_counter() - t0
+    counts["reid"] = kernels[0].launches
+    check(counts["reid"] == 0, "[train] the ReID trainer launched the "
+          "letterbox")
+    intra, inter, p95, p5 = tts.evaluate_reid(model, world)
+    check(p95 <= 0.15 and p5 >= 0.25, f"[train] ReID margins intra_p95 "
+          f"{p95:.4f} (<= 0.15), inter_p5 {p5:.4f} (>= 0.25)")
+    print(f"[train] ReID ({reid_cfg.scenes} scenes x 2 views a step, "
+          f"{reid_cfg.scan} steps, train_reid): "
+          f"{wall * 1e3 / reid_cfg.scan:.1f} ms a step (one dispatch, its "
+          f"first); intra mean {intra:.4f} p95 {p95:.4f}, inter mean "
+          f"{inter:.4f} p5 {p5:.4f} (gates 0.15, 0.25)")
+
+    # 5. finetune_on_clip on config 9's world, labelled with its truth
+    golden = load_golden()
+    clip, _ = render_world(temporal_world(golden["world"], device),
+                           TRAIN_CLIP_FRAMES)
+    frames, boxes, _, cls, valid = (np.stack(t) for t in zip(*clip))
+    model = committed(resolve_yolo_params, config.YOLO_SYNTHETIC_PATH)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    tt.finetune_on_clip(frames, boxes, cls, valid, model, log=_quiet,
+                        device=device, cfg=tune)
+    wall = time.perf_counter() - t0
+    counts["clip"] = kernels[0].launches
+    check(counts["clip"] == 2 * TRAIN_TUNE_STEPS, f"[train] clip: "
+          f"{counts['clip']} launches in {TRAIN_TUNE_STEPS} steps")
+    print(f"[train] finetune_on_clip ({TRAIN_CLIP_FRAMES} frames of config "
+          f"9's world, batch 8 = 4 clip + 4 synthetic, {TRAIN_TUNE_STEPS} "
+          f"steps): {wall * 1e3 / TRAIN_TUNE_STEPS:.1f} ms a step (one "
+          f"dispatch, its first); {name} twice a step")
+
+    # 6. .onnx weights written from the committed checkpoints
+    with tempfile.TemporaryDirectory() as d:
+        onnx = {}
+        for key_, src, net, x in (
+                ("yolo", config.YOLO_SYNTHETIC_PATH, YOLOv8("n"),
+                 torch.zeros(1, 3, 64, 64)),
+                ("reid", config.REID_SYNTHETIC_PATH, ReIDNet(512),
+                 torch.zeros(1, 128, 64, 3))):
+            onnx[key_] = write_checkpoint_onnx(
+                load_flax_msgpack(src), forward_param_order(net, x),
+                Path(d) / f"{key_}.onnx", dfl=key_ == "yolo")
+        dets = [YOLODetector(str(p), device=device) for p in
+                (onnx["yolo"], config.YOLO_SYNTHETIC_PATH)]
+        reids = [ReIDModel(str(p), device=device) for p in
+                 (onnx["reid"], config.REID_SYNTHETIC_PATH)]
+        n_det = 0
+        reset_counts(kernels)
+        for f, b, v in zip(frames[:TRAIN_ONNX_FRAMES],
+                           boxes[:TRAIN_ONNX_FRAMES],
+                           valid[:TRAIN_ONNX_FRAMES]):
+            got, want = (d_.detect(f) for d_ in dets)
+            check(all(np.array_equal(a, w) for a, w in zip(got, want)),
+                  "[train] .onnx detector != the msgpack one")
+            n_det += len(got[0])
+            crops = [f[int(y1):int(y2), int(x1):int(x2)]
+                     for x1, y1, x2, y2 in b[v].astype(int)]
+            fa, fb = (r.extract_features_batched(crops) for r in reids)
+            check(np.array_equal(fa, fb), "[train] .onnx ReID != the "
+                  "msgpack one")
+        counts["onnx"] = kernels[0].launches
+    check(n_det > 0, "[train] no detections to compare")
+    print(f"[train] .onnx weights (written from the committed checkpoints): "
+          f"YOLODetector and ReIDModel bitwise equal to the msgpack-loaded "
+          f"ones on {TRAIN_ONNX_FRAMES} frames ({n_det} detections)")
+    return counts
+
+
 def profile_chunk(pipe, chunk):
     """GPU busy share of one more chunk, from a torch.profiler trace: the
     sum of kernel and copy times over the host wall time of the chunk."""
@@ -2166,7 +2575,7 @@ def main() -> int:
                     help="comma-separated phases to run after the kernel "
                          "phase (main, bucket, trackers, gmc, facades, "
                          "engine, cli, compare, streams, serving, server, "
-                         "quality, int8, mot); default all")
+                         "quality, int8, mot, train); default all")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     from aicamera_tpu_torch.ops.letterbox import KERNEL as LETTERBOX
@@ -2225,6 +2634,7 @@ def main() -> int:
                                               device, kernels)
         run("int8", int8_phase, device, kernels, world)
         run("mot", mot_phase, device, kernels)
+        run("train", train_phase, device, kernels)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2233,9 +2643,11 @@ def main() -> int:
     # tracker, the GMC pipelines, every facade (one launch per detect call;
     # detect_tiled two), the CLI (warm-up chunks included), the multi-stream
     # dispatches, the two services, the server's requests, the quality runs
-    # (bf16, f32) and mot --run
+    # (bf16, f32), mot --run, and the trainers by part (one launch a
+    # detector step, two a clip step, none in the ReID trainer)
     record["launches_by_path"] = {
-        path: ({t: v[record["name"]] for t, v in counts.items()}
+        path: (counts if path == "train" else
+               {t: v[record["name"]] for t, v in counts.items()}
                if path in ("trackers", "gmc", "facades", "engine",
                            "quality", "int8")
                else counts[record["name"]])

@@ -158,8 +158,7 @@ def test_checkpoint_then_resume(clip, tmp_path, capsys, tracker):
     (["--no_save", "--native_io"], "--native_io"),
     # (--gmc affine|translation and a bare --tracker strongsort run now:
     # test_gmc_and_strongsort_default_run)
-    (["--no_save", "--yolo_weights", "m.onnx"], "ONNX"),
-    (["--no_save", "--reid_weights", "m.onnx"], "ONNX"),
+    # (.onnx weights load now: test_onnx_weights_run)
     (["--no_save", "--native_io", "--draw_detections"],
      "--draw_detections"),
     # (--reid_quant/--yolo_quant int8 run now: tests/test_torch_quant.py)
@@ -182,10 +181,26 @@ def test_inputs_not_ported_exit(tmp_path, clip):
     with pytest.raises(FileNotFoundError):
         cli.main(["--input", str(tmp_path / "none.npy"), "--device", "cpu",
                   "--no_save"])
-    with pytest.raises(SystemExit) as e:          # ONNX import
+    with pytest.raises(FileNotFoundError):        # an explicit weights file
         cli.main(["--input", str(clip), "--device", "cpu", "--no_save",
                   "--yolo_weights", str(tmp_path / "w.onnx")])
-    assert "ONNX" in str(e.value.code)
+
+
+@pytest.mark.parametrize("flag", ["--yolo_weights", "--reid_weights"])
+def test_onnx_weights_run(clip, tmp_path, capsys, flag):
+    """``.onnx`` weights load (they exited before ONNX import was ported):
+    the committed checkpoint written as ONNX gives the checkpoint's run,
+    its final tracker state bit for bit."""
+    from test_torch_onnx_import import checkpoint_onnx
+    name = "yolo" if flag == "--yolo_weights" else "reid"
+    onnx = str(checkpoint_onnx(name, tmp_path / "w.onnx"))
+    states = []
+    for extra in ([flag, onnx], []):
+        ckpt = tmp_path / f"state{len(states)}.msgpack"
+        cli.main(_run(clip, "--checkpoint", str(ckpt), *extra))
+        assert f"Processed {N_FRAMES} frames" in capsys.readouterr().out
+        states.append(ckpt.read_bytes())
+    assert states[0] == states[1]
 
 
 @pytest.mark.parametrize("flags,message", [

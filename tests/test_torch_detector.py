@@ -87,16 +87,23 @@ def test_warm_up_and_empty_frame(detectors):
 
 @pytest.mark.parametrize("kw", [dict(engine_path="det.onnx"),
                                 dict(engine_path="det.xlae")])
-def test_detector_not_ported_raises(kw):
-    """ONNX weights are not ported (NotImplementedError); a JAX ``.xlae``
-    engine cannot be (an XLA executable): a ValueError naming the format.
-    (``quant="int8"`` runs now: tests/test_torch_quant.py.)"""
+def test_detector_not_ported_raises(kw, detectors, tmp_path):
+    """A JAX ``.xlae`` engine cannot be ported (an XLA executable): a
+    ValueError naming the format. ONNX weights load now (they raised before
+    ONNX import was ported): the committed checkpoint written as ONNX
+    detects bitwise what the checkpoint does. (``quant="int8"`` runs now:
+    tests/test_torch_quant.py.)"""
     if kw["engine_path"].endswith(".xlae"):
         with pytest.raises(ValueError, match=r"\.xlae.*XLA executable"):
             tdet.YOLODetector(device="cpu", **kw)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdet.YOLODetector(device="cpu", **kw)
+        from test_torch_onnx_import import checkpoint_onnx
+        onnx = tdet.YOLODetector(
+            str(checkpoint_onnx("yolo", tmp_path / kw["engine_path"])),
+            device="cpu", **KW)
+        for f in FRAMES:
+            for a, b in zip(onnx.detect(f), detectors[0].detect(f)):
+                np.testing.assert_array_equal(a, b)
 
 
 def test_detector_engine_methods_not_ported(detectors):

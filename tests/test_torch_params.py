@@ -141,9 +141,15 @@ def test_missing_default_weights_warn_and_seed(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError):
         params.resolve_reid_params(weights_path=str(tmp_path / "x.msgpack"),
                                    device="cpu")
-    with pytest.raises(NotImplementedError):
-        params.resolve_reid_params(weights_path=str(tmp_path / "x.onnx"),
-                                   device="cpu")
+    # an .onnx file loads (it raised before ONNX import was ported)
+    from test_torch_onnx_import import checkpoint_onnx
+    onnx = params.resolve_reid_params(
+        weights_path=str(checkpoint_onnx("reid", tmp_path / "x.onnx")),
+        device="cpu")
+    ref = params.resolve_reid_params(
+        weights_path=str(config.REID_SYNTHETIC_PATH), device="cpu")
+    for k, v in ref.state_dict().items():
+        assert torch.equal(onnx.state_dict()[k], v)
 
 
 LOADERS = [(params.resolve_yolo_params, config.YOLO_SYNTHETIC_PATH),
@@ -196,7 +202,8 @@ MUST_COVER = ("cli.py", "utils/__init__.py", "utils/video_io.py",
               "parallel/multistream.py", "serving.py", "server.py",
               "prng.py", "synthetic.py", "eval.py", "postprocess.py",
               "mot.py", "utils/png.py", "runtime/engine.py",
-              "models/quant.py", "models/quant_yolo.py", "export_engines.py")
+              "models/quant.py", "models/quant_yolo.py", "export_engines.py",
+              "train.py", "train_synthetic.py", "models/onnx_import.py")
 
 
 def test_source_scan_finds_no_forbidden_import():

@@ -206,9 +206,19 @@ def test_entry_point_defaults_to_the_gpu():
 # (reid_quant and yolo_quant "int8" run now: tests/test_torch_quant.py)
 @pytest.mark.parametrize("kw", [dict(yolo_weights="m.onnx"),
                                 dict(reid_weights="m.onnx")])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrackingPipeline(input_shape=INPUT_HW, device="cpu", **kw)
+def test_unported_options_raise(kw, tmp_path):
+    """``.onnx`` weights load now (they raised before ONNX import was
+    ported): a file written from the committed checkpoint gives the
+    checkpoint's weights, bitwise."""
+    from test_torch_onnx_import import checkpoint_onnx
+    (arg, _), = kw.items()
+    name = "yolo" if arg == "yolo_weights" else "reid"
+    onnx = TrackingPipeline(device="cpu", **dict(
+        KW, **{arg: str(checkpoint_onnx(name, tmp_path / "m.onnx"))}))
+    ref = TrackingPipeline(device="cpu", **KW)
+    for net in ("yolo", "reid"):
+        ours, want = (getattr(p, net).state_dict() for p in (onnx, ref))
+        assert all(torch.equal(ours[k], want[k]) for k in want)
 
 
 def test_argument_checks():
