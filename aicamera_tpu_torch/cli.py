@@ -2,14 +2,15 @@
 
 The port of ``aicamera_tpu/cli.py``: the same flags under the same names,
 defaults and aliases, except that ``--device`` defaults to ``cuda`` (and
-accepts ``cpu``). The headless path is ported: frames in, tracks counted,
-tracker state checkpointed and resumed. What needs OpenCV is not (the output
-video, ``--show_display``, ``--draw_detections``, the webcam, ``--native_io``,
-and any input other than a ``.npy`` file of frames, see
-``utils/video_io.py``): such a run exits with a message that names the flag
-rather than carrying on without the output it was asked for.
+accepts ``cpu``). Frames in (an MJPEG ``.avi`` or a ``.npy`` file of frames,
+``utils/video_io.py``), tracks drawn (``utils/visualization.py``) and the
+annotated video written as an MJPEG ``.avi`` unless ``--no_save``;
+``--draw_detections``, ``--native_io`` (the C++ MJPEG decoder), tracker
+state checkpointed and resumed. The webcam and ``--show_display`` are not
+ported (no V4L2 capture, no GUI toolkit): such a run exits with a message
+that names the flag rather than carrying on without what it asked for.
 
-Run: ``python -m aicamera_tpu_torch.cli --input frames.npy --no_save``
+Run: ``python -m aicamera_tpu_torch.cli --input clip.avi``
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import time
+from datetime import datetime
 from pathlib import Path
 
 from . import config
@@ -27,22 +29,21 @@ def parse_arguments(argv=None) -> argparse.Namespace:
         description="AICamera: Real-time Object Detection & Tracking "
                     "(PyTorch/CUDA)")
     parser.add_argument("--input", type=str, default=None,
-                        help="Path to the input: a .npy file holding an "
-                             "(N, H, W, 3) uint8 array of BGR frames. If "
-                             "None, webcam (not ported).")
+                        help="Path to the input: an MJPEG .avi, or a .npy "
+                             "file holding an (N, H, W, 3) uint8 array of "
+                             "BGR frames. If None, webcam (not ported).")
     parser.add_argument("--webcam_id", type=int, default=0,
                         help="Webcam ID used when --input is not given "
                              "(not ported).")
     parser.add_argument("--output_dir", type=str, default="outputs",
-                        help="Directory for the output video.")
+                        help="Directory for the output video (MJPEG .avi).")
     parser.add_argument("--output_filename", type=str, default=None,
                         help="Output video filename (auto-generated if None).")
     parser.add_argument("--show_display", action="store_true",
                         help="Show processed frames in a window (not "
-                             "ported).")
+                             "ported: no GUI toolkit).")
     parser.add_argument("--no_save", action="store_true",
-                        help="Do not save the output video (saving it is "
-                             "not ported: pass this flag).")
+                        help="Do not save the output video.")
     parser.add_argument("--yolo_weights", "--yolo_engine", type=str,
                         default=None, dest="yolo_weights",
                         help="YOLO weights (.msgpack or .onnx).")
@@ -127,11 +128,10 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     parser.add_argument("--max_frames", type=int, default=None,
                         help="Stop after this many frames.")
     parser.add_argument("--native_io", action="store_true",
-                        help="Decode with the native C++ reader (not "
-                             "ported).")
+                        help="Decode an MJPEG .avi with the native C++ "
+                             "reader (threads, one call per chunk).")
     parser.add_argument("--draw_detections", action="store_true",
-                        help="Also draw raw detections under the tracks "
-                             "(not ported).")
+                        help="Also draw raw detections under the tracks.")
     parser.add_argument("--profile", action="store_true",
                         help="Print a per-stage timing breakdown at exit.")
     parser.add_argument("--checkpoint", type=str, default=None,
@@ -148,16 +148,13 @@ def parse_arguments(argv=None) -> argparse.Namespace:
 
 def _refuse_unported(args) -> None:
     """Exit, naming the flag, on a run that asks for what is not ported."""
-    needs_cv = "it needs OpenCV, which the port does not use"
     refusals = [
         (not args.input, "--input",
-         f"without --input the source is webcam {args.webcam_id}; {needs_cv}"),
-        (not args.no_save, "--no_save",
-         f"saving the output video is not ported ({needs_cv}); pass "
-         "--no_save"),
-        (args.show_display, "--show_display", needs_cv),
-        (args.draw_detections, "--draw_detections", needs_cv),
-        (args.native_io, "--native_io", f"the native decoder: {needs_cv}"),
+         f"without --input the source is webcam {args.webcam_id}; the port "
+         "has no camera capture (V4L2), pass an MJPEG .avi or a .npy file"),
+        (args.show_display, "--show_display",
+         "a display window needs a GUI toolkit, which the port does not "
+         "use; the annotated video is saved unless --no_save"),
     ]
     for hit, flag, why in refusals:
         if hit:
@@ -183,11 +180,22 @@ def main(argv=None):
     from .runtime.checkpoint import load_state, save_state
     from .runtime.pipeline import TrackingPipeline
     from .runtime.profiler import StageTimer
-    from .utils.video_io import VideoReader
+    from .utils import visualization
+    from .utils.video_io import NativeVideoReader, VideoReader, VideoWriter
 
     # --- video input ----------------------------------------------------------
     try:
-        reader = VideoReader(args.input, max_frames=args.max_frames)
+        reader = None
+        if args.native_io:
+            if Path(args.input).suffix.lower() == ".avi":
+                reader = NativeVideoReader(args.input,
+                                           max_frames=args.max_frames)
+                print("Using native C++ video decoder")
+            else:
+                print(f"--native_io: the native decoder reads MJPEG .avi "
+                      f"files; using the threaded reader for {args.input}")
+        if reader is None:
+            reader = VideoReader(args.input, max_frames=args.max_frames)
     except NotImplementedError as e:
         raise SystemExit(f"--input {args.input}: {e}") from e
     source_name = Path(args.input).stem
@@ -247,23 +255,74 @@ def main(argv=None):
             print(f"Resumed tracker state from {args.resume}")
         ckpt_path = Path(args.checkpoint) if args.checkpoint else None
         timer = StageTimer() if args.profile else None
+
+        # --- video output ------------------------------------------------------
+        writer = None
+        if not args.no_save:
+            name = args.output_filename or (
+                f"{source_name}_tracked_{datetime.now():%Y%m%d_%H%M%S}.mp4")
+            writer = VideoWriter(str(Path(args.output_dir) / name),
+                                 reader.fps or config.DEFAULT_OUTPUT_FPS,
+                                 (reader.height, reader.width))
+            print(f"Saving to: {writer.path}")
     except BaseException:
         reader.release()
         raise
 
+    # frames kept for drawing (results arrive one chunk behind); headless,
+    # the chunks go straight to the pipeline
+    frame_store: dict = {}
+
+    def indexed_chunks():
+        i = 0
+        for c in reader.chunks(chunk):
+            for f in c:
+                frame_store[i] = f
+                i += 1
+            yield c
+
+    use_chunked = writer is None
     n_frames = 0
     n_tracks_total = 0
+    n_skipped = 0
     t_start = time.perf_counter()
     t_compute = 0.0
     try:
         t0 = time.perf_counter()
-        for result in pipeline.process_chunks(reader.chunks(chunk)):
+        for result in pipeline.process_chunks(
+                reader.chunks(chunk) if use_chunked else indexed_chunks()):
             dt = time.perf_counter() - t0
             t_compute += dt
             if timer:
                 timer.add("detect+track", dt)
+            frame = frame_store.pop(result.frame_index, None)
             n_frames += 1
             n_tracks_total += len(result.tracks)
+
+            # a per-frame presentation error skips the frame but keeps the
+            # pipeline alive, as the JAX CLI does
+            if writer is not None:
+                try:
+                    with (timer.stage("draw+write") if timer
+                          else contextlib.nullcontext()):
+                        vis = frame
+                        if args.draw_detections:
+                            vis = visualization.draw_detections(
+                                vis, result.det_boxes, result.det_scores,
+                                result.det_labels)
+                        vis = visualization.draw_tracks(vis, result.tracks)
+                        fps_now = n_frames / max(t_compute, 1e-9)
+                        vis = visualization.draw_info_panel(vis, [
+                            "AICamera",
+                            f"Input: {source_name}",
+                            f"FPS: {fps_now:.1f}",
+                            f"Tracks: {len(result.tracks)}",
+                        ])
+                        writer.write(vis)
+                except Exception as e:  # noqa: BLE001
+                    n_skipped += 1
+                    print(f"Warning: frame {result.frame_index} "
+                          f"presentation error ({e}); continuing.")
             if n_frames % 100 == 0:
                 print(f"  processed {n_frames} frames "
                       f"({n_frames / max(t_compute, 1e-9):.1f} FPS)")
@@ -279,6 +338,9 @@ def main(argv=None):
             save_state(ckpt_path, pipeline.state)
             print(f"Final tracker state saved to {ckpt_path}")
         reader.release()
+        if writer is not None:
+            writer.release()     # every queued frame, or it raises
+            print(f"Saved {writer.frames_written} frames to {writer.path}")
 
     wall = time.perf_counter() - t_start
     print("-" * 60)
@@ -287,6 +349,8 @@ def main(argv=None):
           f"{n_frames / max(t_compute, 1e-9):.1f} FPS detect+track)")
     print(f"Average tracks per frame: "
           f"{n_tracks_total / max(n_frames, 1):.1f}")
+    if writer is not None:
+        print(f"Presentation errors: {n_skipped} frames skipped")
     if timer:
         print(timer.report())
 

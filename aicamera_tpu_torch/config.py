@@ -7,6 +7,7 @@ committed synthetic checkpoints, which are the only weights in the repo.
 
 from __future__ import annotations
 
+import random
 from pathlib import Path
 
 PROJECT_ROOT = Path(__file__).resolve().parent.parent
@@ -86,3 +87,25 @@ CLASSES_TO_TRACK = {'person', 'car', 'bus', 'truck', 'motorcycle'}
 CLASS_IDS_TO_TRACK = tuple(
     i for i, name in enumerate(CLASSES) if name in CLASSES_TO_TRACK
 )
+
+# --- Visualization ----------------------------------------------------------
+_color_rng = random.Random(0)
+CLASS_COLORS = {
+    cls_name: [_color_rng.randint(0, 255) for _ in range(3)]
+    for cls_name in CLASSES
+}
+DEFAULT_TRACK_COLOR = (0, 255, 0)
+
+FONT_SCALE_ID = 0.7
+FONT_SCALE_INFO = 0.9
+FONT_THICKNESS = 2
+
+
+def get_track_color(class_name: str):
+    """Color for a tracked box of the given class."""
+    return CLASS_COLORS.get(class_name, DEFAULT_TRACK_COLOR)
+
+
+def get_class_color(class_name: str):
+    """Color for a raw detection box of the given class."""
+    return CLASS_COLORS.get(class_name, (200, 200, 200))

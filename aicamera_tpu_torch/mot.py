@@ -6,8 +6,8 @@ The port of ``aicamera_tpu/mot.py``:
   (``frame,id,x,y,w,h,conf,class,visibility``; x/y are 1-based top-left,
   per the MOT16/17/20 devkit);
 - a sequence runner that drives :class:`~aicamera_tpu_torch.runtime.pipeline.
-  TrackingPipeline` over a sequence's image directory (``img1/*.png``; the
-  port has no JPEG decoder) and collects per-frame hypotheses;
+  TrackingPipeline` over a sequence's image directory (``img1/*.jpg`` and
+  ``*.png``, decoded without OpenCV) and collects per-frame hypotheses;
 - per-sequence and aggregate reports: CLEAR-MOT, HOTA and IDF1, optionally
   after GSI post-processing (aggregation pools the raw error counts across
   sequences, the devkit's "overall" row).
@@ -26,10 +26,10 @@ from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
-from . import not_ported
 from .eval import (HOTAResult, IdentityResult, MOTResult, evaluate_hota,
                    evaluate_identity, evaluate_mot)
 from .postprocess import gsi_smooth
+from .utils.jpeg import read_jpeg
 from .utils.png import read_png
 
 # MOTChallenge class ids considered ground-truth targets for pedestrian
@@ -168,20 +168,15 @@ def aggregate(results: Dict[str, MOTResult]) -> MOTResult:
 # --- sequence discovery / running -------------------------------------------
 
 def sequence_frames(seq_dir: str | Path) -> Iterator[np.ndarray]:
-    """Yield BGR frames for a MOTChallenge sequence directory
-    (``img1/*.png``, decoded by ``utils/png.py``). JPEG frames raise the
-    not-ported error: the port has no JPEG decoder."""
+    """Yield BGR frames for a MOTChallenge sequence directory: ``img1/*.jpg``
+    then ``img1/*.png``, as the JAX harness orders them, decoded by
+    ``utils/jpeg.py`` and ``utils/png.py`` (what ``cv2.imread`` returns)."""
     img_dir = Path(seq_dir) / "img1"
-    jpgs = sorted(img_dir.glob("*.jpg"))
-    if jpgs:
-        raise not_ported(f"decoding JPEG frames ({jpgs[0]}; ROADMAP.md "
-                         "Queue A, presentation and I/O without OpenCV); "
-                         "convert the sequence to PNG")
-    files = sorted(img_dir.glob("*.png"))
+    files = sorted(img_dir.glob("*.jpg")) + sorted(img_dir.glob("*.png"))
     if not files:
         raise FileNotFoundError(f"no frames under {img_dir}")
     for p in files:
-        yield read_png(p)
+        yield read_jpeg(p) if p.suffix == ".jpg" else read_png(p)
 
 
 def run_sequence(seq_dir: str | Path, pipeline=None,

@@ -48,18 +48,27 @@ def nvcc_path() -> str:
 def build(source: Path):
     """Build ``source`` unless it is built already; returns ``(library
     path, compiler output)`` (empty output when the library was reused)."""
+    return compile_library(source, nvcc_path, NVCC_FLAGS)
+
+
+def compile_library(source: Path, compiler, flags):
+    """``compiler() *flags -o lib source`` into ``BUILD_DIR`` unless the
+    library of this source and these flags exists; ``compiler`` is called
+    only when a build is needed."""
     digest = hashlib.sha256(source.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     lib = BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(source)], stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
+    cc = compiler()
+    proc = subprocess.run([cc, *flags, "-o", str(tmp), str(source)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {lib.name}:\n{proc.stdout}")
+        raise RuntimeError(f"{Path(cc).name} failed for {lib.name}:\n"
+                           f"{proc.stdout}")
     os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
     return lib, proc.stdout
 

@@ -11,14 +11,19 @@ Endpoints:
                            "device": the GPU's name, or "cpu"}
     GET  /v1/stats     -> {"frames": N, "wall_s": S, "fps": F}
     POST /v1/track     -> body: a raw (H, W, 3) uint8 BGR buffer with the
-                          headers X-Frame-Height and X-Frame-Width.
+                          headers X-Frame-Height and X-Frame-Width, or an
+                          encoded JPEG or PNG image (no such headers).
                           Response: {"frame_index": i, "tracks": [
                               [x1, y1, x2, y2, track_id, class_name, conf],
                               ...]}
     POST /v1/reset     -> fresh tracker state (ids restart at 1)
 
-Encoded images (JPEG, PNG) are answered 400: the port has no image decoder
-(it does not use OpenCV); decode them on the client and send raw frames.
+Encoded images are decoded by their bytes, whatever the ``Content-Type``,
+as ``cv2.imdecode`` does in the JAX server: baseline JPEG by the port's own
+codec (bitwise what ``cv2.imdecode`` gives, the EXIF orientation applied)
+and PNG by ``utils/png.py``. A body that is neither, or a kind the decoders
+refuse (a progressive JPEG, a 16-bit PNG), is answered 400 with the
+reason.
 
 Frames on all connections form one stream (single tenant). For many
 independent tenant streams use
@@ -39,9 +44,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-_NO_DECODER = ("encoded images are not decoded by this server (it has no "
-               "image decoder); send the raw (H, W, 3) uint8 BGR frame with "
-               "X-Frame-Height/X-Frame-Width")
 _BAD_FRAME = ("could not read the frame; send raw (H, W, 3) uint8 BGR bytes "
               "with X-Frame-Height/X-Frame-Width")
 
@@ -148,9 +150,13 @@ class TrackingHTTPServer:
             if h <= 0 or w <= 0 or len(raw) != h * w * 3:
                 return None, _BAD_FRAME
             return np.frombuffer(raw, np.uint8).reshape(h, w, 3), None
-        if headers.get("Content-Type", "").startswith("image/"):
-            return None, _NO_DECODER
-        return None, _BAD_FRAME
+        from .utils.jpeg import decode_image
+        try:
+            return decode_image(raw), None
+        except (ValueError, MemoryError) as e:
+            return None, (f"could not decode the image ({e}); send a "
+                          "baseline JPEG, a PNG, or raw (H, W, 3) uint8 BGR "
+                          "bytes with X-Frame-Height/X-Frame-Width")
 
     def start(self):
         self._thread.start()

@@ -1,1 +1,2 @@
-"""Host-side utilities of the port (video input)."""
+"""Host-side utilities of the port: video and image I/O (MJPEG AVI, JPEG,
+PNG) and the drawing overlays."""

@@ -1,13 +1,15 @@
 """PNG decoding with the standard library's ``zlib``: frames without OpenCV.
 
 Reads non-interlaced 8-bit grayscale, RGB and RGBA PNGs (filter types 0-4,
-chunk CRCs checked) into what ``cv2.imread(path)`` returns for them: an
+undone by ``png_unfilter`` in ``native/aicam_host.cpp``; chunk CRCs
+checked) into what ``cv2.imread(path)`` returns for them: an
 ``(H, W, 3)`` uint8 BGR array, gray replicated to three channels and alpha
 dropped. Any other kind of PNG raises ``ValueError`` naming what it holds.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 from pathlib import Path
@@ -16,6 +18,7 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}      # colour type -> samples a pixel
+MAX_PIXELS = 1 << 30   # OpenCV's CV_IO_MAX_IMAGE_PIXELS default
 _KINDS = {0: "grayscale", 2: "RGB", 3: "palette", 4: "grayscale+alpha",
           6: "RGBA"}
 
@@ -61,46 +64,26 @@ def decode_png(data: bytes, name: str = "PNG") -> np.ndarray:
             f"{name}: {depth}-bit {_KINDS.get(ctype, f'colour type {ctype}')}"
             f"{', interlaced' if interlace else ''} PNG; only non-interlaced "
             "8-bit grayscale, RGB and RGBA are read")
+    if w * h > MAX_PIXELS:
+        raise ValueError(f"{name}: {w}x{h} PNG is larger than {MAX_PIXELS} "
+                         "pixels")
     bpp = _CHANNELS[ctype]
     stride = w * bpp
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) != h * (stride + 1):
+    need = h * (stride + 1)
+    try:   # never more than the header's size, whatever the stream holds
+        raw = zlib.decompressobj().decompress(b"".join(idat), need + 1)
+    except zlib.error as e:
+        raise ValueError(f"{name}: corrupt image data ({e})") from None
+    if len(raw) != need:
         raise ValueError(f"{name}: {len(raw)} bytes of image data for "
                          f"{w}x{h}")
-    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
-    out = np.empty((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        out[y] = prev = _unfilter(int(rows[y, 0]), rows[y, 1:], prev, bpp,
-                                  name)
-    img = out.reshape(h, w, bpp)
+    out = np.empty((h, w, bpp), np.uint8)
+    from .. import native
+    bad = native.host_lib().png_unfilter(
+        raw, h, stride, bpp, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    if bad:
+        raise ValueError(f"{name}: unknown filter type "
+                         f"{raw[(bad - 1) * (stride + 1)]}")
     if bpp == 1:
-        return np.repeat(img, 3, axis=2)
-    return np.ascontiguousarray(img[..., 2::-1])
-
-
-def _unfilter(kind: int, cur: np.ndarray, prev: np.ndarray, bpp: int,
-              name: str) -> np.ndarray:
-    """One scanline's bytes with its filter undone (PNG spec, section 9)."""
-    if kind == 0:
-        return cur
-    if kind == 1:      # Sub: a running sum of each pixel's samples, mod 256
-        return np.cumsum(cur.reshape(-1, bpp), axis=0,
-                         dtype=np.uint8).reshape(-1)
-    if kind == 2:      # Up
-        return cur + prev
-    if kind not in (3, 4):
-        raise ValueError(f"{name}: unknown filter type {kind}")
-    # Average and Paeth predict from the byte to the left: sequential
-    x, b = bytearray(cur.tobytes()), prev.tolist()
-    for i in range(len(x)):
-        a = x[i - bpp] if i >= bpp else 0
-        if kind == 3:
-            x[i] = (x[i] + ((a + b[i]) >> 1)) & 0xFF
-            continue
-        c = b[i - bpp] if i >= bpp else 0
-        p = a + b[i] - c
-        pa, pb, pc = abs(p - a), abs(p - b[i]), abs(p - c)
-        pred = a if pa <= pb and pa <= pc else (b[i] if pb <= pc else c)
-        x[i] = (x[i] + pred) & 0xFF
-    return np.frombuffer(bytes(x), np.uint8)
+        return np.repeat(out, 3, axis=2)
+    return np.ascontiguousarray(out[..., 2::-1])

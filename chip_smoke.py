@@ -14,7 +14,7 @@ this file; exits non-zero otherwise. In order it:
    steps' counts among them) and more (misaligned and ragged shapes, both
    kernel variants, the facades' K=1 frame and 2x2 tiles of a 960x540
    frame, the multi-stream dispatch's 32 frames of 720p), and times it
-   three ways at six shapes
+   three ways at seven shapes (``finetune_on_clip``'s K=4 among them)
    (``device_ms``: a CUDA-graph replay over buffers larger than the L2;
    ``ms``: per call through the wrapper; ``host_ms``: the host's share of a
    call), next to the earlier design (``earlier_ms``, the scalar variant's
@@ -64,8 +64,18 @@ this file; exits non-zero otherwise. In order it:
    and runs ``aicamera_tpu_torch.cli.main`` on it on the card with
    ``--no_save --profile --checkpoint``, then a ``--resume`` run of 16
    frames, then ``--tracker strongsort`` (its default ``--gmc affine``) for
-   16 frames: frame counts, tracks, the checkpoint file, the kernel once per
-   chunk;
+   16 frames; then writes the frames as an MJPEG ``.avi`` with the port's
+   ``VideoWriter`` and runs the default saved run on it with
+   ``--draw_detections --profile`` (its draw calls recorded), the same with
+   ``--no_save``, and ``--no_save --native_io``: frame counts, tracks, the
+   checkpoint file, no presentation error, the kernel once per chunk;
+   ``[present]``: the saved video read back with ``VideoReader``: as many
+   frames as were processed, each bitwise the port's drawing of that
+   frame's recorded calls, JPEG-encoded (it launches nothing; the saving
+   run's launches are ``[cli]``'s); decode, encode and draw ms a
+   frame at 960x540 and 1920x1080 (q95 4:2:0), the CLI's FPS with saving
+   against ``--no_save``, ``NativeVideoReader`` frames/s at 1 and 4
+   threads;
 10. ``[compare]``: runs the first chunks through the card in f32 (TF32 off)
     and through the plain CPU path, and at chunk 4 against chunk 8 on the
     card, and compares detections and track tuples;
@@ -87,7 +97,11 @@ this file; exits non-zero otherwise. In order it:
     1, the stats and the queue-wait and cycle percentiles;
 13. ``[server]``: ``TrackingHTTPServer`` on 127.0.0.1: health names the
     GPU, 16 raw-frame POSTs against the service itself after a reset,
-    stats, and a JPEG body answered 400;
+    stats; 8 JPEG bodies (the port's encoder) and 8 PNG bodies give the
+    tracks of their decoded frames POSTed raw, the kernel once a request
+    over those 32; a progressive JPEG, a garbage body, a JPEG whose frame
+    header claims 65535x65535 and a PNG with a corrupt zlib stream are
+    answered 400;
 14. ``[quality]``: BASELINE config 9's world (``synthetic.TemporalWorld``,
     10 objects, seed 4, speed 3, 960x540), 96 frames rendered on the card
     and held against the CPU rendering (bitwise expected; at most 1 level
@@ -114,7 +128,8 @@ this file; exits non-zero otherwise. In order it:
 15. ``[mot]``: a MOTChallenge layout of 48 PNG frames (a second seed of the
     world) with its ``gt.txt``, then ``aicamera_tpu_torch.mot.main(--run
     --gsi)`` on the card: its report equals an in-process scoring of the
-    result file, the result and GSI files exist;
+    result file, the result and GSI files exist; the same with the frames
+    as JPEGs (the port's encoder, q95);
 16. ``[train]``: one dispatch of ``train.make_train_step`` at full width
     (YOLOv8n 640x640, the 540x960 world, batch 2, scan 3, warm-up 1, so
     that steps 2 and 3 take full updates) in f32 with TF32 off on the card
@@ -141,7 +156,8 @@ this file; exits non-zero otherwise. In order it:
 
 The last two lines of output are the kernels' JSON record and the device
 JSON record. ``--kernels-only`` stops after step 3; ``--only`` runs the
-kernel phase and the named phases (``int8`` brings ``quality`` along).
+kernel phase and the named phases (``int8`` brings ``quality`` along,
+``present`` brings ``cli``).
 """
 
 from __future__ import annotations
@@ -151,6 +167,7 @@ import contextlib
 import hashlib
 import io
 import json
+import shutil
 import struct
 import subprocess
 import sys
@@ -179,6 +196,7 @@ TENANT_SECONDS = 2.0   # [serving]: how long the paced tenants submit
 TENANT_PACES = (None, 30.0, 15.0, 8.0)  # frames/s; None: one burst
 SERVER_FRAMES = 16     # [server]: raw-frame POSTs
 SERVER_CHUNK = 4
+SERVER_IMAGES = 8      # [server]: JPEG bodies, then PNG bodies
 QUALITY_GOLDEN = ROOT / "tests" / "data" / "quality_golden.json"
 MOT_FRAMES = 48        # [mot]: PNG frames of a second seed of the world
 MOT_SEED = 7
@@ -229,6 +247,12 @@ def stream_shape():
     """(path, src_hw, K) of the multi-stream dispatch's letterbox launch:
     all S*K frames of a dispatch in one launch."""
     return ("streams", STREAM_HW, STREAMS * STREAM_CHUNK)
+
+
+def clip_shape():
+    """(path, src_hw, K) of ``finetune_on_clip``'s two launches a step:
+    four 960x540 frames each."""
+    return ("finetune_on_clip", FRAME_HW, 4)
 
 
 def library_call(spec, frames):
@@ -380,15 +404,23 @@ def measure_letterbox(call, src_hw, dt, device, gen, k=CHUNK):
 
 
 def build_kernels(kernels):
-    """Build every kernel's source with nvcc and load it."""
-    from aicamera_tpu_torch.ops import cuda_build
+    """Build every kernel's source with nvcc and load it; the host C++
+    (``native/*.cpp``: JPEG, MJPEG, lapjv) builds with ``c++`` beside it."""
+    from concurrent.futures import ThreadPoolExecutor
+    from aicamera_tpu_torch.ops import cuda_build, host_build
     t0 = time.perf_counter()
-    for k in kernels:
-        lib, log = cuda_build.build(k.source)
-        print(f"[build] {k.name}: {lib.name}")
-        for ln in log.splitlines():
-            if "ptxas" in ln:
-                print(f"[build]   {ln.strip()}")
+    host = sorted(host_build.NATIVE_DIR.glob("*.cpp"))
+    with ThreadPoolExecutor(len(kernels) + len(host)) as pool:
+        cuda = [pool.submit(cuda_build.build, k.source) for k in kernels]
+        cxx = [pool.submit(host_build.build, src) for src in host]
+        for k, fut in zip(kernels, cuda):
+            lib, log = fut.result()
+            print(f"[build] {k.name}: {lib.name}")
+            for ln in log.splitlines():
+                if "ptxas" in ln:
+                    print(f"[build]   {ln.strip()}")
+        for src, fut in zip(host, cxx):
+            print(f"[build] host {src.name}: {fut.result()[0].name}")
     for k in kernels:
         k.load()  # finds the library just built
     return time.perf_counter() - t0
@@ -540,7 +572,7 @@ def kernel_phase(device):
         report("scalar variant", e)
         r["earlier_ms"] = e["device_ms"]
         rows.append(r)
-    for path, src, k in [*facade_shapes(), stream_shape()]:
+    for path, src, k in [*facade_shapes(), stream_shape(), clip_shape()]:
         r = measure_letterbox(lb.letterbox, src, torch.bfloat16, device, gen,
                               k=k)
         r["plan"] = repr(lb.KERNEL.last_plan)
@@ -981,13 +1013,34 @@ def facades_phase(device, frames, kernels):
     return launches
 
 
-def cli_phase(frames, kernels):
-    """The CLI end to end on the card: a run with a checkpoint, then a
-    resumed run."""
+# what [cli]'s saved run drew, for [present]: input and output paths, the
+# per-frame draw calls, the CLI texts
+PRESENT: dict = {}
+PRESENT_SIZES = ((540, 960), (1080, 1920))   # [present]: timed frame sizes
+PRESENT_FRAMES = 16                          # of them, frames a size
+READER_THREADS = (1, 4)                      # NativeVideoReader workers
+
+
+def cli_fps(text):
+    """(FPS incl. decode+draw, FPS detect+track) from the CLI's summary."""
+    line = next(ln for ln in text.splitlines() if ln.startswith("Processed"))
+    wall = float(line.split("wall (")[1].split(" FPS")[0])
+    compute = float(line.split("; ")[1].split(" FPS")[0])
+    return wall, compute
+
+
+def cli_phase(frames, kernels, workdir):
+    """The CLI end to end on the card: a headless run with a checkpoint, a
+    resumed run, StrongSORT; then on an MJPEG ``.avi`` of the same frames
+    (written by the port's VideoWriter): the default saved run with
+    ``--draw_detections --profile`` (its draw calls recorded for
+    [present]), the same with ``--no_save``, and ``--native_io``."""
     import numpy as np
     from aicamera_tpu_torch import cli, config
     from aicamera_tpu_torch.runtime.checkpoint import load_state
     from aicamera_tpu_torch.core.state import TrackerParams
+    from aicamera_tpu_torch.utils import visualization
+    from aicamera_tpu_torch.utils.video_io import VideoWriter
 
     def run(argv):
         for k in kernels:
@@ -1002,40 +1055,179 @@ def cli_phase(frames, kernels):
     weights = ["--yolo_weights", str(config.YOLO_SYNTHETIC_PATH),
                "--reid_weights", str(config.REID_SYNTHETIC_PATH)]
     n = len(frames)
-    with tempfile.TemporaryDirectory() as tmp:
-        clip, ckpt = Path(tmp) / "frames.npy", Path(tmp) / "state.msgpack"
-        np.save(clip, frames)
-        text, launches = run(["--input", str(clip), "--no_save", "--profile",
-                              "--checkpoint", str(ckpt),
-                              "--checkpoint_interval", "24", *weights])
-        check(f"Processed {n} frames" in text, "the CLI's frame count")
-        avg = float(text.split("Average tracks per frame: ")[1].split()[0])
-        check(avg > 0, "the CLI run emitted no track")
-        check("detect+track" in text and "checkpoint" in text,
-              "--profile printed no stage table")
-        check(ckpt.exists(), "no checkpoint file")
-        # one launch per chunk, the warm-up's chunks included
-        check_launches(launches, n // CHUNK + WARM_UP_ITERS, "cli")
-        state = load_state(ckpt, TrackerParams())
-        check(bool(state.active.any()) and int(state.next_id) > 1,
-              "the checkpoint holds no track")
-        text, resumed = run(["--input", str(clip), "--no_save", "--resume",
-                             str(ckpt), "--max_frames", "16", *weights])
-        check(f"Resumed tracker state from {ckpt}" in text
-              and "Processed 16 frames" in text, "the resumed run")
-        check_launches(resumed, 16 // CHUNK + WARM_UP_ITERS, "cli --resume")
-        text, strong = run(["--input", str(clip), "--no_save", "--tracker",
-                            "strongsort", "--max_frames", "16", *weights])
-        check("Processed 16 frames" in text, "the strongsort run")
-        check_launches(strong, 16 // CHUNK + WARM_UP_ITERS,
-                       "cli --tracker strongsort")
+    workdir = Path(workdir)
+    clip, ckpt = workdir / "frames.npy", workdir / "state.msgpack"
+    np.save(clip, frames)
+    text, launches = run(["--input", str(clip), "--no_save", "--profile",
+                          "--checkpoint", str(ckpt),
+                          "--checkpoint_interval", "24", *weights])
+    check(f"Processed {n} frames" in text, "the CLI's frame count")
+    avg = float(text.split("Average tracks per frame: ")[1].split()[0])
+    check(avg > 0, "the CLI run emitted no track")
+    check("detect+track" in text and "checkpoint" in text,
+          "--profile printed no stage table")
+    check(ckpt.exists(), "no checkpoint file")
+    # one launch per chunk, the warm-up's chunks included
+    check_launches(launches, n // CHUNK + WARM_UP_ITERS, "cli")
+    state = load_state(ckpt, TrackerParams())
+    check(bool(state.active.any()) and int(state.next_id) > 1,
+          "the checkpoint holds no track")
+    text, resumed = run(["--input", str(clip), "--no_save", "--resume",
+                         str(ckpt), "--max_frames", "16", *weights])
+    check(f"Resumed tracker state from {ckpt}" in text
+          and "Processed 16 frames" in text, "the resumed run")
+    check_launches(resumed, 16 // CHUNK + WARM_UP_ITERS, "cli --resume")
+    text, strong = run(["--input", str(clip), "--no_save", "--tracker",
+                        "strongsort", "--max_frames", "16", *weights])
+    check("Processed 16 frames" in text, "the strongsort run")
+    check_launches(strong, 16 // CHUNK + WARM_UP_ITERS,
+                   "cli --tracker strongsort")
     print(f"[cli] {n} frames through aicamera_tpu_torch.cli on the card: "
           f"{avg} tracks per frame, checkpoint with next_id "
           f"{int(state.next_id)} written and resumed for 16 frames; "
           f"--tracker strongsort (default --gmc affine) for 16 frames; "
           f"launches {launches}, {resumed} and {strong} (one per chunk, "
           f"{WARM_UP_ITERS} warm-up chunks each)")
+
+    # the MJPEG input, then the default (saving) run with its draw calls
+    avi_in = workdir / "clip.avi"
+    w = VideoWriter(str(avi_in), 30.0, FRAME_HW)
+    for f in frames:
+        w.write(f)
+    w.release()
+    check(w.frames_written == n, "VideoWriter dropped frames")
+    calls = {"dets": [], "tracks": [], "panel": []}
+    orig = (visualization.draw_detections, visualization.draw_tracks,
+            visualization.draw_info_panel)
+
+    def spy_dets(frame, boxes, scores, labels, *a, **k):
+        calls["dets"].append((np.array(boxes), np.array(scores),
+                              np.array(labels)))
+        return orig[0](frame, boxes, scores, labels, *a, **k)
+
+    def spy_tracks(frame, tracks, *a, **k):
+        calls["tracks"].append(list(tracks))
+        return orig[1](frame, tracks, *a, **k)
+
+    def spy_panel(frame, lines, *a, **k):
+        calls["panel"].append(list(lines))
+        return orig[2](frame, lines, *a, **k)
+
+    (visualization.draw_detections, visualization.draw_tracks,
+     visualization.draw_info_panel) = spy_dets, spy_tracks, spy_panel
+    try:
+        saved_text, saved = run(["--input", str(avi_in), "--draw_detections",
+                                 "--profile", "--output_dir", str(workdir),
+                                 "--output_filename", "run.mp4", *weights])
+    finally:
+        (visualization.draw_detections, visualization.draw_tracks,
+         visualization.draw_info_panel) = orig
+    avi_out = workdir / "run.avi"
+    check(f"Saved {n} frames to {avi_out}" in saved_text,
+          "the saved run's frame count")
+    check("Presentation errors: 0 frames skipped" in saved_text,
+          "the saved run skipped frames")
+    check("draw+write" in saved_text, "--profile printed no draw+write")
+    check_launches(saved, n // CHUNK + WARM_UP_ITERS, "cli (saving)")
+    nosave_text, nosave = run(["--input", str(avi_in), "--no_save",
+                               *weights])
+    check_launches(nosave, n // CHUNK + WARM_UP_ITERS, "cli (.avi, no save)")
+    native_text, native = run(["--input", str(avi_in), "--no_save",
+                               "--native_io", *weights])
+    check("Using native C++ video decoder" in native_text
+          and f"Processed {n} frames" in native_text, "the --native_io run")
+    check_launches(native, n // CHUNK + WARM_UP_ITERS, "cli --native_io")
+    PRESENT.update(input=avi_in, output=avi_out, calls=calls, n=n,
+                   saved=cli_fps(saved_text), nosave=cli_fps(nosave_text),
+                   native=cli_fps(native_text), launches=saved)
+    print(f"[cli] MJPEG .avi input (the port's VideoWriter): the default "
+          f"saved run with --draw_detections --profile wrote {n} frames, "
+          f"no presentation error, launches {saved}; --no_save launches "
+          f"{nosave}; --native_io launches {native} (one per chunk, "
+          f"{WARM_UP_ITERS} warm-up chunks each)")
     return launches
+
+
+def present_phase():
+    """[cli]'s saved video read back and held against the port's own
+    drawing of each frame's recorded calls, re-encoded; then the costs of
+    presentation on this host: decode, encode and draw ms a frame, the
+    CLI's FPS with saving against --no_save, NativeVideoReader frames/s."""
+    import numpy as np
+    from aicamera_tpu_torch.scenes import moving_rectangles
+    from aicamera_tpu_torch.utils import visualization as vis
+    from aicamera_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
+    from aicamera_tpu_torch.utils.video_io import (NativeVideoReader,
+                                                   VideoReader)
+    n, calls = PRESENT["n"], PRESENT["calls"]
+    r = VideoReader(str(PRESENT["input"]))
+    inputs = list(r.frames())
+    r.release()
+    r = VideoReader(str(PRESENT["output"]))
+    written = list(r.frames())
+    r.release()
+    check(len(written) == n == len(calls["tracks"]) == len(calls["panel"]),
+          f"[present] {len(written)} frames written, {n} processed")
+    for i, frame in enumerate(inputs):
+        want = frame.copy()
+        vis.draw_detections(want, *calls["dets"][i])
+        vis.draw_tracks(want, calls["tracks"][i])
+        vis.draw_info_panel(want, calls["panel"][i])
+        check(np.array_equal(written[i], decode_jpeg(encode_jpeg(want))),
+              f"[present] frame {i} != the port's drawing, re-encoded")
+    n_tracks = sum(map(len, calls["tracks"]))
+    check(n_tracks > 0, "[present] no track drawn")
+    print(f"[present] {n} frames of the saved video read back: each bitwise "
+          f"the port's drawing of its {n_tracks} tracks and the detections "
+          f"and the info panel as the CLI drew them, JPEG-encoded (q95 "
+          f"4:2:0); the saving run's launches, counted in [cli]: "
+          f"{PRESENT['launches']} (one a chunk)")
+
+    # costs a frame on this host (one thread each; the writer encodes on
+    # up to 4, the native reader decodes on its workers)
+    for hw in PRESENT_SIZES:
+        scene = moving_rectangles(PRESENT_FRAMES, hw, n_objects=10, seed=1)
+        rng = np.random.RandomState(0)
+        tracks = [[(int(x), int(y), int(x) + 120, int(y) + 200, j + 1,
+                    "person", 0.9) for j, (x, y) in enumerate(
+                        rng.randint(0, min(hw) - 200, (10, 2)))]
+                  for _ in range(PRESENT_FRAMES)]
+        t0 = time.perf_counter()
+        enc = [encode_jpeg(f) for f in scene]
+        t1 = time.perf_counter()
+        for b in enc:
+            decode_jpeg(b)
+        t2 = time.perf_counter()
+        for f, tr in zip(scene, tracks):
+            vis.draw_tracks(f, tr)
+            vis.draw_info_panel(f, ["AICamera", "Input: clip", "FPS: 88.8",
+                                    f"Tracks: {len(tr)}"])
+        t3 = time.perf_counter()
+        k = len(scene)
+        print(f"[present] {hw[1]}x{hw[0]} q95 4:2:0, {k} frames: encode "
+              f"{(t1 - t0) / k * 1e3:.3f} ms, decode {(t2 - t1) / k * 1e3:.3f}"
+              f" ms, draw (10 tracks + info panel) "
+              f"{(t3 - t2) / k * 1e3:.3f} ms a frame, "
+              f"{sum(map(len, enc)) / k / 1e3:.1f} kB a frame")
+    saved, nosave, native = PRESENT["saved"], PRESENT["nosave"], \
+        PRESENT["native"]
+    print(f"[present] CLI on the {n}-frame .avi, same call: saving "
+          f"(--draw_detections) {saved[0]:.2f} FPS incl. decode+draw "
+          f"({saved[1]:.2f} detect+track); --no_save {nosave[0]:.2f} "
+          f"({nosave[1]:.2f}); --no_save --native_io {native[0]:.2f} "
+          f"({native[1]:.2f})")
+    rates = []
+    for t in READER_THREADS:
+        t0 = time.perf_counter()
+        r = NativeVideoReader(str(PRESENT["input"]), n_threads=t)
+        got = sum(len(c) for c in r.chunks(CHUNK))
+        r.release()
+        dt = time.perf_counter() - t0
+        check(got == n, f"NativeVideoReader read {got} of {n}")
+        rates.append(f"{got / dt:.1f} frames/s at n_threads {t}")
+    print(f"[present] NativeVideoReader over the {n}-frame {FRAME_HW[1]}x"
+          f"{FRAME_HW[0]} .avi: "
+          + ", ".join(rates))
 
 
 def stream_scenes(n_frames, n_streams=None):
@@ -1455,18 +1647,87 @@ def server_phase(device, frames, kernels):
               "server tracks != the service's")
         n_tracks = sum(map(len, want))
         check(n_tracks > 0, "server: no track")
-        status, body = call("/v1/track", b"\xff\xd8\xff\xe0",
-                            {"Content-Type": "image/jpeg"})
-        check(status == 400, f"image/jpeg: {status} {body}")
+        encoded = image_bodies(sub[:SERVER_IMAGES])
+        reset_counts(kernels)
+        for kind, bodies, decoded in encoded:
+            tracks = {}
+            for way in ("raw", kind):
+                call("/v1/reset", b"")
+                tracks[way] = []
+                for body, frame in zip(bodies, decoded):
+                    status, reply = (
+                        call("/v1/track", frame.tobytes(), raw)
+                        if way == "raw" else
+                        call("/v1/track", body,
+                             {"Content-Type": f"image/{kind}"}))
+                    check(status == 200, f"{way} POST: {status} {reply}")
+                    tracks[way].append(reply["tracks"])
+            check(tracks[kind] == tracks["raw"],
+                  f"{kind} bodies: tracks != the decoded frames sent raw")
+            check(sum(map(len, tracks[kind])) > 0, f"{kind}: no track")
+        refused = {}
+        for what, body in (
+                ("progressive JPEG", progressive(encoded[0][1][0])),
+                ("garbage", b"not an image at all"),
+                ("65535x65535 JPEG", oversized(encoded[0][1][0])),
+                ("corrupt-zlib PNG", corrupt_zlib(encoded[1][1][0]))):
+            status, reply = call("/v1/track", body,
+                                 {"Content-Type": "image/jpeg"})
+            check(status == 400, f"{what}: {status} {reply}")
+            refused[what] = reply["error"].split(";")[0]
+        image_launches = {kn.name: kn.launches for kn in kernels}
+        # each kind: its bodies and their decoded frames sent raw, one chunk
+        # a request; the refused bodies launch nothing
+        check_launches(image_launches, 2 * 2 * SERVER_IMAGES,
+                       "server image bodies (one per request)")
     finally:
         srv.shutdown()
     print(f"[server] healthz {health}; {len(sub)} raw {FRAME_HW[1]}x"
           f"{FRAME_HW[0]} POSTs in {wall:.3f} s ({len(sub) / wall:.2f} "
           f"requests/s, one at a time, chunk {SERVER_CHUNK}); launches "
           f"{launches}; stats {stats}; after /v1/reset the service itself "
-          f"gave the same {n_tracks} tracks and ids; image/jpeg answered "
-          f"400")
-    return launches
+          f"gave the same {n_tracks} tracks and ids; {SERVER_IMAGES} JPEG "
+          f"(port-encoded q95) and {SERVER_IMAGES} PNG bodies answered 200 "
+          f"with the tracks of their decoded frames POSTed raw (launches "
+          f"{image_launches} over those {4 * SERVER_IMAGES} requests); 400 "
+          f"for {refused}")
+    return launches, image_launches
+
+
+def image_bodies(frames):
+    """(kind, encoded bodies, decoded frames) for JPEG (the port's encoder,
+    q95 4:2:0) and PNG (``png_bytes``)."""
+    from aicamera_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
+    from aicamera_tpu_torch.utils.png import decode_png
+    jpg = [encode_jpeg(f) for f in frames]
+    png = [png_bytes(f) for f in frames]
+    return [("jpeg", jpg, [decode_jpeg(b) for b in jpg]),
+            ("png", png, [decode_png(b) for b in png])]
+
+
+def progressive(jpeg_bytes):
+    """The same file with its SOF0 marker turned into SOF2 (progressive):
+    what a baseline decoder must refuse."""
+    i = jpeg_bytes.index(b"\xff\xc0")
+    return jpeg_bytes[:i] + b"\xff\xc2" + jpeg_bytes[i + 2:]
+
+
+def oversized(jpeg_bytes):
+    """The same file claiming 65535x65535 in its SOF0: refused before the
+    decoder allocates anything for it."""
+    i = jpeg_bytes.index(b"\xff\xc0")
+    return (jpeg_bytes[:i + 5] + struct.pack(">HH", 65535, 65535)
+            + jpeg_bytes[i + 9:])
+
+
+def corrupt_zlib(png):
+    """A ``png_bytes`` file whose IDAT stream is corrupt, its CRC valid."""
+    i = png.index(b"IDAT")
+    (n,) = struct.unpack(">I", png[i - 4:i])
+    body = png[i + 4:i + 4 + n]
+    bad = body[:2] + bytes(b ^ 0x5A for b in body[2:])
+    return (png[:i] + b"IDAT" + bad
+            + struct.pack(">I", zlib.crc32(b"IDAT" + bad)) + png[i + 8 + n:])
 
 
 def load_golden():
@@ -2025,6 +2286,10 @@ def int8_phase(device, kernels, world):
 
 
 def write_png(path, bgr):
+    path.write_bytes(png_bytes(bgr))
+
+
+def png_bytes(bgr):
     """A minimal PNG writer (8-bit RGB, filter 0, zlib): the GPU host has
     no OpenCV."""
     import numpy as np
@@ -2036,69 +2301,84 @@ def write_png(path, bgr):
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body)))
 
-    path.write_bytes(b"\x89PNG\r\n\x1a\n"
-                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0,
-                                                  0, 0))
-                     + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
-                     + chunk(b"IEND", b""))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+            + chunk(b"IEND", b""))
 
 
 def mot_phase(device, kernels):
     """``python -m aicamera_tpu_torch.mot --run --gsi`` on the card over a
-    PNG sequence of a second seed of config 9's world, its report against
-    an in-process scoring of the same hypotheses."""
+    sequence of a second seed of config 9's world, written as PNG frames
+    and again as JPEG frames (the port's encoder, q95 4:2:0), each report
+    against an in-process scoring of the same hypotheses."""
     import numpy as np
     from aicamera_tpu_torch import config, mot
+    from aicamera_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
     from aicamera_tpu_torch.utils.png import read_png
     world = load_golden()["world"]
     steps, _ = render_world(temporal_world(world, device, seed=MOT_SEED),
                             MOT_FRAMES)
-    with tempfile.TemporaryDirectory() as tmp:
-        data, out = Path(tmp) / "data", Path(tmp) / "out"
-        seq = data / "SYN-01"
-        (seq / "img1").mkdir(parents=True)
-        (seq / "gt").mkdir()
-        rows = []
-        for t, (frame, boxes, ids, _, valid) in enumerate(steps, 1):
-            write_png(seq / "img1" / f"{t:06d}.png", frame)
-            for (x1, y1, x2, y2), i in zip(boxes[valid], ids[valid]):
-                rows.append(f"{t},{i},{x1 + 1:.4f},{y1 + 1:.4f},"
-                            f"{x2 - x1:.4f},{y2 - y1:.4f},1,1,1")
-        (seq / "gt" / "gt.txt").write_text("\n".join(rows) + "\n")
-        check(np.array_equal(read_png(seq / "img1" / "000001.png"),
-                             steps[0][0]), "the PNG round trip")
-        reset_counts(kernels)
-        text = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(text):
-            report = mot.main([
-                "--data", str(data), "--out", str(out), "--run", "--gsi",
-                "--yolo_weights", str(config.YOLO_SYNTHETIC_PATH),
-                "--reid_weights", str(config.REID_SYNTHETIC_PATH)])
-        wall = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in kernels}
-        check_launches(launches, MOT_FRAMES // CHUNK, "mot --run")
-        res, gsi = out / "SYN-01.txt", out / "SYN-01.gsi.txt"
-        check(res.exists() and gsi.exists(), "mot wrote no result files")
-        gt = seq / "gt" / "gt.txt"
-        m = mot.evaluate_sequence(gt, res)
-        h = mot.evaluate_sequence_hota(gt, res)
-        i = mot.evaluate_sequence_identity(gt, res)
-        row = report["SYN-01"]
-        check(row["mota"] == m.mota and row["hota"] == round(h.hota, 4)
-              and row["idf1"] == round(i.idf1, 4)
-              and row["id_switches"] == m.id_switches,
-              f"mot's report {row} != the in-process scores")
-        check(m.matches > 0, "mot --run matched no ground truth")
-        n_boxes = len(res.read_text().splitlines())
-    print(f"[mot] python -m aicamera_tpu_torch.mot --run --gsi on the card: "
-          f"{MOT_FRAMES} PNG frames of seed {MOT_SEED} in {wall:.3f} s "
-          f"(pipeline construction, PNG decode and scoring included), "
-          f"{n_boxes} result rows; MOTA {m.mota:.4f}, ID switches "
-          f"{m.id_switches}, HOTA {h.hota:.4f}, IDF1 {i.idf1:.4f}, GSI MOTA "
-          f"{row['gsi_mota']:.4f}, GSI HOTA {row['gsi_hota']:.4f}: the report "
-          f"equals an in-process scoring of the written hypotheses; "
-          f"launches {launches} (one per chunk)")
+    launches = None
+    for ext in ("png", "jpg"):
+        with tempfile.TemporaryDirectory() as tmp:
+            data, out = Path(tmp) / "data", Path(tmp) / "out"
+            seq = data / "SYN-01"
+            (seq / "img1").mkdir(parents=True)
+            (seq / "gt").mkdir()
+            rows = []
+            for t, (frame, boxes, ids, _, valid) in enumerate(steps, 1):
+                img = seq / "img1" / f"{t:06d}.{ext}"
+                if ext == "png":
+                    write_png(img, frame)
+                else:
+                    img.write_bytes(encode_jpeg(frame))
+                for (x1, y1, x2, y2), i in zip(boxes[valid], ids[valid]):
+                    rows.append(f"{t},{i},{x1 + 1:.4f},{y1 + 1:.4f},"
+                                f"{x2 - x1:.4f},{y2 - y1:.4f},1,1,1")
+            (seq / "gt" / "gt.txt").write_text("\n".join(rows) + "\n")
+            first = seq / "img1" / f"000001.{ext}"
+            want = steps[0][0] if ext == "png" else decode_jpeg(
+                encode_jpeg(steps[0][0]))
+            got = next(mot.sequence_frames(seq))
+            check(np.array_equal(got, want) and (
+                ext == "jpg" or np.array_equal(read_png(first), want)),
+                f"the {ext.upper()} round trip")
+            reset_counts(kernels)
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                report = mot.main([
+                    "--data", str(data), "--out", str(out), "--run", "--gsi",
+                    "--yolo_weights", str(config.YOLO_SYNTHETIC_PATH),
+                    "--reid_weights", str(config.REID_SYNTHETIC_PATH)])
+            wall = time.perf_counter() - t0
+            counts = {k.name: k.launches for k in kernels}
+            check_launches(counts, MOT_FRAMES // CHUNK,
+                           f"mot --run ({ext})")
+            launches = launches or counts
+            res, gsi = out / "SYN-01.txt", out / "SYN-01.gsi.txt"
+            check(res.exists() and gsi.exists(), "mot wrote no result files")
+            gt = seq / "gt" / "gt.txt"
+            m = mot.evaluate_sequence(gt, res)
+            h = mot.evaluate_sequence_hota(gt, res)
+            i = mot.evaluate_sequence_identity(gt, res)
+            row = report["SYN-01"]
+            check(row["mota"] == m.mota and row["hota"] == round(h.hota, 4)
+                  and row["idf1"] == round(i.idf1, 4)
+                  and row["id_switches"] == m.id_switches,
+                  f"mot's report {row} != the in-process scores")
+            check(m.matches > 0, "mot --run matched no ground truth")
+            n_boxes = len(res.read_text().splitlines())
+        print(f"[mot] python -m aicamera_tpu_torch.mot --run --gsi on the "
+              f"card: {MOT_FRAMES} {ext.upper()} frames of seed {MOT_SEED} "
+              f"in {wall:.3f} s (pipeline construction, decode and scoring "
+              f"included), {n_boxes} result rows; MOTA {m.mota:.4f}, ID "
+              f"switches {m.id_switches}, HOTA {h.hota:.4f}, IDF1 "
+              f"{i.idf1:.4f}, GSI MOTA {row['gsi_mota']:.4f}, GSI HOTA "
+              f"{row['gsi_hota']:.4f}: the report equals an in-process "
+              f"scoring of the written hypotheses; launches {counts} (one "
+              f"per chunk)")
     return launches
 
 
@@ -2574,8 +2854,8 @@ def main() -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the kernel "
                          "phase (main, bucket, trackers, gmc, facades, "
-                         "engine, cli, compare, streams, serving, server, "
-                         "quality, int8, mot, train); default all")
+                         "engine, cli, present, compare, streams, serving, "
+                         "server, quality, int8, mot, train); default all")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     from aicamera_tpu_torch.ops.letterbox import KERNEL as LETTERBOX
@@ -2583,6 +2863,7 @@ def main() -> int:
 
     kernels = [LETTERBOX]
     t_start = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         ident = gpu_identity()
         print(f"[gpu] {ident}")
@@ -2608,6 +2889,8 @@ def main() -> int:
         only = set(args.only.split(",")) if args.only else None
         if only and "int8" in only:
             only.add("quality")  # int8 tracks the quality phase's world
+        if only and "present" in only:
+            only.add("cli")      # present reads the CLI's saved video
 
         def run(name, fn, *a):
             if only is None or name in only:
@@ -2621,14 +2904,22 @@ def main() -> int:
                             ("facades", facades_phase, (device, frames)),
                             ("engine", engine_phase, (device, frames)),
                             ("cli", cli_phase, (frames,))):
-            run(name, fn, *a, kernels)
+            if name == "cli":
+                a = (*a, kernels, workdir)
+            else:
+                a = (*a, kernels)
+            run(name, fn, *a)
+        if only is None or "present" in only:
+            timed("present", present_phase)
         if only is None or "compare" in only:
             timed("compare", compare_phase, frames)
         run("streams", streams_phase, device, kernels)
         if only is None or "serving" in only:
             by_path["serving"], by_path["multi_tenant"] = timed(
                 "serving", serving_phase, device, frames, kernels)
-        run("server", server_phase, device, frames, kernels)
+        if only is None or "server" in only:
+            by_path["server"], by_path["server_images"] = timed(
+                "server", server_phase, device, frames, kernels)
         if "quality" in (only or {"quality"}):
             by_path["quality"], world = timed("quality", quality_phase,
                                               device, kernels)
@@ -2638,11 +2929,14 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     record["launches"] = by_path.get("main", {}).get(record["name"])
     # the other paths, each counted from 0: bucket (its last run), every
     # tracker, the GMC pipelines, every facade (one launch per detect call;
     # detect_tiled two), the CLI (warm-up chunks included), the multi-stream
-    # dispatches, the two services, the server's requests, the quality runs
+    # dispatches, the two services, the server's raw requests and its JPEG
+    # and PNG requests with their raw twins, the quality runs
     # (bf16, f32), mot --run, and the trainers by part (one launch a
     # detector step, two a clip step, none in the ReID trainer)
     record["launches_by_path"] = {

@@ -1,6 +1,9 @@
 """Port: the CLI on the CPU. Flags as in the JAX parser, the headless run end
-to end on a ``.npy`` of seeded frames, checkpoint and resume, and the exits
-for what is not ported."""
+to end on a ``.npy`` of seeded frames, checkpoint and resume, the saved runs
+(the annotated MJPEG ``.avi``, ``--draw_detections``, ``--native_io``)
+against what the JAX CLI draws, and the exits for what is not ported."""
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -152,15 +155,15 @@ def test_checkpoint_then_resume(clip, tmp_path, capsys, tracker):
 
 
 @pytest.mark.parametrize("flags,named", [
-    ([], "--no_save"),
     (["--no_save", "--show_display"], "--show_display"),
-    (["--no_save", "--draw_detections"], "--draw_detections"),
-    (["--no_save", "--native_io"], "--native_io"),
+    (["--show_display"], "--show_display"),
+    (["--show_display", "--draw_detections", "--native_io"],
+     "--show_display"),
+    # (saving, --draw_detections and --native_io run now:
+    # test_saved_runs_write_the_drawn_video)
     # (--gmc affine|translation and a bare --tracker strongsort run now:
     # test_gmc_and_strongsort_default_run)
     # (.onnx weights load now: test_onnx_weights_run)
-    (["--no_save", "--native_io", "--draw_detections"],
-     "--draw_detections"),
     # (--reid_quant/--yolo_quant int8 run now: tests/test_torch_quant.py)
 ])
 def test_flags_not_ported_exit_naming_themselves(clip, flags, named):
@@ -168,6 +171,152 @@ def test_flags_not_ported_exit_naming_themselves(clip, flags, named):
         cli.main(["--input", str(clip), "--device", "cpu", *flags])
     assert e.value.code not in (0, None)
     assert named in str(e.value.code) and "ROADMAP.md" in str(e.value.code)
+
+
+AVI_HW = (240, 320)   # room outside the info panel (it is 122 rows high)
+
+
+@pytest.fixture(scope="module")
+def avi_clip(tmp_path_factory):
+    """A seeded clip as an MJPEG .avi written by the port, and its frames
+    as the port decodes them (what the CLI sees)."""
+    from aicamera_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
+    path = tmp_path_factory.mktemp("avi") / "tiny.avi"
+    frames = moving_rectangles(N_FRAMES, AVI_HW, n_objects=3, seed=3)
+    w = video_io.VideoWriter(str(path), 30.0, AVI_HW)
+    for f in frames:
+        w.write(f)
+    w.release()
+    return path, [decode_jpeg(encode_jpeg(f)) for f in frames]
+
+
+# A file name beyond ASCII: OpenCV draws it in the JAX CLI's panel, the port
+# draws Latin-1 as OpenCV does and the CJK character as "?"
+ODD_NAME = "caf\u00e9_\u00fc\u4e2d"
+
+
+@pytest.fixture(scope="module")
+def jax_cli_run(avi_clip):
+    """The JAX CLI on the same decoded frames (its reader and writer
+    replaced by stand-ins: it reads video through FFmpeg, whose MJPEG
+    decoder differs from libjpeg by a few levels), its input named
+    ``ODD_NAME``: per frame, the tracks and detections it draws and the
+    frame it would write (every frame: it draws the name)."""
+    from aicamera_tpu.utils import visualization as jvis
+    _, decoded = avi_clip
+    seen = {"tracks": [], "dets": [], "written": []}
+
+    class Reader:
+        fps, width, height = 30.0, AVI_HW[1], AVI_HW[0]
+        frame_count, is_webcam = len(decoded), False
+
+        def __init__(self, *a, **k):
+            pass
+
+        def frames(self):
+            return iter([f.copy() for f in decoded])
+
+        def release(self):
+            pass
+
+    class Writer:
+        def __init__(self, path, fps, hw):
+            self.path = path
+
+        def write(self, frame):
+            seen["written"].append(frame.copy())
+
+        def release(self):
+            pass
+
+    draw_tracks, draw_dets = jvis.draw_tracks, jvis.draw_detections
+
+    def spy_tracks(frame, tracks, *a, **k):
+        seen["tracks"].append(list(tracks))
+        return draw_tracks(frame, tracks, *a, **k)
+
+    def spy_dets(frame, boxes, scores, labels, *a, **k):
+        seen["dets"].append((np.array(boxes), np.array(scores),
+                             np.array(labels)))
+        return draw_dets(frame, boxes, scores, labels, *a, **k)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jcli, "VideoReader", Reader)
+    mp.setattr(jcli, "VideoWriter", Writer)
+    mp.setattr(jvis, "draw_tracks", spy_tracks)
+    mp.setattr(jvis, "draw_detections", spy_dets)
+    try:
+        jcli.main(["--input", f"{ODD_NAME}.avi", "--device", "cpu",
+                   "--input_shape",
+                   "128", "--chunk_size", "2", "--draw_detections", *WEIGHTS])
+    finally:
+        mp.undo()
+    assert len(seen["written"]) == len(decoded)
+    assert sum(map(len, seen["tracks"])) > 0
+    return seen
+
+
+@pytest.mark.parametrize("flags,name", [
+    ([], "tiny"), (["--draw_detections"], "tiny"), (["--native_io"], "tiny"),
+    (["--native_io", "--draw_detections"], "tiny"),
+    (["--draw_detections"], ODD_NAME)])
+def test_saved_runs_write_the_drawn_video(avi_clip, jax_cli_run, tmp_path,
+                                          capsys, monkeypatch, flags, name):
+    """Without ``--no_save`` the CLI writes the annotated MJPEG ``.avi``
+    (a ``.mp4`` name becomes ``.avi``): one frame per processed frame, each
+    bitwise the port's drawing of the tracks (and, with
+    ``--draw_detections``, the detections) that the JAX CLI draws on the
+    same frames, under the info panel's lines as the CLI formed them (its
+    FPS is live), JPEG-encoded. Outside the panel (which holds the package
+    name and the live FPS) the JAX CLI's own frames equal the port's
+    drawing too. An input named beyond ASCII is drawn and saved whole, as
+    the JAX CLI draws and writes every frame of it."""
+    import shutil
+
+    from aicamera_tpu_torch.utils import visualization as vis
+    from aicamera_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
+    path, decoded = avi_clip
+    if name != path.stem:
+        path = Path(shutil.copy(path, tmp_path / f"{name}.avi"))
+    panel = []
+    draw_info_panel = vis.draw_info_panel
+
+    def spy(frame, lines, *a, **k):
+        panel.append(list(lines))
+        return draw_info_panel(frame, lines, *a, **k)
+    monkeypatch.setattr(vis, "draw_info_panel", spy)
+    out_dir = tmp_path / "out"
+    cli.main(["--input", str(path), "--device", "cpu", "--input_shape",
+              "128", "--chunk_size", "2", "--output_dir", str(out_dir),
+              "--output_filename", "run.mp4", "--profile", *WEIGHTS, *flags])
+    text = capsys.readouterr().out
+    written = out_dir / "run.avi"
+    assert f"Saving to: {written}" in text
+    assert f"Saved {N_FRAMES} frames to {written}" in text
+    assert f"Processed {N_FRAMES} frames in" in text
+    assert "Presentation errors: 0 frames skipped" in text
+    assert "draw+write" in text
+    assert ("Using native C++ video decoder" in text) == \
+        ("--native_io" in flags)
+    r = video_io.VideoReader(str(written))
+    got = list(r.frames())
+    r.release()
+    assert len(got) == N_FRAMES and r.fps == 30.0
+    assert len(panel) == N_FRAMES
+    for i, (frame, tracks) in enumerate(zip(decoded, jax_cli_run["tracks"])):
+        assert panel[i][0] == "AICamera" and panel[i][1] == f"Input: {name}"
+        assert panel[i][3] == f"Tracks: {len(tracks)}"
+        want = frame.copy()
+        if "--draw_detections" in flags:
+            vis.draw_detections(want, *jax_cli_run["dets"][i])
+        vis.draw_tracks(want, tracks)
+        if "--draw_detections" in flags:   # as the JAX CLI drew it
+            below = slice(10 + 26 * 4 + 8 + 1, None)   # under its panel
+            np.testing.assert_array_equal(
+                want[below], jax_cli_run["written"][i][below])
+        draw_info_panel(want, panel[i])
+        np.testing.assert_array_equal(got[i], decode_jpeg(encode_jpeg(want)),
+                                      err_msg=f"frame {i}")
 
 
 def test_inputs_not_ported_exit(tmp_path, clip):
@@ -244,11 +393,18 @@ def test_video_reader_surface(clip, tmp_path):
     np.save(bad, np.zeros((3, 4, 4), np.uint8))
     with pytest.raises(ValueError, match="uint8"):
         video_io.VideoReader(str(bad))
-    for make in (lambda: video_io.VideoReader(0),
-                 lambda: video_io.NativeVideoReader(str(clip)),
-                 lambda: video_io.VideoWriter("o.mp4", 30.0, FRAME_HW)):
-        with pytest.raises(NotImplementedError, match="OpenCV"):
+    for make in (lambda: video_io.VideoReader(0),):     # the webcam
+        with pytest.raises(NotImplementedError, match="V4L2"):
             make()
+    # the native reader and the writer are ported: an .avi round trip
+    w = video_io.VideoWriter(str(tmp_path / "o.mp4"), 30.0, FRAME_HW)
+    for f in np.load(clip):
+        w.write(f)
+    w.release()
+    assert w.path == tmp_path / "o.avi" and w.frames_written == N_FRAMES
+    n = video_io.NativeVideoReader(str(w.path), n_threads=2)
+    assert [len(c) for c in n.chunks(3)] == [3, 3, 1]
+    n.release()
 
 
 def test_stage_timer_report():

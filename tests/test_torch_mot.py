@@ -226,12 +226,22 @@ def test_png_rejects_what_it_does_not_read(tmp_path):
 
 
 def test_jpeg_frames_are_not_ported(tmp_path):
+    """JPEG frames are read now: ``sequence_frames`` over an ``img1/*.jpg``
+    layout (and ``*.jpg`` plus ``*.png``, JPEGs first) equals the JAX
+    harness's ``cv2.imread`` frames bitwise."""
     seq = tmp_path / "SEQ"
     (seq / "img1").mkdir(parents=True)
-    cv2.imwrite(str(seq / "img1" / "000001.jpg"), _image((8, 8, 3), 0))
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        next(tmot.sequence_frames(seq))
-    (seq / "img1" / "000001.jpg").unlink()
+    for i in range(3):
+        cv2.imwrite(str(seq / "img1" / f"{i + 1:06d}.jpg"),
+                    _image((37, 61, 3), i))
+    cv2.imwrite(str(seq / "img1" / "000004.png"), _image((37, 61, 3), 9))
+    got = list(tmot.sequence_frames(seq))
+    want = list(jmot.sequence_frames(seq))
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for p in (seq / "img1").iterdir():
+        p.unlink()
     with pytest.raises(FileNotFoundError):
         next(tmot.sequence_frames(seq))
 

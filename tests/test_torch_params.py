@@ -203,7 +203,9 @@ MUST_COVER = ("cli.py", "utils/__init__.py", "utils/video_io.py",
               "prng.py", "synthetic.py", "eval.py", "postprocess.py",
               "mot.py", "utils/png.py", "runtime/engine.py",
               "models/quant.py", "models/quant_yolo.py", "export_engines.py",
-              "train.py", "train_synthetic.py", "models/onnx_import.py")
+              "train.py", "train_synthetic.py", "models/onnx_import.py",
+              "utils/visualization.py", "utils/jpeg.py", "utils/avi.py",
+              "native/__init__.py", "ops/host_build.py")
 
 
 def test_source_scan_finds_no_forbidden_import():
@@ -242,6 +244,11 @@ from aicamera_tpu_torch.serving import (MultiTenantTrackingService,
 from aicamera_tpu_torch.server import TrackingHTTPServer, main as serve
 from aicamera_tpu_torch.mot import main as mot_main
 from aicamera_tpu_torch.synthetic import TemporalWorld, WorldSpec
+import numpy as np
+from aicamera_tpu_torch.utils import jpeg, visualization
+f = np.zeros((16, 24, 3), np.uint8)
+visualization.draw_tracks(f, [(1, 1, 8, 8, 1, "person", 0.5)])
+assert jpeg.decode_jpeg(jpeg.encode_jpeg(f)).shape == (16, 24, 3)
 runpy.run_path({smoke!r}, run_name="chip_smoke_imported")
 print("IMPORT-OK")
 """

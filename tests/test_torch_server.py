@@ -3,8 +3,8 @@ the cases of ``tests/test_server.py`` on ``127.0.0.1:0``.
 
 Raw frames are tracked, and the tracks are those of the service behind the
 server (ids, classes and boxes identical, conf to the 4 decimals the JSON
-carries); an encoded image is answered 400, since the port has no image
-decoder; ``reset`` restarts the ids; ``main`` parses the JAX server's flags
+carries); JPEG and PNG bodies are decoded as the JAX server decodes them
+and tracked, an undecodable body is answered 400; ``reset`` restarts the ids; ``main`` parses the JAX server's flags
 with ``--device cuda|cpu`` (default the GPU)."""
 
 import json
@@ -115,13 +115,126 @@ def test_tracks_equal_the_service_after_reset(srv):
 
 
 def test_image_body_is_answered_400(srv):
-    """JPEG and PNG bodies cannot be decoded without OpenCV: 400, with a
-    message that asks for raw frames."""
-    for ctype in ("image/jpeg", "image/png"):
-        status, body = _post(srv, "/v1/track", b"\xff\xd8\xff\xe0 not raw",
-                             {"Content-Type": ctype})
+    """Encoded bodies are decoded by their bytes, whatever the Content-Type,
+    as the JAX server's ``cv2.imdecode`` does: a JPEG and a PNG body give
+    the frame the JAX server decodes, bitwise, and the tracks of the same
+    frames POSTed raw (one at a time after a reset each); a progressive
+    JPEG, which the baseline decoder refuses, and a garbage body are
+    answered 400 with the reason."""
+    import cv2
+    from aicamera_tpu.server import TrackingHTTPServer as JaxServer
+    frames = moving_rectangles(4, FRAME_HW, n_objects=3, seed=3)
+    bodies = {
+        "jpeg": [cv2.imencode(".jpg", f)[1].tobytes() for f in frames],
+        "png": [cv2.imencode(".png", f)[1].tobytes() for f in frames]}
+    for kind, encoded in bodies.items():
+        decoded = []
+        for body in encoded:
+            got, err = TrackingHTTPServer._decode_frame(body, {})
+            assert err is None
+            want = JaxServer._decode_frame(body, {})
+            np.testing.assert_array_equal(got, want)
+            decoded.append(got)
+        assert _post(srv, "/v1/reset")[0] == 200   # the same frames raw
+        raw_tracks = []
+        for f in decoded:
+            status, body = _post(srv, "/v1/track", f.tobytes(), RAW)
+            assert status == 200
+            raw_tracks.append(body["tracks"])
+        assert sum(map(len, raw_tracks)) > 0
+        if kind == "png":              # lossless
+            np.testing.assert_array_equal(np.stack(decoded), frames)
+        assert _post(srv, "/v1/reset")[0] == 200
+        got_tracks = []
+        for body, ctype in zip(encoded, ("image/jpeg", "image/png",
+                                         "application/octet-stream", "")):
+            status, reply = _post(srv, "/v1/track", body,
+                                  {"Content-Type": ctype} if ctype else {})
+            assert status == 200, reply
+            got_tracks.append(reply["tracks"])
+        assert got_tracks == raw_tracks, kind
+    progressive = cv2.imencode(".jpg", frames[0],
+                               [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1]
+    for body, why in ((progressive.tobytes(), "progressive"),
+                      (b"\xff\xd8\xff\xe0 not raw", "JPEG"),
+                      (b"GIF89a not raw", "neither a JPEG nor a PNG")):
+        status, reply = _post(srv, "/v1/track", body,
+                              {"Content-Type": "image/jpeg"})
         assert status == 400
-        assert "X-Frame-Height" in body["error"] and "raw" in body["error"]
+        assert why in reply["error"] and "X-Frame-Height" in reply["error"]
+
+
+def _png_with(png: bytes, ihdr=None, idat=None) -> bytes:
+    """``png`` with its IHDR and IDAT bodies replaced, the CRCs valid."""
+    import struct
+    import zlib
+    out, pos, idat_done = [png[:8]], 8, False
+    while pos < len(png):
+        (length,) = struct.unpack(">I", png[pos:pos + 4])
+        kind, body = png[pos + 4:pos + 8], png[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR" and ihdr is not None:
+            body = ihdr(body)
+        if kind == b"IDAT" and idat is not None:
+            if idat_done:
+                continue
+            body, idat_done = idat(body), True
+        out.append(struct.pack(">I", len(body)) + kind + body
+                   + struct.pack(">I", zlib.crc32(kind + body)))
+    return b"".join(out)
+
+
+def _hostile_bodies():
+    """Small bodies that claim huge frames or hold corrupt data."""
+    import struct
+    import zlib
+
+    import cv2
+    frame = moving_rectangles(1, (16, 16), n_objects=1, seed=5)[0]
+    jpeg = cv2.imencode(".jpg", frame)[1].tobytes()
+    sof = jpeg.index(b"\xff\xc0")          # height, width at +5, +7
+    huge_jpeg = (jpeg[:sof + 5] + struct.pack(">HH", 65535, 65535)
+                 + jpeg[sof + 9:])
+    png = cv2.imencode(".png", frame)[1].tobytes()
+    rows = zlib.decompress(png[png.index(b"IDAT") + 4:])  # one IDAT here
+
+    def size(w, h):
+        return lambda body: struct.pack(">II", w, h) + body[8:]
+
+    return {
+        "jpeg_65535x65535": (huge_jpeg, "2**30 pixels"),
+        "png_65535x65535": (_png_with(png, ihdr=size(65535, 65535)),
+                            "larger than"),
+        "png_corrupt_zlib": (_png_with(png, idat=lambda b: b[:2] + bytes(
+            x ^ 0x5A for x in b[2:])), "corrupt image data"),
+        "png_inflates_past_its_header": (_png_with(png, idat=lambda b: (
+            zlib.compress(bytes(50 << 20)))), "bytes of image data"),
+        "png_unknown_filter": (_png_with(png, idat=lambda b: zlib.compress(
+            b"\x07" + rows[1:])), "unknown filter type 7"),
+    }
+
+
+@pytest.mark.parametrize("case", ["jpeg_65535x65535", "png_65535x65535",
+                                  "png_corrupt_zlib",
+                                  "png_inflates_past_its_header",
+                                  "png_unknown_filter"])
+def test_hostile_bodies_are_answered_400(srv, case):
+    """A few hundred bytes that claim a 65535x65535 frame are refused before
+    the decoder allocates anything for it (OpenCV's 2**30-pixel cap); a
+    PNG whose zlib stream is corrupt, inflates past its header's size or
+    names an unknown filter is refused too. Each gets 400 with the reason,
+    the server's memory does not grow, and the server answers after."""
+    import resource
+    body, why = _hostile_bodies()[case]
+    assert len(body) < 60_000
+    before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    status, reply = _post(srv, "/v1/track", body,
+                          {"Content-Type": "image/png"})
+    grown_kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - before
+    assert status == 400, reply
+    assert why in reply["error"], reply["error"]
+    assert grown_kib < 64 * 1024, grown_kib
+    assert _get(srv, "/v1/healthz")["status"] == "ok"
 
 
 def test_reset_and_bad_input(srv):
