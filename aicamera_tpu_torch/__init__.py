@@ -12,14 +12,16 @@ Entry points (``cli.main``, ``runtime.pipeline.TrackingPipeline``,
 reference-API facades ``YOLODetector``, ``ReIDModel``, ``DeepSORT``,
 ``StrongSORT``, ``ByteTrack``, ``BoTSORT``, ``OCSort`` and ``DeepOCSort``,
 the trainers ``train.train_detector``, ``train_reid`` and
-``finetune_on_clip`` and ``train_synthetic.main``) run on the GPU unless
+``finetune_on_clip`` and ``train_synthetic.main``, the world launcher
+``parallel.distributed.spawn`` and ``init_world``) run on the GPU unless
 the caller passes ``device="cpu"`` (``--device cpu``).
 """
 
 from . import config  # noqa: F401
 
-# Lazy top-level exports (PEP 562): the reference-compatible facades and the
-# pipeline, without importing PyTorch at package import time.
+# Lazy top-level exports (PEP 562): the reference-compatible facades, the
+# pipelines and the engines (the JAX package's XLAEngine is the port's
+# CUDAGraphEngine), without importing PyTorch at package import time.
 _LAZY_EXPORTS = {
     "YOLODetector": "aicamera_tpu_torch.detector",
     "DeepSORT": "aicamera_tpu_torch.tracker_api",
@@ -31,6 +33,10 @@ _LAZY_EXPORTS = {
     "DeepOCSort": "aicamera_tpu_torch.deepocsort_api",
     "TrackingPipeline": "aicamera_tpu_torch.runtime.pipeline",
     "MultiStreamPipeline": "aicamera_tpu_torch.parallel",
+    "CUDAGraphEngine": "aicamera_tpu_torch.runtime.engine",
+    "SerializedEngine": "aicamera_tpu_torch.runtime.engine",
+    "load_engine": "aicamera_tpu_torch.runtime.engine",
+    "export_engine": "aicamera_tpu_torch.runtime.engine",
 }
 
 __all__ = ["config", "not_ported", *sorted(_LAZY_EXPORTS)]

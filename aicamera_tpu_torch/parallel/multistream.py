@@ -1,4 +1,4 @@
-"""Batched multi-stream tracking on one GPU.
+"""Batched multi-stream tracking, on one device or sharded over a mesh.
 
 The port of ``aicamera_tpu/parallel/multistream.py`` (BASELINE.json config
 4: "8x 720p streams with batched ReID crops"). Every stream keeps its own
@@ -23,8 +23,18 @@ A per-(stream, frame) validity mask lets streams at different frame rates
 share a dispatch: a masked frame leaves its stream's state as it was. The
 mask is host data and is never uploaded.
 
-Not ported: ``mesh=`` (sharding streams over several devices),
-``make_mesh`` and ``make_stream_mesh``; they raise the not-ported error.
+On a mesh (``mesh=make_stream_mesh()`` or ``make_mesh(S, M)``, one process
+per rank over ``torch.distributed``; see :mod:`.distributed`) every rank is
+given the whole dispatch, as the JAX caller passes the global array, and
+takes its contiguous block of S / n_stream streams: their frames are its
+detection batch (one letterbox launch), their trackers and states are its
+own. Tracking state never crosses streams, so detection and tracking issue
+no collective; the one collective of a dispatch gathers the ranks' packed
+outputs over the stream group, so that ``step_chunk`` returns all S
+streams on every rank. With a ``model`` axis larger than 1 the detector's
+convolutions are split by output channel over it
+(:func:`.tensor_parallel.shard_detector_params`: one all-gather a sharded
+conv); the ReID net stays whole on every rank.
 """
 
 from __future__ import annotations
@@ -35,25 +45,50 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .. import config, not_ported
+from .. import config
 from ..core import bytetrack as bt_core
 from ..core import ocsort as oc_core
 from ..core.state import TrackerParams
 from ..ops import gmc as gmc_ops
 from ..runtime.checkpoint import state_like
 from ..runtime.pipeline import TrackingPipeline
+from .distributed import COLLECTIVES, rank_device, require_world
+
+
+def _mesh(device_type: str, ranks: torch.Tensor, names):
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh(device_type, ranks, mesh_dim_names=names)
 
 
 def make_stream_mesh(n_devices: int | None = None):
-    raise not_ported("make_stream_mesh (streams sharded over devices)")
+    """1-D ``DeviceMesh`` named ``("stream",)`` over the first
+    ``n_devices`` ranks of the initialized world (default: all of them).
+    Every rank of the world must call it (it creates the mesh's group)."""
+    have = require_world("make_stream_mesh")
+    n = have if n_devices is None else int(n_devices)
+    if not 1 <= n <= have:
+        raise ValueError(f"mesh {n} needs {n} devices, have {have}")
+    return _mesh(rank_device().type, torch.arange(n), ("stream",))
 
 
 def make_mesh(n_stream: int, n_model: int = 1):
-    raise not_ported("make_mesh (streams and channels sharded over devices)")
+    """2-D ``("stream", "model")`` ``DeviceMesh``: data parallelism over
+    streams x tensor parallelism over conv output channels. ``model`` is
+    the minor axis (rank = s * n_model + m), so a model group is
+    neighbouring ranks, as in the JAX package's layout."""
+    need = n_stream * n_model
+    have = require_world("make_mesh")
+    if have < need:
+        raise ValueError(f"mesh {n_stream}x{n_model} needs {need} devices, "
+                         f"have {have}")
+    return _mesh(rank_device().type,
+                 torch.arange(need).reshape(n_stream, n_model),
+                 ("stream", "model"))
 
 
 class MultiStreamPipeline:
-    """Detect and track S independent streams per dispatch on one device."""
+    """Detect and track S independent streams per dispatch, on one device
+    or sharded over a mesh's ``stream`` axis."""
 
     def __init__(self,
                  n_streams: int,
@@ -86,13 +121,44 @@ class MultiStreamPipeline:
         The tracker names, their parameters and presets, ``gmc``,
         ``scan_bucket`` (decided per stream), ``letterbox_auto`` and
         ``reid_quant="int8"`` (the W8A8 embed stage over every stream's
-        crops) mean what they mean there. ``mesh`` is not ported."""
-        if mesh is not None:
-            raise not_ported("mesh= (streams sharded over devices)")
+        crops) mean what they mean there. ``mesh``: a ``DeviceMesh`` with a
+        ``stream`` axis (and optionally ``model``) from
+        :func:`make_stream_mesh` or :func:`make_mesh`; ``n_streams`` must
+        divide by its ``stream`` size, the pipeline runs on this rank's
+        device (``device`` may name only that one) and ``scan_bucket`` is
+        0, as in the JAX package."""
         self.n_streams = int(n_streams)
         if self.n_streams < 1:
             raise ValueError(f"n_streams must be >= 1 (got {n_streams})")
         self.frame_hw = tuple(frame_hw)
+        self.mesh = mesh
+        self._lo, self._n_local = 0, self.n_streams
+        self._stream_group = None
+        if mesh is not None:
+            names = mesh.mesh_dim_names or ()
+            if "stream" not in names:
+                raise ValueError(f"the mesh must have a 'stream' axis (axes "
+                                 f"{names})")
+            if mesh.get_coordinate() is None:
+                raise ValueError("this rank is not in the mesh")
+            n_s = mesh.size(names.index("stream"))
+            if self.n_streams % n_s:
+                raise ValueError(f"n_streams={self.n_streams} not divisible "
+                                 f"by the mesh's 'stream' axis size {n_s}")
+            own = rank_device()
+            asked = None if device is None else torch.device(device)
+            if asked is not None and (asked.type != own.type or asked.index
+                                      not in (None, own.index)):
+                raise ValueError(f"on a mesh the pipeline runs on this "
+                                 f"rank's device {own} (got device="
+                                 f"{device!r})")
+            device = own
+            # off on a mesh, as in the JAX package (there its fits
+            # predicate would reduce over the sharded states)
+            scan_bucket = 0
+            self._n_local = self.n_streams // n_s
+            self._lo = mesh.get_local_rank("stream") * self._n_local
+            self._stream_group = mesh.get_group("stream")
         # the single-stream pipeline whose stages every dispatch runs; its
         # own one-stream state is not used
         self._engine = TrackingPipeline(
@@ -121,9 +187,15 @@ class MultiStreamPipeline:
         self.scan_stats = eng.scan_stats
         self._gmc_spec = (gmc_ops.gmc_spec(self.frame_hw)
                           if self.gmc_method is not None else None)
-        self._gmc_prev = None   # (S, H, W, 3): each stream's last valid frame
+        if mesh is not None and "model" in mesh.mesh_dim_names \
+                and mesh.size(mesh.mesh_dim_names.index("model")) > 1:
+            from .tensor_parallel import shard_detector_params
+            eng.yolo = shard_detector_params(eng.yolo, mesh)
+        # this rank's streams (all of them off a mesh): each one's last
+        # valid frame (S_local, H, W, 3) and its tracker state
+        self._gmc_prev = None
         self._states = [eng._init_tracker_state()
-                        for _ in range(self.n_streams)]
+                        for _ in range(self._n_local)]
 
     @property
     def stage_timer(self):
@@ -141,14 +213,17 @@ class MultiStreamPipeline:
     @property
     def states(self):
         """Every stream's tracker state, stacked on a leading stream axis
-        (the JAX package's layout; a copy on the device). Assigning a
-        stacked state of the same family and capacities (from
-        ``runtime.checkpoint.load_state(..., n_streams=S)``, say) replaces
-        all of them."""
+        (the JAX package's layout; a copy on the device). On a mesh the
+        ranks' states are gathered over the stream group (one collective a
+        field), so every rank gets all S. Assigning a stacked state of the
+        same family and capacities (from ``runtime.checkpoint.load_state(...,
+        n_streams=S)``, say) replaces all of them; on a mesh each rank
+        keeps its own streams' part."""
         first = self._states[0]
         return dataclasses.replace(first, **{
             f.name: None if getattr(first, f.name) is None
-            else torch.stack([getattr(s, f.name) for s in self._states])
+            else self._gather(torch.stack([getattr(s, f.name)
+                                           for s in self._states]))
             for f in dataclasses.fields(first)})
 
     @states.setter
@@ -163,10 +238,21 @@ class MultiStreamPipeline:
                        for f in dataclasses.fields(stacked)},
             (self.n_streams,), self.device, where="states")
         self._states = [dataclasses.replace(stacked, **{
-            f.name: getattr(stacked, f.name)[si]
+            f.name: getattr(stacked, f.name)[self._lo + si]
             for f in dataclasses.fields(stacked)
             if getattr(stacked, f.name) is not None})
-            for si in range(self.n_streams)]
+            for si in range(self._n_local)]
+
+    def _gather(self, local: torch.Tensor) -> torch.Tensor:
+        """``(S_local, ...)`` on every rank -> ``(S, ...)``, in stream
+        order (the identity off a mesh)."""
+        if self.mesh is None:
+            return local
+        local = local.contiguous()
+        out = torch.empty((self.n_streams, *local.shape[1:]),
+                          dtype=local.dtype, device=local.device)
+        return COLLECTIVES.all_gather_into_tensor(out, local,
+                                                  group=self._stream_group)
 
     # --- dispatch ------------------------------------------------------------
 
@@ -188,7 +274,8 @@ class MultiStreamPipeline:
         """Advance all streams by K frames each (throughput mode).
 
         Args:
-            frames: ``(S, K, H, W, 3)`` uint8 BGR.
+            frames: ``(S, K, H, W, 3)`` uint8 BGR (on a mesh every rank
+                passes all S streams; it uploads only its own).
             frame_valid: optional ``(S, K)`` bool (host data). A False frame
                 does not advance its stream's tracker state; its output lane
                 repeats the unchanged state's outputs, which the caller
@@ -197,7 +284,8 @@ class MultiStreamPipeline:
 
         Returns:
             per-stream track outputs ``(tlbr, ids, cls, conf, mask)``, each
-            shaped ``(S, K, T, ...)``, on the device.
+            shaped ``(S, K, T, ...)``, on the device (on a mesh, all S
+            streams on every rank).
         """
         frames_np = np.asarray(frames)
         s = self.n_streams
@@ -214,6 +302,16 @@ class MultiStreamPipeline:
         if valid.shape != (s, k):
             raise ValueError(f"frame_valid must be ({s}, {k}) (got "
                              f"{valid.shape})")
+        own = slice(self._lo, self._lo + self._n_local)
+        outs = self._local_chunk(frames_np[own], valid[own])
+        if self.mesh is None:
+            return outs
+        return self._unpack(self._gather(self._pack(outs)), outs)
+
+    def _local_chunk(self, frames_np: np.ndarray, valid: np.ndarray):
+        """This rank's streams ``(S_local, K, H, W, 3)`` through detection
+        and their trackers: outputs ``(S_local, K, T, ...)``."""
+        s, k = frames_np.shape[:2]
         detect, track = self._engine._get_stages(self.frame_hw)
         mark = self._engine._mark
         frames_t = torch.from_numpy(np.ascontiguousarray(frames_np)).to(
@@ -250,6 +348,26 @@ class MultiStreamPipeline:
         return tuple(torch.stack(x) for x in zip(*outs))
 
     @staticmethod
+    def _pack(outs) -> torch.Tensor:
+        """The five outputs as one ``(S, K, T, 8)`` int32 tensor, floats by
+        their bits (lossless): tlbr (4), ids, classes, conf, mask."""
+        tlbr, ids, cls, conf, mask = outs
+        return torch.cat([tlbr.float().contiguous().view(torch.int32),
+                          ids.to(torch.int32)[..., None],
+                          cls.to(torch.int32)[..., None],
+                          conf.float()[..., None].contiguous().view(
+                              torch.int32),
+                          mask.to(torch.int32)[..., None]], dim=-1)
+
+    @staticmethod
+    def _unpack(packed: torch.Tensor, like):
+        """:meth:`_pack`'s inverse, in the dtypes of ``like``."""
+        floats = packed.view(torch.float32)
+        parts = (floats[..., :4], packed[..., 4], packed[..., 5],
+                 floats[..., 6], packed[..., 7])
+        return tuple(p.to(t.dtype).contiguous() for p, t in zip(parts, like))
+
+    @staticmethod
     def _last_valid_frames(prev, frames_t, valid):
         """Each stream's last valid frame of this dispatch, or its ``prev``
         where none was valid: the next dispatch's frame before."""
@@ -265,5 +383,10 @@ class MultiStreamPipeline:
     def reset_stream(self, i: int):
         """Reset one stream's tracker state (ids restart at 1). Call it
         only between dispatches (the serving worker does, when a stream
-        slot is leased to a new tenant)."""
-        self._states[i] = self._engine._init_tracker_state()
+        slot is leased to a new tenant). On a mesh only the rank that owns
+        stream ``i`` has anything to reset; every rank may call it."""
+        if not 0 <= i < self.n_streams:
+            raise IndexError(f"stream {i} out of range for "
+                             f"{self.n_streams} streams")
+        if self._lo <= i < self._lo + self._n_local:
+            self._states[i - self._lo] = self._engine._init_tracker_state()

@@ -25,6 +25,11 @@ counts the warm-up steps, and weight decay reaches the biases.
 Assignment (one positive anchor per ground-truth box, at the FPN level its
 size selects) and the losses (BCE, distribution-focal, IoU; bidirectional
 InfoNCE for the embedder) are the JAX package's.
+
+:func:`make_train_step_dp` is the data-parallel detector step over a
+``DeviceMesh`` axis, one process a rank (``parallel.distributed``): each
+rank renders its block of the step's scenes, and one all-reduce a step
+averages the gradients.
 """
 
 from __future__ import annotations
@@ -639,11 +644,94 @@ def make_clip_train_step(model, spec: LetterboxSpec,
     return multi_step
 
 
-def make_train_step_dp(*args, **kwargs):
-    """Data-parallel training over a device mesh: not ported (the port has
-    no mesh yet)."""
-    from . import not_ported
-    raise not_ported("make_train_step_dp (data-parallel training)")
+def make_train_step_dp(model, world: WorldSpec, spec: LetterboxSpec,
+                       input_hw: Tuple[int, int], cfg: TrainConfig,
+                       tx: AdamW, mesh, axis: str = "batch",
+                       dtype: torch.dtype | None = None, stage_timer=None):
+    """Data-parallel :func:`make_train_step` over ``mesh``'s ``axis``, one
+    process a rank (``parallel.distributed``), same contract: a dispatch
+    ``multi_step(key) -> (losses (scan,), auxes)`` with the global batch
+    means, on every rank.
+
+    Each step splits its key into ``cfg.batch`` scene keys, as JAX's does,
+    and this rank takes its contiguous block of ``cfg.batch / n`` (what
+    ``P(axis)`` gives device r): it renders those scenes on its device,
+    letterboxes them in one launch, and runs forward and backward on them.
+    One all-reduce a step over the axis then sums the gradients of the
+    ranks' per-image loss sums and the loss parts (one flat buffer); the
+    sums over the global batch are divided by ``cfg.batch``. Every rank
+    applies the same clipped AdamW update to the same gradients, so the
+    parameters and the optimizer state stay replicated (rank 0's parameters
+    are broadcast once, here, so that they also start so). The all-reduce
+    is timed under the ``backward`` mark."""
+    from .parallel.distributed import COLLECTIVES
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"the mesh has no {axis!r} axis (axes {names})")
+    n_shard = mesh.size(names.index(axis))
+    if cfg.batch % n_shard:
+        raise ValueError(
+            f"cfg.batch={cfg.batch} not divisible by mesh axis "
+            f"'{axis}' size {n_shard}")
+    device = next(model.parameters()).device
+    dtype = dtype or compute_dtype(device)
+    group = mesh.get_group(axis)
+    b_local = cfg.batch // n_shard
+    lo = mesh.get_local_rank(axis) * b_local
+    params = list(model.parameters())
+    with torch.no_grad():
+        flat = torch.cat([p.reshape(-1) for p in params])
+        COLLECTIVES.broadcast(flat, torch.distributed.get_global_rank(
+            group, 0), group=group)
+        torch._foreach_copy_(params, _unflatten(flat, params))
+
+    def one_step(key):
+        keys = prng.split(key, cfg.batch)[lo:lo + b_local]
+        frames, gt_xyxy, gt_cls, gt_valid = _render_batch(keys, world,
+                                                          device)
+        _mark(stage_timer, "render")
+        x = letterbox(frames, spec, dtype)
+        _mark(stage_timer, "letterbox")
+        cls_t, box_t, pos = build_targets(gt_xyxy, gt_cls, gt_valid, spec,
+                                          input_hw)
+        with _precision(dtype, device):
+            loss, aux = detection_loss(_forward(model, x, dtype), cls_t,
+                                       box_t, pos, cfg)
+            sums = torch.stack([loss.sum(), *(v.sum() for v in aux.values())])
+            _mark(stage_timer, "forward")
+            tx.zero_grad()
+            sums[0].backward()
+        # the one collective of a step: gradients and loss parts, summed
+        flat = torch.cat([(torch.zeros_like(p) if p.grad is None
+                           else p.grad).reshape(-1) for p in params]
+                         + [sums.detach()])
+        COLLECTIVES.all_reduce(flat, group=group)
+        flat = flat / torch.full((), cfg.batch, dtype=flat.dtype,
+                                 device=flat.device)
+        for p, g in zip(params, _unflatten(flat, params)):
+            p.grad = g
+        _mark(stage_timer, "backward")
+        tx.step()
+        _mark(stage_timer, "optimizer")
+        means = flat[-len(sums):]
+        return means[0], dict(zip(aux, means[1:]))
+
+    def multi_step(key):
+        if stage_timer is not None:
+            stage_timer.start()
+        losses, auxes = zip(*[one_step(k) for k in prng.split(key, cfg.scan)])
+        return torch.stack(losses), _stack_aux(auxes)
+
+    return multi_step
+
+
+def _unflatten(flat: torch.Tensor, like):
+    """Views of ``flat`` shaped as the tensors of ``like``, in order."""
+    out, at = [], 0
+    for t in like:
+        out.append(flat[at:at + t.numel()].view_as(t))
+        at += t.numel()
+    return out
 
 
 # --- entry points -----------------------------------------------------------

@@ -152,12 +152,30 @@ this file; exits non-zero otherwise. In order it:
     its ground truth (the same 25 steps; two letterbox launches a step);
     ``.onnx`` files written from the committed checkpoints in a temporary
     directory, loaded by ``YOLODetector`` and ``ReIDModel``: outputs
-    bitwise the msgpack-loaded ones on 4 frames.
+    bitwise the msgpack-loaded ones on 4 frames;
+17. ``[parallel]``: ``aicamera_tpu_torch.parallel`` over
+    ``torch.distributed`` on the one card. ``PipelineParallelDetector(
+    devices=[cuda:0])`` bitwise ``YOLOv8`` (640x640, K=8, f32); world A,
+    one NCCL rank: ``MultiStreamPipeline(mesh=make_stream_mesh(1))`` at
+    config 4 in f32 (TF32 off), tracks identical to the single-device f32
+    run, one gather and one letterbox launch a dispatch; world B, two
+    gloo ranks sharing cuda:0 (NCCL refuses two ranks of a communicator
+    on one GPU): ``make_stream_mesh(2)`` (each rank 4 streams: one K=16
+    launch and one gather a dispatch, tracks identical), ``make_mesh(1,
+    2)`` with the detector channel-parallel (config 4: tracks identical,
+    half the weight bytes a rank; YOLOv8m from its seeded init on 1080p
+    frames at K=4 against the replicated forward), the DP trainer over
+    ('batch', 2) at ``TrainConfig``'s widths (one f32 dispatch of scan 2
+    at warm-up 1 against ``make_train_step`` in one process: losses within
+    1e-6 relative, parameters within rtol 5e-3 and atol 1e-5, the start
+    outside it, bitwise equal across ranks; one all-reduce a step) and the
+    composed ``meshes=`` stage-split detector; ms a dispatch and a step
+    per rank (two ranks sharing one card: no scaling figure).
 
 The last two lines of output are the kernels' JSON record and the device
 JSON record. ``--kernels-only`` stops after step 3; ``--only`` runs the
 kernel phase and the named phases (``int8`` brings ``quality`` along,
-``present`` brings ``cli``).
+``present`` brings ``cli``; ``--only parallel`` runs step 17 alone).
 """
 
 from __future__ import annotations
@@ -208,6 +226,13 @@ TRAIN_TUNE_WARMUP = 5  # of them, at lr 5e-4 from step 5 on
 TRAIN_EVAL_SCENES = 48  # train_synthetic.evaluate's default
 TRAIN_CLIP_FRAMES = 16  # [train]: frames of config 9's world for the clip
 TRAIN_ONNX_FRAMES = 4
+PARALLEL_RANKS = 2     # [parallel]: world B, two gloo ranks on cuda:0
+PARALLEL_DISPATCHES = 2  # config 4 dispatches a mesh run makes (f32)
+PARALLEL_M_HW = (1080, 1920)  # config 5's frames for YOLOv8m, K=4
+PARALLEL_M_K = 4
+PARALLEL_PP_K = 8      # the stage-split detector's batch, 640x640
+TP_TOL = 1e-4          # [parallel]: |TP - replicated| <= TP_TOL * max|ref|
+PP_TOL = 1e-4          # [parallel]: the composed pipeline, likewise
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12     # H100 SXM, dense bf16 tensor cores
@@ -247,6 +272,13 @@ def stream_shape():
     """(path, src_hw, K) of the multi-stream dispatch's letterbox launch:
     all S*K frames of a dispatch in one launch."""
     return ("streams", STREAM_HW, STREAMS * STREAM_CHUNK)
+
+
+def parallel_shape():
+    """(path, src_hw, K) of a rank's letterbox launch on a 2-rank stream
+    mesh: its 4 streams x 4 frames of 720p."""
+    return ("parallel_streams", STREAM_HW,
+            STREAMS * STREAM_CHUNK // PARALLEL_RANKS)
 
 
 def clip_shape():
@@ -510,13 +542,15 @@ def kernel_phase(device):
             want = lb.launch_plan(spec, k, dt,
                                   frames.data_ptr() % 16 == 0).variant
             hold(frames, spec, dt, want=want)
-    # the multi-stream dispatch: 8 streams x 4 frames of 720p in one launch
-    _, src, k = stream_shape()
-    spec = letterbox_spec(src, (640, 640))
-    frames = random_frames(k, src)
-    for dt in dtypes:
-        hold(frames, spec, dt, want="vector")
-    del frames
+    # the multi-stream dispatch: 8 streams x 4 frames of 720p in one
+    # launch; a rank's half of it on a 2-rank stream mesh
+    for _, src, k in (stream_shape(), parallel_shape()):
+        spec = letterbox_spec(src, (640, 640))
+        frames = random_frames(k, src)
+        for dt in dtypes:
+            hold(frames, spec, dt, want="vector")
+        del frames
+    k = stream_shape()[2]
     # the public single-frame preprocess is the kernel on a CUDA tensor
     from aicamera_tpu_torch.ops.preprocess import preprocess_yolo
     spec = letterbox_spec(FRAME_HW, (640, 640))
@@ -543,7 +577,8 @@ def kernel_phase(device):
           f"forced to the scalar variant, "
           f"{len(MISALIGNED_GEOMETRIES)} misaligned and "
           f"{len(RAGGED_GEOMETRIES)} ragged shapes, the facades' K=1 frame "
-          f"and 2x2 tiles, the multi-stream dispatch's K={k} 720p batch, one "
+          f"and 2x2 tiles, the multi-stream dispatch's K={k} 720p batch and "
+          f"a stream rank's K={parallel_shape()[2]}, one "
           f"unaligned pointer); preprocess_yolo on a CUDA frame launched it "
           f"once")
 
@@ -572,7 +607,8 @@ def kernel_phase(device):
         report("scalar variant", e)
         r["earlier_ms"] = e["device_ms"]
         rows.append(r)
-    for path, src, k in [*facade_shapes(), stream_shape(), clip_shape()]:
+    for path, src, k in [*facade_shapes(), stream_shape(), parallel_shape(),
+                         clip_shape()]:
         r = measure_letterbox(lb.letterbox, src, torch.bfloat16, device, gen,
                               k=k)
         r["plan"] = repr(lb.KERNEL.last_plan)
@@ -2755,6 +2791,403 @@ def train_phase(device, kernels):
     return counts
 
 
+# --- [parallel]: worlds of ranks over torch.distributed --------------------
+
+def parallel_chunks():
+    """Config 4's first dispatches: 8 streams x 4 frames of 720p each."""
+    scenes = stream_scenes(PARALLEL_DISPATCHES * STREAM_CHUNK)
+    return [scenes[:, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK]
+            for i in range(PARALLEL_DISPATCHES)]
+
+
+def rank_streams(mesh, chunks, timed=False):
+    """Config 4 in f32 (TF32 off) on ``mesh``, from fresh states: every
+    stream's track tuples, this rank's letterbox launches and batches, the
+    collectives by kind, and (``timed``) ms a dispatch of a second pass."""
+    import torch
+    from aicamera_tpu_torch.ops import letterbox as lb
+    from aicamera_tpu_torch.parallel.distributed import COLLECTIVES
+    from aicamera_tpu_torch.parallel.tensor_parallel import sharded_convs
+    from aicamera_tpu_torch.runtime import pipeline as rp
+    pipe = make_streams(None, mesh=mesh, detect_dtype="f32",
+                        reid_dtype="f32")
+    batches, orig = [], rp.letterbox
+    rp.letterbox = lambda f, *a: batches.append(tuple(f.shape)) or orig(f, *a)
+    try:
+        torch.cuda.synchronize()
+        lb.KERNEL.launches = 0
+        COLLECTIVES.reset()
+        outs = [pipe.step_chunk(c) for c in chunks]
+        torch.cuda.synchronize()
+        out = {"launches": lb.KERNEL.launches,
+               "collectives": dict(COLLECTIVES.by_kind)}
+    finally:
+        rp.letterbox = orig
+    out["batches"] = batches
+    out["tuples"] = [stream_tuples(outs, si) for si in range(STREAMS)]
+    out["sharded"] = sharded_convs(pipe._engine.yolo)
+    out["yolo_bytes"] = sum(p.numel() * p.element_size()
+                            for p in pipe._engine.yolo.parameters())
+    if timed:
+        for i in range(STREAMS):
+            pipe.reset_stream(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in chunks:
+            pipe.step_chunk(c)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3 / len(chunks)
+    return out
+
+
+def parallel_world_a(rank, device):
+    """World A: one NCCL rank on the card, the stream mesh of one."""
+    import torch
+    from aicamera_tpu_torch.parallel import make_stream_mesh
+    out = rank_streams(make_stream_mesh(1), parallel_chunks(), timed=True)
+    out["backend"] = torch.distributed.get_backend()
+    return out
+
+
+def _digest(model) -> str:
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _levels_err(got, want):
+    """max |got - want| over every level's outputs, and max |want|."""
+    err = max(float((a.float() - b.float()).abs().max())
+              for g, w in zip(got, want) for a, b in zip(g, w))
+    return err, max(float(b.float().abs().max()) for w in want for b in w)
+
+
+def parallel_world_b(rank, device):
+    """World B: two gloo ranks sharing the card. 1. config 4 on a 2-rank
+    stream mesh; 2. a channel-parallel detector on make_mesh(1, 2): (a)
+    config 4 with YOLOv8n, (b) YOLOv8m on 1080p frames; 3. the DP trainer
+    over ('batch', 2) against the one-process trainer (rank 0);
+    4. the composed stage-split detector over the two ranks."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from aicamera_tpu_torch import config, prng
+    from aicamera_tpu_torch import train as tt
+    from aicamera_tpu_torch.models.yolov8 import YOLOv8
+    from aicamera_tpu_torch.ops import letterbox as lb
+    from aicamera_tpu_torch.ops.preprocess import letterbox_spec
+    from aicamera_tpu_torch.parallel import (PipelineParallelDetector,
+                                             make_mesh, make_stream_mesh,
+                                             replicate_params,
+                                             shard_detector_params)
+    from aicamera_tpu_torch.parallel.distributed import COLLECTIVES
+    from aicamera_tpu_torch.runtime.params import (resolve_yolo_params,
+                                                   seeded_init_)
+    from aicamera_tpu_torch.runtime.pipeline import full_f32, precision
+    from aicamera_tpu_torch.scenes import moving_rectangles
+    from aicamera_tpu_torch.synthetic import WorldSpec
+
+    out = {"backend": torch.distributed.get_backend()}
+    t0 = time.perf_counter()
+    chunks = parallel_chunks()
+    # 1. streams over a 2-rank stream mesh
+    out["streams"] = rank_streams(make_stream_mesh(PARALLEL_RANKS), chunks,
+                                  timed=True)
+    # 2a. config 4, the detector channel-parallel over two model ranks
+    mesh12 = make_mesh(1, PARALLEL_RANKS)
+    out["tp"] = rank_streams(mesh12, chunks)
+    out["s_streams_tp"] = time.perf_counter() - t0
+    # 2b. config 5's --mesh 1x2 shape: YOLOv8m (seeded init) on 1080p, K=4
+    t0 = time.perf_counter()
+    m = YOLOv8("m")
+    seeded_init_(m)
+    m = m.to(device).eval()
+    frames = torch.from_numpy(moving_rectangles(
+        PARALLEL_M_K, PARALLEL_M_HW, n_objects=6, seed=SEED)).to(device)
+    x = lb.letterbox(frames, letterbox_spec(PARALLEL_M_HW, (640, 640)),
+                     torch.float32)
+    with torch.no_grad(), precision(torch.float32):
+        want = replicate_params(m, mesh12)(x)
+        tp = shard_detector_params(m, mesh12)
+        COLLECTIVES.reset()
+        got = tp(x)
+    out["m_err"], out["m_scale"] = _levels_err(got, want)
+    out["m_gathers"] = COLLECTIVES.by_kind.get("all_gather", 0)
+    out["m_bytes"] = (sum(p.numel() * p.element_size()
+                          for p in tp.parameters()),
+                      sum(p.numel() * p.element_size()
+                          for p in m.parameters()))
+    del m, tp, want, got
+    out["s_m"] = time.perf_counter() - t0
+    # 3. DP training at TrainConfig's widths, f32, one dispatch of scan 2
+    #    at warm-up 1 (step 1 at lr 0, step 2 a full update at lr 2e-3)
+    t0 = time.perf_counter()
+    cfg = tt.TrainConfig(batch=8, scan=2, warmup=1)
+    world, in_hw = WorldSpec(), (640, 640)
+    spec = letterbox_spec(world.hw, in_hw)
+    start = YOLOv8("n")
+    seeded_init_(start)
+    start = start.to(device)
+    model = copy.deepcopy(start)
+    opt = tt.make_optimizer(model, cfg.lr, cfg.warmup, cfg.steps,
+                            cfg.weight_decay)
+    step = tt.make_train_step_dp(model, world, spec, in_hw, cfg, opt,
+                                 DeviceMesh(device.type, torch.arange(
+                                     PARALLEL_RANKS),
+                                     mesh_dim_names=("batch",)),
+                                 dtype=torch.float32)
+    lb.KERNEL.launches = 0
+    COLLECTIVES.reset()
+    with full_f32():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses, _ = step(prng.PRNGKey(cfg.seed))
+        torch.cuda.synchronize()
+        out["dp_ms"] = (time.perf_counter() - t1) * 1e3 / cfg.scan
+    out["dp_launches"] = lb.KERNEL.launches
+    out["dp_collectives"] = dict(COLLECTIVES.by_kind)
+    out["dp_losses"] = losses.cpu().numpy()
+    out["dp_digest"] = _digest(model)
+    if rank == 0:
+        ref = copy.deepcopy(start)
+        ropt = tt.make_optimizer(ref, cfg.lr, cfg.warmup, cfg.steps,
+                                 cfg.weight_decay)
+        rstep = tt.make_train_step(ref, world, spec, in_hw, cfg, ropt,
+                                   dtype=torch.float32)
+        with full_f32():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rlosses, _ = rstep(prng.PRNGKey(cfg.seed))
+            torch.cuda.synchronize()
+            out["one_ms"] = (time.perf_counter() - t1) * 1e3 / cfg.scan
+        out["one_losses"] = rlosses.cpu().numpy()
+        pc = {k: v.cpu().numpy() for k, v in ref.state_dict().items()}
+
+        def beyond(sd):
+            return max(float((np.abs(v.cpu().numpy() - pc[k]) - 1e-5
+                              - 5e-3 * np.abs(pc[k])).max())
+                       for k, v in sd.items())
+        out["dp_beyond"] = beyond(model.state_dict())
+        out["start_beyond"] = beyond(start.state_dict())
+        out["dp_max_diff"] = max(
+            float((v - ref.state_dict()[k]).abs().max())
+            for k, v in model.state_dict().items())
+    del model, opt, step, start
+    out["s_dp"] = time.perf_counter() - t0
+    # 4. the composed stage-split detector: backbone and head
+    #    channel-parallel on a 1x2 mesh, the neck on a 2x1 (stream) mesh
+    t0 = time.perf_counter()
+    yolo = resolve_yolo_params("n", weights_path=str(
+        config.YOLO_SYNTHETIC_PATH), device=device,
+        dtype=torch.float32).eval()
+    frames = torch.from_numpy(moving_rectangles(
+        PARALLEL_PP_K, FRAME_HW, n_objects=6, seed=SEED)).to(device)
+    x = lb.letterbox(frames, letterbox_spec(FRAME_HW, (640, 640)),
+                     torch.float32)
+    names = ("stream", "model")
+    meshes = [DeviceMesh(device.type, torch.arange(PARALLEL_RANKS)[None],
+                         mesh_dim_names=names),
+              DeviceMesh(device.type, torch.arange(PARALLEL_RANKS)[:, None],
+                         mesh_dim_names=names)]
+    pp = PipelineParallelDetector("n", meshes=meshes, dtype=torch.float32)
+    pp.place_params(yolo)
+    COLLECTIVES.reset()
+    with torch.no_grad(), precision(torch.float32):
+        got = pp.forward(x)
+        want = yolo(x)
+    out["pp_collectives"] = dict(COLLECTIVES.by_kind)
+    out["pp_err"], out["pp_scale"] = _levels_err(got, want)
+    out["pp_batch"] = tuple(got[0][0].shape)
+    out["s_pp"] = time.perf_counter() - t0
+    return out
+
+
+def parallel_phase(device, kernels):
+    """``[parallel]``: the stream mesh, the channel-parallel detector, the
+    DP trainer and the stage-split detector over ``torch.distributed``.
+    The card host has one GPU: world A is one NCCL rank; world B is two
+    gloo ranks sharing cuda:0 (NCCL refuses two ranks of a communicator on
+    one GPU; gloo carries CUDA tensors through host memory). No scaling
+    figure is meaningful on one card, and none is claimed."""
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch.ops import letterbox as lb
+    from aicamera_tpu_torch.ops.preprocess import letterbox_spec
+    from aicamera_tpu_torch.parallel import PipelineParallelDetector
+    from aicamera_tpu_torch.parallel.distributed import spawn
+    from aicamera_tpu_torch.runtime.params import resolve_yolo_params
+    from aicamera_tpu_torch.runtime.pipeline import precision
+    from aicamera_tpu_torch.scenes import moving_rectangles
+    from aicamera_tpu_torch import config
+
+    t_phase = time.perf_counter()
+    s, k, d = STREAMS, STREAM_CHUNK, PARALLEL_DISPATCHES
+    # the single-device f32 run every mesh run is held to ([streams]' f32)
+    chunks = parallel_chunks()
+    ref_pipe = make_streams(device, detect_dtype="f32", reid_dtype="f32")
+    ref_outs = [ref_pipe.step_chunk(c) for c in chunks]
+    ref = [stream_tuples(ref_outs, si) for si in range(s)]
+    del ref_pipe, ref_outs, chunks
+    check(sum(len(t) for r in ref for t in r) > 0, "[parallel] the "
+          "single-device reference emitted no track")
+
+    # the stage-split detector in one process, devices=[cuda:0]: bitwise
+    # the whole YOLOv8 at 640x640, K=8, f32
+    yolo = resolve_yolo_params("n", weights_path=str(
+        config.YOLO_SYNTHETIC_PATH), device=device,
+        dtype=torch.float32).eval()
+    frames = torch.from_numpy(moving_rectangles(
+        PARALLEL_PP_K, FRAME_HW, n_objects=6, seed=SEED)).to(device)
+    x = lb.letterbox(frames, letterbox_spec(FRAME_HW, (640, 640)),
+                     torch.float32)
+    pp = PipelineParallelDetector("n", devices=[device], dtype=torch.float32)
+    pp.place_params(yolo)
+    with torch.no_grad(), precision(torch.float32):
+        got, want = pp.forward(x, microbatch=PARALLEL_PP_K), yolo(x)
+        halves = pp.forward(x)   # the default: two microbatches in flight
+    check(all(torch.equal(a, b) for g, w in zip(got, want)
+              for a, b in zip(g, w)), "[parallel] the stage-split detector "
+          "on one device != YOLOv8")
+    err, scale = _levels_err(halves, want)
+    check(err <= PP_TOL * scale, f"[parallel] the stage-split detector, "
+          f"2 microbatches: max |diff| {err}")
+    print(f"[parallel] PipelineParallelDetector(devices=[{device}]) at "
+          f"640x640, K={PARALLEL_PP_K}, f32: one microbatch bitwise equal "
+          f"to YOLOv8; two of {PARALLEL_PP_K // 2} (the default) max |diff| "
+          f"{err:.3g} (outputs up to {scale:.3g}: cuDNN picks its "
+          f"algorithms by batch size)")
+    del pp, yolo, frames, x, got, want, halves
+    torch.cuda.empty_cache()
+
+    def same(tag, tuples):
+        total = exact = 0
+        for si in range(s):
+            t, e = same_tracks(f"[parallel] {tag} stream {si}", tuples[si],
+                               ref[si])
+            total, exact = total + t, exact + e
+        return total, exact
+
+    counts = {}
+    # world A
+    t0 = time.perf_counter()
+    [a] = spawn(parallel_world_a, 1, timeout=300.0)
+    wall_a = time.perf_counter() - t0
+    check(a["backend"] == "nccl", f"[parallel] world A: {a['backend']}")
+    total, exact = same("world A (nccl, make_stream_mesh(1))", a["tuples"])
+    check(a["launches"] == d and a["batches"] == [(s * k, *STREAM_HW, 3)] * d,
+          f"[parallel] world A: launches {a['launches']}, {a['batches']}")
+    check(a["collectives"] == {"all_gather": d}, f"[parallel] world A: "
+          f"collectives {a['collectives']}")
+    counts["world_a"] = a["launches"]
+    print(f"[parallel] world A: 1 rank, backend {a['backend']}, "
+          f"make_stream_mesh(1), config 4 ({s} streams of "
+          f"{STREAM_HW[1]}x{STREAM_HW[0]}, chunk {k}), f32 (TF32 off), {d} "
+          f"dispatches: tracks identical to the single-device f32 run "
+          f"({total} tuples, {exact} bitwise with conf); {a['launches']} "
+          f"letterbox launches (K={s * k}), collectives {a['collectives']}; "
+          f"{a['ms']:.2f} ms a dispatch; world {wall_a:.1f} s")
+
+    # world B
+    t0 = time.perf_counter()
+    ranks = spawn(parallel_world_b, PARALLEL_RANKS, backend="gloo",
+                  timeout=300.0)
+    wall_b = time.perf_counter() - t0
+    n = PARALLEL_RANKS
+    for r, b in enumerate(ranks):
+        check(b["backend"] == "gloo", f"[parallel] world B: {b['backend']}")
+        st = b["streams"]
+        same(f"world B rank {r} make_stream_mesh({n})", st["tuples"])
+        check(st["launches"] == d
+              and st["batches"] == [parallel_shape()[2:3]
+                                    + (*STREAM_HW, 3)] * d,
+              f"[parallel] world B rank {r}: launches {st['launches']}, "
+              f"{st['batches']}")
+        check(st["collectives"] == {"all_gather": d}, f"[parallel] world B "
+              f"rank {r}: collectives {st['collectives']}")
+        tp = b["tp"]
+        same(f"world B rank {r} make_mesh(1, {n})", tp["tuples"])
+        check(tp["launches"] == d and tp["collectives"] == {
+            "all_gather": d * (1 + tp["sharded"])}, f"[parallel] TP rank "
+            f"{r}: launches {tp['launches']}, {tp['collectives']}")
+        check(b["m_err"] <= TP_TOL * b["m_scale"], f"[parallel] YOLOv8m TP "
+              f"rank {r}: max |diff| {b['m_err']} (scale {b['m_scale']})")
+        check(b["dp_launches"] == 2 and b["dp_collectives"] == {
+            "all_reduce": 2}, f"[parallel] DP rank {r}: "
+            f"{b['dp_launches']} launches, {b['dp_collectives']}")
+        check(b["pp_err"] <= PP_TOL * b["pp_scale"], f"[parallel] composed "
+              f"pipeline rank {r}: max |diff| {b['pp_err']}")
+        check(b["pp_batch"][0] == PARALLEL_PP_K, f"[parallel] composed "
+              f"pipeline rank {r}: batch {b['pp_batch']}")
+        counts[f"world_b_rank{r}"] = {"streams": st["launches"],
+                                      "tp": tp["launches"],
+                                      "dp": b["dp_launches"]}
+    b0 = ranks[0]
+    check(all(b["dp_digest"] == b0["dp_digest"] for b in ranks),
+          "[parallel] DP: parameters differ across ranks")
+    check(all(np.array_equal(b["dp_losses"], b0["dp_losses"])
+              for b in ranks), "[parallel] DP: losses differ across ranks")
+    rel = float((np.abs(b0["dp_losses"] - b0["one_losses"])
+                 / np.abs(b0["one_losses"])).max())
+    check(rel <= 1e-6, f"[parallel] DP losses {b0['dp_losses']} vs one "
+          f"process {b0['one_losses']}: rel {rel}")
+    check(b0["dp_beyond"] <= 0, f"[parallel] DP params beyond rtol 5e-3, "
+          f"atol 1e-5 of the one-process step (by {b0['dp_beyond']:.3g})")
+    check(b0["start_beyond"] > 0, "[parallel] DP: the step moved the "
+          "parameters less than the tolerance")
+    local, full = b0["tp"]["yolo_bytes"], a["yolo_bytes"]
+    st, tp = b0["streams"], b0["tp"]
+    print(f"[parallel] world B: {n} ranks sharing one card ({device}), "
+          f"backend {b0['backend']} (CUDA tensors through host memory; "
+          f"point-to-point staged through host copies); world "
+          f"{wall_b:.1f} s")
+    print(f"[parallel] make_stream_mesh({n}), config 4, f32: every stream's "
+          f"tracks identical to the single-device f32 run on both ranks; "
+          f"per rank per dispatch 1 letterbox launch at "
+          f"{STREAM_HW[1]}x{STREAM_HW[0]} K={parallel_shape()[2]} and 1 "
+          f"collective ({st['collectives']} over {d} dispatches); ms a "
+          f"dispatch per rank (two ranks sharing one card, not a scaling "
+          f"figure): " + ", ".join(f"{b['streams']['ms']:.2f}"
+                                   for b in ranks))
+    print(f"[parallel] make_mesh(1, {n}) (YOLOv8n channel-parallel, "
+          f"{tp['sharded']} split convs), config 4, f32: tracks identical to "
+          f"the single-device run; {tp['collectives']['all_gather'] // d} "
+          f"all-gathers a dispatch (1 + one a split conv); detector weights "
+          f"{local} bytes a rank of {full} ({local / full:.3f})")
+    mb = b0["m_bytes"]
+    print(f"[parallel] YOLOv8m (seeded) on make_mesh(1, {n}), "
+          f"{PARALLEL_M_HW[1]}x{PARALLEL_M_HW[0]} K={PARALLEL_M_K}, f32: "
+          f"channel-parallel vs replicated max |diff| "
+          + ", ".join(f"{b['m_err']:.3g}" for b in ranks)
+          + f" (outputs up to {b0['m_scale']:.3g}; tolerance {TP_TOL} of "
+          f"that); {b0['m_gathers']} all-gathers; weights {mb[0]} bytes a "
+          f"rank of {mb[1]} ({mb[0] / mb[1]:.3f})")
+    print(f"[parallel] DP trainer over ('batch', {n}), batch 8 (4 a rank), "
+          f"640x640, 540x960 world, scan 2, warm-up 1, f32: losses "
+          f"{b0['dp_losses'].tolist()} vs one process "
+          f"{b0['one_losses'].tolist()} (max rel {rel:.3g}); params within "
+          f"rtol 5e-3, atol 1e-5 of the one-process step (max |diff| "
+          f"{b0['dp_max_diff']:.3g}; the start lies {b0['start_beyond']:.3g} "
+          f"outside), bitwise equal across ranks; one all-reduce and one "
+          f"letterbox launch (K=4) a step; ms a step per rank (sharing one "
+          f"card): " + ", ".join(f"{b['dp_ms']:.1f}" for b in ranks)
+          + f" (one process, batch 8: {b0['one_ms']:.1f})")
+    print(f"[parallel] composed PipelineParallelDetector (backbone and "
+          f"head on a 1x{n} mesh, neck on a {n}x1 mesh), 640x640 "
+          f"K={PARALLEL_PP_K}, f32: vs YOLOv8 max |diff| "
+          + ", ".join(f"{b['pp_err']:.3g}" for b in ranks)
+          + f" (outputs up to {b0['pp_scale']:.3g}; tolerance {PP_TOL} of "
+          f"that); collectives rank 0 {b0['pp_collectives']}")
+    print(f"[parallel] rank 0 parts (s): streams+tp "
+          f"{b0['s_streams_tp']:.1f}, yolov8m {b0['s_m']:.1f}, dp "
+          f"{b0['s_dp']:.1f}, pipeline {b0['s_pp']:.1f}")
+    print(f"[time] parallel {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def profile_chunk(pipe, chunk):
     """GPU busy share of one more chunk, from a torch.profiler trace: the
     sum of kernel and copy times over the host wall time of the chunk."""
@@ -2855,7 +3288,8 @@ def main() -> int:
                     help="comma-separated phases to run after the kernel "
                          "phase (main, bucket, trackers, gmc, facades, "
                          "engine, cli, present, compare, streams, serving, "
-                         "server, quality, int8, mot, train); default all")
+                         "server, quality, int8, mot, train, parallel); "
+                         "default all")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     from aicamera_tpu_torch.ops.letterbox import KERNEL as LETTERBOX
@@ -2926,6 +3360,7 @@ def main() -> int:
         run("int8", int8_phase, device, kernels, world)
         run("mot", mot_phase, device, kernels)
         run("train", train_phase, device, kernels)
+        run("parallel", parallel_phase, device, kernels)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2940,7 +3375,7 @@ def main() -> int:
     # (bf16, f32), mot --run, and the trainers by part (one launch a
     # detector step, two a clip step, none in the ReID trainer)
     record["launches_by_path"] = {
-        path: (counts if path == "train" else
+        path: (counts if path in ("train", "parallel") else
                {t: v[record["name"]] for t, v in counts.items()}
                if path in ("trackers", "gmc", "facades", "engine",
                            "quality", "int8")

@@ -371,3 +371,65 @@ def test_int8_conv_on_the_card_equals_the_cpu(cuda, shape, k, stride):
     cpu = int8_conv(xq, wm, k, k, stride, k // 2, 48)
     gpu = int8_conv(xq.to(cuda), wm.to(cuda), k, k, stride, k // 2, 48)
     assert torch.equal(gpu.cpu(), cpu)
+
+
+# --- a world on the card: NCCL, one rank ------------------------------------
+
+_MESH_KW = dict(input_shape=(256, 256), max_reid_crops=4,
+                detect_dtype="f32", reid_dtype="f32")
+
+
+def _mesh_frames():
+    from aicamera_tpu_torch.scenes import moving_rectangles
+    return np.stack([moving_rectangles(4, (180, 320), n_objects=3, seed=s)
+                     for s in (3, 5)])
+
+
+def _mesh_pipeline(**kw):
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.core.state import TrackerParams
+    from aicamera_tpu_torch.parallel import MultiStreamPipeline
+    return MultiStreamPipeline(
+        2, (180, 320), tracker_params=TrackerParams(
+            max_tracks=16, max_detections=8, nn_budget=4, max_age=10),
+        yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
+        reid_weights=str(config.REID_SYNTHETIC_PATH), **_MESH_KW, **kw)
+
+
+def _nccl_rank(rank, device):
+    """The two streams on make_stream_mesh(1) and on make_mesh(1, 1)."""
+    from aicamera_tpu_torch.parallel import make_mesh, make_stream_mesh
+    from aicamera_tpu_torch.parallel.distributed import COLLECTIVES
+    frames, out = _mesh_frames(), {}
+    out["backend"] = torch.distributed.get_backend()
+    for name, mesh in (("stream", make_stream_mesh(1)),
+                       ("2d", make_mesh(1, 1))):
+        pipe = _mesh_pipeline(mesh=mesh)
+        COLLECTIVES.reset()
+        launches = lb.KERNEL.launches
+        out[name] = [tuple(t.cpu() for t in
+                           pipe.step_chunk(frames[:, c:c + 2]))
+                     for c in (0, 2)]
+        out[name + "_counts"] = (COLLECTIVES.count,
+                                 lb.KERNEL.launches - launches)
+    out["device"] = str(device)
+    return out
+
+
+def test_stream_mesh_of_one_nccl_rank_equals_the_single_device(cuda):
+    """A world of one rank on the card (NCCL): the mesh pipelines' outputs
+    bitwise the single-device pipeline's in f32; one gather and one
+    letterbox launch a dispatch."""
+    from aicamera_tpu_torch.parallel import distributed
+    [out] = distributed.spawn(_nccl_rank, 1, timeout=180.0)
+    assert out["backend"] == "nccl" and out["device"] == "cuda:0"
+    pipe = _mesh_pipeline(device="cuda")
+    frames = _mesh_frames()
+    want = [tuple(t.cpu() for t in pipe.step_chunk(frames[:, c:c + 2]))
+            for c in (0, 2)]
+    for name in ("stream", "2d"):
+        assert out[name + "_counts"] == (2, 2)
+        for got, ref in zip(out[name], want):
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b)
+    assert want[-1][4].any()

@@ -194,14 +194,28 @@ def test_facades_default_to_the_gpu():
 
 
 def test_lazy_exports():
-    """The names of the JAX package's facades and pipeline, nothing about
-    engines."""
+    """The names of the JAX package's facades, pipelines and engines (its
+    ``XLAEngine`` is the port's ``CUDAGraphEngine``)."""
     import aicamera_tpu_torch
     names = {"YOLODetector", "DeepSORT", "ReIDModel", "ByteTrack", "BoTSORT",
-             "StrongSORT", "OCSort", "DeepOCSort", "TrackingPipeline"}
+             "StrongSORT", "OCSort", "DeepOCSort", "TrackingPipeline",
+             "MultiStreamPipeline", "CUDAGraphEngine", "SerializedEngine",
+             "load_engine", "export_engine"}
     assert names <= set(aicamera_tpu_torch.__all__)
     assert names <= set(dir(aicamera_tpu_torch))
     for n in names:
         assert getattr(aicamera_tpu_torch, n).__name__ == n
     with pytest.raises(AttributeError):
         aicamera_tpu_torch.XLAEngine
+
+
+def test_engine_exports_resolve():
+    """``from aicamera_tpu_torch import ...`` gives ``runtime.engine``'s
+    objects, as the JAX package's top level gives its engine's."""
+    from aicamera_tpu_torch import (CUDAGraphEngine, SerializedEngine,
+                                    export_engine, load_engine)
+    from aicamera_tpu_torch.runtime import engine
+    assert CUDAGraphEngine is engine.CUDAGraphEngine
+    assert SerializedEngine is engine.SerializedEngine
+    assert load_engine is engine.load_engine
+    assert export_engine is engine.export_engine

@@ -404,14 +404,40 @@ def test_argument_validation_raises_as_jax(kw):
     assert str(e.value) == str(ref.value)
 
 
+def _stream_mesh_world(rank, device):
+    """A rank of a 2-rank world: the two streams on make_stream_mesh()."""
+    torch.set_num_threads(1)
+    pipe = MultiStreamPipeline(mesh=make_stream_mesh(), device="cpu", **KW,
+                               **TRACKERS["deepsort"][0])
+    frames = _scenes(4)
+    return [_host(tuple(pipe.step_chunk(frames[:, c:c + 2])))
+            for c in (0, 2)], _host(pipe.states)
+
+
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiStreamPipeline(n_streams=S, frame_hw=FRAME_HW, mesh=object(),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The mesh options, once not ported, run: the two streams on a
+    2-rank stream mesh (gloo ranks on the CPU) give every rank the
+    single-device pipeline's outputs and states. Without a world the
+    meshes still raise, naming the launcher."""
+    from aicamera_tpu_torch.parallel import distributed
+    with pytest.raises(RuntimeError, match="spawn"):
         make_mesh(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="spawn"):
         make_stream_mesh()
+    single = MultiStreamPipeline(device="cpu", **KW,
+                                 **TRACKERS["deepsort"][0])
+    frames = _scenes(4)
+    want = [_host(tuple(single.step_chunk(frames[:, c:c + 2])))
+            for c in (0, 2)]
+    want_states = _host(single.states)
+    for outs, states in distributed.spawn(_stream_mesh_world, 2,
+                                          device="cpu", timeout=120.0):
+        for got, ref in zip(outs, want):
+            for a, b in zip(got, ref):
+                np.testing.assert_array_equal(a, b)
+        for name, a in states.items():
+            if a is not None:
+                np.testing.assert_array_equal(a, want_states[name], name)
 
 
 def test_entry_point_defaults_to_the_gpu():

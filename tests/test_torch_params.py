@@ -205,7 +205,9 @@ MUST_COVER = ("cli.py", "utils/__init__.py", "utils/video_io.py",
               "models/quant.py", "models/quant_yolo.py", "export_engines.py",
               "train.py", "train_synthetic.py", "models/onnx_import.py",
               "utils/visualization.py", "utils/jpeg.py", "utils/avi.py",
-              "native/__init__.py", "ops/host_build.py")
+              "native/__init__.py", "ops/host_build.py",
+              "parallel/distributed.py", "parallel/tensor_parallel.py",
+              "parallel/pipeline_parallel.py")
 
 
 def test_source_scan_finds_no_forbidden_import():

@@ -443,9 +443,43 @@ def test_clip_step_matches_jax(yolo_init):
     _assert_params_close(model, jparams)
 
 
-def test_make_train_step_dp_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.make_train_step_dp()
+def _dp_world_of_one(rank, device, state):
+    """A 1-rank ('batch',) world: two dispatches of the DP step."""
+    from torch.distributed.device_mesh import DeviceMesh
+    torch.set_num_threads(1)
+    model = YOLOv8("n")
+    params.load_state_strict(model, state)
+    kw = dict(batch=2, scan=2, lr=1e-3, warmup=1, steps=4)
+    cfg = tt.TrainConfig(**kw)
+    opt = tt.make_optimizer(model, 1e-3, 1, 4, cfg.weight_decay)
+    step = tt.make_train_step_dp(
+        model, WorldSpec(**WORLD_KW), letterbox_spec(WORLD_KW["hw"],
+                                                     INPUT_HW),
+        INPUT_HW, cfg, opt, DeviceMesh("cpu", torch.arange(1),
+                                       mesh_dim_names=("batch",)))
+    return _run_port(step, 2), params.flax_tree(model)
+
+
+def test_make_train_step_dp_is_not_ported(yolo_init):
+    """Once not ported, the data-parallel step now runs: on a world of
+    one rank it trains as ``make_train_step`` does (two dispatches from
+    JAX's init, within the tolerances above). Two ranks against JAX's DP
+    step: ``tests/test_torch_train_dp.py``."""
+    from aicamera_tpu_torch.parallel import distributed
+    _, p0, port = yolo_init
+    kw = dict(batch=2, scan=2, lr=1e-3, warmup=1, steps=4)
+    tcfg = tt.TrainConfig(**kw)
+    model = port()
+    opt = tt.make_optimizer(model, 1e-3, 1, 4, tcfg.weight_decay)
+    want = _run_port(tt.make_train_step(
+        model, WorldSpec(**WORLD_KW), letterbox_spec(WORLD_KW["hw"],
+                                                     INPUT_HW),
+        INPUT_HW, tcfg, opt), 2)
+    state = params.yolo_state_dict_from_flax(_np_tree(p0))
+    [(losses, tree)] = distributed.spawn(_dp_world_of_one, 1, device="cpu",
+                                         timeout=120.0, args=(state,))
+    np.testing.assert_allclose(losses, want, rtol=LOSS_RTOL)
+    _assert_params_close(model, tree)
 
 
 # --- evaluation, checkpoints and entry points ---------------------------------
