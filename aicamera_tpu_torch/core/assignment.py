@@ -1,4 +1,5 @@
-"""Optimal assignment (shortest-augmenting-path LAPJV) on the device.
+"""Optimal assignment (shortest-augmenting-path LAPJV) and the DeepSORT
+matching cascade.
 
 The port of ``aicamera_tpu/core/assignment.py``: ``solve_square`` with its
 vectorised row-argmin pre-assignment and sequential augmenting phase,
@@ -7,16 +8,23 @@ vectorised row-argmin pre-assignment and sequential augmenting phase,
 if its original cost is ``<= max_distance``), and the DeepSORT
 ``matching_cascade`` over ``time_since_update`` levels.
 
-The JAX package's ``lax.while_loop``s and ``lax.cond``s become Python control
-flow over tensors that stay on the device; each data-dependent condition
-reads one value back to the host, counted in ``TRACKER_SYNCS``. Ties resolve
+:func:`min_cost_matching` and :func:`matching_cascade` pick by device: on
+CUDA tensors they launch the hand-written kernel (``ops/assignment.py``, one
+launch a call, nothing read back), on CPU tensors they run the plain
+versions here, which are also the kernel's oracle on the card. The plain
+versions run the JAX package's ``lax.while_loop``s and ``lax.cond``s as
+Python control flow over values they read from their tensors. Ties resolve
 as in JAX: ``argmin`` takes the first minimum, and row order is kept.
+
+``TRACKER_SYNCS`` counts the reads of the GPU that the ByteTrack and OC-SORT
+steps still make in their own branches.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops import assignment as _kernel
 from ..syncs import SyncCounter
 
 TRACKER_SYNCS = SyncCounter()
@@ -73,7 +81,7 @@ def _augment_row(i: int, cost, u, v, col4row, row4col):
         j_dev = torch.argmin(masked)
         min_val = masked[j_dev]
         sc[j_dev] = True
-        j, r = TRACKER_SYNCS.tolist(torch.stack([j_dev, row4col[j_dev]]))
+        j, r = torch.stack([j_dev, row4col[j_dev]]).tolist()
         if r < 0:
             sink = j
             break
@@ -92,8 +100,7 @@ def _augment_row(i: int, cost, u, v, col4row, row4col):
     col4row = col4row.clone()
     j = sink
     while True:
-        i_, j_next = TRACKER_SYNCS.tolist(
-            torch.stack([path[j], col4row[path[j]]]))
+        i_, j_next = torch.stack([path[j], col4row[path[j]]]).tolist()
         row4col[j] = i_
         col4row[i_] = j
         if i_ == i:
@@ -114,8 +121,9 @@ def solve_square(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
     dev = cost.device
     cost = cost.float()
     rows = torch.arange(n, device=dev)
-    rowmin = torch.amin(cost, dim=1)
     jmin = torch.argmin(cost, dim=1)
+    # the value at the argmin: of a -0.0 and a +0.0 minimum, the first
+    rowmin = torch.gather(cost, 1, jmin[:, None])[:, 0]
     dump = torch.full_like(jmin, n)
     winner = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
     winner.scatter_reduce_(0, torch.where(row_mask, jmin, dump), rows,
@@ -131,21 +139,39 @@ def solve_square(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
     v = torch.zeros(n, dtype=torch.float32, device=dev)
 
     todo = row_mask & ~assigned
-    # the losers, in ascending row order (one read of the mask; nonzero on
-    # the device would wait on the GPU as well)
-    todo_rows = [i for i, t in enumerate(TRACKER_SYNCS.tolist(todo)) if t]
+    # the losers, in ascending row order
+    todo_rows = [i for i, t in enumerate(todo.tolist()) if t]
     for i in todo_rows:
         u, v, col4row, row4col = _augment_row(i, cost, u, v, col4row,
                                               row4col)
     return col4row
 
 
+def _on_cuda(cost: torch.Tensor) -> bool:
+    if cost.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the assignment runs on CUDA or CPU tensors (got "
+                         f"{cost.device})")
+    return cost.device.type == "cuda"
+
+
 def min_cost_matching(cost: torch.Tensor, row_mask: torch.Tensor,
                       col_mask: torch.Tensor,
                       max_distance: float) -> torch.Tensor:
     """Masked minimum-cost matching with the reference's threshold
-    semantics. ``cost (R, C)``; returns ``(R,)`` matched column per row or
-    -1."""
+    semantics. ``cost (R, C)`` f32, bool masks; returns ``(R,)`` int64,
+    the matched column per row or -1. CUDA tensors: the kernel; CPU
+    tensors: :func:`min_cost_matching_plain`."""
+    if _on_cuda(cost):   # the kernel's wrapper checks the arguments
+        return _kernel.KERNEL.min_cost_matching(cost, row_mask, col_mask,
+                                                max_distance)
+    _kernel.check_args(cost, row_mask, col_mask)
+    return min_cost_matching_plain(cost, row_mask, col_mask, max_distance)
+
+
+def min_cost_matching_plain(cost: torch.Tensor, row_mask: torch.Tensor,
+                            col_mask: torch.Tensor,
+                            max_distance: float) -> torch.Tensor:
+    """The plain version of :func:`min_cost_matching`."""
     r, c = cost.shape
     n = max(r, c)
     dev = cost.device
@@ -187,27 +213,43 @@ def matching_cascade(cost: torch.Tensor, track_level: torch.Tensor,
                      max_distance: float, cascade_depth: int):
     """DeepSORT matching cascade over ``time_since_update`` levels: one
     assignment per level present in ``[1, cascade_depth]``, ascending,
-    against the still-unmatched detections.
+    against the still-unmatched detections, until none is left.
 
-    Returns ``(match (T,) det index or -1, det_unmatched (N,) bool)``.
+    Returns ``(match (T,) int64 det index or -1, det_unmatched (N,) bool)``.
+    CUDA tensors: the kernel, the whole cascade in one launch; CPU tensors:
+    :func:`matching_cascade_plain`.
     """
+    if _on_cuda(cost):
+        return _kernel.KERNEL.matching_cascade(
+            cost, track_level, track_eligible, det_valid, max_distance,
+            cascade_depth)
+    _kernel.check_args(cost, track_eligible, det_valid)
+    return matching_cascade_plain(cost, track_level, track_eligible,
+                                  det_valid, max_distance, cascade_depth)
+
+
+def matching_cascade_plain(cost: torch.Tensor, track_level: torch.Tensor,
+                           track_eligible: torch.Tensor,
+                           det_valid: torch.Tensor, max_distance: float,
+                           cascade_depth: int):
+    """The plain version of :func:`matching_cascade`."""
     t = cost.shape[0]
     sentinel = cascade_depth + 1
     lv = torch.where(
         track_eligible & (track_level >= 1) & (track_level <= cascade_depth),
         track_level.long(), torch.full_like(track_level, sentinel).long())
-    # the levels present, ascending: one read of the (T,) level vector
-    levels = sorted(set(TRACKER_SYNCS.tolist(lv)) - {sentinel})
+    # the levels present, ascending
+    levels = sorted(set(lv.tolist()) - {sentinel})
     match = torch.full((t,), -1, dtype=torch.int64, device=cost.device)
     det_unmatched = det_valid
     for n, level in enumerate(levels):
         # Stop once every detection is claimed (an assignment against no
         # columns matches nothing, so the first level needs no check).
-        if n and not TRACKER_SYNCS.flag(torch.any(det_unmatched)):
+        if n and not bool(torch.any(det_unmatched)):
             break
         rows = track_eligible & (track_level == level)
-        lvl_match = min_cost_matching(cost, rows, det_unmatched,
-                                      max_distance)
+        lvl_match = min_cost_matching_plain(cost, rows, det_unmatched,
+                                            max_distance)
         match = torch.where(lvl_match >= 0, lvl_match, match)
         det_unmatched = _claim(lvl_match, det_unmatched)
     return match, det_unmatched

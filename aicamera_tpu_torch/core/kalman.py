@@ -34,8 +34,9 @@ _NDIM = 4
 def _motion_mat(device, dt: float = 1.0) -> torch.Tensor:
     """State transition matrix F (8x8): x' = x + dt * v."""
     f = torch.eye(2 * _NDIM, dtype=torch.float32, device=device)
-    idx = torch.arange(_NDIM, device=device)
-    f[idx, idx + _NDIM] = dt
+    # a fill on the device (an indexed store of a Python number copies it
+    # from the host, which a CUDA graph cannot capture)
+    f.diagonal(_NDIM).fill_(dt)
     return f
 
 

@@ -11,9 +11,18 @@ as it was):
 
 Lifecycle semantics: confirm at ``hits >= n_init``; tentative tracks die on
 their first miss; confirmed tracks die when ``tsu > max_age``; new tracks
-take the lowest free slots and sequential ids in detection order. The JAX
-package's ``lax.cond`` guards are kept as Python branches (each one host
-sync, counted in ``assignment.TRACKER_SYNCS``).
+take the lowest free slots and sequential ids in detection order.
+
+The step reads nothing back from its device: where the JAX package skips a
+stage with a ``lax.cond`` (no active track, no confirmed track or no
+detection with a feature, no match, no new detection), the port computes
+the stage on the masks it already has and selects with ``torch.where``. The
+skip branches return their inputs unchanged and the masked stages leave
+every masked slot as it was, so the result is the same; garbage in unused
+slots (a Kalman state that is not positive definite gives NaN in
+``kalman._chol_small``) is discarded by the selects. So one code path
+serves the CPU and the GPU, and a chunk's steps can be captured in one CUDA
+graph (``runtime/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -21,9 +30,8 @@ from __future__ import annotations
 import torch
 
 from . import kalman
-from .assignment import (TRACKER_SYNCS, _claim, _scatter_drop,
-                         matching_cascade, min_cost_matching,
-                         place_new_tracks)
+from .assignment import (_claim, _scatter_drop, matching_cascade,
+                         min_cost_matching, place_new_tracks)
 from .costs import (INFTY_COST, appearance_cost_matrix, iou_cost_matrix,
                     mean_to_tlwh, tlwh_to_tlbr, tlwh_to_xyah)
 from .state import CONFIRMED, TENTATIVE, Detections, TrackerParams, \
@@ -32,8 +40,6 @@ from .state import CONFIRMED, TENTATIVE, Detections, TrackerParams, \
 
 def predict(state: TrackerState, params: TrackerParams) -> TrackerState:
     """KF-predict all active tracks; age += 1, time_since_update += 1."""
-    if not TRACKER_SYNCS.flag(torch.any(state.active)):
-        return state
     new_mean, new_cov = kalman.predict(state.mean, state.cov)
     act = state.active
     return state.replace(
@@ -46,40 +52,31 @@ def predict(state: TrackerState, params: TrackerParams) -> TrackerState:
 
 def _associate(state: TrackerState, dets: Detections, params: TrackerParams):
     """Two-stage association. Returns (match (T,) det idx or -1,
-    det_unmatched (N,) bool)."""
-    t = state.mean.shape[0]
-    dev = state.mean.device
+    det_unmatched (N,) bool). Both stages always run: with no eligible row
+    or column they match nothing, which is what JAX's skipped stage gives
+    (a detection without a feature costs INFTY in the cascade)."""
     confirmed = state.active & (state.state == CONFIRMED)
-    no_match = torch.full((t,), -1, dtype=torch.int64, device=dev)
 
     # --- Stage 1: gated appearance cascade over confirmed tracks ----------
-    run1 = torch.any(confirmed) & torch.any(dets.valid & dets.has_feature)
-    if TRACKER_SYNCS.flag(run1):
-        meas_xyah = tlwh_to_xyah(dets.tlwh)
-        gal_idx = torch.arange(state.gallery.shape[1], device=dev)
-        gallery_valid = gal_idx[None, :] < state.gallery_count[:, None]
-        app_cost = appearance_cost_matrix(
-            state.gallery, gallery_valid, dets.feature, dets.has_feature)
-        gate = kalman.gating_distance(state.mean, state.cov, meas_xyah)
-        app_cost = torch.where(gate > kalman.CHI2INV95[4],
-                               torch.full_like(app_cost, INFTY_COST),
-                               app_cost)
-        cascade_match, det_unmatched = matching_cascade(
-            app_cost, state.tsu, confirmed, dets.valid,
-            params.max_cosine_distance, params.max_age)
-    else:
-        cascade_match, det_unmatched = no_match, dets.valid
+    meas_xyah = tlwh_to_xyah(dets.tlwh)
+    gal_idx = torch.arange(state.gallery.shape[1], device=state.mean.device)
+    gallery_valid = gal_idx[None, :] < state.gallery_count[:, None]
+    app_cost = appearance_cost_matrix(
+        state.gallery, gallery_valid, dets.feature, dets.has_feature)
+    gate = kalman.gating_distance(state.mean, state.cov, meas_xyah)
+    app_cost = torch.where(gate > kalman.CHI2INV95[4],
+                           torch.full_like(app_cost, INFTY_COST), app_cost)
+    cascade_match, det_unmatched = matching_cascade(
+        app_cost, state.tsu, confirmed, dets.valid,
+        params.max_cosine_distance, params.max_age)
 
     # --- Stage 2: IoU matching ----------------------------------------------
     tentative = state.active & (state.state == TENTATIVE)
     recently_missed = confirmed & (cascade_match < 0) & (state.tsu == 1)
     iou_rows = tentative | recently_missed
-    if TRACKER_SYNCS.flag(torch.any(iou_rows) & torch.any(det_unmatched)):
-        iou_cost = iou_cost_matrix(mean_to_tlwh(state.mean), dets.tlwh)
-        iou_match = min_cost_matching(iou_cost, iou_rows, det_unmatched,
-                                      params.max_iou_distance)
-    else:
-        iou_match = no_match
+    iou_cost = iou_cost_matrix(mean_to_tlwh(state.mean), dets.tlwh)
+    iou_match = min_cost_matching(iou_cost, iou_rows, det_unmatched,
+                                  params.max_iou_distance)
 
     match = torch.where(cascade_match >= 0, cascade_match, iou_match)
     return match, _claim(iou_match, det_unmatched)
@@ -99,49 +96,49 @@ def update(state: TrackerState, dets: Detections,
     det_idx = torch.clamp(match, min=0)
 
     # --- Matched tracks: KF correction + attribute updates ------------------
-    mean, cov = state.mean, state.cov
-    gallery = state.gallery
-    gallery_count, gallery_next = state.gallery_count, state.gallery_next
-    if TRACKER_SYNCS.flag(torch.any(matched)):
-        meas_xyah = tlwh_to_xyah(dets.tlwh)[det_idx]
-        nsa_conf = dets.conf[det_idx] if params.nsa else None
-        up_mean, up_cov = kalman.update(state.mean, state.cov, meas_xyah,
-                                        confidence=nsa_conf)
-        mean = torch.where(matched[:, None], up_mean, state.mean)
-        cov = torch.where(matched[:, None, None], up_cov, state.cov)
+    # (every slot is computed; unmatched ones keep their values)
+    meas_xyah = tlwh_to_xyah(dets.tlwh)[det_idx]
+    nsa_conf = dets.conf[det_idx] if params.nsa else None
+    up_mean, up_cov = kalman.update(state.mean, state.cov, meas_xyah,
+                                    confidence=nsa_conf)
+    mean = torch.where(matched[:, None], up_mean, state.mean)
+    cov = torch.where(matched[:, None, None], up_cov, state.cov)
 
-        add_feat = matched & dets.has_feature[det_idx]
-        new_feats = dets.feature[det_idx]                  # (T, D)
-        if params.ema_alpha > 0.0:
-            # EMA appearance bank in gallery slot 0:
-            # e = normalize(a*e + (1-a)*normalize(f)); the first feature
-            # (count == 0) initialises the bank directly.
-            a = torch.tensor(params.ema_alpha, dtype=torch.float32,
-                             device=dev)  # 1 - a in f32, as in JAX
-            f_n = new_feats / torch.clamp(torch.linalg.vector_norm(
-                new_feats, dim=-1, keepdim=True), min=1e-7)
-            cur = state.gallery[:, 0]
-            blend = a * cur + (1.0 - a) * f_n
-            blend = blend / torch.clamp(torch.linalg.vector_norm(
-                blend, dim=-1, keepdim=True), min=1e-7)
-            ema = torch.where((state.gallery_count > 0)[:, None], blend, f_n)
-            gallery = state.gallery.clone()
-            gallery[:, 0] = torch.where(add_feat[:, None], ema, cur)
-            gallery_count = torch.where(
-                add_feat, torch.clamp(state.gallery_count, min=1),
-                state.gallery_count)
-        else:
-            # Gallery append (FIFO ring).
-            pos = state.gallery_next.long()
-            cur = state.gallery[rows, pos]
-            gallery = state.gallery.clone()
-            gallery[rows, pos] = torch.where(add_feat[:, None], new_feats,
-                                             cur)
-            gallery_count = torch.where(
-                add_feat, torch.clamp(state.gallery_count + 1, max=g),
-                state.gallery_count)
-            gallery_next = torch.where(add_feat, (state.gallery_next + 1) % g,
-                                       state.gallery_next)
+    add_feat = matched & dets.has_feature[det_idx]
+    new_feats = dets.feature[det_idx]                  # (T, D)
+    if params.ema_alpha > 0.0:
+        # EMA appearance bank in gallery slot 0:
+        # e = normalize(a*e + (1-a)*normalize(f)); the first feature
+        # (count == 0) initialises the bank directly.
+        # 1 - a in f32, as in JAX; a fill on the device, not a copy from
+        # the host (which a CUDA graph cannot capture)
+        a = torch.full((), params.ema_alpha, dtype=torch.float32,
+                       device=dev)
+        f_n = new_feats / torch.clamp(torch.linalg.vector_norm(
+            new_feats, dim=-1, keepdim=True), min=1e-7)
+        cur = state.gallery[:, 0]
+        blend = a * cur + (1.0 - a) * f_n
+        blend = blend / torch.clamp(torch.linalg.vector_norm(
+            blend, dim=-1, keepdim=True), min=1e-7)
+        ema = torch.where((state.gallery_count > 0)[:, None], blend, f_n)
+        gallery = state.gallery.clone()
+        gallery[:, 0] = torch.where(add_feat[:, None], ema, cur)
+        gallery_count = torch.where(
+            add_feat, torch.clamp(state.gallery_count, min=1),
+            state.gallery_count)
+        gallery_next = state.gallery_next
+    else:
+        # Gallery append (FIFO ring).
+        pos = state.gallery_next.long()
+        cur = state.gallery[rows, pos]
+        gallery = state.gallery.clone()
+        gallery[rows, pos] = torch.where(add_feat[:, None], new_feats,
+                                         cur)
+        gallery_count = torch.where(
+            add_feat, torch.clamp(state.gallery_count + 1, max=g),
+            state.gallery_count)
+        gallery_next = torch.where(add_feat, (state.gallery_next + 1) % g,
+                                   state.gallery_next)
 
     hits = torch.where(matched, state.hits + 1, state.hits)
     tsu = torch.where(matched, torch.zeros_like(state.tsu), state.tsu)
@@ -158,44 +155,41 @@ def update(state: TrackerState, dets: Detections,
     active = state.active & ~delete
 
     # --- Unmatched detections: initiate new tracks ---------------------------
+    # (with none, every scatter drops everything and n_new, dropped are 0)
     new_det = det_unmatched & dets.valid
-    age, track_id = state.age, state.track_id
-    n_new = dropped = torch.zeros((), dtype=torch.int32, device=dev)
-    if TRACKER_SYNCS.flag(torch.any(new_det)):
-        slot_for_det, det_rank, n_new, dropped = place_new_tracks(
-            active, new_det)
+    slot_for_det, det_rank, n_new, dropped = place_new_tracks(
+        active, new_det)
 
-        init_mean, init_cov = kalman.initiate(tlwh_to_xyah(dets.tlwh))
-        new_ids = state.next_id + det_rank
+    init_mean, init_cov = kalman.initiate(tlwh_to_xyah(dets.tlwh))
+    new_ids = state.next_id + det_rank
 
-        def scatter(arr, values):
-            return _scatter_drop(arr, slot_for_det, values)
+    def scatter(arr, values):
+        return _scatter_drop(arr, slot_for_det, values)
 
-        active = scatter(active, torch.ones_like(new_det))
-        st = scatter(st, torch.full_like(det_rank, TENTATIVE))
-        mean = scatter(mean, init_mean)
-        cov = scatter(cov, init_cov)
-        hits = scatter(hits, torch.ones_like(det_rank))
-        age = scatter(state.age, torch.ones_like(det_rank))
-        tsu = scatter(tsu, torch.zeros_like(det_rank))
-        track_id = scatter(state.track_id, new_ids)
-        class_id = scatter(class_id, dets.class_id)
-        conf = scatter(conf, dets.conf)
+    active = scatter(active, torch.ones_like(new_det))
+    st = scatter(st, torch.full_like(det_rank, TENTATIVE))
+    mean = scatter(mean, init_mean)
+    cov = scatter(cov, init_cov)
+    hits = scatter(hits, torch.ones_like(det_rank))
+    age = scatter(state.age, torch.ones_like(det_rank))
+    tsu = scatter(tsu, torch.zeros_like(det_rank))
+    track_id = scatter(state.track_id, new_ids)
+    class_id = scatter(class_id, dets.class_id)
+    conf = scatter(conf, dets.conf)
 
-        # Seed gallery slot 0 with the initiating detection's feature; data
-        # beyond gallery_count is dead (every reader masks by count).
-        seed = dets.has_feature
-        seed_feat = dets.feature
-        if params.ema_alpha > 0.0:
-            seed_feat = seed_feat / torch.clamp(torch.linalg.vector_norm(
-                seed_feat, dim=-1, keepdim=True), min=1e-7)
-        seed_rows = torch.where(seed[:, None], seed_feat,
-                                torch.zeros_like(seed_feat))
-        gallery_slot0 = _scatter_drop(gallery[:, 0], slot_for_det, seed_rows)
-        gallery = gallery.clone()
-        gallery[:, 0] = gallery_slot0
-        gallery_count = scatter(gallery_count, seed.to(torch.int32))
-        gallery_next = scatter(gallery_next, seed.to(torch.int32) % g)
+    # Seed gallery slot 0 with the initiating detection's feature; data
+    # beyond gallery_count is dead (every reader masks by count).
+    seed = dets.has_feature
+    seed_feat = dets.feature
+    if params.ema_alpha > 0.0:
+        seed_feat = seed_feat / torch.clamp(torch.linalg.vector_norm(
+            seed_feat, dim=-1, keepdim=True), min=1e-7)
+    seed_rows = torch.where(seed[:, None], seed_feat,
+                            torch.zeros_like(seed_feat))
+    # ``gallery`` is this step's own copy (made above): written in place
+    gallery[:, 0] = _scatter_drop(gallery[:, 0], slot_for_det, seed_rows)
+    gallery_count = scatter(gallery_count, seed.to(torch.int32))
+    gallery_next = scatter(gallery_next, seed.to(torch.int32) % g)
 
     return state.replace(
         active=active, state=st, mean=mean, cov=cov,

@@ -46,6 +46,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..device import resolve_device
 from ..ops import cuda_build
+from ..ops.assignment import KERNEL as ASSIGNMENT
 from ..ops.letterbox import KERNEL as LETTERBOX
 from .params import read_flax_msgpack, write_flax_msgpack
 
@@ -56,7 +57,7 @@ _XLA_MAGIC = b"AICAMXLAE1"    # the JAX package's .xlae files
 
 #: The hand-written kernels whose launches a replay repeats: each engine
 #: adds ``captured launches x replays`` to their launch counts.
-KERNELS = (LETTERBOX,)
+KERNELS = (LETTERBOX, ASSIGNMENT)
 
 # kind -> (module, function) that rebuilds a serialized step:
 # ``fn(header, weights, device) -> callable``

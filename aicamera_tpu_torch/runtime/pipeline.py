@@ -7,13 +7,17 @@ and Deep OC-SORT), camera-motion compensation and the capacity-bucketed
 tracker scan. All batchable work (camera-motion estimate, letterbox kernel,
 detector forward, decode+NMS, crop gather, ReID embedding) runs batched
 over the chunk on the device; the sequential tracker then runs frame by frame
-over the chunk, its state staying on the same device. Outputs
+over the chunk, its state staying on the same device. The DeepSORT core
+(and its StrongSORT preset) reads nothing back, so a chunk's tracker frames
+replay as one captured CUDA graph, as the JAX package jits its scan; the
+ByteTrack and OC-SORT steps still branch on the host. Outputs
 follow the JAX package's contracts: per frame, the detections in frame
 coordinates and the emitted tracks as ``(x1, y1, x2, y2, id, class_name,
 conf)`` tuples.
 
-On a CUDA device the letterbox always runs the hand-written kernel
-(``ops/letterbox.py``); on the CPU it runs the kernel's plain version.
+On a CUDA device the letterbox and the assignment solves always run the
+hand-written kernels (``ops/letterbox.py``, ``ops/assignment.py``); on the
+CPU they run the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ..ops.letterbox import letterbox
 from ..ops.nms import fused_decode_nms
 from ..ops.preprocess import letterbox_spec, scale_boxes_back
 from ..syncs import SyncCounter
+from .engine import CUDAGraphEngine
 from .params import resolve_reid_params, resolve_yolo_params
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -190,6 +195,11 @@ _TRACKERS = ("deepsort", "bytetrack", "botsort", "ocsort", "deepocsort")
 
 class TrackingPipeline:
     """End-to-end detector + tracker with chunked device steps."""
+
+    #: The DeepSORT scan of a chunk replays one capture; False runs it frame
+    #: by frame, skipping invalid frames on the host (the eager path that
+    #: the capture is checked and timed against). Read when stages are made.
+    _capture_scans = True
 
     def __init__(self,
                  variant: str = "n",
@@ -596,15 +606,71 @@ class TrackingPipeline:
                     else oc_core.get_outputs(st, pp) if ocsort
                     else core_tracker.get_outputs(st))
 
+        def eager_scan(st, inp, valid, pp):
+            """The frames at the capacity of ``pp``, ``valid`` host bools."""
+            outs = []
+            for i, v in enumerate(valid):
+                if v:  # an invalid frame leaves the state as it is
+                    st = frame_step(st, inp, i, pp)
+                outs.append(outputs(st, pp))
+            return st, tuple(torch.stack(x) for x in zip(*outs))
+
+        def masked_scan(st, inp, valid, pp):
+            """:func:`eager_scan` with ``valid`` a ``(K,)`` bool tensor:
+            every frame steps, and ``torch.where`` keeps the state as it was
+            where a frame is invalid (exact), so the launches do not depend
+            on the validity pattern."""
+            outs = []
+            for i in range(valid.shape[0]):
+                nxt = frame_step(st, inp, i, pp)
+                st = st.replace(**{
+                    f.name: torch.where(valid[i], getattr(nxt, f.name),
+                                        getattr(st, f.name))
+                    for f in dataclasses.fields(st)})
+                outs.append(outputs(st, pp))
+            return st, tuple(torch.stack(x) for x in zip(*outs))
+
+        scan_engines, valid_masks = {}, {}
+
+        def captured_scan(st, inp, valid, pp):
+            """:func:`masked_scan` of the DeepSORT core, which reads nothing
+            back, as one CUDA-graph replay: a capture for each capacity and
+            chunk length (``runtime/engine.py``; on the CPU a direct call).
+            The state, the inputs and the validity mask enter through the
+            graph's static buffers and leave as copies of its outputs."""
+            mask = valid_masks.get(tuple(valid))
+            if mask is None:  # built on the device: no host copy
+                mask = torch.zeros(len(valid), dtype=torch.bool, device=dev)
+                for i in np.flatnonzero(valid):
+                    mask[i].fill_(True)
+                valid_masks[tuple(valid)] = mask
+            fields = [f.name for f in dataclasses.fields(st)]
+            names = [f.name for f in dataclasses.fields(inp)
+                     if getattr(inp, f.name) is not None]
+            flat = [getattr(st, f) for f in fields] \
+                + [getattr(inp, f) for f in names] + [mask]
+            key = (pp, tuple(names))
+            eng = scan_engines.get(key)
+            if eng is None:
+                def fn(*xs):
+                    s, outs = masked_scan(
+                        core_state.TrackerState(**dict(zip(fields, xs))),
+                        TrackerInputs(**dict(zip(names, xs[len(fields):]))),
+                        xs[-1], pp)
+                    return tuple(getattr(s, f) for f in fields), outs
+
+                eng = scan_engines[key] = CUDAGraphEngine(
+                    fn, flat, name=f"deepsort scan T={pp.max_tracks}",
+                    warmup_iters=1, device=dev)
+            new, outs = eng(*flat)
+            return core_state.TrackerState(**dict(zip(fields, new))), outs
+
+        scan_fn = (captured_scan if self._capture_scans
+                   and not (bytetrack or ocsort) else eager_scan)
+
         def track(state, inp, valid):
             def scan(st, pp):
-                """The frames at the capacity of ``pp``."""
-                outs = []
-                for i, v in enumerate(valid):
-                    if v:  # an invalid frame leaves the state as it is
-                        st = frame_step(st, inp, i, pp)
-                    outs.append(outputs(st, pp))
-                return st, tuple(torch.stack(x) for x in zip(*outs))
+                return scan_fn(st, inp, valid, pp)
 
             if not any(valid):
                 return scan(state, self.core_params)
@@ -739,13 +805,20 @@ class TrackingPipeline:
 
     def warm_up(self, frame_hw: Tuple[int, int],
                 chunk_size: int | None = None, iters: int = 2) -> float:
-        """Run the chunk step on blank frames (builds the kernel, warms the
-        allocator and cuDNN), then reset; returns seconds."""
+        """Run the chunk step on blank frames (builds the kernels, warms the
+        allocator and cuDNN, captures the DeepSORT scan: the last pass at
+        the full track capacity, so that a bucketed scan finds both of its
+        captures), then reset; returns seconds."""
         t0 = time.perf_counter()
         k = chunk_size or self.chunk_size
         dummy = np.zeros((k, *frame_hw, 3), np.uint8)
-        for _ in range(iters):
-            self._dispatch_chunk(dummy)
+        bucket = self.scan_bucket
+        try:
+            for i in range(iters):
+                self.scan_bucket = bucket if i < iters - 1 else 0
+                self._dispatch_chunk(dummy)
+        finally:
+            self.scan_bucket = bucket
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.reset()

@@ -20,13 +20,28 @@ this file; exits non-zero otherwise. In order it:
    call), next to the earlier design (``earlier_ms``, the scalar variant's
    ``device_ms``), the plain version, the nearest single PyTorch call, and
    the byte/operation bound;
+   ``[assignment]``: the assignment kernel (``csrc/assignment.cu``), called
+   through the public ``min_cost_matching`` and ``matching_cascade`` on
+   card tensors, bitwise against their plain versions on the same tensors
+   on 55 seeded problems (``assignment_cases``: DeepSORT loads at 128 and
+   32 track slots, ties with -0.0, nothing feasible, one row, R < C, R > C,
+   n = 256 staged and in device memory, cascades over 1, 2, 5 and 70
+   levels, the OC-SORT and ByteTrack costs); then its device ms a solve
+   (graph replay) at the main path's 128x64, per call, the plain version's,
+   ``scipy.optimize.linear_sum_assignment``'s on the host with the copy,
+   and its bound: the larger of the bytes it must move (the R x C cost and
+   the masks read once, the outputs written once) and an empty kernel's
+   replay;
 4. drives the main path at full width: ``TrackingPipeline(device="cuda")``
    with YOLOv8n at 640x640, T=128 track slots, N=64 detection slots, a
    100-feature gallery of 512-d features and 32 ReID crops, on seeded
    960x540 frames of moving rectangles, ``chunk_size=8``,
    ``synthetic_load=24``; checks the kernel launch counts, confirmed tracks
-   and finite outputs; prints FPS, per-stage times (CUDA events) and the GPU
-   busy share of one more chunk under ``torch.profiler``;
+   and finite outputs, no tracker read (the DeepSORT step reads nothing
+   back); prints FPS, per-stage times (CUDA events), the tracker's ms a
+   chunk with its scans replayed from CUDA-graph captures and run frame
+   by frame with the host's branches (identical tracks), and the GPU busy share of one more chunk under
+   ``torch.profiler``;
 5. ``[bucket]``: the main path with ``scan_bucket=32`` (the default), then
    with ``scan_bucket=0``, at the main path's load and at a light load where
    the small pass runs: identical track tuples, FPS and tracker ms of both,
@@ -172,8 +187,9 @@ this file; exits non-zero otherwise. In order it:
     composed ``meshes=`` stage-split detector; ms a dispatch and a step
     per rank (two ranks sharing one card: no scaling figure).
 
-The last two lines of output are the kernels' JSON record and the device
-JSON record. ``--kernels-only`` stops after step 3; ``--only`` runs the
+The last two lines of output are the kernels' JSON record (letterbox and
+assignment, each with its launches by path) and the device JSON record.
+``--kernels-only`` stops after step 3; ``--only`` runs the
 kernel phase and the named phases (``int8`` brings ``quality`` along,
 ``present`` brings ``cli``; ``--only parallel`` runs step 17 alone).
 """
@@ -356,8 +372,11 @@ def time_device_ms(launch, n_sets, rounds=8, replays=5):
     replay, the median of ``replays`` replays over the launch count. It
     holds the gap between two kernel nodes of a graph (about a microsecond),
     so it bounds the kernel's own duration from above. ``launch(i)`` runs on
-    buffer set ``i``; the caller sizes the sets so that together they exceed
-    the L2 cache, so every launch finds its inputs in device memory."""
+    buffer set ``i``. Where a kernel's reads from device memory are what is
+    timed, the caller sizes the sets so that together they exceed the L2
+    cache, so every launch finds its inputs in device memory; a
+    latency-bound kernel whose inputs its path leaves in the L2 (the
+    assignment solves) is timed over a few L2-resident sets."""
     import torch
 
     for i in range(n_sets):
@@ -649,6 +668,265 @@ def kernel_phase(device):
             "shapes": rows}
 
 
+# [assignment]: the DeepSORT thresholds (appearance, IoU), the cascade depth
+# (max_age), INFTY_COST, and the main path's widths
+ASG_MAX_COS, ASG_MAX_IOU, ASG_DEPTH, ASG_INFTY = 0.2, 0.7, 70, 1e5
+ASG_T, ASG_N = 128, 64
+ASG_TIMED_SETS = 8     # distinct problems the timed launches rotate over
+# (L2-resident, 32 KB a problem: on the main path the solve reads a cost
+# that the kernel before it has just written)
+
+
+def assignment_cases():
+    """Seeded problems for the assignment kernel, ``[(family, kind, args)]``
+    with numpy args: kind ``"match"`` takes ``(cost, row_mask, col_mask,
+    max_d)``, ``"cascade"`` ``(cost, level, eligible, det_valid, max_d,
+    depth)``. Ineligible rows hold NaN now and then, as the tracker's unused
+    slots do."""
+    import numpy as np
+    rng = np.random.RandomState(SEED)
+
+    def rows_of(t, live):
+        m = np.zeros(t, bool)
+        m[rng.choice(t, live, replace=False)] = True
+        return m
+
+    def cols_of(nd, ndet):
+        m = np.zeros(nd, bool)
+        m[:ndet] = True   # the pipeline compacts detections to the front
+        return m
+
+    def appearance(t, nd, rows):
+        """Cosine distances, Mahalanobis-gated to INFTY."""
+        c = rng.uniform(0, 0.5, (t, nd)).astype(np.float32)
+        c[rng.rand(t, nd) < 0.6] = ASG_INFTY
+        c[~rows & (rng.rand(t) < 0.3)] = np.nan
+        return c
+
+    def iou_cost(t, nd, rows):
+        """1 - IoU: 1.0 where boxes do not overlap, 0.0 for a perfect one."""
+        c = np.ones((t, nd), np.float32)
+        near = rng.rand(t, nd) < 0.08
+        c[near] = rng.uniform(0, 1, near.sum())
+        c[rng.rand(t, nd) < 0.01] = 0.0
+        c[~rows & (rng.rand(t) < 0.3)] = np.nan
+        return c
+
+    def levels_of(t, rows, spread):
+        lv = np.where(rng.rand(t) < 0.8, 1, rng.randint(1, spread + 1, t))
+        lv[~rows] = rng.randint(0, 200, (~rows).sum())  # stale tsu
+        return lv.astype(np.int32)
+
+    cases = []
+    # realistic DeepSORT loads at the full capacity and the bucketed one
+    for t in (ASG_T, 32):
+        for _ in range(6):
+            live = rng.randint(8, min(60, t - 4) + 1)
+            ndet = rng.randint(5, 61)
+            rows, cols = rows_of(t, live), cols_of(ASG_N, ndet)
+            fam = f"{t}x{ASG_N} load"
+            cases.append((fam, "cascade", (
+                appearance(t, ASG_N, rows), levels_of(t, rows, 4), rows,
+                cols, ASG_MAX_COS, ASG_DEPTH)))
+            cases.append((fam, "match", (iou_cost(t, ASG_N, rows), rows,
+                                         cols, ASG_MAX_IOU)))
+    # costs on a few levels: ties everywhere, -0.0 beside +0.0
+    for _ in range(4):
+        rows, cols = rows_of(ASG_T, 40), cols_of(ASG_N, 40)
+        c = (rng.randint(0, 4, (ASG_T, ASG_N)) * 0.05).astype(np.float32)
+        c[(c == 0) & (rng.rand(ASG_T, ASG_N) < 0.5)] = -0.0
+        cases.append(("ties", "match", (c, rows, cols, ASG_MAX_COS)))
+        cases.append(("ties", "cascade", (c, levels_of(ASG_T, rows, 3), rows,
+                                          cols, ASG_MAX_COS, ASG_DEPTH)))
+    rows, cols = rows_of(ASG_T, 30), cols_of(ASG_N, 30)
+    cases.append(("all infeasible", "match", (rng.uniform(
+        0.3, 1, (ASG_T, ASG_N)).astype(np.float32), rows, cols,
+        ASG_MAX_COS)))
+    one = rows_of(ASG_T, 1)
+    cases.append(("one row", "match", (iou_cost(ASG_T, ASG_N, one), one,
+                                       cols_of(ASG_N, 40), ASG_MAX_IOU)))
+    for r, c in ((20, 50), (100, 30), (256, ASG_N), (ASG_N, 256),
+                 (256, 256)):
+        rows, cols = rows_of(r, min(r, 60)), cols_of(c, min(c, 60))
+        fam = f"{r}x{c}"
+        cases.append((fam, "match", (iou_cost(r, c, rows), rows, cols,
+                                     ASG_MAX_IOU)))
+        cases.append((fam, "cascade", (appearance(r, c, rows),
+                                       levels_of(r, rows, 3), rows, cols,
+                                       ASG_MAX_COS, ASG_DEPTH)))
+    # a cascade spread over 1, 2, 5 and 70 levels, ungated: long searches
+    for spread in (1, 2, 5, 70):
+        rows, cols = rows_of(ASG_T, max(40, spread + 20)), cols_of(ASG_N, 60)
+        idx = np.nonzero(rows)[0]
+        lv = np.zeros(ASG_T, np.int32)
+        lv[idx] = np.concatenate([np.arange(1, spread + 1), rng.randint(
+            1, spread + 1, len(idx) - spread)])
+        cost = rng.uniform(0, 0.3, (ASG_T, ASG_N)).astype(np.float32)
+        cases.append((f"{spread} levels", "cascade", (
+            cost, lv, rows, cols, ASG_MAX_COS, ASG_DEPTH)))
+    # OC-SORT: shift - (IoU + bonus), nothing clamped; 1 - IoU up to 1.0
+    for _ in range(2):
+        rows, cols = rows_of(ASG_T, 30), cols_of(ASG_N, 30)
+        objective = rng.uniform(-0.5, 2.0, (ASG_T, ASG_N)).astype(np.float32)
+        cases.append(("OC-SORT", "match", (np.float32(3.0) - objective, rows,
+                                           cols, 4.0)))
+        cases.append(("OC-SORT", "match", (iou_cost(ASG_T, ASG_N, rows), rows,
+                                           cols, 1.0)))
+    # ByteTrack: fused IoU/score costs in [0, 1] at its three thresholds
+    for thresh in (0.8, 0.5, 0.7):
+        rows, cols = rows_of(ASG_T, 30), cols_of(ASG_N, 25)
+        cases.append(("ByteTrack", "match", (iou_cost(ASG_T, ASG_N, rows),
+                                             rows, cols, thresh)))
+    return cases
+
+
+def scipy_solve(cost, rows, cols, max_d):
+    """The reference's ``min_cost_matching`` on the host: the clamped
+    eligible sub-matrix through ``scipy.optimize.linear_sum_assignment``;
+    returns the accepted (rows, columns)."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+    ri, ci = np.nonzero(rows)[0], np.nonzero(cols)[0]
+    sub = cost[np.ix_(ri, ci)]
+    sub = np.where(sub <= max_d, sub, np.float32(max_d + 1e-5))
+    r, c = linear_sum_assignment(sub)
+    ok = cost[ri[r], ci[c]] <= max_d
+    return ri[r][ok], ci[c][ok]
+
+
+def scipy_cascade(cost, level, elig, valid, max_d, depth):
+    """The reference's matching cascade on the host, one scipy solve a
+    level present; returns the detections left unmatched."""
+    unmatched = valid.copy()
+    for lvl in range(1, depth + 1):
+        if not unmatched.any():
+            break
+        rows = elig & (level == lvl)
+        if rows.any():
+            unmatched[scipy_solve(cost, rows, unmatched, max_d)[1]] = False
+    return unmatched
+
+
+def assignment_phase(device):
+    """The assignment kernel against its plain version on the card, bitwise,
+    on :func:`assignment_cases`; then its times at the main path's shapes."""
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch.core import assignment as asg
+    from aicamera_tpu_torch.ops.assignment import KERNEL
+
+    def on_card(args):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                if isinstance(a, np.ndarray) else a for a in args]
+
+    public = {"match": asg.min_cost_matching,
+              "cascade": asg.matching_cascade}
+    plain = {"match": asg.min_cost_matching_plain,
+             "cascade": asg.matching_cascade_plain}
+    by_family, max_err = {}, 0.0
+    for fam, kind, args in assignment_cases():
+        a = on_card(args)
+        before = KERNEL.launches
+        got = public[kind](*a)
+        check(KERNEL.launches == before + 1,
+              f"[assignment] {fam} {kind}: the kernel did not launch once")
+        want = plain[kind](*a)
+        torch.cuda.synchronize()
+        got, want = (got, want) if kind == "cascade" else ((got,), (want,))
+        for g, w in zip(got, want):
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"[assignment] {fam} {kind} {tuple(args[0].shape)}: "
+                  f"kernel {g.tolist()} != plain {w.tolist()}")
+            max_err = max(max_err, float(torch.max(torch.abs(
+                g.double() - w.double()))))
+        by_family[fam] = by_family.get(fam, 0) + 1
+    print(f"[assignment] kernel bitwise equal to the plain version on "
+          f"{sum(by_family.values())} problems (max |diff| {max_err}): "
+          + ", ".join(f"{f} {n}" for f, n in by_family.items()))
+
+    # times at the main path's shapes: a DeepSORT frame's cascade and IoU
+    # solve at a load of 24 tracks and 24 detections
+    rng = np.random.RandomState(SEED + 1)
+    card = []
+    for _ in range(ASG_TIMED_SETS):
+        rows = np.zeros(ASG_T, bool)
+        rows[rng.choice(ASG_T, 24, replace=False)] = True
+        cols = np.zeros(ASG_N, bool)
+        cols[:24] = True
+        app = rng.uniform(0, 0.5, (ASG_T, ASG_N)).astype(np.float32)
+        app[rng.rand(ASG_T, ASG_N) < 0.6] = ASG_INFTY
+        lv = np.where(rng.rand(ASG_T) < 0.8, 1, 2).astype(np.int32)
+        iou = np.ones((ASG_T, ASG_N), np.float32)
+        near = rng.rand(ASG_T, ASG_N) < 0.08
+        iou[near] = rng.uniform(0, 1, near.sum())
+        card.append({
+            "cascade": on_card((app, lv, rows, cols, ASG_MAX_COS,
+                                ASG_DEPTH)),
+            "match": on_card((iou, rows, cols, ASG_MAX_IOU))})
+    # the launch floor: an empty kernel (PyTorch's spin kernel for 0
+    # cycles) replayed from a graph
+    launch_floor = time_device_ms(lambda i: torch.cuda._sleep(0), 1,
+                                  rounds=64)
+    rows_out = []
+    for kind in ("cascade", "match"):
+        fn = public[kind]
+        device_ms = time_device_ms(lambda i: fn(*card[i][kind]),
+                                   ASG_TIMED_SETS)
+        ms = sorted(time_ms(lambda: fn(*card[0][kind]))
+                    for _ in range(3))[1]
+        plain_ms = time_ms(lambda: plain[kind](*card[0][kind]), iters=5,
+                           warmup=1)
+
+        def library():
+            host = [a.cpu().numpy() if torch.is_tensor(a) else a
+                    for a in card[0][kind]]  # the copy a host solver needs
+            return (scipy_cascade(*host) if kind == "cascade"
+                    else scipy_solve(*host))
+
+        library_ms = sorted(time_host_ms(library, bursts=5, burst=4)
+                            for _ in range(3))[1]
+        # the least work: each input read once (the R x C cost and the
+        # masks), each output written once, one comparison a cost entry;
+        # and no launch takes less than an empty kernel's replay
+        args = card[0][kind]
+        out = fn(*args)
+        out = out if kind == "cascade" else (out,)
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in (*args, *out) if torch.is_tensor(t))
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = args[0].numel() / PEAK_F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops, launch_floor)
+        r = {"shape": f"{ASG_T}x{ASG_N} f32 {kind}, 24 tracks x 24 "
+                      f"detections", "device_ms": device_ms, "ms": ms,
+             "plain_ms": plain_ms, "library_ms": library_ms,
+             "bound_ms": bound,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "bound_term": ("launch floor" if bound == launch_floor
+                            else "work"),
+             "bytes": n_bytes, "bytes_ms": t_bytes,
+             "launch_floor_ms": launch_floor}
+        rows_out.append(r)
+        print(f"[assignment] {r['shape']}: device {device_ms:.4f} ms a solve "
+              f"(graph replay, L2-resident), per call {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, scipy {library_ms:.4f} ms (host, with the "
+              f"copy), bound {bound:.6f} ms (the larger of {n_bytes} bytes "
+              f"once, {t_bytes:.6f} ms, and an empty kernel's replay, "
+              f"{launch_floor:.6f} ms: {r['bound_term']}); "
+              f"{100 * bound / device_ms:.1f}% of the bound")
+    KERNEL.launches = 0  # comparison and timing launches do not count
+    main = rows_out[0]
+    return {"name": KERNEL.name, "route": "cuda",
+            "source": "aicamera_tpu_torch/csrc/assignment.cu",
+            "replaces": KERNEL.replaces, "launches": None,
+            "max_abs_err": max_err, "ms": main["ms"],
+            "device_ms": main["device_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "bound_term": main["bound_term"],
+            "library_ms": main["library_ms"],
+            "launch_floor_ms": launch_floor,
+            "problems_checked": sum(by_family.values()), "shapes": rows_out}
+
+
 def make_pipeline(device, synthetic_load=24, **kw):
     from aicamera_tpu_torch import config
     from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline
@@ -697,10 +975,18 @@ def counted_run(pipe, frames, kernels, timed=False):
     return results, wall, launches, syncs, stage_ms
 
 
-def check_launches(launches, n_chunks, what):
+def check_launches(launches, n_chunks, what, solves=True):
+    """The letterbox once per chunk (dispatch, call); the assignment kernel
+    at least once where the path must solve (``solves``: a DeepSORT or
+    ByteTrack core; OC-SORT's shortcut may skip every solve of a run, and
+    detection alone solves nothing): its count follows the frames and the
+    cores' branches, and is printed."""
     for name, n in launches.items():
-        check(n == n_chunks, f"{what}: {name} launched {n} times over "
-              f"{n_chunks} chunks")
+        if name == "letterbox":
+            check(n == n_chunks, f"{what}: {name} launched {n} times over "
+                  f"{n_chunks} chunks")
+        elif solves:
+            check(n >= 1, f"{what}: {name} never launched")
 
 
 def summarize(results):
@@ -744,27 +1030,59 @@ def main_path_phase(device, frames, kernels):
     print(f"[main] detections {n_dets}, track outputs {n_tracks}, distinct "
           f"confirmed ids {n_ids}; launches "
           + ", ".join(f"{k} {v}" for k, v in launches.items())
-          + " (one per chunk)")
+          + " (the letterbox one per chunk)")
     print(f"[main] host syncs per frame: {syncs_line(syncs, n)} (plus one "
-          f"result read per chunk)")
+          f"result read per chunk); tracker reads a frame "
+          f"{syncs['tracker'] / n:.3f}; assignment launches a frame "
+          f"{launches['assignment'] / n:.3f} (a cascade and an IoU solve)")
+    check(syncs["tracker"] == 0, f"the DeepSORT step read the GPU "
+          f"{syncs['tracker']} times")
     print("[main] sample tracks, last frame: "
           + repr(results[-1].tracks[:4]))
 
-    # the same frames again with CUDA events at every stage boundary
-    pipe.reset()
-    timer = CudaStageTimer()
-    pipe.stage_timer = timer
-    again = list(pipe.process_frames(iter(frames)))
-    stage_ms = {s: v / timer.chunks for s, v in timer.totals.items()}
+    # the same frames again with CUDA events at every stage boundary: the
+    # tracker scans replayed from their captures, then run frame by frame
+    def timed_run():
+        pipe.reset()
+        timer = CudaStageTimer()
+        pipe.stage_timer = timer
+        out = list(pipe.process_frames(iter(frames)))
+        pipe.stage_timer = None
+        return out, {s: v / timer.chunks for s, v in timer.totals.items()}
+
+    again, stage_ms = timed_run()
+    with eager_scans(pipe):
+        pipe.warm_up(FRAME_HW)
+        eager, eager_ms = timed_run()
     print("[main] per-chunk stage ms (CUDA events, includes the host "
           "launch gaps): " + ", ".join(f"{s} {v:.3f}"
                                        for s, v in stage_ms.items())
           + f"; tracker per frame {stage_ms['tracker'] / CHUNK:.3f} ms")
+    print(f"[main] tracker ms a chunk: captured scan {stage_ms['tracker']:.3f}"
+          f", eager scan {eager_ms['tracker']:.3f}")
     same = sum(a.tracks == b.tracks for a, b in zip(results, again))
     print(f"[main] timed rerun: {same}/{n} frames with identical tracks")
-    pipe.stage_timer = None
+    check([r.tracks for r in eager] == [r.tracks for r in again],
+          "[main] the captured scan's tracks differ from the eager scan's")
+    print(f"[main] eager scan: track tuples identical to the captured "
+          f"scan's on {n} frames")
+    pipe.warm_up(FRAME_HW)  # captures the scans again
     profile_chunk(pipe, frames[-CHUNK:])
     return launches
+
+
+@contextlib.contextmanager
+def eager_scans(pipe):
+    """Inside, ``pipe`` runs its DeepSORT scans frame by frame with the
+    host's branches, not from CUDA-graph captures (to time and hold the two
+    against each other in one call)."""
+    pipe._capture_scans = False
+    pipe._stages.clear()  # the stages hold their engines
+    try:
+        yield
+    finally:
+        del pipe._capture_scans
+        pipe._stages.clear()
 
 
 def bucket_phase(device, frames, kernels):
@@ -844,7 +1162,11 @@ def trackers_phase(device, frames, kernels):
         pipe = make_pipeline(device, tracker=name, **kw)
         pipe.warm_up(FRAME_HW)
         res, wall, launches, syncs, _ = counted_run(pipe, sub, kernels)
-        check_launches(launches, TRACKER_CHUNKS, f"tracker {name}")
+        check_launches(launches, TRACKER_CHUNKS, f"tracker {name}",
+                       solves="ocsort" not in name)
+        if pipe.tracker_kind == "deepsort":  # the StrongSORT preset
+            check(syncs["tracker"] == 0, f"tracker {name}: the DeepSORT "
+                  f"step read the GPU {syncs['tracker']} times")
         by_tracker[name] = launches
         n_tracks, n_ids = summarize(res)
         check(n_tracks > 0, f"tracker {name} emitted no track")
@@ -858,7 +1180,7 @@ def trackers_phase(device, frames, kernels):
               f"frame{gmc}, syncs per "
               f"frame: {syncs_line(syncs, len(sub))}; track outputs "
               f"{n_tracks}, distinct ids {n_ids}, chunks {stats}, launches "
-              f"{launches} (one per chunk)")
+              f"{launches} (the letterbox one per chunk)")
         compare_runs(
             f"trackers] {name}",
             list(make_pipeline("cuda", tracker=name, detect_dtype="f32",
@@ -929,7 +1251,8 @@ def gmc_phase(device, kernels):
             pipe.warm_up(FRAME_HW)
             res, wall, counts, _, stage_ms = counted_run(
                 pipe, frames, kernels, timed=True)
-            check_launches(counts, GMC_CHUNKS, f"gmc {name} {mode}")
+            check_launches(counts, GMC_CHUNKS, f"gmc {name} {mode}",
+                           solves=name != "ocsort")
             n_tracks, n_ids = summarize(res)
             check(n_tracks > 0, f"gmc {name} {mode}: no track")
             line.append(f"{mode}: {len(frames) / wall:.2f} FPS, gmc "
@@ -993,25 +1316,29 @@ def facades_phase(device, frames, kernels):
         wall = time.perf_counter() - t0
         launches[name] = {k.name: k.launches for k in kernels}
         check_launches(launches[name], len(sub), f"facade {name} (detect "
-                       f"calls)")
+                       f"calls)", solves="OCSort" not in name)
         n_tracks = sum(map(len, outs))
         check(n_tracks > 0, f"facade {name} emitted no track")
         check(all(np.isfinite(t[:4]).all() and np.isfinite(t[6])
                   for o in outs for t in o), f"facade {name}: non-finite")
         syncs = {n: c.count for n, c in counters.items()}
+        if name in ("DeepSORT", "StrongSORT"):
+            check(syncs["tracker"] == 0, f"facade {name}: the DeepSORT step "
+                  f"read the GPU {syncs['tracker']} times")
         print(f"[facades] {name}: {len(sub)} frames, {len(sub) / wall:.2f} "
               f"FPS (detect + update), syncs per frame: "
               f"{syncs_line(syncs, len(sub))} (plus the reads of the "
               f"detections and the tuples); track outputs {n_tracks}, "
               f"distinct ids {len({t[4] for o in outs for t in o})}; "
-              f"launches {launches[name]} (one per detect call, replayed "
-              f"from its captured engine)")
+              f"launches {launches[name]} (the letterbox one per detect "
+              f"call, replayed from its captured engine)")
     det.detect_tiled(sub[0])  # builds and captures its engine
     for k in kernels:
         k.launches = 0
     tiled = det.detect_tiled(sub[0])
     launches["detect_tiled"] = {k.name: k.launches for k in kernels}
-    check_launches(launches["detect_tiled"], 2, "detect_tiled (one frame)")
+    check_launches(launches["detect_tiled"], 2, "detect_tiled (one frame)",
+                   solves=False)
     print(f"[facades] detect_tiled 2x2 + full frame: {len(tiled[0])} "
           f"detections (detect: {len(det.detect(sub[0])[0])}); launches 2 "
           f"(one replay of its captured engine)")
@@ -1364,8 +1691,11 @@ def streams_phase(device, kernels):
         return (outs, wall, {kn.name: kn.launches for kn in kernels},
                 {n: c.count for n, c in sync_counters().items()})
 
+    run()  # captures the scans of whichever capacities the chunks take
     outs, wall, launches, syncs = run()
     check_launches(launches, d, "streams (one launch per dispatch)")
+    check(syncs["tracker"] == 0, f"streams: the DeepSORT steps read the GPU "
+          f"{syncs['tracker']} times")
     tuples = [stream_tuples(outs, si) for si in range(s)]
     n_tracks = [sum(map(len, t)) for t in tuples]
     check(all(n > 0 for n in n_tracks), f"a stream emitted no track: "
@@ -2149,7 +2479,8 @@ def engine_phase(device, frames, kernels):
     for f in frames[:ENGINE_FRAMES]:
         det.detect(f)
     launches = {"detect": {kk.name: kk.launches for kk in kernels}}
-    check_launches(launches["detect"], ENGINE_FRAMES, "[engine] detect")
+    check_launches(launches["detect"], ENGINE_FRAMES, "[engine] detect",
+                   solves=False)
     check(eng.replays > 0, "no replay counted")
     return launches
 
@@ -3292,10 +3623,11 @@ def main() -> int:
                          "default all")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
+    from aicamera_tpu_torch.ops.assignment import KERNEL as ASSIGNMENT
     from aicamera_tpu_torch.ops.letterbox import KERNEL as LETTERBOX
     from aicamera_tpu_torch.scenes import moving_rectangles
 
-    kernels = [LETTERBOX]
+    kernels = [LETTERBOX, ASSIGNMENT]
     t_start = time.perf_counter()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -3305,12 +3637,6 @@ def main() -> int:
               f"python {sys.version.split()[0]}")
         build_s = build_kernels(kernels)
         print(f"[build] {len(kernels)} kernel(s) built in {build_s:.2f} s")
-        record = kernel_phase(torch.device("cuda"))
-        if args.kernels_only:
-            print(json.dumps({"kernels": [record]}))
-            return 0
-        frames = moving_rectangles(N_CHUNKS * CHUNK, FRAME_HW, n_objects=6,
-                                   seed=SEED)
         device = torch.device("cuda")
         phase_s = {}
 
@@ -3319,6 +3645,14 @@ def main() -> int:
             out = fn(*a)
             phase_s[name] = time.perf_counter() - t0
             return out
+
+        records = [timed("kernel", kernel_phase, device),
+                   timed("assignment", assignment_phase, device)]
+        if args.kernels_only:
+            print(json.dumps({"kernels": records}))
+            return 0
+        frames = moving_rectangles(N_CHUNKS * CHUNK, FRAME_HW, n_objects=6,
+                                   seed=SEED)
 
         only = set(args.only.split(",")) if args.only else None
         if only and "int8" in only:
@@ -3366,26 +3700,29 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    record["launches"] = by_path.get("main", {}).get(record["name"])
     # the other paths, each counted from 0: bucket (its last run), every
-    # tracker, the GMC pipelines, every facade (one launch per detect call;
-    # detect_tiled two), the CLI (warm-up chunks included), the multi-stream
-    # dispatches, the two services, the server's raw requests and its JPEG
-    # and PNG requests with their raw twins, the quality runs
-    # (bf16, f32), mot --run, and the trainers by part (one launch a
-    # detector step, two a clip step, none in the ReID trainer)
-    record["launches_by_path"] = {
-        path: (counts if path in ("train", "parallel") else
-               {t: v[record["name"]] for t, v in counts.items()}
-               if path in ("trackers", "gmc", "facades", "engine",
-                           "quality", "int8")
-               else counts[record["name"]])
-        for path, counts in by_path.items()}
+    # tracker, the GMC pipelines, every facade (one letterbox launch per
+    # detect call; detect_tiled two), the CLI (warm-up chunks included), the
+    # multi-stream dispatches, the two services, the server's raw requests
+    # and its JPEG and PNG requests with their raw twins, the quality runs
+    # (bf16, f32), mot --run, and the trainers by part (one letterbox launch
+    # a detector step, two a clip step, none in the ReID trainer; no solve)
+    for record in records:
+        name = record["name"]
+        record["launches"] = by_path.get("main", {}).get(name)
+        record["launches_by_path"] = {
+            path: (counts if path in ("train", "parallel") else
+                   {t: v[name] for t, v in counts.items()}
+                   if path in ("trackers", "gmc", "facades", "engine",
+                               "quality", "int8")
+                   else counts[name])
+            for path, counts in by_path.items()
+            if name == "letterbox" or path not in ("train", "parallel")}
     print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s;"
           f" by phase: " + ", ".join(f"{n} {v:.1f}"
                                      for n, v in phase_s.items()))
     print(ident)  # name, power limit: as nvidia-smi prints them
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

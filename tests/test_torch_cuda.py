@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402
 from aicamera_tpu_torch.ops import letterbox as lb  # noqa: E402
 from aicamera_tpu_torch.ops.preprocess import letterbox_spec  # noqa: E402
 
@@ -33,7 +34,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (the letterbox kernel has no CPU mode)")
+        pytest.skip("needs a CUDA GPU (the CUDA kernels have no CPU mode)")
     return torch.device("cuda")
 
 
@@ -131,6 +132,74 @@ def test_pipeline_launches_the_kernel_once_per_chunk(cuda):
     assert len(results) == 6
     assert all(np.isfinite(r.det_boxes).all() for r in results)
     assert len(results[-1].tracks) > 0
+
+
+ASSIGNMENT_FAMILIES = sorted({f for f, _, _ in
+                              chip_smoke.assignment_cases()})
+
+
+@pytest.mark.parametrize("family", ASSIGNMENT_FAMILIES)
+def test_assignment_kernel_bitwise_equals_plain_version(cuda, family):
+    """``chip_smoke.assignment_cases``: realistic DeepSORT loads at 128 and
+    32 track slots, ties (with -0.0), nothing feasible, one row, R < C and
+    R > C, n = 256 (staged and in device memory), cascades over 1, 2, 5 and
+    70 levels, the OC-SORT and ByteTrack costs. The public functions launch
+    the kernel once each; the outputs equal the plain version's on the same
+    card tensors bitwise."""
+    from aicamera_tpu_torch.core import assignment as asg
+    from aicamera_tpu_torch.ops.assignment import KERNEL
+    public = {"match": asg.min_cost_matching,
+              "cascade": asg.matching_cascade}
+    plain = {"match": asg.min_cost_matching_plain,
+             "cascade": asg.matching_cascade_plain}
+    for fam, kind, args in chip_smoke.assignment_cases():
+        if fam != family:
+            continue
+        a = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+             if isinstance(x, np.ndarray) else x for x in args]
+        launches = KERNEL.launches
+        got = public[kind](*a)
+        assert KERNEL.launches == launches + 1
+        want = plain[kind](*a)
+        got, want = (got, want) if kind == "cascade" else ((got,), (want,))
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_deepsort_scan_on_the_card_reads_nothing_and_replays(cuda,
+                                                             monkeypatch):
+    """The DeepSORT pipeline on the card: no tracker read, a cascade and an
+    IoU solve a frame through the kernel, and the captured scans' tracks
+    equal to the eager scans' (frame by frame, invalid frames skipped on
+    the host). A capture's eager warm-up pass and its padding frames launch
+    too, so only the eager run's count is exact."""
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.core.assignment import TRACKER_SYNCS
+    from aicamera_tpu_torch.core.state import TrackerParams
+    from aicamera_tpu_torch.ops.assignment import KERNEL
+    from aicamera_tpu_torch.runtime import pipeline as pl
+    from aicamera_tpu_torch.scenes import moving_rectangles
+
+    def run():
+        pipe = pl.TrackingPipeline(
+            input_shape=(256, 256), chunk_size=2, synthetic_load=8,
+            max_reid_crops=4, scan_bucket=0, detect_dtype="f32",
+            reid_dtype="f32",
+            tracker_params=TrackerParams(max_tracks=16, max_detections=8,
+                                         nn_budget=4, max_age=10),
+            yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
+            reid_weights=str(config.REID_SYNTHETIC_PATH))
+        reads, launches = TRACKER_SYNCS.count, KERNEL.launches
+        out = [r.tracks for r in pipe.process_frames(iter(frames))]
+        return out, TRACKER_SYNCS.count - reads, KERNEL.launches - launches
+
+    frames = moving_rectangles(7, (180, 320), n_objects=3, seed=3)
+    captured, reads, launches = run()
+    assert reads == 0 and launches >= 2 * len(frames)
+    monkeypatch.setattr(pl.TrackingPipeline, "_capture_scans", False)
+    eager, reads, launches = run()
+    assert reads == 0 and launches == 2 * len(frames)
+    assert sum(map(len, captured)) > 0 and captured == eager
 
 
 @pytest.mark.parametrize("tracker", ["bytetrack", "botsort", "ocsort",

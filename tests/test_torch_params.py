@@ -207,7 +207,7 @@ MUST_COVER = ("cli.py", "utils/__init__.py", "utils/video_io.py",
               "utils/visualization.py", "utils/jpeg.py", "utils/avi.py",
               "native/__init__.py", "ops/host_build.py",
               "parallel/distributed.py", "parallel/tensor_parallel.py",
-              "parallel/pipeline_parallel.py")
+              "parallel/pipeline_parallel.py", "ops/assignment.py")
 
 
 def test_source_scan_finds_no_forbidden_import():
