@@ -5,13 +5,22 @@ min_cost_matching`), or a whole DeepSORT matching cascade over its levels
 (:meth:`AssignmentKernel.matching_cascade`), in one thread block, on the
 current stream, and reads nothing back: the tracking step around it stays on
 the device, and a CUDA graph can capture it. Each launch adds one to
-``KERNEL.launches``.
+``KERNEL.launches``; the kernel reads the tracker's int32 levels as they are
+and clamps them itself, so a cascade is one launch and nothing else.
 
 The kernel computes exactly what the plain PyTorch versions in
 ``core/assignment.py`` compute (the CPU path and the kernel's oracle on the
 card); ``core.assignment.min_cost_matching`` and ``matching_cascade`` pick
 between the two by the tensors' device. There is no fallback from one to the
 other: a CUDA tensor launches the kernel or raises.
+
+Two designs are built from the one source: ``"lanes"`` (the default, every
+path's: the live problem searched in one warp's registers) and ``"v1"`` (the
+first design, kept for measurements and tests, on no path; its levels go
+through a clamp launch first, as they did when it was the default).
+``AssignmentKernel(probe=True)`` builds a second library with the phase
+probe compiled in (``-DAICAM_ASG_PROBE``); :meth:`AssignmentKernel.
+read_probe` returns its sums.
 
 Replaces the JAX package's device loops (XLA, not Pallas) in
 ``aicamera_tpu/core/assignment.py``: ``solve_square``, ``min_cost_matching``
@@ -28,9 +37,16 @@ import torch
 from . import cuda_build
 from .letterbox import _current_stream
 
-__all__ = ["KERNEL", "MAX_N", "AssignmentKernel", "check_args"]
+__all__ = ["KERNEL", "MAX_N", "PROBE_SLOTS", "VARIANTS", "AssignmentKernel",
+           "check_args"]
 
 MAX_N = 256   # the largest max(R, C) the kernel takes
+VARIANTS = ("lanes", "v1")   # the designs; the first is every path's
+# the probe's sums, in the order of csrc/assignment.cu's ProbeSlot: launches,
+# thread 0's cycles by phase, then counts and the cycles of whole launches
+PROBE_SLOTS = ("launches", "load", "stage", "feasibility", "levels", "init",
+               "argmin", "augment", "accept", "output", "solves",
+               "rows_augmented", "steps", "total")
 
 
 def check_args(cost: torch.Tensor, row_mask: torch.Tensor,
@@ -58,72 +74,96 @@ def check_args(cost: torch.Tensor, row_mask: torch.Tensor,
 
 
 class AssignmentKernel:
-    """Builds, loads and launches ``csrc/assignment.cu``; counts launches."""
+    """Builds, loads and launches ``csrc/assignment.cu``; counts launches.
+    ``probe=True``: the build with the phase probe (measurements only)."""
 
     name = "assignment"
     source = cuda_build.CSRC_DIR / "assignment.cu"
     replaces = ("aicamera_tpu/core/assignment.py:97 solve_square, "
                 ":179 min_cost_matching, :229 matching_cascade")
 
-    def __init__(self):
+    def __init__(self, probe: bool = False):
         self.launches = 0
+        self.probe = probe
+        self.defines = ("AICAM_ASG_PROBE",) if probe else ()
         self._lib = None
         self._lock = threading.Lock()
 
     def load(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
-                lib = cuda_build.load_library(self.source)
-                lib.aicam_assignment.argtypes = (
-                    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                    + [ctypes.c_void_p] * 3
-                    + [ctypes.c_float, ctypes.c_int]
-                    + [ctypes.c_void_p] * 3)
-                lib.aicam_assignment.restype = ctypes.c_int
+                lib = cuda_build.load_library(self.source, self.defines)
+                ptr, i32 = ctypes.c_void_p, ctypes.c_int
+                for fn in (lib.aicam_assignment, lib.aicam_assignment_v1):
+                    fn.argtypes = ([ptr, i32, i32] + [ptr] * 3
+                                   + [ctypes.c_float, i32] + [ptr] * 3)
+                    fn.restype = i32
+                if self.probe:
+                    lib.aicam_assignment_probe.argtypes = [ptr, i32]
+                    lib.aicam_assignment_probe.restype = i32
                 self._lib = lib
             return self._lib
 
-    def _launch(self, cost, row_mask, levels, col_mask, max_distance,
+    def read_probe(self, reset: bool = True) -> dict:
+        """The probe's sums since the last reset (``PROBE_SLOTS``: cycles of
+        thread 0 by phase, launches, solves, rows augmented, augmenting
+        steps, cycles of whole launches); synchronous. ``reset`` zeroes
+        them."""
+        if not self.probe:
+            raise RuntimeError("read_probe needs AssignmentKernel(probe=True)")
+        lib = self.load()
+        buf = (ctypes.c_ulonglong * len(PROBE_SLOTS))()
+        got = lib.aicam_assignment_probe(buf, int(reset))
+        if got != len(PROBE_SLOTS):
+            raise RuntimeError(f"assignment probe read failed ({got})")
+        return dict(zip(PROBE_SLOTS, buf))
+
+    def _launch(self, variant, cost, row_mask, levels, col_mask, max_distance,
                 depth, match, unmatched):
         if cost.device.type != "cuda":
             raise ValueError(f"the assignment kernel needs CUDA tensors (got "
                              f"{cost.device})")
+        if variant not in VARIANTS:
+            raise ValueError(f"variant must be one of {VARIANTS} (got "
+                             f"{variant!r})")
         lib = self._lib or self.load()
         # held until the launch is enqueued
         cost, row_mask, col_mask = (x.contiguous()
                                     for x in (cost, row_mask, col_mask))
+        fn = lib.aicam_assignment_v1 if variant == "v1" else \
+            lib.aicam_assignment
         args = (cost.data_ptr(), cost.shape[0], cost.shape[1],
                 row_mask.data_ptr(),
                 None if levels is None else levels.data_ptr(),
-                col_mask.data_ptr(), float(max_distance),
-                int(depth), match.data_ptr(),
+                col_mask.data_ptr(), float(max_distance), int(depth),
+                match.data_ptr(),
                 None if unmatched is None else unmatched.data_ptr())
         dev = cost.device
         if dev.index == torch.cuda.current_device():
-            err = lib.aicam_assignment(*args, _current_stream(dev))
+            err = fn(*args, _current_stream(dev))
         else:
             with torch.cuda.device(dev):
-                err = lib.aicam_assignment(*args, _current_stream(dev))
+                err = fn(*args, _current_stream(dev))
         if err != 0:
             raise RuntimeError(f"assignment kernel launch failed: CUDA error "
                                f"{err} (cost {tuple(cost.shape)})")
         self.launches += 1
 
     def min_cost_matching(self, cost: torch.Tensor, row_mask: torch.Tensor,
-                          col_mask: torch.Tensor,
-                          max_distance: float) -> torch.Tensor:
+                          col_mask: torch.Tensor, max_distance: float,
+                          variant: str = "lanes") -> torch.Tensor:
         """``(R,)`` int64: each row's matched column, or -1."""
         check_args(cost, row_mask, col_mask)
         match = torch.empty(cost.shape[0], dtype=torch.int64,
                             device=cost.device)
-        self._launch(cost, row_mask, None, col_mask, max_distance, 0, match,
-                     None)
+        self._launch(variant, cost, row_mask, None, col_mask, max_distance,
+                     0, match, None)
         return match
 
     def matching_cascade(self, cost: torch.Tensor, track_level: torch.Tensor,
                          track_eligible: torch.Tensor,
                          det_valid: torch.Tensor, max_distance: float,
-                         cascade_depth: int):
+                         cascade_depth: int, variant: str = "lanes"):
         """``(match (T,) int64 or -1, det_unmatched (N,) bool)``: the whole
         cascade in one launch."""
         check_args(cost, track_eligible, det_valid)
@@ -131,14 +171,22 @@ class AssignmentKernel:
         if tuple(track_level.shape) != (t,):
             raise ValueError(f"track_level must be ({t},) (got "
                              f"{tuple(track_level.shape)})")
-        # any level outside [1, depth] is no level: clamping keeps that and
-        # fits every level in int32
-        levels = torch.clamp(track_level, 0, cascade_depth + 1).to(
-            torch.int32).contiguous()
+        if track_level.dtype != torch.int32:
+            raise TypeError(f"track_level must be int32, as the tracker's "
+                            f"time_since_update is (got {track_level.dtype})")
+        if track_level.device != cost.device:
+            raise ValueError(f"track_level is on {track_level.device}, cost "
+                             f"on {cost.device}")
+        if variant == "v1":
+            # any level outside [1, depth] is no level: clamping keeps that
+            # and is what the first design's kernel expects
+            levels = torch.clamp(track_level, 0, cascade_depth + 1)
+        else:
+            levels = track_level.contiguous()   # the kernel clamps them
         match = torch.empty(t, dtype=torch.int64, device=cost.device)
         unmatched = torch.empty(nd, dtype=torch.bool, device=cost.device)
-        self._launch(cost, track_eligible, levels, det_valid, max_distance,
-                     cascade_depth, match, unmatched)
+        self._launch(variant, cost, track_eligible, levels, det_valid,
+                     max_distance, cascade_depth, match, unmatched)
         return match, unmatched
 
 

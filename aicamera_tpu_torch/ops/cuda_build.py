@@ -45,10 +45,12 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
-def build(source: Path):
+def build(source: Path, defines=()):
     """Build ``source`` unless it is built already; returns ``(library
-    path, compiler output)`` (empty output when the library was reused)."""
-    return compile_library(source, nvcc_path, NVCC_FLAGS)
+    path, compiler output)`` (empty output when the library was reused).
+    ``defines``: extra ``-D`` macros, each a build of its own."""
+    return compile_library(source, nvcc_path,
+                           NVCC_FLAGS + tuple(f"-D{d}" for d in defines))
 
 
 def compile_library(source: Path, compiler, flags):
@@ -73,7 +75,7 @@ def compile_library(source: Path, compiler, flags):
     return lib, proc.stdout
 
 
-def load_library(source: Path) -> ctypes.CDLL:
+def load_library(source: Path, defines=()) -> ctypes.CDLL:
     """Build (if needed) and load one source's shared library."""
-    lib, _ = build(source)
+    lib, _ = build(source, defines)
     return ctypes.CDLL(str(lib))

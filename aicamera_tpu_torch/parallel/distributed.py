@@ -37,6 +37,7 @@ import torch.distributed as dist
 from ..device import resolve_device
 
 _RANK_DEVICE: torch.device | None = None  # this process's rank device
+_START_S = 120.0  # seconds for a spawned world's ranks to enter their function
 
 
 class CollectiveCounter:
@@ -171,7 +172,8 @@ def init_world(device=None, backend: str | None = None,
 def _rank_main(fn, rank, n_ranks, device, backend, init_method, args,
                out_dir, timeout):
     """A spawned rank: join the world, run ``fn``, leave its result (or its
-    traceback) in ``out_dir``."""
+    traceback) in ``out_dir``; ``rank{r}.began`` marks that it joined the
+    world and entered ``fn``."""
     global _RANK_DEVICE
     try:
         dev, backend = _rank_setup(rank, n_ranks, device, backend)
@@ -179,11 +181,16 @@ def _rank_main(fn, rank, n_ranks, device, backend, init_method, args,
                                 world_size=n_ranks,
                                 timeout=datetime.timedelta(seconds=timeout))
         _RANK_DEVICE = dev
+        open(os.path.join(out_dir, f"rank{rank}.began"), "w").close()
         try:
             result = fn(rank, dev, *args)
+            # the result before leaving the group: a rank that has it is
+            # done, however long the group takes to close
+            tmp = os.path.join(out_dir, f"rank{rank}.tmp")
+            torch.save(result, tmp)
+            os.replace(tmp, os.path.join(out_dir, f"rank{rank}.pt"))
         finally:
             dist.destroy_process_group()
-        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     except Exception:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
@@ -208,10 +215,16 @@ def spawn(fn, world_size: int, *, device=None, backend: str | None = None,
 
     The rendezvous is a file in a fresh temporary directory, so concurrent
     worlds never share a port. A rank that raises makes the launch raise
-    (with its traceback) after the others are stopped; so does a world that
-    has not finished within ``timeout`` seconds (the rendezvous and every
-    collective time out there too)."""
+    (with its traceback) after the others are stopped. Two clocks bound a
+    world, each raising ``TimeoutError`` naming the ranks it waits for:
+    ``_START_S`` seconds for every rank to start its interpreter, join
+    the world and enter ``fn``, then ``timeout`` seconds for every rank to
+    return from ``fn`` (a rank that has returned is done, even while its
+    process still closes the group). The startup of a process (importing
+    torch and ``fn``'s module) thus never counts against ``fn``'s time; the
+    rendezvous and every collective time out after both."""
     resolve_device(device)  # no GPU and no device="cpu": raise here
+    start_s = _START_S
     n = int(world_size)
     if n < 1:
         raise ValueError(f"world_size must be >= 1 (got {world_size})")
@@ -220,13 +233,23 @@ def spawn(fn, world_size: int, *, device=None, backend: str | None = None,
     init_method = "file://" + os.path.join(out_dir, "rendezvous")
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, r, n, device, backend, init_method, args,
-                               out_dir, timeout))
+                               out_dir, start_s + timeout))
              for r in range(n)]
+
+    def marked(r, what):
+        return os.path.exists(os.path.join(out_dir, f"rank{r}.{what}"))
+
+    def waiting():
+        """Ranks neither returned from ``fn`` nor exited."""
+        return [r for r, p in enumerate(procs)
+                if p.exitcode is None and not marked(r, "pt")]
+
     try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout
-        while any(p.exitcode is None for p in procs):
+        start_deadline = time.monotonic() + start_s
+        deadline = None   # set once every rank has entered fn
+        while waiting():
             if any(p.exitcode not in (None, 0) for p in procs):
                 # the others fail soon after (their peer is gone): give
                 # them a moment, so that every traceback is reported
@@ -235,12 +258,21 @@ def spawn(fn, world_size: int, *, device=None, backend: str | None = None,
                         any(p.exitcode is None for p in procs):
                     time.sleep(0.05)
                 break
-            if time.monotonic() > deadline:
-                late = [r for r, p in enumerate(procs) if p.exitcode is None]
-                raise TimeoutError(f"ranks {late} of {n} did not finish "
-                                   f"within {timeout:.0f} s")
+            now = time.monotonic()
+            if deadline is None:
+                starting = [r for r in waiting() if not marked(r, "began")]
+                if not starting:
+                    deadline = now + timeout
+                elif now > start_deadline:
+                    raise TimeoutError(
+                        f"ranks {starting} of {n} did not start within "
+                        f"{start_s:g} s")
+            elif now > deadline:
+                raise TimeoutError(f"ranks {waiting()} of {n} did not "
+                                   f"finish within {timeout:.0f} s")
             time.sleep(0.05)
-        failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+        failed = [r for r, p in enumerate(procs)
+                  if p.exitcode != 0 and not marked(r, "pt")]
         if failed:
             raise RuntimeError(
                 f"ranks {failed} of {n} failed:\n" + "\n".join(

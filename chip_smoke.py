@@ -20,14 +20,26 @@ this file; exits non-zero otherwise. In order it:
    call), next to the earlier design (``earlier_ms``, the scalar variant's
    ``device_ms``), the plain version, the nearest single PyTorch call, and
    the byte/operation bound;
-   ``[assignment]``: the assignment kernel (``csrc/assignment.cu``), called
-   through the public ``min_cost_matching`` and ``matching_cascade`` on
-   card tensors, bitwise against their plain versions on the same tensors
-   on 55 seeded problems (``assignment_cases``: DeepSORT loads at 128 and
-   32 track slots, ties with -0.0, nothing feasible, one row, R < C, R > C,
-   n = 256 staged and in device memory, cascades over 1, 2, 5 and 70
-   levels, the OC-SORT and ByteTrack costs); then its device ms a solve
-   (graph replay) at the main path's 128x64, per call, the plain version's,
+   ``[assignment]``: the assignment kernel (``csrc/assignment.cu``), its
+   default design called through the public ``min_cost_matching`` and
+   ``matching_cascade`` on card tensors and its first design
+   (``variant="v1"``) through the wrapper, both bitwise against the plain
+   versions on the same tensors on 78 problems (``assignment_cases``:
+   DeepSORT loads at 128 and 32 track slots, ties with -0.0, nothing
+   feasible, one row, R < C, R > C, n = 256 staged and in device memory,
+   cascades over 1, 2, 5 and 70 levels, the OC-SORT and ByteTrack costs,
+   no eligible row, one row on each of 70 levels, rows that end on clamp
+   columns, and 16 of the problems the main path solves, recorded by
+   ``scripts/record_assignment_problems.py``), and on every timed problem
+   below (the 8 seeded sets of each kind and all 128 recorded ones, the
+   probe's outputs too); then the phase probe (a
+   second build with ``-DAICAM_ASG_PROBE``: thread 0's cycles by phase,
+   solves, rows augmented and augmenting steps a launch) of both designs
+   on 8 seeded problems, the 128 recorded ones and a 70-level cascade; both
+   designs timed in turns (v1, default, default, v1; graph replays, with
+   their spread) on the seeded and the recorded problems; then the default
+   design's device ms a solve (graph replay) at the main path's 128x64,
+   per call, the plain version's,
    ``scipy.optimize.linear_sum_assignment``'s on the host with the copy,
    and its bound: the larger of the bytes it must move (the R x C cost and
    the masks read once, the outputs written once) and an empty kernel's
@@ -189,9 +201,10 @@ this file; exits non-zero otherwise. In order it:
 
 The last two lines of output are the kernels' JSON record (letterbox and
 assignment, each with its launches by path) and the device JSON record.
-``--kernels-only`` stops after step 3; ``--only`` runs the
-kernel phase and the named phases (``int8`` brings ``quality`` along,
-``present`` brings ``cli``; ``--only parallel`` runs step 17 alone).
+``--kernels-only`` stops after step 3, as does ``--only assignment``;
+``--only`` runs the kernel phases and the named phases (``int8`` brings
+``quality`` along, ``present`` brings ``cli``; ``--only parallel`` runs
+step 17 alone).
 """
 
 from __future__ import annotations
@@ -367,6 +380,11 @@ def time_host_ms(fn, bursts=20, burst=16, warmup=10):
 
 
 def time_device_ms(launch, n_sets, rounds=8, replays=5):
+    """:func:`time_device_stats`' median."""
+    return time_device_stats(launch, n_sets, rounds, replays)[0]
+
+
+def time_device_stats(launch, n_sets, rounds=8, replays=5):
     """A kernel's time on the device without its host side: ``rounds *
     n_sets`` launches captured into one CUDA graph, CUDA events around a
     replay, the median of ``replays`` replays over the launch count. It
@@ -376,7 +394,8 @@ def time_device_ms(launch, n_sets, rounds=8, replays=5):
     timed, the caller sizes the sets so that together they exceed the L2
     cache, so every launch finds its inputs in device memory; a
     latency-bound kernel whose inputs its path leaves in the L2 (the
-    assignment solves) is timed over a few L2-resident sets."""
+    assignment solves) is timed over a few L2-resident sets. Returns the
+    median, the least and the most of the replays, in ms a launch."""
     import torch
 
     for i in range(n_sets):
@@ -398,7 +417,8 @@ def time_device_ms(launch, n_sets, rounds=8, replays=5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return sorted(times)[replays // 2] / (rounds * n_sets)
+    times = sorted(t / (rounds * n_sets) for t in times)
+    return times[replays // 2], times[0], times[-1]
 
 
 L2_BYTES = 50e6  # H100: 50 MB
@@ -462,11 +482,13 @@ def build_kernels(kernels):
     t0 = time.perf_counter()
     host = sorted(host_build.NATIVE_DIR.glob("*.cpp"))
     with ThreadPoolExecutor(len(kernels) + len(host)) as pool:
-        cuda = [pool.submit(cuda_build.build, k.source) for k in kernels]
+        cuda = [pool.submit(cuda_build.build, k.source,
+                            getattr(k, "defines", ())) for k in kernels]
         cxx = [pool.submit(host_build.build, src) for src in host]
         for k, fut in zip(kernels, cuda):
             lib, log = fut.result()
-            print(f"[build] {k.name}: {lib.name}")
+            probe = " (probe)" if getattr(k, "probe", False) else ""
+            print(f"[build] {k.name}{probe}: {lib.name}")
             for ln in log.splitlines():
                 if "ptxas" in ln:
                     print(f"[build]   {ln.strip()}")
@@ -675,6 +697,28 @@ ASG_T, ASG_N = 128, 64
 ASG_TIMED_SETS = 8     # distinct problems the timed launches rotate over
 # (L2-resident, 32 KB a problem: on the main path the solve reads a cost
 # that the kernel before it has just written)
+# the problems the main path solves, recorded over its 64 frames by
+# scripts/record_assignment_problems.py
+ASG_RECORDED = ROOT / "tests" / "data" / "assignment_main_path.npz"
+ASG_RECORDED_CASES = 16  # of them, in assignment_cases(): 8 frames' worth
+
+
+def main_path_problems(limit=None):
+    """The recorded main-path problems, ``[(family, kind, args)]`` as in
+    :func:`assignment_cases`, in the order the tracker solved them."""
+    import numpy as np
+    with np.load(ASG_RECORDED) as z:
+        kinds = [str(k) for k in z["kind"]]
+        out = []
+        for q, kind in enumerate(kinds[:limit]):
+            cost, rows, cols = (z[f"p{q:03d}_{f}"]
+                                for f in ("cost", "rows", "cols"))
+            max_d = float(z["max_d"][q])
+            args = ((cost, z[f"p{q:03d}_level"], rows, cols, max_d,
+                     int(z["depth"][q])) if kind == "cascade"
+                    else (cost, rows, cols, max_d))
+            out.append(("main path", kind, args))
+    return out
 
 
 def assignment_cases():
@@ -777,7 +821,34 @@ def assignment_cases():
         rows, cols = rows_of(ASG_T, 30), cols_of(ASG_N, 25)
         cases.append(("ByteTrack", "match", (iou_cost(ASG_T, ASG_N, rows),
                                              rows, cols, thresh)))
-    return cases
+    # no eligible row: the IoU solve at a steady load, and a cascade
+    none, cols = np.zeros(ASG_T, bool), cols_of(ASG_N, 24)
+    cases.append(("no eligible row", "match", (iou_cost(
+        ASG_T, ASG_N, none), none, cols, ASG_MAX_IOU)))
+    cases.append(("no eligible row", "cascade", (appearance(
+        ASG_T, ASG_N, none), levels_of(ASG_T, none, 3), none, cols,
+        ASG_MAX_COS, ASG_DEPTH)))
+    # a cascade with one row on each of 70 levels
+    rows = rows_of(ASG_T, ASG_DEPTH)
+    lv = np.zeros(ASG_T, np.int32)
+    lv[rows] = rng.permutation(ASG_DEPTH) + 1
+    cases.append(("70 levels, one row each", "cascade", (
+        rng.uniform(0, 0.3, (ASG_T, ASG_N)).astype(np.float32), lv, rows,
+        cols_of(ASG_N, 60), ASG_MAX_COS, ASG_DEPTH)))
+    # rows that end on clamp columns: 24 live rows feasible on 3 columns
+    # (21 end on infeasible columns below C), and 60 rows against 12
+    # detections (48 end on padding columns beyond C)
+    for live, ndet, feas in ((24, ASG_N, 3), (60, 12, 12)):
+        rows = rows_of(ASG_T, live)
+        c = np.full((ASG_T, ASG_N), 1.0, np.float32)
+        on = rng.choice(ndet, feas, replace=False)
+        c[np.ix_(rows, on)] = rng.uniform(0, 0.5, (live, feas))
+        cases.append(("rows on clamp columns", "match", (
+            c, rows, cols_of(ASG_N, ndet), ASG_MAX_IOU)))
+        cases.append(("rows on clamp columns", "cascade", (
+            c, levels_of(ASG_T, rows, 2), rows, cols_of(ASG_N, ndet),
+            ASG_MAX_IOU, ASG_DEPTH)))
+    return cases + main_path_problems(ASG_RECORDED_CASES)
 
 
 def scipy_solve(cost, rows, cols, max_d):
@@ -807,47 +878,24 @@ def scipy_cascade(cost, level, elig, valid, max_d, depth):
     return unmatched
 
 
-def assignment_phase(device):
-    """The assignment kernel against its plain version on the card, bitwise,
-    on :func:`assignment_cases`; then its times at the main path's shapes."""
+def sm_clock_mhz():
+    """The card's SM clock and its maximum, in MHz (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    cur, top = out.stdout.strip().splitlines()[0].split(",")
+    return float(cur), float(top)
+
+
+def seeded_timed_problems(on_card):
+    """The timed problems, ``{"cascade": [args], "match": [args]}`` through
+    ``on_card``: a DeepSORT frame's cascade and IoU solve at a load of 24
+    tracks and 24 detections, ``ASG_TIMED_SETS`` of each, seeded."""
     import numpy as np
-    import torch
-    from aicamera_tpu_torch.core import assignment as asg
-    from aicamera_tpu_torch.ops.assignment import KERNEL
-
-    def on_card(args):
-        return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                if isinstance(a, np.ndarray) else a for a in args]
-
-    public = {"match": asg.min_cost_matching,
-              "cascade": asg.matching_cascade}
-    plain = {"match": asg.min_cost_matching_plain,
-             "cascade": asg.matching_cascade_plain}
-    by_family, max_err = {}, 0.0
-    for fam, kind, args in assignment_cases():
-        a = on_card(args)
-        before = KERNEL.launches
-        got = public[kind](*a)
-        check(KERNEL.launches == before + 1,
-              f"[assignment] {fam} {kind}: the kernel did not launch once")
-        want = plain[kind](*a)
-        torch.cuda.synchronize()
-        got, want = (got, want) if kind == "cascade" else ((got,), (want,))
-        for g, w in zip(got, want):
-            check(g.dtype == w.dtype and torch.equal(g, w),
-                  f"[assignment] {fam} {kind} {tuple(args[0].shape)}: "
-                  f"kernel {g.tolist()} != plain {w.tolist()}")
-            max_err = max(max_err, float(torch.max(torch.abs(
-                g.double() - w.double()))))
-        by_family[fam] = by_family.get(fam, 0) + 1
-    print(f"[assignment] kernel bitwise equal to the plain version on "
-          f"{sum(by_family.values())} problems (max |diff| {max_err}): "
-          + ", ".join(f"{f} {n}" for f, n in by_family.items()))
-
-    # times at the main path's shapes: a DeepSORT frame's cascade and IoU
-    # solve at a load of 24 tracks and 24 detections
     rng = np.random.RandomState(SEED + 1)
-    card = []
+    card = {"cascade": [], "match": []}
     for _ in range(ASG_TIMED_SETS):
         rows = np.zeros(ASG_T, bool)
         rows[rng.choice(ASG_T, 24, replace=False)] = True
@@ -859,10 +907,179 @@ def assignment_phase(device):
         iou = np.ones((ASG_T, ASG_N), np.float32)
         near = rng.rand(ASG_T, ASG_N) < 0.08
         iou[near] = rng.uniform(0, 1, near.sum())
-        card.append({
-            "cascade": on_card((app, lv, rows, cols, ASG_MAX_COS,
-                                ASG_DEPTH)),
-            "match": on_card((iou, rows, cols, ASG_MAX_IOU))})
+        card["cascade"].append(on_card((app, lv, rows, cols, ASG_MAX_COS,
+                                        ASG_DEPTH)))
+        card["match"].append(on_card((iou, rows, cols, ASG_MAX_IOU)))
+    return card
+
+
+# the probe's phases, as csrc/assignment.cu's ProbeSlot orders them
+ASG_PHASES = ("load", "stage", "feasibility", "levels", "init", "argmin",
+              "augment", "accept", "output")
+
+
+def assignment_phase(device):
+    """Both designs of the assignment kernel against the plain version on
+    the card, bitwise, on :func:`assignment_cases` and on every timed
+    problem (the seeded sets and all the recorded main-path ones); the phase
+    probe of both on the seeded, the recorded main-path and a 70-level
+    problem, its outputs held the same way; both timed in turns; then the
+    default design's times at the main path's shapes."""
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch.core import assignment as asg
+    from aicamera_tpu_torch.ops.assignment import (KERNEL, VARIANTS,
+                                                   AssignmentKernel)
+
+    def on_card(args):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                if isinstance(a, np.ndarray) else a for a in args]
+
+    public = {"match": asg.min_cost_matching,
+              "cascade": asg.matching_cascade}
+    plain = {"match": asg.min_cost_matching_plain,
+             "cascade": asg.matching_cascade_plain}
+
+    def run(kind, a, variant, kernel=KERNEL):
+        """The default design through the public function; another design,
+        or the probe's build, through the kernel's wrapper."""
+        if variant == VARIANTS[0] and kernel is KERNEL:
+            return public[kind](*a)
+        fn = (kernel.matching_cascade if kind == "cascade"
+              else kernel.min_cost_matching)
+        return fn(*a, variant=variant)
+
+    max_err = 0.0
+
+    def launch(fam, kind, a, variant, kernel=KERNEL):
+        before = kernel.launches
+        got = run(kind, a, variant, kernel)
+        check(kernel.launches == before + 1,
+              f"[assignment] {fam} {kind} {variant}: the kernel did not "
+              f"launch once")
+        return got if kind == "cascade" else (got,)
+
+    def same(fam, kind, a, variant, got, want):
+        """``got`` bitwise ``want`` (after a synchronize)."""
+        nonlocal max_err
+        for g, w in zip(got, want):
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"[assignment] {variant} {fam} {kind} "
+                  f"{tuple(a[0].shape)}: kernel {g.tolist()} != "
+                  f"plain {w.tolist()}")
+            max_err = max(max_err, float(torch.max(torch.abs(
+                g.double() - w.double()))))
+
+    def hold(fam, kind, a, variant, want):
+        got = launch(fam, kind, a, variant)
+        torch.cuda.synchronize()
+        same(fam, kind, a, variant, got, want)
+
+    def plain_of(kind, a):
+        want = plain[kind](*a)
+        return want if kind == "cascade" else (want,)
+
+    by_family = {}
+    cases = assignment_cases()
+    for fam, kind, args in cases:
+        a = on_card(args)
+        want = plain_of(kind, a)
+        for variant in VARIANTS:
+            hold(fam, kind, a, variant, want)
+        by_family[fam] = by_family.get(fam, 0) + 1
+
+    # the timed problems: seeded, and the main path's own (all of them:
+    # assignment_cases() holds the first ASG_RECORDED_CASES)
+    card = seeded_timed_problems(on_card)
+    recorded = {"cascade": [], "match": []}
+    for _, kind, args in main_path_problems():
+        recorded[kind].append(on_card(args))
+    levels70 = {"cascade": [on_card(next(
+        args for fam, _, args in cases if fam == "70 levels"))]}
+    sets = (("seeded", card), ("main path", recorded),
+            ("70 levels", levels70))
+    wants = {}   # (set, kind, i) -> the plain version's outputs
+    for set_name, problems in sets:
+        for kind, probs in problems.items():
+            for i, a in enumerate(probs):
+                wants[set_name, kind, i] = want = plain_of(kind, a)
+                if set_name == "70 levels":
+                    continue   # one of the cases above
+                for variant in VARIANTS:
+                    hold(set_name, kind, a, variant, want)
+            if set_name != "70 levels":
+                fam = f"timed {set_name} {kind}"
+                by_family[fam] = len(probs)
+    print(f"[assignment] both designs ({', '.join(VARIANTS)}) bitwise equal "
+          f"to the plain version on {sum(by_family.values())} problems (max "
+          f"|diff| {max_err}): "
+          + ", ".join(f"{f} {n}" for f, n in by_family.items()))
+
+    # the phase probe: thread 0's cycles by phase, a launch on average
+    probe = AssignmentKernel(probe=True)
+    sm_mhz = sm_clock_mhz()
+    probes = []
+    for set_name, problems in sets:
+        for kind, probs in problems.items():
+            for variant in VARIANTS:
+                probe.read_probe(reset=True)
+                outs = [launch("probe", kind, a, variant, probe)
+                        for a in probs]   # back to back, as timed
+                torch.cuda.synchronize()
+                got = probe.read_probe(reset=True)
+                for i, (a, out) in enumerate(zip(probs, outs)):
+                    same(f"probe {set_name}", kind, a, variant, out,
+                         wants[set_name, kind, i])
+                n = got["launches"]
+                check(n == len(probs), f"[assignment] probe counted {n} "
+                      f"launches of {len(probs)}")
+                row = {"set": set_name, "kind": kind, "variant": variant,
+                       "launches": n,
+                       **{k: got[k] / n for k in ("total", *ASG_PHASES,
+                                                   "solves",
+                                                   "rows_augmented",
+                                                   "steps")}}
+                row["augment_cycles_a_step"] = (
+                    got["augment"] / got["steps"] if got["steps"] else None)
+                row["ns_a_step_at_max_clock"] = (
+                    row["augment_cycles_a_step"] / sm_mhz[1] * 1e3
+                    if got["steps"] else None)
+                probes.append(row)
+                step = ("" if not got["steps"] else
+                        f"; augment {row['augment_cycles_a_step']:.1f} "
+                        f"cycles a step ({row['ns_a_step_at_max_clock']:.1f}"
+                        f" ns at {sm_mhz[1]:.0f} MHz)")
+                print(f"[assignment] probe {variant} {set_name} {kind}: {n} "
+                      f"launches; thread 0's cycles a launch {row['total']:.0f}"
+                      f" (" + ", ".join(f"{k} {row[k]:.0f}"
+                                        for k in ASG_PHASES)
+                      + f"); a launch {row['solves']:.2f} solves, "
+                        f"{row['rows_augmented']:.2f} rows augmented, "
+                        f"{row['steps']:.2f} steps" + step)
+    print(f"[assignment] probe: SM clock {sm_mhz[0]:.0f} MHz after the "
+          f"probe, {sm_mhz[1]:.0f} MHz at most")
+
+    # both designs in turns (v1, lanes, lanes, v1), graph replays
+    turns = []
+    for set_name, problems in sets[:2]:
+        for kind, probs in problems.items():
+            got = {}
+            for variant in (VARIANTS[1], VARIANTS[0], VARIANTS[0],
+                            VARIANTS[1]):
+                got.setdefault(variant, []).append(time_device_stats(
+                    lambda i: run(kind, probs[i], variant), len(probs)))
+            row = {"set": set_name, "kind": kind, "problems": len(probs),
+                   **{f"{v}_ms": [t[0] for t in got[v]] for v in VARIANTS},
+                   **{f"{v}_spread_ms": [min(t[1] for t in got[v]),
+                                         max(t[2] for t in got[v])]
+                      for v in VARIANTS}}
+            turns.append(row)
+            print(f"[assignment] in turns, {set_name} {kind} "
+                  f"({len(probs)} problems, graph replay): " + "; ".join(
+                      f"{v} {' '.join(f'{t:.5f}' for t in row[v + '_ms'])} "
+                      f"ms a launch (replays {row[v + '_spread_ms'][0]:.5f}-"
+                      f"{row[v + '_spread_ms'][1]:.5f})" for v in VARIANTS))
+
     # the launch floor: an empty kernel (PyTorch's spin kernel for 0
     # cycles) replayed from a graph
     launch_floor = time_device_ms(lambda i: torch.cuda._sleep(0), 1,
@@ -870,16 +1087,18 @@ def assignment_phase(device):
     rows_out = []
     for kind in ("cascade", "match"):
         fn = public[kind]
-        device_ms = time_device_ms(lambda i: fn(*card[i][kind]),
+        device_ms = time_device_ms(lambda i: fn(*card[kind][i]),
                                    ASG_TIMED_SETS)
-        ms = sorted(time_ms(lambda: fn(*card[0][kind]))
+        earlier_ms = time_device_ms(
+            lambda i: run(kind, card[kind][i], VARIANTS[1]), ASG_TIMED_SETS)
+        ms = sorted(time_ms(lambda: fn(*card[kind][0]))
                     for _ in range(3))[1]
-        plain_ms = time_ms(lambda: plain[kind](*card[0][kind]), iters=5,
+        plain_ms = time_ms(lambda: plain[kind](*card[kind][0]), iters=5,
                            warmup=1)
 
         def library():
             host = [a.cpu().numpy() if torch.is_tensor(a) else a
-                    for a in card[0][kind]]  # the copy a host solver needs
+                    for a in card[kind][0]]  # the copy a host solver needs
             return (scipy_cascade(*host) if kind == "cascade"
                     else scipy_solve(*host))
 
@@ -888,7 +1107,7 @@ def assignment_phase(device):
         # the least work: each input read once (the R x C cost and the
         # masks), each output written once, one comparison a cost entry;
         # and no launch takes less than an empty kernel's replay
-        args = card[0][kind]
+        args = card[kind][0]
         out = fn(*args)
         out = out if kind == "cascade" else (out,)
         n_bytes = sum(t.numel() * t.element_size()
@@ -897,7 +1116,8 @@ def assignment_phase(device):
         t_ops = args[0].numel() / PEAK_F32_FLOPS * 1e3
         bound = max(t_bytes, t_ops, launch_floor)
         r = {"shape": f"{ASG_T}x{ASG_N} f32 {kind}, 24 tracks x 24 "
-                      f"detections", "device_ms": device_ms, "ms": ms,
+                      f"detections", "device_ms": device_ms,
+             "earlier_ms": earlier_ms, "ms": ms,
              "plain_ms": plain_ms, "library_ms": library_ms,
              "bound_ms": bound,
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -907,10 +1127,11 @@ def assignment_phase(device):
              "launch_floor_ms": launch_floor}
         rows_out.append(r)
         print(f"[assignment] {r['shape']}: device {device_ms:.4f} ms a solve "
-              f"(graph replay, L2-resident), per call {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, scipy {library_ms:.4f} ms (host, with the "
-              f"copy), bound {bound:.6f} ms (the larger of {n_bytes} bytes "
-              f"once, {t_bytes:.6f} ms, and an empty kernel's replay, "
+              f"(graph replay, L2-resident; v1 {earlier_ms:.4f}), per call "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scipy "
+              f"{library_ms:.4f} ms (host, with the copy), bound "
+              f"{bound:.6f} ms (the larger of {n_bytes} bytes once, "
+              f"{t_bytes:.6f} ms, and an empty kernel's replay, "
               f"{launch_floor:.6f} ms: {r['bound_term']}); "
               f"{100 * bound / device_ms:.1f}% of the bound")
     KERNEL.launches = 0  # comparison and timing launches do not count
@@ -919,12 +1140,14 @@ def assignment_phase(device):
             "source": "aicamera_tpu_torch/csrc/assignment.cu",
             "replaces": KERNEL.replaces, "launches": None,
             "max_abs_err": max_err, "ms": main["ms"],
-            "device_ms": main["device_ms"], "plain_ms": main["plain_ms"],
+            "device_ms": main["device_ms"],
+            "earlier_ms": main["earlier_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "bound_term": main["bound_term"],
             "library_ms": main["library_ms"],
             "launch_floor_ms": launch_floor,
-            "problems_checked": sum(by_family.values()), "shapes": rows_out}
+            "problems_checked": sum(by_family.values()), "shapes": rows_out,
+            "turns": turns, "probe": probes}
 
 
 def make_pipeline(device, synthetic_load=24, **kw):
@@ -3617,17 +3840,22 @@ def main() -> int:
                     help="stop after the kernel phase (build, compare, time)")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the kernel "
-                         "phase (main, bucket, trackers, gmc, facades, "
+                         "phases (assignment: those alone; main, bucket, "
+                         "trackers, gmc, facades, "
                          "engine, cli, present, compare, streams, serving, "
                          "server, quality, int8, mot, train, parallel); "
                          "default all")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     from aicamera_tpu_torch.ops.assignment import KERNEL as ASSIGNMENT
+    from aicamera_tpu_torch.ops.assignment import AssignmentKernel
     from aicamera_tpu_torch.ops.letterbox import KERNEL as LETTERBOX
     from aicamera_tpu_torch.scenes import moving_rectangles
 
     kernels = [LETTERBOX, ASSIGNMENT]
+    # the assignment kernel's phase probe: its own build, loaded by the
+    # [assignment] phase only
+    probe_build = AssignmentKernel(probe=True)
     t_start = time.perf_counter()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -3635,7 +3863,7 @@ def main() -> int:
         print(f"[gpu] {ident}")
         print(f"[gpu] torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"python {sys.version.split()[0]}")
-        build_s = build_kernels(kernels)
+        build_s = build_kernels(kernels + [probe_build])
         print(f"[build] {len(kernels)} kernel(s) built in {build_s:.2f} s")
         device = torch.device("cuda")
         phase_s = {}
@@ -3648,7 +3876,7 @@ def main() -> int:
 
         records = [timed("kernel", kernel_phase, device),
                    timed("assignment", assignment_phase, device)]
-        if args.kernels_only:
+        if args.kernels_only or args.only == "assignment":
             print(json.dumps({"kernels": records}))
             return 0
         frames = moving_rectangles(N_CHUNKS * CHUNK, FRAME_HW, n_objects=6,

@@ -81,6 +81,210 @@ def test_plain_matches_jax_on_the_kernel_problems(family):
                 np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+# --- the live-column argument the kernel's search rests on -------------------
+#
+# The kernel solves only the live part of the padded square: the rows with a
+# feasible entry, and the feasible columns plus the first k clamp columns (k:
+# the live rows), in ascending original index. A clamp column (padding, or a
+# column with no feasible entry) holds the clamp in every live row; until a
+# search first takes it as its sink it has v = 0 and the same spc as every
+# other untouched one, so the lowest-indexed untouched clamp column wins
+# every tie among them, and at most k are ever touched. The mirror below is
+# that compacted solve in plain torch (test-only); it must reproduce
+# solve_square's matches, u and v on the live entries, and v = 0 elsewhere.
+
+
+def _live_solve(cost, row_mask, col_mask, max_distance):
+    """The compacted solve: ``(col4row (R,) over original columns, u (R,),
+    v (n,))``, each from the live (k, m) problem, NaN where not live."""
+    r, c = cost.shape
+    n = max(r, c)
+    max_d = torch.tensor(max_distance, dtype=torch.float32)
+    clamp = max_d + 1e-5
+    feasible = row_mask[:, None] & col_mask[None, :] & (cost <= max_d)
+    row_ok = row_mask & feasible.any(1)
+    col_ok = col_mask & feasible.any(0)
+    rows = torch.nonzero(row_ok)[:, 0]
+    k = len(rows)
+    is_clamp = torch.ones(n, dtype=torch.bool)
+    is_clamp[:c] = ~col_ok
+    clamp_cols = torch.nonzero(is_clamp)[:k, 0]
+    cols = torch.sort(torch.cat([torch.nonzero(~is_clamp)[:, 0],
+                                 clamp_cols])).values
+    m = len(cols)
+    live = clamp.expand(k, m).clone()
+    feas_cols = ~is_clamp[cols]
+    sub = cost[rows][:, cols[feas_cols]]
+    live[:, feas_cols] = torch.where(sub <= max_d, sub, clamp)
+
+    # the pre-assignment and the augmenting searches on (k, m), in f32 and
+    # in solve_square's order of operations
+    jmin = torch.argmin(live, dim=1) if k else torch.zeros(0, dtype=torch.long)
+    rowmin = torch.gather(live, 1, jmin[:, None])[:, 0]
+    winner = torch.full((m,), k, dtype=torch.int64)
+    winner.scatter_reduce_(0, jmin, torch.arange(k), reduce="amin",
+                           include_self=True)
+    assigned = winner[jmin] == torch.arange(k)
+    col4row = torch.where(assigned, jmin, -1)
+    row4col = torch.full((m,), -1, dtype=torch.int64)
+    row4col[jmin[assigned]] = torch.nonzero(assigned)[:, 0]
+    u = torch.where(assigned, rowmin, torch.zeros_like(rowmin))
+    v = torch.zeros(m, dtype=torch.float32)
+    for i in torch.nonzero(~assigned)[:, 0].tolist():
+        sr = torch.zeros(k, dtype=torch.bool)
+        sc = torch.zeros(m, dtype=torch.bool)
+        spc = torch.full((m,), float("inf"))
+        path = torch.full((m,), -1, dtype=torch.int64)
+        min_val = torch.zeros(())
+        cur = i
+        while True:
+            sr[cur] = True
+            reduced = min_val + live[cur] - u[cur] - v
+            upd = ~sc & (reduced < spc)
+            spc = torch.where(upd, reduced, spc)
+            path = torch.where(upd, cur, path)
+            masked = torch.where(sc, float("inf"), spc)
+            j = int(torch.argmin(masked))
+            min_val = masked[j]
+            sc[j] = True
+            if row4col[j] < 0:
+                sink = j
+                break
+            cur = int(row4col[j])
+        u = u.clone()
+        u[i] += min_val
+        at = spc[torch.clamp(col4row, 0, m - 1)]
+        u = torch.where(sr & (torch.arange(k) != i), u + min_val - at, u)
+        v = torch.where(sc, v - (min_val - spc), v)
+        j = sink
+        while True:
+            ii = int(path[j])
+            row4col[j] = ii
+            jn = int(col4row[ii])
+            col4row[ii] = j
+            if ii == i:
+                break
+            j = jn
+    out_c = torch.full((r,), -1, dtype=torch.int64)
+    out_c[rows] = torch.where(col4row >= 0, cols[col4row], -1)
+    out_u = torch.full((r,), float("nan"))
+    out_u[rows] = u
+    out_v = torch.zeros(n)
+    out_v[cols] = v
+    return out_c, out_u, out_v
+
+
+def _live_problems():
+    """``[(name, cost, row_mask, col_mask, max_d)]``, seeded: ties with -0.0
+    beside +0.0, NaN rows, rows with nothing feasible, rows forced onto
+    clamp columns, a clamp equal to max_d (so feasible costs tie with it),
+    R < C, R > C and n = 256."""
+    rng = np.random.RandomState(11)
+    out = []
+
+    def mask(size, live):
+        m = np.zeros(size, bool)
+        m[rng.choice(size, live, replace=False)] = True
+        return m
+
+    for t in range(3):
+        r, c = 48, 32
+        cost = (rng.randint(0, 4, (r, c)) * 0.05).astype(np.float32)
+        cost[(cost == 0) & (rng.rand(r, c) < 0.5)] = -0.0
+        cost[rng.rand(r, c) < 0.3] = 1e5
+        out.append((f"ties {t}", cost, mask(r, 30), mask(c, 20), 0.2))
+    cost = rng.uniform(0, 0.5, (40, 40)).astype(np.float32)
+    rows = mask(40, 30)
+    cost[np.nonzero(rows)[0][:5]] = np.nan
+    cost[np.nonzero(rows)[0][5:9]] = 0.9      # eligible, nothing feasible
+    out.append(("NaN and infeasible rows", cost, rows, mask(40, 25), 0.3))
+    # 24 rows whose only feasible columns are 3 of them: 21 rows end on
+    # clamp columns, interleaved with the infeasible columns below c
+    cost = np.full((64, 64), 1.0, np.float32)
+    rows = mask(64, 24)
+    cost[np.ix_(rows, [5, 17, 40])] = rng.uniform(0, 0.5, (24, 3))
+    out.append(("rows forced onto clamp columns", cost, rows,
+                np.ones(64, bool), 0.7))
+    cost = rng.uniform(0, 2, (128, 64)).astype(np.float32)
+    cost[rng.rand(128, 64) < 0.7] = 1e5
+    out.append(("rows forced onto padding", cost, mask(128, 60),
+                mask(64, 12), 1.0))
+    # max_d so large that max_d + 1e-5 rounds to max_d in f32
+    assert np.float32(1e5) + np.float32(1e-5) == np.float32(1e5)
+    cost = rng.choice([1e5, 5e4, 7e4, 1e5 + 8], (32, 32)).astype(np.float32)
+    out.append(("clamp equal to max_d", cost, mask(32, 24), mask(32, 12),
+                1e5))
+    for r, c in ((20, 50), (100, 30), (256, 256), (256, 64), (64, 256)):
+        cost = rng.uniform(0, 1, (r, c)).astype(np.float32)
+        cost[rng.rand(r, c) < 0.5] = 1e5
+        out.append((f"{r}x{c}", cost, mask(r, min(r, 60)),
+                    mask(c, min(c, 60)), 0.5))
+    return out
+
+
+LIVE = _live_problems()
+
+
+@pytest.mark.parametrize("index", range(len(LIVE)),
+                         ids=[p[0] for p in LIVE])
+def test_the_live_columns_reproduce_the_padded_solve(index, monkeypatch):
+    """The compacted solve against ``solve_square`` on the padded square:
+    the same matches, the same u on the live rows, the same v on the live
+    columns and v = 0 on every other column (bitwise, f32)."""
+    name, cost, rows, cols, max_d = LIVE[index]
+    seen = {}
+    solve, augment = tasg.solve_square, tasg._augment_row
+
+    def spy_solve(c, m):
+        seen["col4row"] = solve(c, m)
+        return seen["col4row"]
+
+    def spy_augment(*a):
+        out = augment(*a)
+        seen["uv"] = out[:2]
+        seen["searches"] = seen.get("searches", 0) + 1
+        return out
+
+    monkeypatch.setattr(tasg, "solve_square", spy_solve)
+    monkeypatch.setattr(tasg, "_augment_row", spy_augment)
+    want = tasg.min_cost_matching_plain(T(cost), T(rows), T(cols), max_d)
+    c4r, u, v = _live_solve(T(cost), T(rows), T(cols), max_d)
+    r, c = cost.shape
+    live = ~torch.isnan(u)
+    full = seen["col4row"][:r]
+    assert torch.equal(c4r[live], full[live]), name
+    assert (full[~live] == -1).all(), name
+    if "uv" in seen:   # else no search ran: u is the row minima, v is 0
+        fu, fv = seen["uv"]
+        assert torch.equal(u[live], fu[:r][live]), name
+        assert torch.equal(v, fv), name
+    else:
+        assert (v == 0).all(), name
+    # the accepted matches, as the kernel reports them
+    j = torch.clamp(c4r, 0, c - 1)
+    ok = (c4r >= 0) & (c4r < c) & T(cols)[j] & (
+        T(cost)[torch.arange(r), j] <= max_d)
+    got = torch.where(ok & T(rows), c4r, -1)
+    assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("index", [0, 4, 6, 9], ids=[
+    LIVE[i][0] for i in (0, 4, 6, 9)])
+def test_the_live_columns_match_jax(index):
+    """The compacted solve's accepted matches against the JAX package's
+    ``min_cost_matching`` on the CPU."""
+    name, cost, rows, cols, max_d = LIVE[index]
+    c4r = _live_solve(T(cost), T(rows), T(cols), max_d)[0]
+    r, c = cost.shape
+    j = torch.clamp(c4r, 0, c - 1)
+    ok = (c4r >= 0) & (c4r < c) & T(cols)[j] & (
+        T(cost)[torch.arange(r), j] <= max_d)
+    got = torch.where(ok & T(rows), c4r, -1)
+    ref = jasg.min_cost_matching(jnp.asarray(cost), jnp.asarray(rows),
+                                 jnp.asarray(cols), jnp.float32(max_d))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
 # --- the wrapper's checks (no card needed) -----------------------------------
 
 def _problem(r, c, seed=0):
@@ -135,6 +339,17 @@ class _OnCuda(torch.Tensor):
     @property
     def device(self):
         return torch.device("cuda", 0)
+
+
+def test_the_kernel_takes_only_int32_levels():
+    """The tracker's levels are int32 and the kernel reads them as they
+    are: another type raises before anything is launched, on any device."""
+    cost, rows, cols = (x.as_subclass(_OnCuda) for x in _problem(8, 6))
+    for dtype in (torch.int64, torch.int16, torch.float32, torch.bool):
+        level = torch.ones(8, dtype=dtype).as_subclass(_OnCuda)
+        with pytest.raises(TypeError, match="int32"):
+            kasg.KERNEL.matching_cascade(cost, level, rows, cols, 0.5, 70)
+    assert kasg.KERNEL.launches == 0
 
 
 def test_a_cuda_tensor_never_reaches_the_plain_version(monkeypatch):

@@ -166,6 +166,99 @@ def test_assignment_kernel_bitwise_equals_plain_version(cuda, family):
             assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+@pytest.mark.parametrize("family", ASSIGNMENT_FAMILIES)
+def test_assignment_v1_bitwise_equals_plain_version(cuda, family):
+    """The first design (``variant="v1"``, kept for measurements, on no
+    path) on the same problems: bitwise the plain version, as the default
+    design is."""
+    from aicamera_tpu_torch.core import assignment as asg
+    from aicamera_tpu_torch.ops.assignment import KERNEL
+    for fam, kind, args in chip_smoke.assignment_cases():
+        if fam != family:
+            continue
+        a = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+             if isinstance(x, np.ndarray) else x for x in args]
+        if kind == "cascade":
+            got = KERNEL.matching_cascade(*a, variant="v1")
+            want = asg.matching_cascade_plain(*a)
+        else:
+            got = (KERNEL.min_cost_matching(*a, variant="v1"),)
+            want = (asg.min_cost_matching_plain(*a),)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_assignment_takes_int32_levels_and_probes(cuda):
+    """The kernel reads the tracker's int32 levels and nothing else (other
+    types raise, no cast is launched); the probe's build counts its
+    launches, solves and steps."""
+    from aicamera_tpu_torch.core import assignment as asg
+    from aicamera_tpu_torch.ops.assignment import KERNEL, AssignmentKernel
+    fam, kind, args = next(c for c in chip_smoke.assignment_cases()
+                           if c[0] == "5 levels")
+    cost, level, elig, valid, max_d, depth = [
+        torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+        if isinstance(x, np.ndarray) else x for x in args]
+    want = asg.matching_cascade_plain(cost, level, elig, valid, max_d, depth)
+    before = KERNEL.launches
+    for bad in (level.long(), level.float()):
+        with pytest.raises(TypeError, match="int32"):
+            KERNEL.matching_cascade(cost, bad, elig, valid, max_d, depth)
+    assert KERNEL.launches == before
+    probe = AssignmentKernel(probe=True)
+    probe.read_probe(reset=True)
+    for variant in ("lanes", "v1"):
+        got = probe.matching_cascade(cost, level, elig, valid, max_d, depth,
+                                     variant=variant)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    sums = probe.read_probe()
+    assert sums["launches"] == 2 and sums["solves"] >= 2
+    assert sums["steps"] >= sums["rows_augmented"] > 0
+    assert sums["total"] >= sums["augment"] > 0
+
+
+def test_a_deepsort_frame_is_two_assignment_launches(cuda):
+    """A DeepSORT frame launches the assignment kernel twice (the cascade
+    and the IoU solve) and nothing for the levels: captured, the cascade
+    on the tracker's int32 ``tsu`` is one graph node (the first design
+    clamps and casts them first: two)."""
+    from aicamera_tpu_torch.core import assignment as asg
+    from aicamera_tpu_torch.core import state as tstate
+    from aicamera_tpu_torch.core import tracker as ttrk
+    from aicamera_tpu_torch.ops.assignment import KERNEL
+    from aicamera_tpu_torch.runtime.engine import CUDAGraphEngine
+    p = tstate.TrackerParams(max_tracks=16, max_detections=8, nn_budget=4,
+                             feature_dim=16, n_init=1, max_age=5)
+    rng = np.random.RandomState(0)
+    st = tstate.init_state(p, device=cuda)
+    for t in range(4):
+        tlwh = np.array([[50.0 + 120 * o + 3 * t, 60.0, 40.0, 80.0]
+                         for o in range(4)], np.float32)
+        feat = rng.normal(0, 1, (4, 16)).astype(np.float32)
+        dets = tstate.make_detections(
+            tlwh, np.full(4, 0.8, np.float32), np.zeros(4, np.int32), feat,
+            np.ones(4, bool), params=p, device=cuda)
+        before = KERNEL.launches
+        st = ttrk.update(ttrk.predict(st, p), dets, p)
+        torch.cuda.synchronize()
+        assert KERNEL.launches == before + 2
+    assert st.tsu.dtype == torch.int32 and bool(st.active.any())
+    cost = torch.rand(16, 8, device=cuda)
+    elig, valid = st.active.clone(), torch.ones(8, dtype=torch.bool,
+                                                device=cuda)
+    for variant, nodes in (("lanes", 1), ("v1", 2)):
+        eng = CUDAGraphEngine(
+            lambda c, lv, e, v: KERNEL.matching_cascade(
+                c, lv, e, v, 0.2, 5, variant=variant),
+            [cost, st.tsu, elig, valid], name=f"cascade {variant}",
+            warmup_iters=1, device=cuda)
+        got = eng(cost, st.tsu, elig, valid)
+        want = asg.matching_cascade_plain(cost, st.tsu, elig, valid, 0.2, 5)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        if eng.graph_nodes() is not None:
+            assert eng.graph_nodes() == nodes, variant
+
+
 def test_deepsort_scan_on_the_card_reads_nothing_and_replays(cuda,
                                                              monkeypatch):
     """The DeepSORT pipeline on the card: no tracker read, a cascade and an
