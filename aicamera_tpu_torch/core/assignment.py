@@ -11,10 +11,17 @@ if its original cost is ``<= max_distance``), and the DeepSORT
 :func:`min_cost_matching` and :func:`matching_cascade` pick by device: on
 CUDA tensors they launch the hand-written kernel (``ops/assignment.py``, one
 launch a call, nothing read back), on CPU tensors they run the plain
-versions here, which are also the kernel's oracle on the card. The plain
-versions run the JAX package's ``lax.while_loop``s and ``lax.cond``s as
-Python control flow over values they read from their tensors. Ties resolve
-as in JAX: ``argmin`` takes the first minimum, and row order is kept.
+versions here, which are also the kernel's oracle on the card. Both take one
+problem or a batch with a leading axis (``cost (B, R, C)``: the streams of a
+multi-stream step, as ``jax.vmap`` of the JAX functions); a batch is one
+launch, and the plain versions loop over its problems. The plain versions
+run the JAX package's ``lax.while_loop``s and ``lax.cond``s as Python
+control flow over values they read from their tensors. Ties resolve as in
+JAX: ``argmin`` takes the first minimum, and row order is kept.
+
+The helpers of the tracker steps (:func:`_scatter_drop`,
+:func:`place_new_tracks`, :func:`_claim`) work along the last axis of their
+index and mask arguments, over any leading stream axes.
 
 ``TRACKER_SYNCS`` counts the reads of the GPU that the ByteTrack and OC-SORT
 steps still make in their own branches.
@@ -32,32 +39,48 @@ TRACKER_SYNCS = SyncCounter()
 
 def _scatter_drop(arr: torch.Tensor, idx: torch.Tensor,
                   values: torch.Tensor) -> torch.Tensor:
-    """``arr.at[idx].set(values, mode="drop")`` for indices in
-    ``[0, len(arr)]``: index ``len(arr)`` is a dump row that is cut off."""
-    ext = torch.cat([arr, arr[:1]])
-    ext[idx] = values.to(arr.dtype)
-    return ext[:arr.shape[0]]
+    """``arr.at[idx].set(values, mode="drop")`` for indices in ``[0, T]``
+    along the axis ``idx.ndim - 1`` of ``arr`` (T long): index T is a dump
+    row that is cut off. ``idx (..., N)``, ``values (..., N, *rest)`` and
+    ``arr (..., T, *rest)`` share their leading (stream) axes."""
+    ax = idx.ndim - 1
+    t = arr.shape[ax]
+    ext = torch.cat([arr, arr.narrow(ax, 0, 1)], dim=ax)  # a new tensor
+    rest = ext.shape[ax + 1:]
+    index = idx.reshape(idx.shape + (1,) * len(rest)).expand(
+        idx.shape + rest)
+    return ext.scatter_(ax, index, values.to(arr.dtype)).narrow(ax, 0, t)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along the axis ``idx.ndim - 1`` of ``x``: ``x (..., N,
+    *rest)`` gathered by ``idx (..., T)`` into ``(..., T, *rest)``."""
+    ax = idx.ndim - 1
+    rest = x.shape[ax + 1:]
+    return torch.gather(x, ax, idx.reshape(idx.shape + (1,) * len(rest))
+                        .expand(idx.shape + rest))
 
 
 def place_new_tracks(active: torch.Tensor, new_det: torch.Tensor):
     """Slots for the detections that start tracks: the r-th new detection
-    takes the r-th lowest free slot. Returns ``(slot_for_det (N,) int64 with
-    the dump index T where nothing is placed, det_rank (N,) int64, n_new,
-    dropped)``, the last two 0-d int32."""
-    t = active.shape[0]
-    rows = torch.arange(t, device=active.device)
+    takes the r-th lowest free slot. ``active (..., T)``, ``new_det (...,
+    N)``. Returns ``(slot_for_det (..., N) int64 with the dump index T where
+    nothing is placed, det_rank (..., N) int64, n_new, dropped)``, the last
+    two int32 of the leading shape."""
+    t = active.shape[-1]
+    rows = torch.arange(t, device=active.device).expand(active.shape)
     free = ~active
-    n_free = torch.sum(free)
-    slot_rank = torch.cumsum(free, 0) - 1
+    n_free = torch.sum(free, -1, keepdim=True)
+    slot_rank = torch.cumsum(free, -1) - 1
     slot_of_rank = _scatter_drop(
-        torch.full((t,), t, dtype=torch.int64, device=active.device),
+        torch.full(active.shape, t, dtype=torch.int64, device=active.device),
         torch.where(free, slot_rank, t), rows)
-    det_rank = torch.cumsum(new_det, 0) - 1
+    det_rank = torch.cumsum(new_det, -1) - 1
     can_place = new_det & (det_rank < n_free)
     slot_for_det = torch.where(
-        can_place, slot_of_rank[torch.clamp(det_rank, 0, t - 1)], t)
-    return (slot_for_det, det_rank, torch.sum(can_place).to(torch.int32),
-            torch.sum(new_det & ~can_place).to(torch.int32))
+        can_place, _take(slot_of_rank, torch.clamp(det_rank, 0, t - 1)), t)
+    return (slot_for_det, det_rank, torch.sum(can_place, -1).to(torch.int32),
+            torch.sum(new_det & ~can_place, -1).to(torch.int32))
 
 
 def _augment_row(i: int, cost, u, v, col4row, row4col):
@@ -159,8 +182,9 @@ def min_cost_matching(cost: torch.Tensor, row_mask: torch.Tensor,
                       max_distance: float) -> torch.Tensor:
     """Masked minimum-cost matching with the reference's threshold
     semantics. ``cost (R, C)`` f32, bool masks; returns ``(R,)`` int64,
-    the matched column per row or -1. CUDA tensors: the kernel; CPU
-    tensors: :func:`min_cost_matching_plain`."""
+    the matched column per row or -1. A batch ``(B, R, C)`` with ``(B, R)``
+    and ``(B, C)`` masks gives ``(B, R)``. CUDA tensors: the kernel (one
+    launch a call); CPU tensors: :func:`min_cost_matching_plain`."""
     if _on_cuda(cost):   # the kernel's wrapper checks the arguments
         return _kernel.KERNEL.min_cost_matching(cost, row_mask, col_mask,
                                                 max_distance)
@@ -168,10 +192,24 @@ def min_cost_matching(cost: torch.Tensor, row_mask: torch.Tensor,
     return min_cost_matching_plain(cost, row_mask, col_mask, max_distance)
 
 
+def _per_problem(fn, *args):
+    """``fn`` over the problems of a batch (a leading axis on every tensor
+    argument), its outputs stacked: the plain versions' batch."""
+    outs = [fn(*(a[b] if torch.is_tensor(a) else a for a in args))
+            for b in range(args[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(x) for x in zip(*outs))
+    return torch.stack(outs)
+
+
 def min_cost_matching_plain(cost: torch.Tensor, row_mask: torch.Tensor,
                             col_mask: torch.Tensor,
                             max_distance: float) -> torch.Tensor:
-    """The plain version of :func:`min_cost_matching`."""
+    """The plain version of :func:`min_cost_matching`; a batch loops over
+    its problems."""
+    if cost.ndim == 3:
+        return _per_problem(min_cost_matching_plain, cost, row_mask,
+                            col_mask, max_distance)
     r, c = cost.shape
     n = max(r, c)
     dev = cost.device
@@ -199,9 +237,11 @@ def min_cost_matching_plain(cost: torch.Tensor, row_mask: torch.Tensor,
 
 
 def _claim(lvl_match: torch.Tensor, det_unmatched: torch.Tensor):
-    nd = det_unmatched.shape[0]
+    """The detections still unmatched once the rows' ``lvl_match (...,
+    T)`` claimed theirs: ``det_unmatched (..., N)``."""
+    nd = det_unmatched.shape[-1]
     claimed = _scatter_drop(
-        torch.zeros(nd, dtype=torch.bool, device=det_unmatched.device),
+        torch.zeros_like(det_unmatched),
         torch.where(lvl_match >= 0, lvl_match,
                     torch.full_like(lvl_match, nd)),
         torch.ones_like(lvl_match, dtype=torch.bool))
@@ -215,8 +255,10 @@ def matching_cascade(cost: torch.Tensor, track_level: torch.Tensor,
     assignment per level present in ``[1, cascade_depth]``, ascending,
     against the still-unmatched detections, until none is left.
 
-    Returns ``(match (T,) int64 det index or -1, det_unmatched (N,) bool)``.
-    CUDA tensors: the kernel, the whole cascade in one launch; CPU tensors:
+    Returns ``(match (T,) int64 det index or -1, det_unmatched (N,) bool)``;
+    a batch (``cost (B, T, N)``, the other arguments with the same leading
+    axis) gives ``(B, T)`` and ``(B, N)``. CUDA tensors: the kernel, every
+    problem's whole cascade in one launch; CPU tensors:
     :func:`matching_cascade_plain`.
     """
     if _on_cuda(cost):
@@ -232,7 +274,12 @@ def matching_cascade_plain(cost: torch.Tensor, track_level: torch.Tensor,
                            track_eligible: torch.Tensor,
                            det_valid: torch.Tensor, max_distance: float,
                            cascade_depth: int):
-    """The plain version of :func:`matching_cascade`."""
+    """The plain version of :func:`matching_cascade`; a batch loops over
+    its problems."""
+    if cost.ndim == 3:
+        return _per_problem(matching_cascade_plain, cost, track_level,
+                            track_eligible, det_valid, max_distance,
+                            cascade_depth)
     t = cost.shape[0]
     sentinel = cascade_depth + 1
     lv = torch.where(

@@ -4,7 +4,8 @@ The port of ``aicamera_tpu/core/costs.py``: IoU epsilon 1e-7; cosine
 distance with a 1e-7 norm floor, clipped at >= 0; appearance cost is the
 minimum cosine distance over a track's gallery; infeasible entries get
 ``INFTY_COST``. Matrix products are full f32 (TF32 off by default for
-matmuls).
+matmuls). The cost matrices take leading stream axes (``(..., T, 4)`` and
+``(..., N, 4)`` boxes give ``(..., T, N)``), as ``jax.vmap`` over streams.
 """
 
 from __future__ import annotations
@@ -41,16 +42,17 @@ def tlwh_to_tlbr(tlwh: torch.Tensor) -> torch.Tensor:
 
 def iou_matrix(boxes_a_tlwh: torch.Tensor,
                boxes_b_tlwh: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU of two tlwh box sets: ``(T, 4) x (N, 4) -> (T, N)``."""
-    a_tl = boxes_a_tlwh[:, None, :2]
-    a_br = a_tl + boxes_a_tlwh[:, None, 2:]
-    b_tl = boxes_b_tlwh[None, :, :2]
-    b_br = b_tl + boxes_b_tlwh[None, :, 2:]
+    """Pairwise IoU of two tlwh box sets: ``(..., T, 4) x (..., N, 4) ->
+    (..., T, N)``."""
+    a_tl = boxes_a_tlwh[..., :, None, :2]
+    a_br = a_tl + boxes_a_tlwh[..., :, None, 2:]
+    b_tl = boxes_b_tlwh[..., None, :, :2]
+    b_br = b_tl + boxes_b_tlwh[..., None, :, 2:]
     inter_wh = torch.clamp(torch.minimum(a_br, b_br)
                            - torch.maximum(a_tl, b_tl), min=0.0)
     inter = inter_wh[..., 0] * inter_wh[..., 1]
-    area_a = (boxes_a_tlwh[:, 2] * boxes_a_tlwh[:, 3])[:, None]
-    area_b = (boxes_b_tlwh[:, 2] * boxes_b_tlwh[:, 3])[None, :]
+    area_a = (boxes_a_tlwh[..., 2] * boxes_a_tlwh[..., 3])[..., :, None]
+    area_b = (boxes_b_tlwh[..., 2] * boxes_b_tlwh[..., 3])[..., None, :]
     union = area_a + area_b - inter
     return inter / torch.clamp(union, min=1e-7)
 
@@ -79,17 +81,20 @@ def appearance_cost_matrix(gallery: torch.Tensor,
                            gallery_valid: torch.Tensor,
                            det_features: torch.Tensor,
                            det_has_feature: torch.Tensor) -> torch.Tensor:
-    """Min-over-gallery cosine cost ``(T, N)`` between every track and every
-    detection; ``INFTY_COST`` where a track has an empty gallery or a
-    detection has no feature."""
-    t, g, d = gallery.shape
-    gal = _l2_normalize(gallery.reshape(t * g, d))
+    """Min-over-gallery cosine cost ``(..., T, N)`` between every track and
+    every detection (``gallery (..., T, G, D)``, ``det_features (..., N,
+    D)``); ``INFTY_COST`` where a track has an empty gallery or a detection
+    has no feature."""
+    *lead, t, g, d = gallery.shape
+    gal = _l2_normalize(gallery.reshape(*lead, t * g, d))
     det = _l2_normalize(det_features)
-    dist = torch.clamp(1.0 - gal @ det.T, min=0.0).reshape(t, g, -1)
-    dist = torch.where(gallery_valid[:, :, None], dist,
+    dist = torch.clamp(1.0 - gal @ det.transpose(-1, -2), min=0.0).reshape(
+        *lead, t, g, -1)
+    dist = torch.where(gallery_valid[..., None], dist,
                        torch.full_like(dist, float("inf")))
-    cost = torch.amin(dist, dim=1)
+    cost = torch.amin(dist, dim=-2)
     infty = torch.full_like(cost, INFTY_COST)
-    cost = torch.where(torch.any(gallery_valid, dim=1)[:, None], cost, infty)
-    cost = torch.where(det_has_feature[None, :], cost, infty)
+    cost = torch.where(torch.any(gallery_valid, dim=-1)[..., None], cost,
+                       infty)
+    cost = torch.where(det_has_feature[..., None, :], cost, infty)
     return torch.where(torch.isfinite(cost), cost, infty)

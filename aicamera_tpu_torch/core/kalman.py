@@ -2,7 +2,8 @@
 
 The port of ``aicamera_tpu/core/kalman.py``. State is 8-dimensional
 ``(cx, cy, a, h, v_cx, v_cy, v_a, v_h)``; every function works on a whole
-bank of tracks, ``(T, 8)`` means and ``(T, 8, 8)`` covariances. The 4x4
+bank of tracks, ``(T, 8)`` means and ``(T, 8, 8)`` covariances, and over
+leading stream axes (``(S, T, 8)``, ``(S, T, 8, 8)``). The 4x4
 Cholesky factor and its triangular solves are the JAX package's closed-form
 recurrences, written out the same way (not ``torch.linalg.cholesky``), so the
 gating distances follow the same arithmetic. Matrix products are full f32.
@@ -136,8 +137,9 @@ def _cho_solve_small(s, b, d: int):
 def update(mean: torch.Tensor, cov: torch.Tensor,
            measurement_xyah: torch.Tensor,
            confidence: torch.Tensor | None = None):
-    """KF correction step over a bank of tracks: ``mean (T, 8)``, ``cov
-    (T, 8, 8)``, ``measurement_xyah (T, 4)``, optional ``confidence (T,)``."""
+    """KF correction step over a bank of tracks: ``mean (..., T, 8)``,
+    ``cov (..., T, 8, 8)``, ``measurement_xyah (..., T, 4)``, optional
+    ``confidence (..., T)``."""
     meas = measurement_xyah.float()
     proj_mean, s = project(mean, cov, confidence)
     ph_t = cov[..., :, :_NDIM]                        # P H^T, (T, 8, 4)
@@ -153,16 +155,17 @@ def update(mean: torch.Tensor, cov: torch.Tensor,
 def gating_distance(mean: torch.Tensor, cov: torch.Tensor,
                     measurements_xyah: torch.Tensor,
                     only_position: bool = False) -> torch.Tensor:
-    """Squared Mahalanobis distance ``(T, N)`` from each track to each
-    measurement; +inf where the projected covariance is not PD."""
+    """Squared Mahalanobis distance ``(..., T, N)`` from each track
+    (``mean (..., T, 8)``) to each measurement (``(..., N, 4)``); +inf
+    where the projected covariance is not PD."""
     proj_mean, proj_cov = project(mean, cov)
     d = 2 if only_position else 4
     proj_mean = proj_mean[..., :d]
     proj_cov = proj_cov[..., :d, :d]
     meas = measurements_xyah.float()[..., :d]
-    l = _chol_small(proj_cov, d)                                # (T,) each
-    delta = meas[None, :, :] - proj_mean[:, None, :]            # (T, N, d)
-    z = _solve_lower(l, delta.transpose(-1, -2), d)             # d x (T, N)
+    l = _chol_small(proj_cov, d)                          # (..., T) each
+    delta = meas[..., None, :, :] - proj_mean[..., :, None, :]  # (.., T, N, d)
+    z = _solve_lower(l, delta.transpose(-1, -2), d)       # d x (..., T, N)
     dist = sum(zi * zi for zi in z)
     return torch.where(torch.isnan(dist),
                        torch.full_like(dist, float("inf")), dist)

@@ -7,6 +7,11 @@ gallery is a per-track FIFO ring, and detections are padded to
 tensors on one device; :func:`dataclasses.replace` gives an updated copy.
 
 Track states: Tentative=1, Confirmed=2; a deleted track is ``active=False``.
+
+Stacked states carry a leading stream axis on every field (``(S, T, ...)``,
+the counters ``(S,)``), the JAX ``MultiStreamPipeline``'s layout:
+:func:`init_state` makes one with ``n_streams``, and the slice/splice
+helpers below work on either layout.
 """
 
 from __future__ import annotations
@@ -79,12 +84,15 @@ class Detections:
     valid: torch.Tensor          # (N,) bool
 
 
-def init_state(params: TrackerParams, device="cpu") -> TrackerState:
-    """Fresh tracker state; track ids restart at 1."""
+def init_state(params: TrackerParams, device="cpu",
+               n_streams: int | None = None) -> TrackerState:
+    """Fresh tracker state; track ids restart at 1. ``n_streams``: a stack
+    of that many fresh states on a leading stream axis."""
     t, g, d = params.max_tracks, params.nn_budget, params.feature_dim
+    lead = () if n_streams is None else (int(n_streams),)
 
     def z(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
 
     return TrackerState(
         active=z((t,), torch.bool),
@@ -100,7 +108,7 @@ def init_state(params: TrackerParams, device="cpu") -> TrackerState:
         gallery=z((t, g, d), torch.float32),
         gallery_count=z((t,), torch.int32),
         gallery_next=z((t,), torch.int32),
-        next_id=torch.ones((), dtype=torch.int32, device=device),
+        next_id=torch.ones(lead, dtype=torch.int32, device=device),
         dropped=z((), torch.int32),
     )
 
@@ -153,9 +161,12 @@ def make_detections(tlwh, conf, class_id, feature=None, has_feature=None,
 # --- slice/splice over any tracker-state family ------------------------------
 # The three cores (DeepSORT TrackerState, ByteTrackState, OCSortState) share
 # what the capacity-bucketed scan needs: every non-scalar field leads with the
-# track axis, new tracks take the lowest free slots, overflow shows up as a
-# ``dropped`` increment, and get_outputs emits zeros on masked lanes. The
-# scalar counters travel with whichever state is live.
+# track axis (after the stream axis of a stacked state), new tracks take the
+# lowest free slots, overflow shows up as a ``dropped`` increment, and
+# get_outputs emits zeros on masked lanes. The scalar counters travel with
+# whichever state is live. The track axis is the last axis of ``active``, so
+# the same helpers serve one stream and a stack (the JAX package's
+# ``slice_stream_tracks`` / ``splice_stream_tracks``).
 
 _SCALAR_STATE_FIELDS = frozenset(
     {"next_id", "dropped", "frame_count", "frame_id"})
@@ -171,21 +182,24 @@ def track_axis_field_names(state) -> tuple:
 
 
 def slice_any_tracks(state, t_small: int):
-    """The first ``t_small`` track slots of any core's state (views of the
-    master's tensors; the cores never write into their input state)."""
+    """The first ``t_small`` track slots of any core's state, one stream's
+    or a stack's (views of the master's tensors; the cores never write into
+    their input state)."""
+    ax = state.active.ndim - 1
     return dataclasses.replace(
-        state, **{f: getattr(state, f)[:t_small]
+        state, **{f: getattr(state, f).narrow(ax, 0, t_small)
                   for f in track_axis_field_names(state)})
 
 
 def splice_any_tracks(master, small):
     """A copy of ``master`` with ``small`` written into its first slots and
     ``small``'s scalar counters; ``master`` itself is left as it was."""
-    t_small = small.active.shape[0]
+    ax = small.active.ndim - 1
+    t_small = small.active.shape[ax]
     upd = {}
     for f in track_axis_field_names(master):
         out = getattr(master, f).clone()
-        out[:t_small] = getattr(small, f)
+        out.narrow(ax, 0, t_small).copy_(getattr(small, f))
         upd[f] = out
     for f in _SCALAR_STATE_FIELDS:
         if hasattr(master, f):

@@ -5,9 +5,13 @@
 // conds, not Pallas: aicamera_tpu/core/assignment.py::solve_square,
 // ::min_cost_matching and ::matching_cascade. The JAX package keeps the
 // solver on the device so that the tracking step never returns to the host;
-// this kernel does the same for the port: one launch solves one masked
-// (R, C) problem, or a whole cascade of up to max_age levels, and reads
-// nothing back.
+// this kernel does the same for the port: one launch solves B masked
+// (R, C) problems, or B whole cascades of up to max_age levels, and reads
+// nothing back. Problem b is block b (blockIdx.x): the counterpart of the
+// JAX package's jax.vmap of the tracker step over streams, whose
+// association loops run for every stream at once. B = 1 is the launch of
+// one problem; the streams of a multi-stream dispatch are B problems of
+// one launch (a stage of a frame: one launch for all streams).
 //
 // What it computes is exactly the plain PyTorch version's
 // (aicamera_tpu_torch/core/assignment.py, its oracle on the card):
@@ -80,8 +84,15 @@
 //
 // Built with -DAICAM_ASG_PROBE (a second library that only chip_smoke.py
 // loads), both designs add thread 0's clock64() cycles by phase, the solves,
-// the rows augmented and the augmenting steps of every launch into a device
-// buffer that aicam_assignment_probe reads.
+// the rows augmented and the augmenting steps of every problem (every block)
+// into a device buffer that aicam_assignment_probe reads; kProblems counts
+// the problems, so the sums divide into per-problem means whatever B was.
+//
+// A batch: the B blocks are independent, each with its own shared memory
+// (at 128 x 64, 17 KB of Smem and 32 KB of staged cost) and 256 threads of
+// 96 registers (ptxas, sm_90a): an SM holds two such blocks (registers bound
+// it, shared memory would allow four), so up to 264 problems, and any
+// stream count up to the H100 SXM's 132 SMs, run as one wave.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -99,7 +110,7 @@ constexpr int kMaxStagedBytes = 200 * 1024;
 
 // --- the phase probe ----------------------------------------------------------
 enum ProbeSlot {
-  kLaunches, kLoad, kStage, kFeasibility, kLevels, kInit, kArgmin, kAugment,
+  kProblems, kLoad, kStage, kFeasibility, kLevels, kInit, kArgmin, kAugment,
   kAccept, kOutput, kSolves, kRowsAugmented, kSteps, kTotal, kProbeSlots
 };
 
@@ -131,7 +142,7 @@ struct Probe {
   __device__ void finish() {
     mark(kOutput);
     add(kTotal, (unsigned long long)(t - t0));
-    add(kLaunches, 1);
+    add(kProblems, 1);
   }
 };
 #else
@@ -335,10 +346,11 @@ __device__ void search(Smem& s, const float* cm, int ld, float max_d,
   pr.add(kRowsAugmented, rows);
 }
 
-// levels == nullptr: one min_cost_matching of row_mask against col_mask (one
-// level). Else the cascade over the eligible rows (row_mask) by level (int32,
-// clamped here), against the valid columns (col_mask); `unmatched` gets the
-// columns left.
+// Problem b = blockIdx.x of the batch: levels == nullptr: one
+// min_cost_matching of row_mask against col_mask (one level). Else the
+// cascade over the eligible rows (row_mask) by level (int32, clamped here),
+// against the valid columns (col_mask); `unmatched` gets the columns left.
+// Every pointer is the batch's base; problem b's data start b problems in.
 __global__ void __launch_bounds__(kThreads, 1)
 assignment_kernel(const float* __restrict__ cost, int r, int c,
                   const uint8_t* __restrict__ row_mask,
@@ -349,6 +361,15 @@ assignment_kernel(const float* __restrict__ cost, int r, int c,
   __shared__ Smem s;
   extern __shared__ __align__(16) float staged_cost[];
   Probe pr;
+  {
+    const size_t b = blockIdx.x;
+    cost += b * r * c;
+    row_mask += b * r;
+    if (levels != nullptr) levels += b * r;
+    col_mask += b * c;
+    match += b * r;
+    if (unmatched != nullptr) unmatched += b * c;
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = r > c ? r : c;
   const int words = (c + 31) >> 5;
@@ -568,7 +589,7 @@ assignment_kernel(const float* __restrict__ cost, int r, int c,
 
 // ============================================================================
 // The first design, kept as a variant on no path: the padded square,
-// searched from shared memory.
+// searched from shared memory; one problem a launch (no batch).
 // ============================================================================
 namespace v1 {
 
@@ -901,30 +922,32 @@ assignment_kernel(const float* __restrict__ cost, int r, int c,
 
 }  // namespace
 
-// cost: (R, C) f32, row-major. row_mask (R,), col_mask (C,): bytes 0/1.
-// levels: (R,) int32, or null (see lanes::assignment_kernel). match: (R,)
-// int64. unmatched: (C,) bytes, the cascade only. 1 <= R, C <= 256. Returns
-// cudaGetLastError() after the launch (0 on success).
-extern "C" int aicam_assignment(const void* cost, int r, int c,
+// B problems, each contiguous after the one before: cost (B, R, C) f32,
+// row-major. row_mask (B, R), col_mask (B, C): bytes 0/1. levels: (B, R)
+// int32, or null (see lanes::assignment_kernel). match: (B, R) int64.
+// unmatched: (B, C) bytes, the cascade only. 1 <= R, C <= 256, B >= 1.
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int aicam_assignment(const void* cost, int b, int r, int c,
                                 const void* row_mask, const void* levels,
                                 const void* col_mask, float max_d, int depth,
                                 void* match, void* unmatched, void* stream) {
-  if (r < 1 || c < 1 || r > kMaxN || c > kMaxN)
+  if (b < 1 || r < 1 || c < 1 || r > kMaxN || c > kMaxN)
     return (int)cudaErrorInvalidValue;
   const int smem = staged_bytes(r, (c + 3) & ~3);
   static bool opted[64];
   const cudaError_t e = opt_in((const void*)lanes::assignment_kernel,
                                sizeof(lanes::Smem), smem, opted);
   if (e != cudaSuccess) return (int)e;
-  lanes::assignment_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
+  lanes::assignment_kernel<<<b, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)cost, r, c, (const uint8_t*)row_mask,
       (const int32_t*)levels, (const uint8_t*)col_mask, max_d, depth,
       smem > 0, (int64_t*)match, (uint8_t*)unmatched);
   return (int)cudaGetLastError();
 }
 
-// The first design, with its own interface: levels (R,) int32 in [0,
-// depth + 1] (the wrapper clamps them), else as aicam_assignment.
+// The first design, with its own interface: one problem, levels (R,) int32
+// in [0, depth + 1] (the wrapper clamps them), else as aicam_assignment at
+// B = 1.
 extern "C" int aicam_assignment_v1(const void* cost, int r, int c,
                                    const void* row_mask, const void* levels,
                                    const void* col_mask, float max_d,
@@ -945,7 +968,7 @@ extern "C" int aicam_assignment_v1(const void* cost, int r, int c,
 }
 
 #ifdef AICAM_ASG_PROBE
-// The probe's sums since the last reset into host[0:slots] (launches, then
+// The probe's sums since the last reset into host[0:slots] (problems, then
 // cycles of load, stage, feasibility, levels, init, argmin, augment, accept,
 // output; solves, rows augmented, augmenting steps, total cycles); reset
 // != 0 zeroes them after. Synchronous. Returns the slot count, or -(CUDA

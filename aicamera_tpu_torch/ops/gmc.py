@@ -351,20 +351,25 @@ def _safe_det(a_mat: torch.Tensor) -> torch.Tensor:
 
 
 def _jacobian(n: int, a_mat: torch.Tensor, diag: dict) -> torch.Tensor:
-    """The ``n x n`` state Jacobian: ``a_mat`` on the position block (0:2)
-    and the velocity block (4:6), ``diag`` entries ``{index: 0-d tensor}``
-    on the diagonal, identity elsewhere."""
-    j = torch.eye(n, dtype=torch.float32, device=a_mat.device)
-    j[0:2, 0:2] = a_mat
-    j[4:6, 4:6] = a_mat
+    """The ``(..., n, n)`` state Jacobian of ``a_mat (..., 2, 2)``: ``a_mat``
+    on the position block (0:2) and the velocity block (4:6), ``diag``
+    entries ``{index: (...) tensor}`` on the diagonal, identity
+    elsewhere."""
+    lead = a_mat.shape[:-2]
+    j = torch.eye(n, dtype=torch.float32, device=a_mat.device).expand(
+        *lead, n, n).clone()
+    j[..., 0:2, 0:2] = a_mat
+    j[..., 4:6, 4:6] = a_mat
     for i, v in diag.items():
-        j[i, i] = v
+        j[..., i, i] = v
     return j
 
 
 def _congruence(j: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
-    """``J P Jᵀ`` for a bank ``(T, n, n)`` of covariances."""
-    return _mm(_mm(j, cov), j.T)
+    """``J P Jᵀ`` for a bank ``(..., T, n, n)`` of covariances, ``j (..., n,
+    n)`` one a bank."""
+    j = j[..., None, :, :]
+    return _mm(_mm(j, cov), j.transpose(-1, -2))
 
 
 def warp_xyah_bank(mean: torch.Tensor, cov: torch.Tensor,
@@ -376,15 +381,18 @@ def warp_xyah_bank(mean: torch.Tensor, cov: torch.Tensor,
     (position only); height scales by ``sqrt(|det A|)`` (the isotropic zoom
     factor); the aspect ratio is scale-invariant and stays. The covariance
     transforms by the same Jacobian, ``P' = J P Jᵀ``. Inactive slots pass
-    through untouched."""
+    through untouched. Over streams: ``a_mat (S, 2, 2)`` and ``t (S, 2)``,
+    one affine a stream, warp ``(S, T, 8)`` banks (``jax.vmap`` of the JAX
+    function)."""
     s = torch.sqrt(_safe_det(a_mat))
     j = _jacobian(8, a_mat, {3: s, 7: s})
-    shift = torch.zeros(8, dtype=torch.float32, device=mean.device)
-    shift[0:2] = t
-    new_mean = (j[None] * mean[:, None, :]).sum(-1) + shift
+    shift = torch.cat([t, torch.zeros(*t.shape[:-1], 6, dtype=torch.float32,
+                                      device=mean.device)], dim=-1)
+    new_mean = (j[..., None, :, :] * mean[..., :, None, :]).sum(-1) \
+        + shift[..., None, :]
     new_cov = _congruence(j, cov)
-    return (torch.where(active[:, None], new_mean, mean),
-            torch.where(active[:, None, None], new_cov, cov))
+    return (torch.where(active[..., None], new_mean, mean),
+            torch.where(active[..., None, None], new_cov, cov))
 
 
 def warp_boxes_xyxy(boxes: torch.Tensor, a_mat: torch.Tensor,

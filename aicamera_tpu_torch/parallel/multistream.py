@@ -9,19 +9,29 @@ tracker state. A dispatch takes K frames of each of S streams:
   the load bucket the busiest frame needs;
 - camera-motion compensation, when on, estimates every stream's K frames in
   one batched call, each from that stream's frame before the dispatch;
-- each stream's tracker then runs over its K frames on its own state, with
-  the single-stream pipeline's stages (``TrackingPipeline._make_stages``).
+- the trackers then run over the K frames with the single-stream
+  pipeline's stages (``TrackingPipeline._make_stages``).
 
-The JAX package vmaps the tracker step over the stream axis. The port's
-cores cannot be vmapped (their loops and branches are Python control flow
-that reads the GPU), so the streams' trackers run one after another and
-their time grows linearly with S. The states stay a list of single-stream
-states on the device; :attr:`MultiStreamPipeline.states` stacks them into
-the JAX layout on demand (checkpoints, inspection).
+The JAX package stacks the streams' states on a leading stream axis and
+vmaps the tracker step over it. The port does the same for the DeepSORT
+core and its StrongSORT preset (EMA bank, NSA, one GMC affine a stream),
+whose step reads nothing back: the states live stacked, ``(S, T, ...)``
+with ``next_id`` and ``dropped`` ``(S,)``, each frame steps all streams at
+once (one assignment launch a stage for all S problems, a thread block
+each), the capacity bucket is decided once for the stack (two reads a
+dispatch at most), and a dispatch's K frames of all streams replay as one
+captured CUDA graph. ``scan_stats`` then counts dispatches. ByteTrack,
+BoT-SORT, OC-SORT and Deep OC-SORT still branch on the host in their steps,
+so their streams keep a list of single-stream states and run one after
+another (``scan_stats`` counts stream-chunks there);
+:attr:`MultiStreamPipeline.states` stacks them into the JAX layout on
+demand (checkpoints, inspection).
 
 A per-(stream, frame) validity mask lets streams at different frame rates
 share a dispatch: a masked frame leaves its stream's state as it was. The
-mask is host data and is never uploaded.
+stacked step takes it as a device mask made by fills
+(``runtime.pipeline.valid_mask``), never a copy from the host, so any
+pattern replays the same capture.
 
 On a mesh (``mesh=make_stream_mesh()`` or ``make_mesh(S, M)``, one process
 per rank over ``torch.distributed``; see :mod:`.distributed`) every rank is
@@ -48,6 +58,7 @@ import torch
 from .. import config
 from ..core import bytetrack as bt_core
 from ..core import ocsort as oc_core
+from ..core import state as core_state
 from ..core.state import TrackerParams
 from ..ops import gmc as gmc_ops
 from ..runtime.checkpoint import state_like
@@ -119,14 +130,18 @@ class MultiStreamPipeline:
         ``detect_dtype``/``reid_dtype`` and ``device`` as in
         :class:`TrackingPipeline` (default the GPU; raises without one).
         The tracker names, their parameters and presets, ``gmc``,
-        ``scan_bucket`` (decided per stream), ``letterbox_auto`` and
-        ``reid_quant="int8"`` (the W8A8 embed stage over every stream's
-        crops) mean what they mean there. ``mesh``: a ``DeviceMesh`` with a
+        ``scan_bucket``, ``letterbox_auto`` and ``reid_quant="int8"`` (the
+        W8A8 embed stage over every stream's crops) mean what they mean
+        there, but ``scan_bucket`` is decided once a dispatch for all
+        streams of a DeepSORT/StrongSORT stack (the JAX multi-stream rule)
+        and per stream for the other cores. On the GPU the DeepSORT stack's
+        assignment batches need ``max_detections`` divisible by 4
+        (``ops/assignment.py``). ``mesh``: a ``DeviceMesh`` with a
         ``stream`` axis (and optionally ``model``) from
         :func:`make_stream_mesh` or :func:`make_mesh`; ``n_streams`` must
         divide by its ``stream`` size, the pipeline runs on this rank's
         device (``device`` may name only that one) and ``scan_bucket`` is
-        0, as in the JAX package."""
+        0, as in the JAX package; each rank stacks its own streams."""
         self.n_streams = int(n_streams)
         if self.n_streams < 1:
             raise ValueError(f"n_streams must be >= 1 (got {n_streams})")
@@ -183,8 +198,20 @@ class MultiStreamPipeline:
         self.core_params = eng.core_params
         self.gmc_method = eng.gmc_method
         self.scan_bucket = eng.scan_bucket
-        #: chunks by way of the bucketed scan, summed over the streams
+        #: dispatches (a DeepSORT/StrongSORT stack) or stream-chunks (the
+        #: other cores) by way of the bucketed scan
         self.scan_stats = eng.scan_stats
+        #: the DeepSORT core and its StrongSORT preset step the streams as
+        #: one stack; the other cores read the GPU in their steps and step
+        #: each stream in turn
+        self.stacked = self.tracker_kind == "deepsort"
+        n_det = self.tracker_params.max_detections
+        if self.stacked and self.device.type == "cuda" and n_det % 4:
+            raise ValueError(
+                f"on the GPU a stack of DeepSORT streams needs "
+                f"max_detections divisible by 4 (got {n_det}): the batched "
+                f"assignment kernel reads every problem's rows 16 bytes at "
+                f"a time")
         self._gmc_spec = (gmc_ops.gmc_spec(self.frame_hw)
                           if self.gmc_method is not None else None)
         if mesh is not None and "model" in mesh.mesh_dim_names \
@@ -192,10 +219,22 @@ class MultiStreamPipeline:
             from .tensor_parallel import shard_detector_params
             eng.yolo = shard_detector_params(eng.yolo, mesh)
         # this rank's streams (all of them off a mesh): each one's last
-        # valid frame (S_local, H, W, 3) and its tracker state
+        # valid frame (S_local, H, W, 3) and their tracker states, a stack
+        # (S_local, T, ...) or a list of S_local states
         self._gmc_prev = None
-        self._states = [eng._init_tracker_state()
-                        for _ in range(self._n_local)]
+        if self.stacked:
+            self._states = core_state.init_state(
+                self.tracker_params, self.device, n_streams=self._n_local)
+        else:
+            self._states = [eng._init_tracker_state()
+                            for _ in range(self._n_local)]
+
+    def scan_replays(self) -> int:
+        """Replays of the captured DeepSORT scans so far
+        (``TrackingPipeline.scan_replays``): one a dispatch for a stack of
+        streams (two when its bucketed pass reruns); the other cores do not
+        capture their scans."""
+        return self._engine.scan_replays()
 
     @property
     def stage_timer(self):
@@ -219,6 +258,11 @@ class MultiStreamPipeline:
         same family and capacities (from ``runtime.checkpoint.load_state(...,
         n_streams=S)``, say) replaces all of them; on a mesh each rank
         keeps its own streams' part."""
+        if self.stacked:
+            st = self._states
+            return dataclasses.replace(st, **{
+                f.name: self._gather(getattr(st, f.name).clone())
+                for f in dataclasses.fields(st)})
         first = self._states[0]
         return dataclasses.replace(first, **{
             f.name: None if getattr(first, f.name) is None
@@ -237,6 +281,12 @@ class MultiStreamPipeline:
             template, {f.name: getattr(stacked, f.name)
                        for f in dataclasses.fields(stacked)},
             (self.n_streams,), self.device, where="states")
+        if self.stacked:   # this rank's streams, its own copy
+            self._states = dataclasses.replace(stacked, **{
+                f.name: getattr(stacked, f.name)[
+                    self._lo:self._lo + self._n_local].clone()
+                for f in dataclasses.fields(stacked)})
+            return
         self._states = [dataclasses.replace(stacked, **{
             f.name: getattr(stacked, f.name)[self._lo + si]
             for f in dataclasses.fields(stacked)
@@ -333,19 +383,27 @@ class MultiStreamPipeline:
                                                          valid)
                 mark("gmc")
             inputs, _ = detect(frames_t.reshape(s * k, *frames_t.shape[2:]))
-            outs = []
-            for si in range(s):
-                inp = inputs.frames(si * k, (si + 1) * k)
-                if g_a is not None:
-                    inp = dataclasses.replace(inp, gmc_a=g_a[si],
-                                              gmc_t=g_t[si])
-                self._states[si], o = track(self._states[si], inp,
-                                            valid[si].tolist())
-                outs.append(o)
+            if g_a is not None:
+                inputs = dataclasses.replace(
+                    inputs, gmc_a=g_a.reshape(s * k, *g_a.shape[2:]),
+                    gmc_t=g_t.reshape(s * k, *g_t.shape[2:]))
+            if self.stacked:
+                # all streams' frame i at index i: (K, S, ...)
+                self._states, outs = track(self._states,
+                                           inputs.by_frame(s, k), valid.T)
+                outs = tuple(o.transpose(0, 1).contiguous() for o in outs)
+            else:
+                per_stream = []
+                for si in range(s):
+                    self._states[si], o = track(
+                        self._states[si], inputs.frames(si * k, (si + 1) * k),
+                        valid[si])
+                    per_stream.append(o)
+                outs = tuple(torch.stack(x) for x in zip(*per_stream))
             mark("tracker")
         if timer is not None:
             timer.finish()
-        return tuple(torch.stack(x) for x in zip(*outs))
+        return outs
 
     @staticmethod
     def _pack(outs) -> torch.Tensor:
@@ -388,5 +446,12 @@ class MultiStreamPipeline:
         if not 0 <= i < self.n_streams:
             raise IndexError(f"stream {i} out of range for "
                              f"{self.n_streams} streams")
-        if self._lo <= i < self._lo + self._n_local:
-            self._states[i - self._lo] = self._engine._init_tracker_state()
+        if not self._lo <= i < self._lo + self._n_local:
+            return
+        j = i - self._lo
+        if not self.stacked:
+            self._states[j] = self._engine._init_tracker_state()
+            return
+        fresh = core_state.init_state(self.tracker_params, self.device)
+        for f in dataclasses.fields(fresh):   # the stack is this pipeline's
+            getattr(self._states, f.name)[j].copy_(getattr(fresh, f.name))

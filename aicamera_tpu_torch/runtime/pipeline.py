@@ -10,7 +10,10 @@ over the chunk on the device; the sequential tracker then runs frame by frame
 over the chunk, its state staying on the same device. The DeepSORT core
 (and its StrongSORT preset) reads nothing back, so a chunk's tracker frames
 replay as one captured CUDA graph, as the JAX package jits its scan; the
-ByteTrack and OC-SORT steps still branch on the host. Outputs
+ByteTrack and OC-SORT steps still branch on the host. The same stages step
+a stack of streams' DeepSORT states at once (``parallel.MultiStreamPipeline``:
+the JAX package's ``jax.vmap`` over streams), a chunk of all streams one
+replay. Outputs
 follow the JAX package's contracts: per frame, the detections in frame
 coordinates and the emitted tracks as ``(x1, y1, x2, y2, id, class_name,
 conf)`` tuples.
@@ -85,6 +88,51 @@ class TrackerInputs:
             else getattr(self, f.name)[lo:hi]
             for f in dataclasses.fields(self)})
 
+    def by_frame(self, s: int, k: int) -> "TrackerInputs":
+        """A batch of ``s`` streams' ``k`` frames each, stream-major
+        (``(s * k, ...)``), as ``(k, s, ...)``: frame i of every stream at
+        index i, the layout the stacked tracker step takes (copies)."""
+        return TrackerInputs(**{
+            f.name: None if getattr(self, f.name) is None
+            else getattr(self, f.name).reshape(
+                s, k, *getattr(self, f.name).shape[1:]).transpose(
+                    0, 1).contiguous()
+            for f in dataclasses.fields(self)})
+
+
+_MASK_BITS = 62  # bits a fill word carries (an int64 below its sign bit)
+
+
+def valid_mask(valid: np.ndarray, device) -> torch.Tensor:
+    """Host bools ``valid`` (any shape) as a bool tensor on ``device``,
+    without a copy from the host (which waits for the stream and which a
+    CUDA graph cannot capture): the bits go into int64 words by one fill
+    each (the value travels as a kernel argument) and are unpacked on the
+    device. A few launches, whatever the pattern, and nothing cached by
+    it."""
+    flat = np.asarray(valid, bool).reshape(-1)
+    n = flat.size
+    words = torch.empty((max(1, -(-n // _MASK_BITS)), 1), dtype=torch.int64,
+                        device=device)
+    for w in range(words.shape[0]):
+        chunk = flat[w * _MASK_BITS:(w + 1) * _MASK_BITS]
+        words[w].fill_(sum(1 << i for i, b in enumerate(chunk) if b))
+    shifts = torch.arange(_MASK_BITS, device=device)
+    bits = torch.bitwise_and(torch.bitwise_right_shift(words, shifts), 1)
+    return bits.reshape(-1)[:n].bool().reshape(np.shape(valid))
+
+
+def select_state(keep: torch.Tensor, new, old):
+    """``new`` where ``keep``, ``old`` elsewhere, field by field (exact):
+    ``keep`` is a 0-d bool for one stream's state, or one bool a stream
+    (``(S,)``) for a stack."""
+    def pick(a, b):
+        return torch.where(keep.reshape(keep.shape
+                                        + (1,) * (a.ndim - keep.ndim)), a, b)
+    return dataclasses.replace(old, **{
+        f.name: pick(getattr(new, f.name), getattr(old, f.name))
+        for f in dataclasses.fields(old) if getattr(old, f.name) is not None})
+
 
 @contextlib.contextmanager
 def full_f32():
@@ -157,7 +205,13 @@ def _bucketed_time_scan(state, scan, params, t_small: int, stats: dict):
     overflow in ``dropped`` and emits zeros on masked output lanes
     (``core/state.py::slice_any_tracks``). ``scan(state, params)`` runs the
     chunk's frames at the capacity ``params.max_tracks`` and returns ``(state,
-    outs)``, ``outs`` five tensors shaped ``(K, T, ...)``.
+    outs)``, ``outs`` five tensors shaped ``(K, T, ...)``. A stack of
+    streams' states (``(S, T, ...)``, outs ``(K, S, T, ...)``) takes one
+    decision for all, as the JAX ``MultiStreamPipeline`` does
+    (``aicamera_tpu/parallel/multistream.py:580-626``): it fits when no
+    stream has an active slot at or above ``t_small`` and the busiest one has
+    the headroom, and the whole stack reruns at full capacity if the summed
+    ``dropped`` grew; still two reads a chunk, not two a stream.
 
     The tracker's work per frame grows with the padded capacity, so a chunk
     whose live tracks fit in ``t_small`` slots runs on a sliced state. Two
@@ -172,17 +226,20 @@ def _bucketed_time_scan(state, scan, params, t_small: int, stats: dict):
     if not (t_small and t_small < t_full):
         return scan(state, params)
     headroom = max(4, t_small // 4)
-    fits = ~torch.any(state.active[t_small:]) \
-        & (torch.sum(state.active) <= t_small - headroom)
+    act = state.active
+    fits = ~torch.any(act[..., t_small:]) \
+        & (torch.amax(torch.sum(act, -1)) <= t_small - headroom)
     if BUCKET_SYNCS.flag(fits):
         s_small, outs = scan(
             core_state.slice_any_tracks(state, t_small),
             dataclasses.replace(params, max_tracks=t_small))
-        if not BUCKET_SYNCS.flag(s_small.dropped > state.dropped):
+        if not BUCKET_SYNCS.flag(torch.sum(s_small.dropped)
+                                 > torch.sum(state.dropped)):
             stats["small"] += 1
+            ax = act.ndim   # the outputs' track axis, after K and streams
             padded = tuple(torch.cat([a, a.new_zeros(
-                (a.shape[0], t_full - t_small, *a.shape[2:]))], dim=1)
-                for a in outs)
+                (*a.shape[:ax], t_full - t_small, *a.shape[ax + 1:]))],
+                dim=ax) for a in outs)
             return core_state.splice_any_tracks(state, s_small), padded
         stats["rerun"] += 1
     else:
@@ -429,6 +486,7 @@ class TrackingPipeline:
                                         core_params.det_thresh)
         self.stage_timer: CudaStageTimer | None = None
         self._stages = {}
+        self._scan_engines = []   # every stage's captured scans, ever made
         self.reset()
 
     def _init_tracker_state(self):
@@ -452,9 +510,15 @@ class TrackingPipeline:
 
         ``track(state, inputs, valid)``: one stream's frames through the
         tracker core, frame by frame, with the capacity-bucketed scan;
-        ``valid[i]`` False leaves the state as it is at frame i (its output
-        lane repeats the unchanged state's outputs). Returns ``(state, outs)``,
-        ``outs`` five tensors shaped ``(len(valid), T, ...)``."""
+        ``valid[i]`` (host bools, ``(K,)``) False leaves the state as it is at
+        frame i (its output lane repeats the unchanged state's outputs).
+        Returns ``(state, outs)``, ``outs`` five tensors shaped ``(K, T,
+        ...)``. The DeepSORT core also takes a stack of S streams' states,
+        inputs ``(K, S, N, ...)`` (:meth:`TrackerInputs.by_frame`) and
+        ``valid (K, S)``: every frame steps all streams at once (one
+        assignment launch a stage for all of them), one bucket decision for
+        the stack, one captured replay a chunk; ``outs`` ``(K, S, T,
+        ...)``."""
         spec = letterbox_spec(frame_hw, self.input_shape,
                               auto=self.letterbox_auto)
         kind = self.tracker_kind
@@ -607,49 +671,57 @@ class TrackingPipeline:
                     else core_tracker.get_outputs(st))
 
         def eager_scan(st, inp, valid, pp):
-            """The frames at the capacity of ``pp``, ``valid`` host bools."""
+            """The frames at the capacity of ``pp``, ``valid`` host bools
+            (``(K,)``, or ``(K, S)`` for a stack): a frame no stream takes
+            is skipped on the host, one that only some streams take steps
+            the stack and keeps the others' states."""
             outs = []
-            for i, v in enumerate(valid):
-                if v:  # an invalid frame leaves the state as it is
+            for i in range(len(valid)):
+                v = valid[i]
+                if v.all():
                     st = frame_step(st, inp, i, pp)
+                elif v.any():
+                    st = select_state(valid_mask(v, dev),
+                                      frame_step(st, inp, i, pp), st)
+                # else: an invalid frame leaves the state as it is
                 outs.append(outputs(st, pp))
             return st, tuple(torch.stack(x) for x in zip(*outs))
 
         def masked_scan(st, inp, valid, pp):
-            """:func:`eager_scan` with ``valid`` a ``(K,)`` bool tensor:
-            every frame steps, and ``torch.where`` keeps the state as it was
-            where a frame is invalid (exact), so the launches do not depend
-            on the validity pattern."""
+            """:func:`eager_scan` with ``valid`` a ``(K,)`` (``(K, S)``)
+            bool tensor: every frame steps, and ``torch.where`` keeps the
+            state as it was where a frame is invalid (exact), so the
+            launches do not depend on the validity pattern."""
             outs = []
             for i in range(valid.shape[0]):
-                nxt = frame_step(st, inp, i, pp)
-                st = st.replace(**{
-                    f.name: torch.where(valid[i], getattr(nxt, f.name),
-                                        getattr(st, f.name))
-                    for f in dataclasses.fields(st)})
+                st = select_state(valid[i], frame_step(st, inp, i, pp), st)
                 outs.append(outputs(st, pp))
             return st, tuple(torch.stack(x) for x in zip(*outs))
 
-        scan_engines, valid_masks = {}, {}
+        scan_engines = {}
+        self._scan_engines.append(scan_engines)
+        last_mask = {}   # the last pattern's mask: most chunks repeat it
 
         def captured_scan(st, inp, valid, pp):
             """:func:`masked_scan` of the DeepSORT core, which reads nothing
-            back, as one CUDA-graph replay: a capture for each capacity and
-            chunk length (``runtime/engine.py``; on the CPU a direct call).
-            The state, the inputs and the validity mask enter through the
-            graph's static buffers and leave as copies of its outputs."""
-            mask = valid_masks.get(tuple(valid))
-            if mask is None:  # built on the device: no host copy
-                mask = torch.zeros(len(valid), dtype=torch.bool, device=dev)
-                for i in np.flatnonzero(valid):
-                    mask[i].fill_(True)
-                valid_masks[tuple(valid)] = mask
+            back, as one CUDA-graph replay: a capture for each capacity,
+            chunk length, stream count and set of inputs
+            (``runtime/engine.py``; on the CPU a direct call). The state,
+            the inputs and the validity mask (:func:`valid_mask`, built on
+            the device when the pattern differs from the chunk before's)
+            enter through the graph's static buffers and leave as copies of
+            its outputs."""
+            key = (valid.shape, valid.tobytes())
+            if last_mask.get("key") != key:
+                last_mask.update(key=key, mask=valid_mask(valid, dev))
+            mask = last_mask["mask"]
             fields = [f.name for f in dataclasses.fields(st)]
             names = [f.name for f in dataclasses.fields(inp)
                      if getattr(inp, f.name) is not None]
             flat = [getattr(st, f) for f in fields] \
                 + [getattr(inp, f) for f in names] + [mask]
-            key = (pp, tuple(names))
+            streams = st.active.ndim > 1
+            key = (pp, tuple(names), streams)
             eng = scan_engines.get(key)
             if eng is None:
                 def fn(*xs):
@@ -660,7 +732,8 @@ class TrackingPipeline:
                     return tuple(getattr(s, f) for f in fields), outs
 
                 eng = scan_engines[key] = CUDAGraphEngine(
-                    fn, flat, name=f"deepsort scan T={pp.max_tracks}",
+                    fn, flat, name=f"deepsort scan T={pp.max_tracks}"
+                    + (" over streams" if streams else ""),
                     warmup_iters=1, device=dev)
             new, outs = eng(*flat)
             return core_state.TrackerState(**dict(zip(fields, new))), outs
@@ -672,7 +745,7 @@ class TrackingPipeline:
             def scan(st, pp):
                 return scan_fn(st, inp, valid, pp)
 
-            if not any(valid):
+            if not valid.any():
                 return scan(state, self.core_params)
             return _bucketed_time_scan(state, scan, self.core_params,
                                        self.scan_bucket, self.scan_stats)
@@ -684,6 +757,14 @@ class TrackingPipeline:
         if key not in self._stages:
             self._stages[key] = self._make_stages(key)
         return self._stages[key]
+
+    def scan_replays(self) -> int:
+        """Replays of the captured DeepSORT scans so far (0 on the CPU,
+        where a capture is a direct call): one a chunk, or a dispatch of a
+        stream stack, plus one a bucketed chunk that reruns at full
+        capacity."""
+        return sum(e.replays for engines in self._scan_engines
+                   for e in engines.values())
 
     def _mark(self, stage: str):
         if self.stage_timer is not None:
@@ -725,7 +806,7 @@ class TrackingPipeline:
             inputs, det_outs = detect(frames)
             inputs = dataclasses.replace(inputs, gmc_a=g_a, gmc_t=g_t)
             self.state, track_outs = track(self.state, inputs,
-                                           [i < n_valid for i in range(k)])
+                                           np.arange(k) < n_valid)
             self._mark("tracker")
         if self.stage_timer is not None:
             self.stage_timer.finish()

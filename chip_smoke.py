@@ -43,7 +43,13 @@ this file; exits non-zero otherwise. In order it:
    ``scipy.optimize.linear_sum_assignment``'s on the host with the copy,
    and its bound: the larger of the bytes it must move (the R x C cost and
    the masks read once, the outputs written once) and an empty kernel's
-   replay;
+   replay; then the batched launch (B = 8 problems, a block each, as the
+   8 streams of ``[streams]`` give it: ``assignment_batches``, the recorded
+   problems 8 at a time, seeded loads at 128x64 and 32x64, mixed batches
+   with no eligible row and every row eligible) bitwise against the plain
+   version, the probe's sums per problem on batches, and one batched launch
+   timed against the same 8 problems launched one by one, in turns, at
+   128x64 and 32x64, with its per-call, plain and scipy times and bound;
 4. drives the main path at full width: ``TrackingPipeline(device="cuda")``
    with YOLOv8n at 640x640, T=128 track slots, N=64 detection slots, a
    100-feature gallery of 512-d features and 32 ReID crops, on seeded
@@ -111,7 +117,13 @@ this file; exits non-zero otherwise. In order it:
     ``scenes.moving_rectangles``), chunk 4, the main path's model widths and
     DeepSORT defaults: stream-frames per second and ms per dispatch over 4
     dispatches after a warm-up, per-stage ms, tracker ms and syncs per
-    stream-frame, the kernel once per dispatch (K=32); a dispatch with two
+    stream-frame, the kernel once per dispatch (K=32); the streams as one
+    stack: one scan replay a dispatch (two when a bucketed pass reruns),
+    2 K assignment launches a replay (a batch of all streams' problems
+    each), at most 2 bucket reads and no tracker read a dispatch; the
+    stack against the streams stepped one by one through the same stage on
+    the same detections, in turns (tracker ms, replays, launches and bucket
+    reads a dispatch, identical tracks); a dispatch with two
     streams masked leaves their states bitwise; in f32 (TF32 off) each
     stream equals a ``TrackingPipeline`` on that stream alone; 2 streams x
     1 chunk card f32 against the CPU for DeepSORT, ByteTrack and the
@@ -889,28 +901,75 @@ def sm_clock_mhz():
     return float(cur), float(top)
 
 
-def seeded_timed_problems(on_card):
+def seeded_timed_problems(on_card, t=ASG_T):
     """The timed problems, ``{"cascade": [args], "match": [args]}`` through
     ``on_card``: a DeepSORT frame's cascade and IoU solve at a load of 24
-    tracks and 24 detections, ``ASG_TIMED_SETS`` of each, seeded."""
+    tracks and 24 detections over ``t`` track slots, ``ASG_TIMED_SETS`` of
+    each, seeded."""
     import numpy as np
-    rng = np.random.RandomState(SEED + 1)
+    rng = np.random.RandomState(SEED + 1 if t == ASG_T else SEED + t)
     card = {"cascade": [], "match": []}
     for _ in range(ASG_TIMED_SETS):
-        rows = np.zeros(ASG_T, bool)
-        rows[rng.choice(ASG_T, 24, replace=False)] = True
+        rows = np.zeros(t, bool)
+        rows[rng.choice(t, 24, replace=False)] = True
         cols = np.zeros(ASG_N, bool)
         cols[:24] = True
-        app = rng.uniform(0, 0.5, (ASG_T, ASG_N)).astype(np.float32)
-        app[rng.rand(ASG_T, ASG_N) < 0.6] = ASG_INFTY
-        lv = np.where(rng.rand(ASG_T) < 0.8, 1, 2).astype(np.int32)
-        iou = np.ones((ASG_T, ASG_N), np.float32)
-        near = rng.rand(ASG_T, ASG_N) < 0.08
+        app = rng.uniform(0, 0.5, (t, ASG_N)).astype(np.float32)
+        app[rng.rand(t, ASG_N) < 0.6] = ASG_INFTY
+        lv = np.where(rng.rand(t) < 0.8, 1, 2).astype(np.int32)
+        iou = np.ones((t, ASG_N), np.float32)
+        near = rng.rand(t, ASG_N) < 0.08
         iou[near] = rng.uniform(0, 1, near.sum())
         card["cascade"].append(on_card((app, lv, rows, cols, ASG_MAX_COS,
                                         ASG_DEPTH)))
         card["match"].append(on_card((iou, rows, cols, ASG_MAX_IOU)))
     return card
+
+
+ASG_BATCH = 8  # problems a batched launch: [streams]' 8 streams a frame
+
+
+def stack_problems(problems):
+    """Problems of one kind, shape, threshold and depth as one batch: each
+    array argument stacked on a leading axis."""
+    import numpy as np
+    return tuple(np.stack(x) if isinstance(x[0], np.ndarray) else x[0]
+                 for x in zip(*problems))
+
+
+def assignment_batches():
+    """Batches of ``ASG_BATCH`` problems for the batched launch, ``[(family,
+    kind, args)]`` with numpy args stacked on a leading axis: the recorded
+    main-path problems grouped 8 at a time by kind and shape (7 batches at
+    128x64 and 1 at 32x64 a kind), the seeded timed sets at 128x64 and at
+    the bucketed 32x64 (1 batch each a kind), and a mixed batch a kind: no
+    eligible row, every row eligible (long searches), six recorded
+    ones."""
+    import numpy as np
+    out = []
+    groups = {}
+    for _, kind, args in main_path_problems():
+        groups.setdefault((kind, args[0].shape), []).append(args)
+    for (kind, shape), probs in sorted(groups.items()):
+        for i in range(0, len(probs) - ASG_BATCH + 1, ASG_BATCH):
+            out.append((f"recorded {shape[0]}x{shape[1]}", kind,
+                        stack_problems(probs[i:i + ASG_BATCH])))
+    for t in (ASG_T, 32):
+        for kind, probs in seeded_timed_problems(lambda a: a, t).items():
+            out.append((f"seeded {t}x{ASG_N}", kind, stack_problems(probs)))
+    rng = np.random.RandomState(SEED + 2)
+    none, every = np.zeros(ASG_T, bool), np.ones(ASG_T, bool)
+    cols = np.arange(ASG_N) < 40
+    for kind, max_d in (("cascade", ASG_MAX_COS), ("match", ASG_MAX_IOU)):
+        recorded = groups[kind, (ASG_T, ASG_N)][:ASG_BATCH - 2]
+        cost = rng.uniform(0, 0.3, (2, ASG_T, ASG_N)).astype(np.float32)
+        lv = rng.randint(1, 4, (2, ASG_T)).astype(np.int32)
+        extra = [(cost[0], lv[0], none, cols, max_d, ASG_DEPTH),
+                 (cost[1], lv[1], every, cols, max_d, ASG_DEPTH)]
+        if kind == "match":
+            extra = [(c, r, k, m) for c, _, r, k, m, _ in extra]
+        out.append(("mixed", kind, stack_problems(extra + recorded)))
+    return out
 
 
 # the probe's phases, as csrc/assignment.cu's ProbeSlot orders them
@@ -1030,11 +1089,11 @@ def assignment_phase(device):
                 for i, (a, out) in enumerate(zip(probs, outs)):
                     same(f"probe {set_name}", kind, a, variant, out,
                          wants[set_name, kind, i])
-                n = got["launches"]
+                n = got["problems"]
                 check(n == len(probs), f"[assignment] probe counted {n} "
-                      f"launches of {len(probs)}")
+                      f"problems of {len(probs)}")
                 row = {"set": set_name, "kind": kind, "variant": variant,
-                       "launches": n,
+                       "problems": n,
                        **{k: got[k] / n for k in ("total", *ASG_PHASES,
                                                    "solves",
                                                    "rows_augmented",
@@ -1050,7 +1109,8 @@ def assignment_phase(device):
                         f"cycles a step ({row['ns_a_step_at_max_clock']:.1f}"
                         f" ns at {sm_mhz[1]:.0f} MHz)")
                 print(f"[assignment] probe {variant} {set_name} {kind}: {n} "
-                      f"launches; thread 0's cycles a launch {row['total']:.0f}"
+                      f"launches; thread 0's cycles a problem "
+                      f"{row['total']:.0f}"
                       f" (" + ", ".join(f"{k} {row[k]:.0f}"
                                         for k in ASG_PHASES)
                       + f"); a launch {row['solves']:.2f} solves, "
@@ -1134,6 +1194,11 @@ def assignment_phase(device):
               f"{t_bytes:.6f} ms, and an empty kernel's replay, "
               f"{launch_floor:.6f} ms: {r['bound_term']}); "
               f"{100 * bound / device_ms:.1f}% of the bound")
+    batched, batch_probes = assignment_batch_phase(
+        on_card, public, plain, plain_of, launch, same, probe,
+        launch_floor)
+    by_family["batched"] = sum(r["problems_checked"] for r in batched)
+    probes += batch_probes
     KERNEL.launches = 0  # comparison and timing launches do not count
     main = rows_out[0]
     return {"name": KERNEL.name, "route": "cuda",
@@ -1147,7 +1212,128 @@ def assignment_phase(device):
             "library_ms": main["library_ms"],
             "launch_floor_ms": launch_floor,
             "problems_checked": sum(by_family.values()), "shapes": rows_out,
-            "turns": turns, "probe": probes}
+            "batched": batched, "turns": turns, "probe": probes}
+
+
+def assignment_batch_phase(on_card, public, plain, plain_of, launch, same,
+                           probe, launch_floor):
+    """The batched launch (B = ``ASG_BATCH`` problems, a block each):
+    bitwise against the plain version on every batch of
+    :func:`assignment_batches`; the probe's sums per problem on the seeded
+    and recorded batches; then, at 128x64 and at the bucketed 32x64, one
+    batched launch against the same 8 problems launched one by one, in
+    turns (singles, batch, batch, singles; graph replays), per call through
+    the public function, the plain version (its loop over the 8), scipy on
+    the host for the 8 with the copy, and the bound: the larger of the
+    bytes of the 8 problems and an empty kernel's replay."""
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch.ops.assignment import VARIANTS
+
+    batches = [(fam, kind, on_card(args))
+               for fam, kind, args in assignment_batches()]
+    for fam, kind, a in batches:
+        got = launch(f"batch {fam}", kind, a, VARIANTS[0])
+        torch.cuda.synchronize()
+        same(f"batch {fam}", kind, a, VARIANTS[0], got, plain_of(kind, a))
+    n_checked = sum(a[0].shape[0] for _, _, a in batches)
+    print(f"[assignment] batched launch (B={ASG_BATCH}, a block a problem): "
+          f"bitwise equal to the plain version on {len(batches)} batches, "
+          f"{n_checked} problems (" + ", ".join(sorted({
+              f for f, _, _ in batches})) + ")")
+
+    # the probe, per problem: a batch's blocks add up as singles would
+    probes = []
+    for fam in ("seeded 128x64", "recorded 128x64"):
+        for kind in ("cascade", "match"):
+            group = [a for f, k, a in batches if f == fam and k == kind]
+            probe.read_probe(reset=True)
+            outs = [launch(f"probe batch {fam}", kind, a, VARIANTS[0],
+                           probe) for a in group]
+            torch.cuda.synchronize()
+            got = probe.read_probe(reset=True)
+            for a, out in zip(group, outs):
+                same(f"probe batch {fam}", kind, a, VARIANTS[0], out,
+                     plain_of(kind, a))
+            n = got["problems"]
+            check(n == ASG_BATCH * len(group), f"[assignment] probe counted "
+                  f"{n} problems in {len(group)} batches")
+            row = {"set": f"{fam} B={ASG_BATCH}", "kind": kind,
+                   "variant": VARIANTS[0], "problems": n,
+                   "launches": len(group),
+                   **{k: got[k] / n for k in ("total", *ASG_PHASES,
+                                               "solves", "rows_augmented",
+                                               "steps")}}
+            probes.append(row)
+            print(f"[assignment] probe batched {fam} {kind}: {len(group)} "
+                  f"launches of {ASG_BATCH}; thread 0's cycles a problem "
+                  f"{row['total']:.0f} (" + ", ".join(
+                      f"{k} {row[k]:.0f}" for k in ASG_PHASES)
+                  + f"); a problem {row['solves']:.2f} solves, "
+                    f"{row['rows_augmented']:.2f} rows augmented")
+
+    rows = []
+    for fam in ("seeded 128x64", "seeded 32x64", "recorded 128x64",
+                "recorded 32x64"):
+        for kind in ("cascade", "match"):
+            group = [a for f, k, a in batches if f == fam and k == kind]
+            fn = public[kind]
+            singles = [[tuple(x[b] if torch.is_tensor(x) else x for x in a)
+                        for b in range(a[0].shape[0])] for a in group]
+            got = {}
+            for way in ("singles", "batch", "batch", "singles"):
+                one = ((lambda i: [fn(*q) for q in singles[i]])
+                       if way == "singles" else (lambda i: fn(*group[i])))
+                got.setdefault(way, []).append(
+                    time_device_stats(one, len(group)))
+            ms = sorted(time_ms(lambda: fn(*group[0])) for _ in range(3))[1]
+            plain_ms = time_ms(lambda: plain[kind](*group[0]), iters=3,
+                               warmup=1)
+
+            def library():
+                host = [a.cpu().numpy() if torch.is_tensor(a) else a
+                        for a in group[0]]  # the copy a host solver needs
+                for b in range(host[0].shape[0]):
+                    q = [x[b] if isinstance(x, np.ndarray) else x
+                         for x in host]
+                    scipy_cascade(*q) if kind == "cascade" \
+                        else scipy_solve(*q)
+
+            library_ms = sorted(time_host_ms(library, bursts=3, burst=2)
+                                for _ in range(3))[1]
+            out = fn(*group[0])
+            out = out if kind == "cascade" else (out,)
+            n_bytes = sum(t.numel() * t.element_size()
+                          for t in (*group[0], *out) if torch.is_tensor(t))
+            t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = group[0][0].numel() / PEAK_F32_FLOPS * 1e3
+            bound = max(t_bytes, t_ops, launch_floor)
+            r = {"shape": f"B={ASG_BATCH} x {fam} f32 {kind}",
+                 "batches": len(group),
+                 "device_ms": [t[0] for t in got["batch"]],
+                 "singles_device_ms": [t[0] for t in got["singles"]],
+                 "spread_ms": [min(t[1] for v in got.values() for t in v),
+                               max(t[2] for v in got.values() for t in v)],
+                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                 "bound_ms": bound,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "bound_term": ("launch floor" if bound == launch_floor
+                                else "work"), "bytes": n_bytes,
+                 "problems_checked": ASG_BATCH * len(group)}
+            rows.append(r)
+            dev = float(np.median(r["device_ms"]))
+            print(f"[assignment] {r['shape']} ({len(group)} batches, graph "
+                  f"replay): one launch "
+                  + " ".join(f"{t:.5f}" for t in r["device_ms"])
+                  + " ms against 8 single launches "
+                  + " ".join(f"{t:.5f}" for t in r["singles_device_ms"])
+                  + f" ms (in turns; replays {r['spread_ms'][0]:.5f}-"
+                    f"{r['spread_ms'][1]:.5f} ms a set); per call "
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scipy "
+                    f"{library_ms:.4f} ms (host, the 8 with the copy), "
+                    f"bound {bound:.6f} ms ({n_bytes} bytes; "
+                    f"{r['bound_term']}): {100 * bound / dev:.1f}% of it")
+    return rows, probes
 
 
 def make_pipeline(device, synthetic_load=24, **kw):
@@ -1260,6 +1446,11 @@ def main_path_phase(device, frames, kernels):
           f"{launches['assignment'] / n:.3f} (a cascade and an IoU solve)")
     check(syncs["tracker"] == 0, f"the DeepSORT step read the GPU "
           f"{syncs['tracker']} times")
+    # a cascade and an IoU solve a frame, a replay of a chunk's frames each
+    # chunk and each rerun of a bucketed one
+    want = 2 * CHUNK * (N_CHUNKS + pipe.scan_stats["rerun"])
+    check(launches["assignment"] == want, f"main path: "
+          f"{launches['assignment']} assignment launches, {want} expected")
     print("[main] sample tracks, last frame: "
           + repr(results[-1].tracks[:4]))
 
@@ -1900,25 +2091,45 @@ def streams_phase(device, kernels):
     torch.cuda.synchronize()
     print(f"[streams] warm-up {time.perf_counter() - t0:.2f} s")
 
+    check(pipe.stacked, "streams: the DeepSORT streams are not one stack")
+
     def run(timer=None):
         for i in range(s):
             pipe.reset_stream(i)
         pipe.scan_stats.update(dict.fromkeys(pipe.scan_stats, 0))
         pipe.stage_timer = timer
         reset_counts(kernels)
+        replays = pipe.scan_replays()
         t0 = time.perf_counter()
         outs = [tuple(x.cpu() for x in pipe.step_chunk(c)) for c in chunks]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         pipe.stage_timer = None
         return (outs, wall, {kn.name: kn.launches for kn in kernels},
-                {n: c.count for n, c in sync_counters().items()})
+                {n: c.count for n, c in sync_counters().items()},
+                pipe.scan_replays() - replays)
 
     run()  # captures the scans of whichever capacities the chunks take
-    outs, wall, launches, syncs = run()
+    outs, wall, launches, syncs, replays = run()
     check_launches(launches, d, "streams (one launch per dispatch)")
     check(syncs["tracker"] == 0, f"streams: the DeepSORT steps read the GPU "
           f"{syncs['tracker']} times")
+    # the stack: one replay a dispatch (two where the small pass reruns),
+    # a cascade and an IoU solve a frame for all streams, two bucket reads
+    reruns = pipe.scan_stats["rerun"]
+    check(replays == d + reruns, f"streams: {replays} scan replays in {d} "
+          f"dispatches ({reruns} reruns)")
+    check(launches["assignment"] == 2 * k * replays, f"streams: "
+          f"{launches['assignment']} assignment launches in {replays} "
+          f"replays of {k} frames")
+    check(syncs["scan bucket"] <= 2 * d, f"streams: {syncs['scan bucket']} "
+          f"bucket reads in {d} dispatches")
+    print(f"[streams] a dispatch: {replays / d:.2f} scan replays, "
+          f"{launches['assignment'] / d:.2f} assignment launches (2 K = "
+          f"{2 * k} a replay, every stream's problems in each), "
+          f"{syncs['scan bucket'] / d:.2f} bucket reads, "
+          f"{syncs['tracker'] / d:.2f} tracker reads; chunks "
+          f"{dict(pipe.scan_stats)}")
     tuples = [stream_tuples(outs, si) for si in range(s)]
     n_tracks = [sum(map(len, t)) for t in tuples]
     check(all(n > 0 for n in n_tracks), f"a stream emitted no track: "
@@ -1940,6 +2151,7 @@ def streams_phase(device, kernels):
           f" ms; timed rerun identical: {same}")
     print(f"[streams] host syncs per stream-frame: {syncs_line(syncs, n_sf)};"
           f" track outputs per stream {n_tracks}")
+    stream_stack_vs_loop(pipe, chunks, device)
 
     # two streams masked for a whole dispatch keep their states bit for bit
     before = pipe.states
@@ -2031,6 +2243,98 @@ def streams_phase(device, kernels):
           f" per dispatch gmc {g_ms['gmc']:.3f} ms (all {s} streams in one "
           f"batched estimate), tracker {g_ms['tracker']:.3f} ms")
     return launches
+
+
+def stream_stack_vs_loop(pipe, chunks, device):
+    """The streams' tracker on the same detections two ways, in turns
+    (loop, stack, stack, loop), each a pass over the dispatches from fresh
+    states: the stack (one captured replay a dispatch, one bucket decision)
+    and the streams one after another through the same stage (a replay and
+    a bucket decision a stream), as the pipeline ran them before it stacked
+    them. Tracker ms a dispatch (host clock around the tracker, synced),
+    replays, assignment launches and bucket reads a dispatch; the two ways'
+    tracks equal (ids, classes, boxes identical, conf within 1e-4)."""
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch.core import state as core_state
+    from aicamera_tpu_torch.core.assignment import TRACKER_SYNCS
+    from aicamera_tpu_torch.ops.assignment import KERNEL
+    from aicamera_tpu_torch.runtime.pipeline import BUCKET_SYNCS
+
+    s, k = chunks[0].shape[:2]
+    detect, track = pipe._engine._get_stages(STREAM_HW)
+    inputs = []
+    with torch.no_grad():
+        for c in chunks:
+            ft = torch.from_numpy(np.ascontiguousarray(c)).to(device)
+            inputs.append(detect(ft.reshape(s * k, *ft.shape[2:]))[0])
+    valid = np.ones((s, k), bool)
+    params = pipe.tracker_params
+
+    def one_pass(way):
+        counts = (pipe.scan_replays(), KERNEL.launches, BUCKET_SYNCS.count,
+                  TRACKER_SYNCS.count)
+        ms, outs = [], []
+        stack = core_state.init_state(params, device, n_streams=s)
+        singles = [core_state.init_state(params, device) for _ in range(s)]
+        with torch.no_grad():
+            for inp in inputs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if way == "stack":
+                    stack, o = track(stack, inp.by_frame(s, k), valid.T)
+                    o = tuple(x.transpose(0, 1) for x in o)
+                else:
+                    per = []
+                    for si in range(s):
+                        singles[si], oi = track(
+                            singles[si], inp.frames(si * k, (si + 1) * k),
+                            valid[si])
+                        per.append(oi)
+                    o = tuple(torch.stack(x) for x in zip(*per))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                outs.append(tuple(x.cpu() for x in o))
+        n = len(inputs)
+        per_dispatch = [(now - was) / n for now, was in zip(
+            (pipe.scan_replays(), KERNEL.launches, BUCKET_SYNCS.count,
+             TRACKER_SYNCS.count), counts)]
+        return ms, outs, per_dispatch
+
+    for way in ("loop", "stack"):
+        one_pass(way)   # captures: the loop's per-stream scans are new
+    got = {}
+    for way in ("loop", "stack", "stack", "loop"):
+        got.setdefault(way, []).append(one_pass(way))
+    total = exact = 0
+    for (_, o_stack, _), (_, o_loop, _) in zip(got["stack"], got["loop"]):
+        for si in range(s):
+            t, e = same_tracks(f"streams stack vs loop, stream {si}",
+                               stream_tuples(o_stack, si),
+                               stream_tuples(o_loop, si))
+            total, exact = total + t, exact + e
+    check(total > 0, "streams stack vs loop: no track to compare")
+    row = {}
+    for way, runs in got.items():
+        row[way] = {"tracker_ms_a_dispatch": [float(np.median(r[0]))
+                                              for r in runs],
+                    "replays": runs[0][2][0], "assignment_launches":
+                    runs[0][2][1], "bucket_reads": runs[0][2][2],
+                    "tracker_reads": runs[0][2][3]}
+        check(runs[0][2][3] == 0, f"streams {way}: tracker reads")
+    check(row["stack"]["bucket_reads"] <= 2, "streams stack: more than 2 "
+          "bucket reads a dispatch")
+    print("[streams] tracker on the same detections, in turns (loop, stack,"
+          " stack, loop; median ms a dispatch, host clock, synced): "
+          + "; ".join(f"{way} " + " / ".join(
+              f"{t:.3f}" for t in r["tracker_ms_a_dispatch"])
+              + f" ms, a dispatch {r['replays']:.2f} replays, "
+                f"{r['assignment_launches']:.2f} assignment launches, "
+                f"{r['bucket_reads']:.2f} bucket reads"
+              for way, r in row.items())
+          + f"; tracks: ids, classes, boxes identical on {total} tuples, "
+            f"{exact} bitwise with conf")
+    return row
 
 
 def tenant_frames(scenes, pace):

@@ -9,8 +9,10 @@ that checkout, builds its kernel, warms up and drives the main path of
 ``chip_smoke.py`` (YOLOv8n at 640x640, T=128, chunk 8, ``synthetic_load=24``,
 64 seeded 960x540 frames) three times: FPS by the host clock, then the
 tracker's ms per frame from CUDA events, then the tracker's host syncs per
-frame. Host time on a shared machine moves FPS by tens of per cent between
-calls, so two versions compare only inside one call.
+frame, with a SHA-256 of every run's track tuples (equal digests: the
+checkouts' main-path outputs are bitwise the same). Host time on a shared
+machine moves FPS by tens of per cent between calls, so two versions
+compare only inside one call.
 
 ``--ocsort ROOT`` adds, for that checkout, where the OC-SORT loop's reads
 come from over 32 frames with ``det_thresh=0.4``: frames that took the round-1
@@ -25,7 +27,7 @@ import sys
 from pathlib import Path
 
 CHILD = r"""
-import sys, time
+import hashlib, sys, time
 root = sys.argv[1]
 sys.path.insert(0, root)
 import torch
@@ -41,15 +43,17 @@ pipe = pl.TrackingPipeline(
     reid_weights=str(config.REID_SYNTHETIC_PATH),
     chunk_size=8, synthetic_load=24, device="cuda")
 pipe.warm_up((540, 960))
-fps, trk = [], []
+fps, trk, digests = [], [], set()
 for timed in (False, True) * 3:
     pipe.reset()
     pipe.stage_timer = Timer() if timed else None
     TRACKER_SYNCS.count = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    n_tracks = sum(len(r.tracks) for r in pipe.process_frames(iter(frames)))
+    tracks = [r.tracks for r in pipe.process_frames(iter(frames))]
     torch.cuda.synchronize()
+    n_tracks = sum(map(len, tracks))
+    digests.add(hashlib.sha256(repr(tracks).encode()).hexdigest()[:16])
     if timed:
         trk.append(pipe.stage_timer.totals["tracker"] / len(frames))
     else:
@@ -57,7 +61,8 @@ for timed in (False, True) * 3:
 print(f"[probe] {root}: FPS " + " / ".join(f"{x:.2f}" for x in fps)
       + "; tracker ms per frame " + " / ".join(f"{x:.3f}" for x in trk)
       + f"; tracker syncs per frame {TRACKER_SYNCS.count / len(frames):.3f}; "
-      f"track outputs {n_tracks}; scan_bucket "
+      f"track outputs {n_tracks}, SHA-256 of the tuples "
+      f"{', '.join(sorted(digests))}; scan_bucket "
       f"{getattr(pipe, 'scan_bucket', 'absent')}, chunks "
       f"{getattr(pipe, 'scan_stats', 'n/a')}")
 """

@@ -566,7 +566,8 @@ def test_captured_scan_equals_the_eager_scan(monkeypatch, gmc):
 def test_one_capture_a_capacity_whatever_the_validity(monkeypatch):
     """The validity mask is an input of the capture, not part of its key:
     full, partial and empty chunks of a multi-stream dispatch share one
-    engine a track capacity, and a masked stream keeps its state."""
+    engine a track capacity (the streams' stacked scan), and a masked
+    stream keeps its state."""
     from aicamera_tpu_torch.parallel import MultiStreamPipeline
     made = []
 
@@ -584,13 +585,14 @@ def test_one_capture_a_capacity_whatever_the_validity(monkeypatch):
         2, (96, 128), n_objects=3, seed=s))) for s in (3, 4)])
     monkeypatch.setattr(pl, "CUDAGraphEngine", Spy)
     pipe.step_chunk(frames)
-    before = [t.clone() for t in dataclasses.astuple(pipe._states[1])]
+    before = [t[1].clone() for t in dataclasses.astuple(pipe.states)]
     for valid in ([[True, False], [False, False]],
                   [[False, True], [False, False]]):
         pipe.step_chunk(frames, frame_valid=np.array(valid))
-    assert made == ["deepsort scan T=16"] and bool(before[0].any())
-    for a, b in zip(before, dataclasses.astuple(pipe._states[1])):
-        assert torch.equal(a, b)
+    assert made == ["deepsort scan T=16 over streams"] \
+        and bool(before[0].any())
+    for a, b in zip(before, dataclasses.astuple(pipe.states)):
+        assert torch.equal(a, b[1])
 
 
 def test_deepsort_chunk_scan_reads_nothing():

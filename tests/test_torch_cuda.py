@@ -212,9 +212,146 @@ def test_assignment_takes_int32_levels_and_probes(cuda):
                                      variant=variant)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     sums = probe.read_probe()
-    assert sums["launches"] == 2 and sums["solves"] >= 2
+    assert sums["problems"] == 2 and sums["solves"] >= 2
     assert sums["steps"] >= sums["rows_augmented"] > 0
     assert sums["total"] >= sums["augment"] > 0
+
+
+BATCH_FAMILIES = sorted({f for f, _, _ in chip_smoke.assignment_batches()})
+
+
+@pytest.mark.parametrize("family", BATCH_FAMILIES)
+def test_batched_assignment_bitwise_equals_plain_version(cuda, family):
+    """``chip_smoke.assignment_batches``: B = 8 problems a launch, the
+    recorded main-path problems 8 at a time, seeded loads at 128x64 and
+    32x64, and mixed batches (no eligible row, every row eligible, recorded
+    ones). One launch a batch, each problem bitwise the plain version's,
+    and the probe's build counts 8 problems a launch."""
+    from aicamera_tpu_torch.core import assignment as asg
+    from aicamera_tpu_torch.ops.assignment import KERNEL, AssignmentKernel
+    public = {"match": asg.min_cost_matching,
+              "cascade": asg.matching_cascade}
+    plain = {"match": asg.min_cost_matching_plain,
+             "cascade": asg.matching_cascade_plain}
+    probe = AssignmentKernel(probe=True)
+    probe.read_probe(reset=True)
+    n = 0
+    for fam, kind, args in chip_smoke.assignment_batches():
+        if fam != family:
+            continue
+        a = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+             if isinstance(x, np.ndarray) else x for x in args]
+        launches = KERNEL.launches
+        got = public[kind](*a)
+        assert KERNEL.launches == launches + 1
+        fn = (probe.matching_cascade if kind == "cascade"
+              else probe.min_cost_matching)
+        probed = fn(*a)
+        want = plain[kind](*a)
+        got, probed, want = ((got, probed, want) if kind == "cascade"
+                             else ((got,), (probed,), (want,)))
+        for g, p_, w in zip(got, probed, want):
+            assert g.shape[0] == 8 and g.dtype == w.dtype
+            assert torch.equal(g, w) and torch.equal(p_, w)
+        n += 1
+    assert n and probe.read_probe()["problems"] == 8 * n
+
+
+def test_a_misaligned_batch_raises(cuda):
+    """A batch whose problems would not start 16-byte aligned (C % 4 != 0,
+    a start off the 16-byte grid, a strided layout) raises, as does a batch
+    for the single-problem first design; nothing launches or is copied."""
+    from aicamera_tpu_torch.ops.assignment import KERNEL
+    rows = torch.ones(8, 32, dtype=torch.bool, device=cuda)
+    base = torch.rand(8 * 32 * 64 + 1, device=cuda)
+    bad = [torch.rand(8, 32, 62, device=cuda),
+           base[1:].view(8, 32, 64),
+           torch.rand(8, 64, 32, device=cuda).transpose(1, 2)]
+    before = KERNEL.launches
+    for cost in bad:
+        cols = torch.ones(8, cost.shape[2], dtype=torch.bool, device=cuda)
+        with pytest.raises(ValueError, match="16-byte"):
+            KERNEL.min_cost_matching(cost, rows, cols, 0.7)
+    cost = torch.rand(8, 32, 64, device=cuda)
+    cols = torch.ones(8, 64, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="one problem"):
+        KERNEL.min_cost_matching(cost, rows, cols, 0.7, variant="v1")
+    assert KERNEL.launches == before
+    KERNEL.min_cost_matching(cost, rows, cols, 0.7)
+    assert KERNEL.launches == before + 1
+
+
+def test_stream_stack_scan_reads_nothing_and_replays_once(cuda):
+    """A DeepSORT stream stack on the card: its chunk step (the captured
+    scan of all streams) runs under CUDA's sync debug mode "error" (no read
+    back), replays once a dispatch with 2 K assignment launches, and its
+    tracks equal the streams stepped one by one through the same stage on
+    the same detections (ids, classes, boxes identical, conf within
+    1e-4). Through ``step_chunk`` with ``scan_bucket`` 8: at most two
+    bucket reads and no tracker read a dispatch."""
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.core.assignment import TRACKER_SYNCS
+    from aicamera_tpu_torch.core.state import TrackerParams
+    from aicamera_tpu_torch.ops.assignment import KERNEL
+    from aicamera_tpu_torch.parallel import MultiStreamPipeline
+    from aicamera_tpu_torch.runtime.pipeline import (BUCKET_SYNCS,
+                                                     _format_tracks)
+    from aicamera_tpu_torch.scenes import moving_rectangles
+    s, k, hw = 3, 2, (180, 320)
+    kw = dict(input_shape=(256, 256), max_reid_crops=4, detect_dtype="f32",
+              reid_dtype="f32",
+              tracker_params=TrackerParams(max_tracks=16, max_detections=8,
+                                           nn_budget=4, max_age=10),
+              yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
+              reid_weights=str(config.REID_SYNTHETIC_PATH))
+    frames = np.stack([moving_rectangles(3 * k, hw, n_objects=3, seed=q)
+                       for q in (3, 5, 7)])
+    pipe = MultiStreamPipeline(s, hw, scan_bucket=0, device=cuda, **kw)
+    assert pipe.stacked
+    detect, track = pipe._engine._get_stages(hw)
+    valid = np.ones((s, k), bool)
+    valid[1, 1] = False
+    stack = pipe.states
+    singles = [pipe._engine._init_tracker_state() for _ in range(s)]
+    got, want = [], []
+    for c in range(3):
+        chunk = torch.from_numpy(frames[:, c * k:(c + 1) * k]).to(cuda)
+        with torch.no_grad():
+            inputs, _ = detect(chunk.reshape(s * k, *chunk.shape[2:]))
+            track(stack, inputs.by_frame(s, k), valid.T)   # the capture
+            replays, launches = pipe.scan_replays(), KERNEL.launches
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                stack, outs = track(stack, inputs.by_frame(s, k), valid.T)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert pipe.scan_replays() == replays + 1
+            assert KERNEL.launches == launches + 2 * k
+            for si in range(s):
+                singles[si], o = track(singles[si], inputs.frames(
+                    si * k, (si + 1) * k), valid[si])
+                want.append([_format_tracks(*(x[t].cpu().numpy() for x in o))
+                             for t in range(k)])
+                got.append([_format_tracks(*(x[t, si].cpu().numpy()
+                                             for x in outs))
+                            for t in range(k)])
+    for g, w in zip(got, want):
+        for gf, wf in zip(g, w):
+            assert [t[:6] for t in gf] == [t[:6] for t in wf]
+            assert all(abs(a[6] - b[6]) <= 1e-4 for a, b in zip(gf, wf))
+    assert sum(len(f) for g in got for f in g) > 0
+
+    pipe = MultiStreamPipeline(s, hw, scan_bucket=8, device=cuda, **kw)
+    pipe.step_chunk(frames[:, :k])   # captures
+    reads, bucket = TRACKER_SYNCS.count, BUCKET_SYNCS.count
+    replays, reruns = pipe.scan_replays(), pipe.scan_stats["rerun"]
+    for c in range(1, 3):
+        pipe.step_chunk(frames[:, c * k:(c + 1) * k], frame_valid=valid)
+    assert TRACKER_SYNCS.count == reads
+    assert BUCKET_SYNCS.count - bucket <= 2 * 2
+    assert pipe.scan_replays() - replays \
+        == 2 + pipe.scan_stats["rerun"] - reruns
 
 
 def test_a_deepsort_frame_is_two_assignment_launches(cuda):

@@ -325,8 +325,9 @@ def test_identical_streams_give_identical_outputs(tracker):
 
 
 def test_scan_bucket_32_equals_0():
-    """The capacity-bucketed scan, decided per stream, against the
-    unbucketed one at T=64: outputs and states bitwise; the small pass ran."""
+    """The capacity-bucketed scan, decided once a dispatch for the stream
+    stack, against the unbucketed one at T=64: outputs and states bitwise;
+    the small pass ran."""
     tp = TrackerParams(**dict(SMALL, max_tracks=64))
     frames = _scenes(4)
     runs = {}
@@ -343,6 +344,28 @@ def test_scan_bucket_32_equals_0():
     for f in dataclasses.fields(runs[0][1]):
         assert torch.equal(getattr(runs[32][1], f.name),
                            getattr(runs[0][1], f.name)), f.name
+
+
+def test_eager_stack_equals_the_captured_stack(monkeypatch):
+    """The stream stack stepped frame by frame on the host (no capture: a
+    frame no stream takes is skipped, one some take steps the stack and
+    keeps the others') equals the captured scan's masked steps bitwise."""
+    frames = _scenes(4)
+    runs = []
+    for capture in (True, False):
+        monkeypatch.setattr(TrackingPipeline, "_capture_scans", capture)
+        pipe = MultiStreamPipeline(device="cpu", **KW,
+                                   **TRACKERS["deepsort"][0])
+        assert pipe.stacked
+        outs = [pipe.step_chunk(frames[:, :2]),
+                pipe.step_chunk(frames[:, 2:], frame_valid=MASK)]
+        runs.append((outs, pipe.states))
+    (o_cap, st_cap), (o_eag, st_eag) = runs
+    for a, b in zip(o_cap, o_eag):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    for f in dataclasses.fields(st_cap):
+        assert torch.equal(getattr(st_cap, f.name), getattr(st_eag, f.name))
 
 
 def test_states_assign_and_checkpoint_round_trip(tmp_path):
