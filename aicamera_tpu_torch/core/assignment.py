@@ -23,8 +23,10 @@ The helpers of the tracker steps (:func:`_scatter_drop`,
 :func:`place_new_tracks`, :func:`_claim`) work along the last axis of their
 index and mask arguments, over any leading stream axes.
 
-``TRACKER_SYNCS`` counts the reads of the GPU that the ByteTrack and OC-SORT
-steps still make in their own branches.
+``TRACKER_SYNCS`` would count a tracker step's reads of the GPU. No core's
+step makes one (DeepSORT, ByteTrack and OC-SORT select where the JAX
+package branches), so it stays at 0: the tests and ``chip_smoke.py`` hold
+it there.
 """
 
 from __future__ import annotations

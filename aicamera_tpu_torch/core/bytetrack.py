@@ -21,13 +21,22 @@ arXiv:2110.06864), fixed shape like the DeepSORT core (:mod:`.tracker`):
 The matching threshold convention is "accept when cost <= thresh"
 (:func:`.assignment.min_cost_matching`).
 
-The JAX package's ``lax.cond`` guards: the three association stages, the
-matched-track corrections, the births and the duplicate removal stay Python
-branches (three reads a frame beside those of the assignment solves, counted
-in ``assignment.TRACKER_SYNCS``: the flags that are known at the same point
-are read together). The prediction
-guard is gone: the masked prediction of an empty pool is the input, so both
-sides give the same state and the read is saved.
+The step reads nothing back from its device. Where the JAX package skips a
+stage with a ``lax.cond`` (the prediction of an empty pool, each of the three
+association stages, the matched tracks' corrections, the births, the
+duplicate removal), the port computes the stage on the masks it already has
+and selects with ``torch.where``: what ``jax.vmap`` of the JAX step computes.
+A stage with no eligible row or column matches nothing, a masked update
+leaves every masked slot as it was, and a birth with no new detection drops
+every scatter, so the result is the skipped branch's. One code path serves
+the CPU and the GPU, and a chunk's steps can be captured in one CUDA graph
+(``runtime/pipeline.py``).
+
+Every function also takes states and detections with leading stream axes
+(``ByteTrackState`` fields ``(S, T, ...)``, the counters ``(S,)``;
+``ByteDetections`` fields ``(S, N, ...)``): the counterpart of ``jax.vmap``
+of the JAX step over streams. A stage's assignment problems of all streams
+go to the kernel as one batch. One stream is the call without the axis.
 """
 
 from __future__ import annotations
@@ -38,8 +47,8 @@ import torch
 
 from ..ops.gmc import warp_xyah_bank
 from . import kalman
-from .assignment import (TRACKER_SYNCS, _claim, _scatter_drop,
-                         min_cost_matching, place_new_tracks)
+from .assignment import (_claim, _scatter_drop, _take, min_cost_matching,
+                         place_new_tracks)
 from .costs import (_l2_normalize, iou_cost_matrix, mean_to_tlwh,
                     tlwh_to_tlbr, tlwh_to_xyah)
 from .state import pad_rows
@@ -122,12 +131,15 @@ class ByteDetections:
     has_feature: torch.Tensor | None = None  # (N,) bool
 
 
-def init_state(params: ByteTrackParams, device="cpu") -> ByteTrackState:
-    """Fresh state; track ids restart at 1."""
+def init_state(params: ByteTrackParams, device="cpu",
+               n_streams: int | None = None) -> ByteTrackState:
+    """Fresh state; track ids restart at 1. ``n_streams``: a stack of that
+    many fresh states on a leading stream axis."""
     t = params.max_tracks
+    lead = () if n_streams is None else (int(n_streams),)
 
     def z(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
 
     app = params.with_appearance
     return ByteTrackState(
@@ -142,7 +154,7 @@ def init_state(params: ByteTrackParams, device="cpu") -> ByteTrackState:
         class_id=z((t,), torch.int32),
         score=z((t,), torch.float32),
         frame_id=z((), torch.int32),
-        next_id=torch.ones((), dtype=torch.int32, device=device),
+        next_id=torch.ones(lead, dtype=torch.int32, device=device),
         dropped=z((), torch.int32),
         feat=z((t, params.feature_dim), torch.float32) if app else None,
         has_feat=z((t,), torch.bool) if app else None,
@@ -187,9 +199,8 @@ def step(state: ByteTrackState, dets: ByteDetections,
     """One ByteTrack frame update (predict, three association stages,
     lifecycle), after the official ``BYTETracker.update`` loop. Returns a new
     state; ``state`` is left as it was. ``gmc``: the camera affine ``(A,
-    t)`` of this frame (``ops/gmc.py``), which warps the Kalman bank after
-    the prediction."""
-    t = params.max_tracks
+    t)`` of this frame (``ops/gmc.py``; ``(S, 2, 2)`` and ``(S, 2)`` for a
+    stack), which warps the Kalman bank after the prediction."""
     dev = state.mean.device
     frame_id = state.frame_id + 1
 
@@ -198,11 +209,11 @@ def step(state: ByteTrackState, dets: ByteDetections,
     # zeroed (official STrack.multi_predict).
     pool = state.active & state.is_activated
     mean0 = state.mean.clone()
-    mean0[:, 7] = torch.where(pool & (state.state != TRACKED), 0.0,
-                              state.mean[:, 7])
+    mean0[..., 7] = torch.where(pool & (state.state != TRACKED), 0.0,
+                                state.mean[..., 7])
     pm, pc = kalman.predict(mean0, state.cov)
-    mean = torch.where(pool[:, None], pm, mean0)
-    cov = torch.where(pool[:, None, None], pc, state.cov)
+    mean = torch.where(pool[..., None], pm, mean0)
+    cov = torch.where(pool[..., None, None], pc, state.cov)
     if gmc is not None:
         mean, cov = warp_xyah_bank(mean, cov, gmc[0], gmc[1], state.active)
     tsu = torch.where(state.active, state.tsu + 1, state.tsu)
@@ -213,9 +224,9 @@ def step(state: ByteTrackState, dets: ByteDetections,
     low = dets.valid & (dets.score > params.low_thresh) \
         & (dets.score < params.track_thresh)
 
-    iou_c = iou_cost_matrix(mean_to_tlwh(mean), dets.tlwh)  # (T, N)
+    iou_c = iou_cost_matrix(mean_to_tlwh(mean), dets.tlwh)  # (..., T, N)
     if params.fuse_score:
-        fused = 1.0 - (1.0 - iou_c) * dets.score[None, :]
+        fused = 1.0 - (1.0 - iou_c) * dets.score[..., None, :]
     else:
         fused = iou_c
     if params.with_appearance:
@@ -224,44 +235,30 @@ def step(state: ByteTrackState, dets: ByteDetections,
         # or where either side has no feature; the stage cost is
         # min(score-fused IoU, emb). The product is a full-f32 matmul.
         emb = 0.5 * torch.clamp(
-            1.0 - _l2_normalize(state.feat) @ _l2_normalize(dets.feature).T,
-            min=0.0)
+            1.0 - _l2_normalize(state.feat)
+            @ _l2_normalize(dets.feature).transpose(-1, -2), min=0.0)
         emb_bad = ((emb > params.appearance_thresh)
                    | (iou_c > params.proximity_thresh)
-                   | ~state.has_feat[:, None] | ~dets.has_feature[None, :])
+                   | ~state.has_feat[..., :, None]
+                   | ~dets.has_feature[..., None, :])
         fused = torch.minimum(fused, torch.where(emb_bad, 1.0, emb))
 
-    nd = dets.valid.shape[0]
-    neg = torch.full((t,), -1, dtype=torch.int64, device=dev)
-
-    # --- Stage 1: pool (tracked + lost) vs high-score detections ------------
-    if TRACKER_SYNCS.flag(torch.any(pool) & torch.any(high)):
-        match_a = min_cost_matching(fused, pool, high, params.match_thresh)
-    else:
-        match_a = neg
+    # --- Stage 1: pool (tracked + lost) vs high-score detections. Every
+    # stage runs: with no eligible row or column it matches nothing. --------
+    match_a = min_cost_matching(fused, pool, high, params.match_thresh)
     matched_a = match_a >= 0
     u_high = _claim(match_a, high)
 
     # --- Stage 2: leftover tracked tracks vs low-score detections; stage 3:
-    # unconfirmed tracks vs leftover high-score detections. Both guards are
-    # known after stage 1: one read. ------------------------------------------
+    # unconfirmed tracks vs leftover high-score detections -------------------
     r_tracked = pool & ~matched_a & (state.state == TRACKED)
     unconfirmed = state.active & ~state.is_activated
-    run2, run3 = TRACKER_SYNCS.tolist(torch.stack([
-        torch.any(r_tracked) & torch.any(low),
-        torch.any(unconfirmed) & torch.any(u_high)]))
-    if run2:
-        match_b = min_cost_matching(iou_c, r_tracked, low,
-                                    params.second_match_thresh)
-    else:
-        match_b = neg
+    match_b = min_cost_matching(iou_c, r_tracked, low,
+                                params.second_match_thresh)
     matched_b = match_b >= 0
     newly_lost = r_tracked & ~matched_b
-    if run3:
-        match_c = min_cost_matching(fused, unconfirmed, u_high,
-                                    params.unconfirmed_match_thresh)
-    else:
-        match_c = neg
+    match_c = min_cost_matching(fused, unconfirmed, u_high,
+                                params.unconfirmed_match_thresh)
     matched_c = match_c >= 0
     remove_unconfirmed = unconfirmed & ~matched_c
     u_high = _claim(match_c, u_high)
@@ -277,80 +274,77 @@ def step(state: ByteTrackState, dets: ByteDetections,
     st = torch.where(matched, TRACKED, state.state)
     st = torch.where(newly_lost, LOST, st)
     is_act = state.is_activated | matched
-    score = torch.where(matched, dets.score[det_idx], state.score)
-    class_id = torch.where(matched, dets.class_id[det_idx], state.class_id)
+    score = torch.where(matched, _take(dets.score, det_idx), state.score)
+    class_id = torch.where(matched, _take(dets.class_id, det_idx),
+                           state.class_id)
 
     # --- Removals: dead unconfirmed + stale lost -----------------------------
     remove_lost = state.active & (st == LOST) & (tsu > params.max_time_lost)
     active = state.active & ~remove_unconfirmed & ~remove_lost
     new_det = u_high & (dets.score >= params.new_track_thresh)
 
-    # The three remaining guards in one read. New tracks start TRACKED, so
-    # whether a lost track is left is known before they are placed.
-    any_matched, any_new, any_lost = TRACKER_SYNCS.tolist(torch.stack([
-        torch.any(matched), torch.any(new_det),
-        torch.any(active & (st == LOST))]))
-
-    mean2, cov2 = mean, cov
+    # --- Matched tracks: KF correction (every slot computed, the unmatched
+    # ones keep their values) -------------------------------------------------
+    um, uc = kalman.update(mean, cov,
+                           _take(tlwh_to_xyah(dets.tlwh), det_idx))
+    mean2 = torch.where(matched[..., None], um, mean)
+    cov2 = torch.where(matched[..., None, None], uc, cov)
     feat, has_feat = state.feat, state.has_feat
-    if any_matched:
-        um, uc = kalman.update(mean, cov, tlwh_to_xyah(dets.tlwh)[det_idx])
-        mean2 = torch.where(matched[:, None], um, mean)
-        cov2 = torch.where(matched[:, None, None], uc, cov)
-        if params.with_appearance:
-            # STrack.update_features: normalize the new feature, blend it
-            # into the bank, re-normalize; the first feature seeds directly.
-            fn = _l2_normalize(dets.feature[det_idx])
-            a = torch.tensor(params.feat_ema_alpha, dtype=torch.float32,
-                             device=dev)  # 1 - a in f32, as in JAX
-            blend = _l2_normalize(a * feat + (1.0 - a) * fn)
-            newf = torch.where(has_feat[:, None], blend, fn)
-            updm = matched & dets.has_feature[det_idx]
-            feat = torch.where(updm[:, None], newf, feat)
-            has_feat = has_feat | updm
+    if params.with_appearance:
+        # STrack.update_features: normalize the new feature, blend it
+        # into the bank, re-normalize; the first feature seeds directly.
+        fn = _l2_normalize(_take(dets.feature, det_idx))
+        # 1 - a in f32, as in JAX; a fill, not a copy from the host
+        a = torch.full((), params.feat_ema_alpha, dtype=torch.float32,
+                       device=dev)
+        blend = _l2_normalize(a * feat + (1.0 - a) * fn)
+        newf = torch.where(has_feat[..., None], blend, fn)
+        updm = matched & _take(dets.has_feature, det_idx)
+        feat = torch.where(updm[..., None], newf, feat)
+        has_feat = has_feat | updm
 
-    # --- New tracks from the remaining high-score detections ----------------
-    start_frame, track_id = state.start_frame, state.track_id
-    n_new = dropped = torch.zeros((), dtype=torch.int32, device=dev)
-    if any_new:
-        slot_for_det, det_rank, n_new, dropped = place_new_tracks(
-            active, new_det)
-        init_mean, init_cov = kalman.initiate(tlwh_to_xyah(dets.tlwh))
+    # --- New tracks from the remaining high-score detections (with none,
+    # every scatter drops everything and n_new, dropped are 0) ---------------
+    slot_for_det, det_rank, n_new, dropped = place_new_tracks(active,
+                                                              new_det)
+    init_mean, init_cov = kalman.initiate(tlwh_to_xyah(dets.tlwh))
+    lead = new_det.shape
 
-        def scatter(arr, values):
-            return _scatter_drop(arr, slot_for_det, values)
+    def scatter(arr, values):
+        return _scatter_drop(arr, slot_for_det, values)
 
-        active = scatter(active, torch.ones_like(new_det))
-        st = scatter(st, torch.full_like(det_rank, TRACKED))
-        # official STrack.activate: is_activated only on the first frame
-        is_act = scatter(is_act, (frame_id == 1).expand(nd))
-        mean2 = scatter(mean2, init_mean)
-        cov2 = scatter(cov2, init_cov)
-        tsu = scatter(tsu, torch.zeros_like(det_rank))
-        start_frame = scatter(start_frame, frame_id.expand(nd))
-        track_id = scatter(track_id, state.next_id + det_rank)
-        class_id = scatter(class_id, dets.class_id)
-        score = scatter(score, dets.score)
-        if params.with_appearance:
-            # seed the bank with the detection's normalized feature
-            feat = scatter(feat, torch.where(
-                dets.has_feature[:, None], _l2_normalize(dets.feature), 0.0))
-            has_feat = scatter(has_feat, dets.has_feature)
+    active = scatter(active, torch.ones_like(new_det))
+    st = scatter(st, torch.full_like(det_rank, TRACKED))
+    # official STrack.activate: is_activated only on the first frame
+    is_act = scatter(is_act, (frame_id == 1)[..., None].expand(lead))
+    mean2 = scatter(mean2, init_mean)
+    cov2 = scatter(cov2, init_cov)
+    tsu = scatter(tsu, torch.zeros_like(det_rank))
+    start_frame = scatter(state.start_frame, frame_id[..., None].expand(lead))
+    track_id = scatter(state.track_id, state.next_id[..., None] + det_rank)
+    class_id = scatter(class_id, dets.class_id)
+    score = scatter(score, dets.score)
+    if params.with_appearance:
+        # seed the bank with the detection's normalized feature
+        feat = scatter(feat, torch.where(
+            dets.has_feature[..., None], _l2_normalize(dets.feature), 0.0))
+        has_feat = scatter(has_feat, dets.has_feature)
 
     # --- Duplicate suppression (official remove_duplicate_stracks) ----------
     # Tracked/lost pairs with IoU cost < dup_iou_cost drop the shorter-lived
     # track (ties drop the tracked one, as the official `timep > timeq`).
-    if any_lost:
-        a_mask = active & (st == TRACKED)
-        b_mask = active & (st == LOST)
-        cur_tlwh = mean_to_tlwh(mean2)
-        d = iou_cost_matrix(cur_tlwh, cur_tlwh)
-        pairs = a_mask[:, None] & b_mask[None, :] & (d < params.dup_iou_cost)
-        life = (frame_id - tsu) - start_frame
-        a_older = life[:, None] > life[None, :]
-        dup_b = torch.any(pairs & a_older, dim=0)
-        dup_a = torch.any(pairs & ~a_older, dim=1)
-        active = active & ~(a_mask & dup_a) & ~(b_mask & dup_b)
+    # With no lost track no pair qualifies.
+    a_mask = active & (st == TRACKED)
+    b_mask = active & (st == LOST)
+    cur_tlwh = mean_to_tlwh(mean2)
+    d = iou_cost_matrix(cur_tlwh, cur_tlwh)
+    pairs = a_mask[..., :, None] & b_mask[..., None, :] \
+        & (d < params.dup_iou_cost)
+    life = (frame_id[..., None] - tsu) - start_frame
+    a_older = life[..., :, None] > life[..., None, :]
+    dup_b = torch.any(pairs & a_older, dim=-2)
+    dup_a = torch.any(pairs & ~a_older, dim=-1)
+    active = active & ~(a_mask & dup_a) & ~(b_mask & dup_b)
 
     return state.replace(
         active=active, state=st, is_activated=is_act,
@@ -366,11 +360,12 @@ def get_outputs(state: ByteTrackState):
     """Activated tracked tracks updated this frame, as (tlbr, id, class,
     score, mask); masked lanes are zeros."""
     tlwh = mean_to_tlwh(state.mean)
-    tlwh = torch.cat([tlwh[:, :2], torch.clamp(tlwh[:, 2:], min=0.0)], dim=1)
+    tlwh = torch.cat([tlwh[..., :2], torch.clamp(tlwh[..., 2:], min=0.0)],
+                     dim=-1)
     tlbr = tlwh_to_tlbr(tlwh)
     z = (state.active & (state.state == TRACKED)
          & state.is_activated & (state.tsu == 0))
-    return (torch.where(z[:, None], tlbr, 0.0),
+    return (torch.where(z[..., None], tlbr, 0.0),
             torch.where(z, state.track_id, 0),
             torch.where(z, state.class_id, 0),
             torch.where(z, state.score, 0.0),

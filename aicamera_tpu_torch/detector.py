@@ -151,9 +151,9 @@ class YOLODetector:
                  detect_dtype: str | None = None):
         """``engine_path``: ``.msgpack`` or ``.onnx`` weights (``None``: the
         default checkpoint, else a seeded random init with a warning) or a
-        ``.cudae`` engine file (weights, letterbox and thresholds baked in;
-        constructor values that differ from the baked ones are replaced with
-        a warning). ``quant="int8"``: the static-calibrated W8A8 detector,
+        ``.cudae`` engine file (weights, letterbox, thresholds and dtype
+        baked in; constructor values that differ from the baked ones, and
+        any ``detect_dtype``, are replaced with a warning). ``quant="int8"``: the static-calibrated W8A8 detector,
         calibrated at load on synthetic scenes. ``detect_dtype``: ``None``
         (bf16 on the GPU, f32 on the CPU), ``"bf16"`` or ``"f32"`` (TF32
         off: scores stable across batch shapes). ``device``: default the GPU
@@ -181,7 +181,7 @@ class YOLODetector:
         self._engines = {}
         self._specs = {}
         if is_engine_file(engine_path):
-            self._load_engine(engine_path)
+            self._load_engine(engine_path, detect_dtype)
             return
         self.quant = quant if quant == "int8" else None
         # int8 calibrates and quantizes from the f32 weights
@@ -203,9 +203,14 @@ class YOLODetector:
               f"{', int8' if self.quant else ''}, PyTorch on "
               f"{self.device}). Input shape: {self.input_shape}")
 
-    def _load_engine(self, path):
+    def _load_engine(self, path, detect_dtype=None):
         """A ``.cudae`` detect engine: its baked settings win (JAX
-        ``detector.py:73-91``)."""
+        ``detector.py:73-91``), the dtype among them: a ``detect_dtype``
+        given with the file is ignored, with a warning."""
+        if detect_dtype is not None:
+            warnings.warn(
+                f"{path}: the engine's dtype is baked in; detect_dtype="
+                f"{detect_dtype!r} is ignored.", stacklevel=3)
         self._serialized = SerializedEngine.load(path, device=self.device)
         meta = self._serialized.metadata
         defaults = {"input_shape": tuple(config.YOLO_INPUT_SHAPE),

@@ -45,12 +45,14 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
-def build(source: Path, defines=()):
+def build(source: Path, defines=(), flags=()):
     """Build ``source`` unless it is built already; returns ``(library
     path, compiler output)`` (empty output when the library was reused).
-    ``defines``: extra ``-D`` macros, each a build of its own."""
+    ``defines``: extra ``-D`` macros, each a build of its own; ``flags``:
+    extra ``nvcc`` flags of the source (``--fmad=false``, say)."""
     return compile_library(source, nvcc_path,
-                           NVCC_FLAGS + tuple(f"-D{d}" for d in defines))
+                           NVCC_FLAGS + tuple(flags)
+                           + tuple(f"-D{d}" for d in defines))
 
 
 def compile_library(source: Path, compiler, flags):
@@ -75,7 +77,7 @@ def compile_library(source: Path, compiler, flags):
     return lib, proc.stdout
 
 
-def load_library(source: Path, defines=()) -> ctypes.CDLL:
+def load_library(source: Path, defines=(), flags=()) -> ctypes.CDLL:
     """Build (if needed) and load one source's shared library."""
-    lib, _ = build(source, defines)
+    lib, _ = build(source, defines, flags)
     return ctypes.CDLL(str(lib))

@@ -406,12 +406,14 @@ def warp_boxes_xyxy(boxes: torch.Tensor, a_mat: torch.Tensor,
 
 def _warp_ocsort_x(x: torch.Tensor, a_mat: torch.Tensor, t: torch.Tensor,
                    det: torch.Tensor, aniso: torch.Tensor) -> torch.Tensor:
-    """(T, 7) (cx, cy, s, r, vcx, vcy, vs) through the affine."""
-    pos = _apply2(a_mat, x[:, 0:2]) + t
-    vel = _apply2(a_mat, x[:, 4:6])
-    return torch.cat([pos, (x[:, 2] * det)[:, None],
-                      (x[:, 3] * aniso)[:, None], vel,
-                      (x[:, 6] * det)[:, None]], dim=-1)
+    """(..., T, 7) (cx, cy, s, r, vcx, vcy, vs) through the affine (``a_mat
+    (..., 2, 2)``, ``t (..., 2)``, ``det`` and ``aniso`` ``(...)``, one a
+    bank)."""
+    pos = _apply2(a_mat, x[..., 0:2]) + t[..., None, :]
+    vel = _apply2(a_mat, x[..., 4:6])
+    return torch.cat([pos, (x[..., 2] * det[..., None])[..., None],
+                      (x[..., 3] * aniso[..., None])[..., None], vel,
+                      (x[..., 6] * det[..., None])[..., None]], dim=-1)
 
 
 def warp_ocsort_state(state, a_mat: torch.Tensor, t: torch.Tensor):
@@ -421,10 +423,12 @@ def warp_ocsort_state(state, a_mat: torch.Tensor, t: torch.Tensor):
     ``obs_ring``, the frozen ORU state, and the (dy, dx) momentum direction.
     Area ``s`` scales by ``|det A|``; the aspect ratio by the axis-aligned
     anisotropy ``a00/a11``. Sentinel entries (``last_obs`` score < 0,
-    unwritten ring slots, inactive tracks) pass through untouched."""
+    unwritten ring slots, inactive tracks) pass through untouched. Over
+    streams: ``a_mat (S, 2, 2)`` and ``t (S, 2)``, one affine a stream, warp
+    a stacked state (``jax.vmap`` of the JAX function)."""
     det = _safe_det(a_mat)
-    aniso = torch.abs(a_mat[0, 0]) / torch.clamp(torch.abs(a_mat[1, 1]),
-                                                 min=1e-6)
+    aniso = torch.abs(a_mat[..., 0, 0]) / torch.clamp(
+        torch.abs(a_mat[..., 1, 1]), min=1e-6)
     act = state.active
     j = _jacobian(7, a_mat, {2: det, 3: aniso, 6: det})
 
@@ -434,11 +438,14 @@ def warp_ocsort_state(state, a_mat: torch.Tensor, t: torch.Tensor):
     new_fp = _congruence(j, state.frozen_p)
     froz = act & state.frozen_valid
 
-    has_obs = act & (state.last_obs[:, 4] >= 0)
-    new_last = torch.cat([warp_boxes_xyxy(state.last_obs[:, :4], a_mat, t),
-                          state.last_obs[:, 4:5]], dim=-1)
-    ring_written = act[:, None] & (state.obs_age >= 0)
-    new_ring = warp_boxes_xyxy(state.obs_ring, a_mat, t)
+    has_obs = act & (state.last_obs[..., 4] >= 0)
+    new_last = torch.cat([warp_boxes_xyxy(state.last_obs[..., :4], a_mat,
+                                          t[..., None, :]),
+                          state.last_obs[..., 4:5]], dim=-1)
+    ring_written = act[..., None] & (state.obs_age >= 0)
+    # the ring's boxes are (..., T, K, 4): the affine broadcast over T
+    new_ring = warp_boxes_xyxy(state.obs_ring, a_mat[..., None, :, :],
+                               t[..., None, None, :])
 
     # momentum is a unit (dy, dx); rotate its (dx, dy) form and renormalize
     v_xy = _apply2(a_mat, state.velocity.flip(-1))
@@ -449,12 +456,12 @@ def warp_ocsort_state(state, a_mat: torch.Tensor, t: torch.Tensor):
                      > 0)
 
     return state.replace(
-        x=torch.where(act[:, None], new_x, state.x),
-        p=torch.where(act[:, None, None], new_p, state.p),
-        frozen_x=torch.where(froz[:, None], new_fx, state.frozen_x),
-        frozen_p=torch.where(froz[:, None, None], new_fp, state.frozen_p),
-        last_obs=torch.where(has_obs[:, None], new_last, state.last_obs),
+        x=torch.where(act[..., None], new_x, state.x),
+        p=torch.where(act[..., None, None], new_p, state.p),
+        frozen_x=torch.where(froz[..., None], new_fx, state.frozen_x),
+        frozen_p=torch.where(froz[..., None, None], new_fp, state.frozen_p),
+        last_obs=torch.where(has_obs[..., None], new_last, state.last_obs),
         obs_ring=torch.where(ring_written[..., None], new_ring,
                              state.obs_ring),
-        velocity=torch.where(has_vel[:, None], new_vel, state.velocity),
+        velocity=torch.where(has_vel[..., None], new_vel, state.velocity),
     )

@@ -13,19 +13,15 @@ tracker state. A dispatch takes K frames of each of S streams:
   pipeline's stages (``TrackingPipeline._make_stages``).
 
 The JAX package stacks the streams' states on a leading stream axis and
-vmaps the tracker step over it. The port does the same for the DeepSORT
-core and its StrongSORT preset (EMA bank, NSA, one GMC affine a stream),
-whose step reads nothing back: the states live stacked, ``(S, T, ...)``
-with ``next_id`` and ``dropped`` ``(S,)``, each frame steps all streams at
-once (one assignment launch a stage for all S problems, a thread block
-each), the capacity bucket is decided once for the stack (two reads a
+vmaps the tracker step over it. The port does the same for every core
+(DeepSORT and its StrongSORT preset, ByteTrack and BoT-SORT, OC-SORT and
+Deep OC-SORT, each with one GMC affine a stream), whose steps read nothing
+back: the states live stacked, ``(S, T, ...)`` with the counters ``(S,)``,
+each frame steps all streams at once (one assignment launch a stage for all
+S problems, a thread block each; one ORU launch for every slot of every
+stream), the capacity bucket is decided once for the stack (two reads a
 dispatch at most), and a dispatch's K frames of all streams replay as one
-captured CUDA graph. ``scan_stats`` then counts dispatches. ByteTrack,
-BoT-SORT, OC-SORT and Deep OC-SORT still branch on the host in their steps,
-so their streams keep a list of single-stream states and run one after
-another (``scan_stats`` counts stream-chunks there);
-:attr:`MultiStreamPipeline.states` stacks them into the JAX layout on
-demand (checkpoints, inspection).
+captured CUDA graph. ``scan_stats`` counts dispatches.
 
 A per-(stream, frame) validity mask lets streams at different frame rates
 share a dispatch: a masked frame leaves its stream's state as it was. The
@@ -58,7 +54,6 @@ import torch
 from .. import config
 from ..core import bytetrack as bt_core
 from ..core import ocsort as oc_core
-from ..core import state as core_state
 from ..core.state import TrackerParams
 from ..ops import gmc as gmc_ops
 from ..runtime.checkpoint import state_like
@@ -101,6 +96,9 @@ class MultiStreamPipeline:
     """Detect and track S independent streams per dispatch, on one device
     or sharded over a mesh's ``stream`` axis."""
 
+    #: every core steps this rank's streams as one stack (the JAX layout)
+    stacked = True
+
     def __init__(self,
                  n_streams: int,
                  frame_hw: Tuple[int, int],
@@ -133,9 +131,8 @@ class MultiStreamPipeline:
         ``scan_bucket``, ``letterbox_auto`` and ``reid_quant="int8"`` (the
         W8A8 embed stage over every stream's crops) mean what they mean
         there, but ``scan_bucket`` is decided once a dispatch for all
-        streams of a DeepSORT/StrongSORT stack (the JAX multi-stream rule)
-        and per stream for the other cores. On the GPU the DeepSORT stack's
-        assignment batches need ``max_detections`` divisible by 4
+        streams of the stack (the JAX multi-stream rule). On the GPU the
+        stack's assignment batches need ``max_detections`` divisible by 4
         (``ops/assignment.py``). ``mesh``: a ``DeviceMesh`` with a
         ``stream`` axis (and optionally ``model``) from
         :func:`make_stream_mesh` or :func:`make_mesh`; ``n_streams`` must
@@ -198,20 +195,14 @@ class MultiStreamPipeline:
         self.core_params = eng.core_params
         self.gmc_method = eng.gmc_method
         self.scan_bucket = eng.scan_bucket
-        #: dispatches (a DeepSORT/StrongSORT stack) or stream-chunks (the
-        #: other cores) by way of the bucketed scan
+        #: dispatches by way of the bucketed scan
         self.scan_stats = eng.scan_stats
-        #: the DeepSORT core and its StrongSORT preset step the streams as
-        #: one stack; the other cores read the GPU in their steps and step
-        #: each stream in turn
-        self.stacked = self.tracker_kind == "deepsort"
-        n_det = self.tracker_params.max_detections
-        if self.stacked and self.device.type == "cuda" and n_det % 4:
+        n_det = self.core_params.max_detections
+        if self.device.type == "cuda" and n_det % 4:
             raise ValueError(
-                f"on the GPU a stack of DeepSORT streams needs "
-                f"max_detections divisible by 4 (got {n_det}): the batched "
-                f"assignment kernel reads every problem's rows 16 bytes at "
-                f"a time")
+                f"on the GPU a stack of streams needs max_detections "
+                f"divisible by 4 (got {n_det}): the batched assignment "
+                f"kernel reads every problem's rows 16 bytes at a time")
         self._gmc_spec = (gmc_ops.gmc_spec(self.frame_hw)
                           if self.gmc_method is not None else None)
         if mesh is not None and "model" in mesh.mesh_dim_names \
@@ -220,20 +211,14 @@ class MultiStreamPipeline:
             eng.yolo = shard_detector_params(eng.yolo, mesh)
         # this rank's streams (all of them off a mesh): each one's last
         # valid frame (S_local, H, W, 3) and their tracker states, a stack
-        # (S_local, T, ...) or a list of S_local states
+        # (S_local, T, ...)
         self._gmc_prev = None
-        if self.stacked:
-            self._states = core_state.init_state(
-                self.tracker_params, self.device, n_streams=self._n_local)
-        else:
-            self._states = [eng._init_tracker_state()
-                            for _ in range(self._n_local)]
+        self._states = eng._init_tracker_state(n_streams=self._n_local)
 
     def scan_replays(self) -> int:
-        """Replays of the captured DeepSORT scans so far
-        (``TrackingPipeline.scan_replays``): one a dispatch for a stack of
-        streams (two when its bucketed pass reruns); the other cores do not
-        capture their scans."""
+        """Replays of the captured tracker scans so far
+        (``TrackingPipeline.scan_replays``): one a dispatch (two when its
+        bucketed pass reruns)."""
         return self._engine.scan_replays()
 
     @property
@@ -258,17 +243,11 @@ class MultiStreamPipeline:
         same family and capacities (from ``runtime.checkpoint.load_state(...,
         n_streams=S)``, say) replaces all of them; on a mesh each rank
         keeps its own streams' part."""
-        if self.stacked:
-            st = self._states
-            return dataclasses.replace(st, **{
-                f.name: self._gather(getattr(st, f.name).clone())
-                for f in dataclasses.fields(st)})
-        first = self._states[0]
-        return dataclasses.replace(first, **{
-            f.name: None if getattr(first, f.name) is None
-            else self._gather(torch.stack([getattr(s, f.name)
-                                           for s in self._states]))
-            for f in dataclasses.fields(first)})
+        st = self._states
+        return dataclasses.replace(st, **{
+            f.name: self._gather(getattr(st, f.name).clone())
+            for f in dataclasses.fields(st)
+            if getattr(st, f.name) is not None})
 
     @states.setter
     def states(self, stacked):
@@ -281,17 +260,12 @@ class MultiStreamPipeline:
             template, {f.name: getattr(stacked, f.name)
                        for f in dataclasses.fields(stacked)},
             (self.n_streams,), self.device, where="states")
-        if self.stacked:   # this rank's streams, its own copy
-            self._states = dataclasses.replace(stacked, **{
-                f.name: getattr(stacked, f.name)[
-                    self._lo:self._lo + self._n_local].clone()
-                for f in dataclasses.fields(stacked)})
-            return
-        self._states = [dataclasses.replace(stacked, **{
-            f.name: getattr(stacked, f.name)[self._lo + si]
+        # this rank's streams, its own copy
+        self._states = dataclasses.replace(stacked, **{
+            f.name: getattr(stacked, f.name)[
+                self._lo:self._lo + self._n_local].clone()
             for f in dataclasses.fields(stacked)
             if getattr(stacked, f.name) is not None})
-            for si in range(self._n_local)]
 
     def _gather(self, local: torch.Tensor) -> torch.Tensor:
         """``(S_local, ...)`` on every rank -> ``(S, ...)``, in stream
@@ -387,19 +361,10 @@ class MultiStreamPipeline:
                 inputs = dataclasses.replace(
                     inputs, gmc_a=g_a.reshape(s * k, *g_a.shape[2:]),
                     gmc_t=g_t.reshape(s * k, *g_t.shape[2:]))
-            if self.stacked:
-                # all streams' frame i at index i: (K, S, ...)
-                self._states, outs = track(self._states,
-                                           inputs.by_frame(s, k), valid.T)
-                outs = tuple(o.transpose(0, 1).contiguous() for o in outs)
-            else:
-                per_stream = []
-                for si in range(s):
-                    self._states[si], o = track(
-                        self._states[si], inputs.frames(si * k, (si + 1) * k),
-                        valid[si])
-                    per_stream.append(o)
-                outs = tuple(torch.stack(x) for x in zip(*per_stream))
+            # all streams' frame i at index i: (K, S, ...)
+            self._states, outs = track(self._states, inputs.by_frame(s, k),
+                                       valid.T)
+            outs = tuple(o.transpose(0, 1).contiguous() for o in outs)
             mark("tracker")
         if timer is not None:
             timer.finish()
@@ -449,9 +414,7 @@ class MultiStreamPipeline:
         if not self._lo <= i < self._lo + self._n_local:
             return
         j = i - self._lo
-        if not self.stacked:
-            self._states[j] = self._engine._init_tracker_state()
-            return
-        fresh = core_state.init_state(self.tracker_params, self.device)
+        fresh = self._engine._init_tracker_state()
         for f in dataclasses.fields(fresh):   # the stack is this pipeline's
-            getattr(self._states, f.name)[j].copy_(getattr(fresh, f.name))
+            if getattr(fresh, f.name) is not None:
+                getattr(self._states, f.name)[j].copy_(getattr(fresh, f.name))

@@ -48,6 +48,7 @@ from ..device import resolve_device
 from ..ops import cuda_build
 from ..ops.assignment import KERNEL as ASSIGNMENT
 from ..ops.letterbox import KERNEL as LETTERBOX
+from ..ops.oru import KERNEL as ORU
 from .params import read_flax_msgpack, write_flax_msgpack
 
 ENGINE_FILE_SUFFIX = ".cudae"
@@ -57,7 +58,7 @@ _XLA_MAGIC = b"AICAMXLAE1"    # the JAX package's .xlae files
 
 #: The hand-written kernels whose launches a replay repeats: each engine
 #: adds ``captured launches x replays`` to their launch counts.
-KERNELS = (LETTERBOX, ASSIGNMENT)
+KERNELS = (LETTERBOX, ASSIGNMENT, ORU)
 
 # kind -> (module, function) that rebuilds a serialized step:
 # ``fn(header, weights, device) -> callable``

@@ -7,20 +7,20 @@ and Deep OC-SORT), camera-motion compensation and the capacity-bucketed
 tracker scan. All batchable work (camera-motion estimate, letterbox kernel,
 detector forward, decode+NMS, crop gather, ReID embedding) runs batched
 over the chunk on the device; the sequential tracker then runs frame by frame
-over the chunk, its state staying on the same device. The DeepSORT core
-(and its StrongSORT preset) reads nothing back, so a chunk's tracker frames
-replay as one captured CUDA graph, as the JAX package jits its scan; the
-ByteTrack and OC-SORT steps still branch on the host. The same stages step
-a stack of streams' DeepSORT states at once (``parallel.MultiStreamPipeline``:
-the JAX package's ``jax.vmap`` over streams), a chunk of all streams one
-replay. Outputs
+over the chunk, its state staying on the same device. No core's step reads
+anything back, so a chunk's tracker frames replay as one captured CUDA
+graph, as the JAX package jits its scan. The same stages step a stack of
+streams' states at once (``parallel.MultiStreamPipeline``: the JAX
+package's ``jax.vmap`` over streams), a chunk of all streams one replay.
+Outputs
 follow the JAX package's contracts: per frame, the detections in frame
 coordinates and the emitted tracks as ``(x1, y1, x2, y2, id, class_name,
 conf)`` tuples.
 
-On a CUDA device the letterbox and the assignment solves always run the
-hand-written kernels (``ops/letterbox.py``, ``ops/assignment.py``); on the
-CPU they run the kernels' plain versions.
+On a CUDA device the letterbox, the assignment solves and OC-SORT's ORU
+replay always run the hand-written kernels (``ops/letterbox.py``,
+``ops/assignment.py``, ``ops/oru.py``); on the CPU they run the kernels'
+plain versions.
 """
 
 from __future__ import annotations
@@ -253,7 +253,7 @@ _TRACKERS = ("deepsort", "bytetrack", "botsort", "ocsort", "deepocsort")
 class TrackingPipeline:
     """End-to-end detector + tracker with chunked device steps."""
 
-    #: The DeepSORT scan of a chunk replays one capture; False runs it frame
+    #: The tracker scan of a chunk replays one capture; False runs it frame
     #: by frame, skipping invalid frames on the host (the eager path that
     #: the capture is checked and timed against). Read when stages are made.
     _capture_scans = True
@@ -489,12 +489,17 @@ class TrackingPipeline:
         self._scan_engines = []   # every stage's captured scans, ever made
         self.reset()
 
-    def _init_tracker_state(self):
+    def _init_tracker_state(self, n_streams: int | None = None):
+        """A fresh state of the core that runs; ``n_streams``: a stack of
+        that many."""
         if self.tracker_kind in ("bytetrack", "botsort"):
-            return bt_core.init_state(self.bytetrack_params, self.device)
+            return bt_core.init_state(self.bytetrack_params, self.device,
+                                      n_streams)
         if self.tracker_kind in ("ocsort", "deepocsort"):
-            return oc_core.init_state(self.ocsort_params, self.device)
-        return core_state.init_state(self.tracker_params, self.device)
+            return oc_core.init_state(self.ocsort_params, self.device,
+                                      n_streams)
+        return core_state.init_state(self.tracker_params, self.device,
+                                     n_streams)
 
     # --- the chunk step's stages ---------------------------------------------
 
@@ -513,7 +518,7 @@ class TrackingPipeline:
         ``valid[i]`` (host bools, ``(K,)``) False leaves the state as it is at
         frame i (its output lane repeats the unchanged state's outputs).
         Returns ``(state, outs)``, ``outs`` five tensors shaped ``(K, T,
-        ...)``. The DeepSORT core also takes a stack of S streams' states,
+        ...)``. Every core also takes a stack of S streams' states,
         inputs ``(K, S, N, ...)`` (:meth:`TrackerInputs.by_frame`) and
         ``valid (K, S)``: every frame steps all streams at once (one
         assignment launch a stage for all of them), one bucket decision for
@@ -703,19 +708,20 @@ class TrackingPipeline:
         last_mask = {}   # the last pattern's mask: most chunks repeat it
 
         def captured_scan(st, inp, valid, pp):
-            """:func:`masked_scan` of the DeepSORT core, which reads nothing
-            back, as one CUDA-graph replay: a capture for each capacity,
-            chunk length, stream count and set of inputs
-            (``runtime/engine.py``; on the CPU a direct call). The state,
-            the inputs and the validity mask (:func:`valid_mask`, built on
-            the device when the pattern differs from the chunk before's)
-            enter through the graph's static buffers and leave as copies of
-            its outputs."""
+            """:func:`masked_scan` of the core, which reads nothing back, as
+            one CUDA-graph replay: a capture for each capacity, chunk
+            length, stream count and set of inputs (``runtime/engine.py``;
+            on the CPU a direct call). The state, the inputs and the
+            validity mask (:func:`valid_mask`, built on the device when the
+            pattern differs from the chunk before's) enter through the
+            graph's static buffers and leave as copies of its outputs."""
             key = (valid.shape, valid.tobytes())
             if last_mask.get("key") != key:
                 last_mask.update(key=key, mask=valid_mask(valid, dev))
             mask = last_mask["mask"]
-            fields = [f.name for f in dataclasses.fields(st)]
+            # the appearance bank of a motion-only core is None: no input
+            fields = [f.name for f in dataclasses.fields(st)
+                      if getattr(st, f.name) is not None]
             names = [f.name for f in dataclasses.fields(inp)
                      if getattr(inp, f.name) is not None]
             flat = [getattr(st, f) for f in fields] \
@@ -724,22 +730,24 @@ class TrackingPipeline:
             key = (pp, tuple(names), streams)
             eng = scan_engines.get(key)
             if eng is None:
+                template = st
+
                 def fn(*xs):
                     s, outs = masked_scan(
-                        core_state.TrackerState(**dict(zip(fields, xs))),
+                        dataclasses.replace(template,
+                                            **dict(zip(fields, xs))),
                         TrackerInputs(**dict(zip(names, xs[len(fields):]))),
                         xs[-1], pp)
                     return tuple(getattr(s, f) for f in fields), outs
 
                 eng = scan_engines[key] = CUDAGraphEngine(
-                    fn, flat, name=f"deepsort scan T={pp.max_tracks}"
+                    fn, flat, name=f"{kind} scan T={pp.max_tracks}"
                     + (" over streams" if streams else ""),
                     warmup_iters=1, device=dev)
             new, outs = eng(*flat)
-            return core_state.TrackerState(**dict(zip(fields, new))), outs
+            return dataclasses.replace(st, **dict(zip(fields, new))), outs
 
-        scan_fn = (captured_scan if self._capture_scans
-                   and not (bytetrack or ocsort) else eager_scan)
+        scan_fn = captured_scan if self._capture_scans else eager_scan
 
         def track(state, inp, valid):
             def scan(st, pp):
@@ -759,7 +767,7 @@ class TrackingPipeline:
         return self._stages[key]
 
     def scan_replays(self) -> int:
-        """Replays of the captured DeepSORT scans so far (0 on the CPU,
+        """Replays of the captured tracker scans so far (0 on the CPU,
         where a capture is a direct call): one a chunk, or a dispatch of a
         stream stack, plus one a bucketed chunk that reruns at full
         capacity."""
@@ -887,7 +895,7 @@ class TrackingPipeline:
     def warm_up(self, frame_hw: Tuple[int, int],
                 chunk_size: int | None = None, iters: int = 2) -> float:
         """Run the chunk step on blank frames (builds the kernels, warms the
-        allocator and cuDNN, captures the DeepSORT scan: the last pass at
+        allocator and cuDNN, captures the tracker scan: the last pass at
         the full track capacity, so that a bucketed scan finds both of its
         captures), then reset; returns seconds."""
         t0 = time.perf_counter()

@@ -13,10 +13,10 @@ reads the results back and resolves the futures, with at most
 
 Both threads run under ``torch.no_grad()`` (it is thread-local). A device
 error in a dispatch or a readback reaches the futures it concerns through
-``set_exception``; nothing retries on the CPU. The port's dispatch reads
-the GPU several times a frame (the tracker's branches), so on this port the
-worker thread itself waits inside ``step_chunk``; the scheduler's logic is
-the JAX package's all the same.
+``set_exception``; nothing retries on the CPU. The port's dispatch still
+reads the GPU a few times (the NMS, the ReID and scan buckets; no tracker
+core reads), so on this port the worker thread itself waits inside
+``step_chunk``; the scheduler's logic is the JAX package's all the same.
 """
 
 from __future__ import annotations

@@ -127,7 +127,9 @@ class ReIDModel:
                  quant: str | None = None,
                  reid_dtype: str | None = None):
         """``engine_path``: ``.msgpack``/``.onnx`` weights or a ``.cudae``
-        engine file (its batch axis dynamic or fixed, as exported).
+        engine file (its batch axis dynamic or fixed, as exported; its dtype
+        baked in: a ``reid_dtype`` given with it is ignored, with a
+        warning).
         ``quant="int8"``: the W8A8 twin, quantized at load. ``reid_dtype``:
         ``None`` (bf16 on the GPU, f32 on the CPU), ``"bf16"`` or ``"f32"``
         (TF32 off: features stable across batch shapes). ``device``: default the GPU."""
@@ -149,7 +151,12 @@ class ReIDModel:
         self._serialized: SerializedEngine | None = None
         self.quant = quant if quant == "int8" else None
         if is_engine_file(engine_path):
-            # weights baked in; a dynamic batch axis captures once per size
+            # weights and dtype baked in; a dynamic batch axis captures once
+            # per size
+            if reid_dtype is not None:
+                warnings.warn(
+                    f"{engine_path}: the engine's dtype is baked in; "
+                    f"reid_dtype={reid_dtype!r} is ignored.", stacklevel=2)
             self._serialized = SerializedEngine.load(engine_path,
                                                      device=self.device)
             out = self._serialized.get_output_details()[0]

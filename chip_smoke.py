@@ -50,6 +50,16 @@ this file; exits non-zero otherwise. In order it:
    version, the probe's sums per problem on batches, and one batched launch
    timed against the same 8 problems launched one by one, in turns, at
    128x64 and 32x64, with its per-call, plain and scipy times and bound;
+   ``[oru]``: OC-SORT's ORU replay kernel (``csrc/oru.cu``) through the
+   public ``core.ocsort.oru_replay`` on card tensors against
+   ``oru_replay_plain`` on the same tensors, within 1e-5 of each slot's
+   scale (the lanes that come out bitwise counted), on seeded stacks of B =
+   1 and 8 streams of 128 slots with every gap from 0 to 31 on mixed masks,
+   no replay, every slot at gap 8 and at 31, and a ragged stack; then its
+   device ms a launch by graph replay at B = 1 and 8 with no replay, gap 8
+   and gap 31, per call, the plain version's, and its bound (the larger of
+   the launch data's bytes and operations and an empty kernel's replay; no
+   single PyTorch call computes it);
 4. drives the main path at full width: ``TrackingPipeline(device="cuda")``
    with YOLOv8n at 640x640, T=128 track slots, N=64 detection slots, a
    100-feature gallery of 512-d features and 32 ReID crops, on seeded
@@ -68,8 +78,10 @@ this file; exits non-zero otherwise. In order it:
    StrongSORT preset (its default ``gmc="affine"``) at full width, 16
    frames each with the cores' thresholds lowered to 0.4 so that the
    synthetic grid (conf 0.5) starts tracks: FPS, tracker ms and host syncs
-   per frame, tracks emitted, the kernel once per chunk; then the same 16
-   frames on the card in f32 (TF32 off) against the plain CPU path;
+   per frame, tracks emitted, the kernel once per chunk; no tracker read
+   for any core, each chunk one replay of its captured scan, the ORU kernel
+   once a frame of OC-SORT and Deep OC-SORT; then the same 16 frames on the
+   card in f32 (TF32 off) against the plain CPU path;
 7. ``[gmc]``: a seeded panning scene (``scenes.panning_rectangles``, 32
    frames at 960x540): ``estimate_chunk`` on the card with CUDA's sync debug
    mode set to "error" (no read back), against the CPU (A within 1e-4, t
@@ -80,8 +92,9 @@ this file; exits non-zero otherwise. In order it:
 8. ``[facades]``: the reference loop ``YOLODetector.detect`` ->
    ``<facade>.update`` for DeepSORT, StrongSORT, ByteTrack, BoT-SORT,
    OC-SORT and Deep OC-SORT, 32 frames each at full width: FPS, syncs per
-   frame, the kernel once per frame (each ``detect`` a replay of its
-   captured engine, counted per replay); one ``detect_tiled`` frame (two
+   frame (no tracker read for any of the six), the kernel once per frame
+   (each ``detect`` a replay of its captured engine, counted per replay),
+   the ORU kernel once an OC-SORT update; one ``detect_tiled`` frame (two
    launches); then 8 frames through every facade on the card in f32 against
    the CPU (identical tuples);
    ``[engine]``: ``runtime.engine`` on the facades' frames: the detect
@@ -123,11 +136,14 @@ this file; exits non-zero otherwise. In order it:
     each), at most 2 bucket reads and no tracker read a dispatch; the
     stack against the streams stepped one by one through the same stage on
     the same detections, in turns (tracker ms, replays, launches and bucket
-    reads a dispatch, identical tracks); a dispatch with two
+    reads a dispatch, identical tracks); the same for a ByteTrack and an
+    OC-SORT stack (thresholds 0.4; 3 K or 2 K assignment launches and K ORU
+    launches a replay; the stack's tracks and those of the streams one by
+    one bitwise equal); a dispatch with two
     streams masked leaves their states bitwise; in f32 (TF32 off) each
     stream equals a ``TrackingPipeline`` on that stream alone; 2 streams x
-    1 chunk card f32 against the CPU for DeepSORT, ByteTrack and the
-    StrongSORT preset (GMC); StrongSORT's batched GMC ms per dispatch;
+    1 chunk card f32 against the CPU for DeepSORT, ByteTrack, OC-SORT and
+    the StrongSORT preset (GMC); StrongSORT's batched GMC ms per dispatch;
 12. ``[serving]``: ``TrackingService`` over the main scene against
     ``process_frames``; ``MultiTenantTrackingService`` at its defaults (4
     slots, 720x1280, chunk 4, 30 ms SLA; f32) with four tenant threads (one
@@ -211,9 +227,12 @@ this file; exits non-zero otherwise. In order it:
     composed ``meshes=`` stage-split detector; ms a dispatch and a step
     per rank (two ranks sharing one card: no scaling figure).
 
-The last two lines of output are the kernels' JSON record (letterbox and
-assignment, each with its launches by path) and the device JSON record.
-``--kernels-only`` stops after step 3, as does ``--only assignment``;
+The last two lines of output are the kernels' JSON record (letterbox,
+assignment and oru, each with its launches by path: the letterbox's and the
+assignment's on the main path, the ORU kernel's on ``[trackers]``' OC-SORT
+run) and the device JSON record.
+``--kernels-only`` stops after step 3, as do ``--only assignment`` and
+``--only oru``;
 ``--only`` runs the kernel phases and the named phases (``int8`` brings
 ``quality`` along, ``present`` brings ``cli``; ``--only parallel`` runs
 step 17 alone).
@@ -495,7 +514,8 @@ def build_kernels(kernels):
     host = sorted(host_build.NATIVE_DIR.glob("*.cpp"))
     with ThreadPoolExecutor(len(kernels) + len(host)) as pool:
         cuda = [pool.submit(cuda_build.build, k.source,
-                            getattr(k, "defines", ())) for k in kernels]
+                            getattr(k, "defines", ()), getattr(k, "flags", ()))
+                for k in kernels]
         cxx = [pool.submit(host_build.build, src) for src in host]
         for k, fut in zip(kernels, cuda):
             lib, log = fut.result()
@@ -1336,6 +1356,194 @@ def assignment_batch_phase(on_card, public, plain, plain_of, launch, same,
     return rows, probes
 
 
+ORU_T = 128          # [oru]: track slots a stream, the main path's
+ORU_MAX_AGE = 30     # OCSortParams().max_age: a live track's gap <= 31
+ORU_TOL = 1e-5       # [oru]: relative to each slot's largest entry
+ORU_TIMED_SETS = 4   # distinct input sets the timed launches rotate over
+# operations of one slot, counted from csrc/oru.cu's arithmetic: the step
+# sizes once a replay, then a virtual step (the interpolated box and the
+# Joseph-form update: S, the Cholesky, 7 solves, K (z - x), (I - KH) P
+# (I - KH)^T + K R K^T) each step, the bare predict between two
+ORU_SETUP_OPS, ORU_UPDATE_OPS, ORU_PREDICT_OPS = 20, 2252, 94
+
+
+def oru_inputs(b, gap=None, replay_share=0.6, seed=0, t=ORU_T):
+    """One ORU launch's inputs on the CPU: ``b`` streams of ``t`` slots, each
+    slot's Kalman state and frozen state made by the plain SORT filter from
+    a seeded track (initiate, 3 predict+update steps; the frozen state 2
+    predicts on), the last observation near the state and the new one
+    further along. ``gap``: every slot replays that many steps; ``None``:
+    slot i replays ``i % (ORU_MAX_AGE + 2)`` steps (0 to 31), ``replay_share``
+    of the slots chosen by the seed; ``gap=0``: no slot replays."""
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch.core import ocsort as oc
+    rng = np.random.RandomState(seed)
+    n = (b, t)
+    z0 = np.stack([rng.uniform(0, 1280, n), rng.uniform(0, 720, n),
+                   rng.uniform(400, 40000, n), rng.uniform(0.3, 3, n)], -1)
+    vel = rng.normal(0, 3, n + (4,)) * np.array([1, 1, 50, 0.001])
+    z0 = torch.from_numpy(z0.astype(np.float32))
+    vel = torch.from_numpy(vel.astype(np.float32))
+    x, p = oc.kf_initiate(z0)
+    p = p.clone()
+    for k in range(1, 4):
+        x, p = oc.kf_predict(x, p)
+        x, p = oc.kf_update(x, p, z0 + k * vel)
+    fx, fp = x, p
+    for _ in range(2):
+        fx, fp = oc.kf_predict(fx, fp)
+    if gap is None:
+        g = np.broadcast_to(np.arange(t) % (ORU_MAX_AGE + 2), n)
+        replay = rng.rand(*n) < replay_share
+    else:
+        g = np.full(n, gap)
+        replay = np.full(n, gap > 0)
+    g = torch.from_numpy(np.ascontiguousarray(g).astype(np.int32))
+    z1 = z0 + 3 * vel
+    z2 = z1 + (g[..., None] + 1).float() * vel
+    return (x.contiguous(), p.contiguous(), fx.contiguous(), fp.contiguous(),
+            torch.from_numpy(replay), g, z1.contiguous(), z2.contiguous())
+
+
+def oru_cases():
+    """``[(name, inputs)]`` the card checks the kernel on: B = 1 and 8
+    streams with every gap from 0 to ``ORU_MAX_AGE + 1`` on mixed masks, no
+    replay, every slot at gap 8 and at 31, and a small ragged stack."""
+    return [("B=8 mixed gaps 0-31", oru_inputs(8, seed=1)),
+            ("B=1 mixed gaps 0-31", oru_inputs(1, seed=2)),
+            ("B=8 no replay", oru_inputs(8, gap=0, seed=3)),
+            ("B=8 gap 8", oru_inputs(8, gap=8, seed=4)),
+            ("B=8 gap 31", oru_inputs(8, gap=31, seed=5)),
+            ("B=3 T=37 mixed", oru_inputs(3, seed=6, t=37))]
+
+
+def oru_compare(got, want):
+    """Kernel ``got`` against plain ``want`` (each ``(x, p)``): the largest
+    error of a slot's x and p over that slot's largest entry (at least 1),
+    the lanes bitwise equal, and the lanes."""
+    (gx, gp), (wx, wp) = got, want
+    ex = (gx - wx).abs().amax(-1) / wx.abs().amax(-1).clamp(min=1.0)
+    ep = (gp - wp).abs().amax((-2, -1)) / wp.abs().amax((-2, -1)).clamp(
+        min=1.0)
+    rel = float(max(ex.max(), ep.max()))
+    same = (gx == wx).all(-1) & (gp == wp).all(-1).all(-1)
+    finite = bool(gx.isfinite().all() and gp.isfinite().all())
+    return (rel if finite else float("inf")), int(same.sum()), same.numel()
+
+
+def oru_work(args, max_gap=ORU_MAX_AGE + 1):
+    """``(bytes, operations)`` this launch's data needs: every slot reads its
+    state (the frozen one where it replays), its mask and gap, a replaying
+    slot its two observations, and writes its state; the operations of the
+    steps each slot replays."""
+    x, _, _, _, replay, gap = args[:6]
+    lanes = replay.numel()
+    n_rep = int(replay.sum())
+    steps = gap.clamp(max=max_gap)[replay].long()
+    n_bytes = lanes * (56 * 4 * 2 + 1 + 4) + n_rep * 8 * 4
+    ops = (n_rep * ORU_SETUP_OPS + int(steps.sum()) * ORU_UPDATE_OPS
+           + int((steps - 1).clamp(min=0).sum()) * ORU_PREDICT_OPS)
+    return n_bytes, ops
+
+
+def oru_phase(device):
+    """The ORU kernel (``csrc/oru.cu``) through the public ``oru_replay`` on
+    card tensors against ``oru_replay_plain`` on the same tensors, within
+    ``ORU_TOL`` of each slot's scale, on :func:`oru_cases` (the bitwise
+    lanes counted); then its device time by graph replay at B = 1 and 8, T =
+    128, with no replay, every slot at gap 8 and at 31, per call, the plain
+    version's, and its bound: the larger of the bytes and operations of the
+    launch's data and an empty kernel's replay."""
+    import torch
+    from aicamera_tpu_torch.core import ocsort as oc
+    from aicamera_tpu_torch.ops.oru import KERNEL
+
+    max_gap = ORU_MAX_AGE + 1
+    worst_rel = worst_abs = 0.0
+    exact = lanes = 0
+    for name, args in oru_cases():
+        card = [a.to(device) for a in args]
+        before = KERNEL.launches
+        got = oc.oru_replay(*card, max_gap)
+        torch.cuda.synchronize()
+        check(KERNEL.launches == before + 1, f"[oru] {name}: the kernel did "
+              f"not launch once")
+        want = oc.oru_replay_plain(*card, max_gap)
+        rel, same, n = oru_compare(got, want)
+        check(rel <= ORU_TOL, f"[oru] {name}: kernel vs plain {rel:.3g} of "
+              f"a slot's scale (tolerance {ORU_TOL})")
+        idle = ~card[4]
+        check(torch.equal(got[0][idle], card[0][idle])
+              and torch.equal(got[1][idle], card[1][idle]),
+              f"[oru] {name}: a slot without a replay changed")
+        worst_rel = max(worst_rel, rel)
+        worst_abs = max(worst_abs, float((got[0] - want[0]).abs().max()),
+                        float((got[1] - want[1]).abs().max()))
+        exact, lanes = exact + same, lanes + n
+        print(f"[oru] {name}: kernel vs plain on the card, max error "
+              f"{rel:.3g} of a slot's scale (tolerance {ORU_TOL}); {same} of "
+              f"{n} lanes bitwise")
+    try:
+        KERNEL(*oru_cases()[0][1], max_gap)
+        check(False, "[oru] the kernel took CPU tensors")
+    except ValueError:
+        pass
+
+    launch_floor = time_device_ms(lambda i: torch.cuda._sleep(0), 1,
+                                  rounds=64)
+    rows = []
+    for b in (1, 8):
+        for gap in (0, 8, 31):
+            sets = [[a.to(device) for a in oru_inputs(b, gap=gap, seed=s)]
+                    for s in range(ORU_TIMED_SETS)]
+            outs = [None] * len(sets)
+
+            def launch(i):
+                outs[i] = KERNEL(*sets[i], max_gap)
+
+            device_ms, lo, hi = time_device_stats(launch, len(sets))
+            ms = sorted(time_ms(lambda: oc.oru_replay(*sets[0], max_gap))
+                        for _ in range(3))[1]
+            plain_ms = time_ms(lambda: oc.oru_replay_plain(*sets[0],
+                                                           max_gap),
+                               iters=3, warmup=1)
+            n_bytes, ops = oru_work(sets[0], max_gap)
+            t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_F32_FLOPS * 1e3
+            bound = max(t_bytes, t_ops, launch_floor)
+            r = {"shape": f"B={b} T={ORU_T} "
+                          + (f"gap {gap}" if gap else "no replay"),
+                 "device_ms": device_ms, "spread_ms": [lo, hi], "ms": ms,
+                 "plain_ms": plain_ms, "library_ms": None,
+                 "bound_ms": bound,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "bound_term": ("launch floor" if bound == launch_floor
+                                else "work"),
+                 "bytes": n_bytes, "ops": ops}
+            rows.append(r)
+            print(f"[oru] {r['shape']}: device {device_ms:.5f} ms a launch "
+                  f"(graph replay, L2-resident; replays {lo:.5f}-{hi:.5f}),"
+                  f" per call {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{bound:.6f} ms (the larger of {n_bytes} bytes, "
+                  f"{t_bytes:.6f} ms, {ops} operations, {t_ops:.6f} ms, and "
+                  f"an empty kernel's replay, {launch_floor:.6f} ms: "
+                  f"{r['bound_term']}): {100 * bound / device_ms:.1f}% of "
+                  f"the bound; library: no single PyTorch call")
+    KERNEL.launches = 0  # comparison and timing launches do not count
+    main = rows[3]   # B=8 with no replay: the [streams] stack's usual frame
+    return {"name": KERNEL.name, "route": "cuda",
+            "source": "aicamera_tpu_torch/csrc/oru.cu",
+            "replaces": KERNEL.replaces, "launches": None,
+            "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+            "ms": main["ms"], "device_ms": main["device_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "bound_term": main["bound_term"],
+            "library_ms": None, "launch_floor_ms": launch_floor,
+            "lanes_checked": lanes, "lanes_bitwise": exact,
+            "shapes": rows}
+
+
 def make_pipeline(device, synthetic_load=24, **kw):
     from aicamera_tpu_torch import config
     from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline
@@ -1384,16 +1592,19 @@ def counted_run(pipe, frames, kernels, timed=False):
     return results, wall, launches, syncs, stage_ms
 
 
-def check_launches(launches, n_chunks, what, solves=True):
+def check_launches(launches, n_chunks, what, solves=True, oru=0):
     """The letterbox once per chunk (dispatch, call); the assignment kernel
-    at least once where the path must solve (``solves``: a DeepSORT or
-    ByteTrack core; OC-SORT's shortcut may skip every solve of a run, and
+    at least once where the path must solve (``solves``: a tracker core;
     detection alone solves nothing): its count follows the frames and the
-    cores' branches, and is printed."""
+    cores, and is printed; the ORU kernel ``oru`` times (one a frame an
+    OC-SORT core steps, none on the other paths)."""
     for name, n in launches.items():
         if name == "letterbox":
             check(n == n_chunks, f"{what}: {name} launched {n} times over "
                   f"{n_chunks} chunks")
+        elif name == "oru":
+            check(n == oru, f"{what}: {name} launched {n} times, {oru} "
+                  f"expected")
         elif solves:
             check(n >= 1, f"{what}: {name} never launched")
 
@@ -1566,7 +1777,10 @@ def tracker_configs():
 
 
 def trackers_phase(device, frames, kernels):
-    """Each new tracker at full width on the card, then against the CPU."""
+    """Each new tracker at full width on the card, then against the CPU:
+    no tracker read for any core, each chunk one replay of its captured
+    scan (two where a bucketed pass reruns), OC-SORT's ORU kernel once a
+    frame."""
     import torch
     check(not torch.backends.cuda.matmul.allow_tf32,
           "f32 matmuls run in TF32: the cores' cosine products need f32")
@@ -1575,24 +1789,28 @@ def trackers_phase(device, frames, kernels):
     for name, kw in tracker_configs().items():
         pipe = make_pipeline(device, tracker=name, **kw)
         pipe.warm_up(FRAME_HW)
+        replays = pipe.scan_replays()
         res, wall, launches, syncs, _ = counted_run(pipe, sub, kernels)
+        replays = pipe.scan_replays() - replays
+        stats = dict(pipe.scan_stats)
+        check(syncs["tracker"] == 0, f"tracker {name}: the step read the "
+              f"GPU {syncs['tracker']} times")
+        check(replays == TRACKER_CHUNKS + stats["rerun"], f"tracker {name}: "
+              f"{replays} scan replays in {TRACKER_CHUNKS} chunks ({stats})")
         check_launches(launches, TRACKER_CHUNKS, f"tracker {name}",
-                       solves="ocsort" not in name)
-        if pipe.tracker_kind == "deepsort":  # the StrongSORT preset
-            check(syncs["tracker"] == 0, f"tracker {name}: the DeepSORT "
-                  f"step read the GPU {syncs['tracker']} times")
+                       oru=CHUNK * replays if "ocsort" in name else 0)
         by_tracker[name] = launches
         n_tracks, n_ids = summarize(res)
         check(n_tracks > 0, f"tracker {name} emitted no track")
-        stats = dict(pipe.scan_stats)
         pipe.reset()
         stage_ms = counted_run(pipe, sub, kernels, timed=True)[4]
         gmc = (f", gmc {pipe.gmc_method} {stage_ms['gmc']:.3f} ms per chunk"
                if pipe.gmc_method else "")
         print(f"[trackers] {name}: {len(sub)} frames, {len(sub) / wall:.2f} "
               f"FPS, tracker {stage_ms['tracker'] / CHUNK:.3f} ms per "
-              f"frame{gmc}, syncs per "
-              f"frame: {syncs_line(syncs, len(sub))}; track outputs "
+              f"frame (captured scan){gmc}, syncs per "
+              f"frame: {syncs_line(syncs, len(sub))}; {replays} scan "
+              f"replays in {TRACKER_CHUNKS} chunks; track outputs "
               f"{n_tracks}, distinct ids {n_ids}, chunks {stats}, launches "
               f"{launches} (the letterbox one per chunk)")
         compare_runs(
@@ -1663,10 +1881,12 @@ def gmc_phase(device, kernels):
             pipe = make_pipeline(device, synthetic_load=0, tracker=name,
                                  gmc=mode)
             pipe.warm_up(FRAME_HW)
+            replays = pipe.scan_replays()
             res, wall, counts, _, stage_ms = counted_run(
                 pipe, frames, kernels, timed=True)
+            replays = pipe.scan_replays() - replays
             check_launches(counts, GMC_CHUNKS, f"gmc {name} {mode}",
-                           solves=name != "ocsort")
+                           oru=CHUNK * replays if name == "ocsort" else 0)
             n_tracks, n_ids = summarize(res)
             check(n_tracks > 0, f"gmc {name} {mode}: no track")
             line.append(f"{mode}: {len(frames) / wall:.2f} FPS, gmc "
@@ -1730,15 +1950,14 @@ def facades_phase(device, frames, kernels):
         wall = time.perf_counter() - t0
         launches[name] = {k.name: k.launches for k in kernels}
         check_launches(launches[name], len(sub), f"facade {name} (detect "
-                       f"calls)", solves="OCSort" not in name)
+                       f"calls)", oru=len(sub) if "OCSort" in name else 0)
         n_tracks = sum(map(len, outs))
         check(n_tracks > 0, f"facade {name} emitted no track")
         check(all(np.isfinite(t[:4]).all() and np.isfinite(t[6])
                   for o in outs for t in o), f"facade {name}: non-finite")
         syncs = {n: c.count for n, c in counters.items()}
-        if name in ("DeepSORT", "StrongSORT"):
-            check(syncs["tracker"] == 0, f"facade {name}: the DeepSORT step "
-                  f"read the GPU {syncs['tracker']} times")
+        check(syncs["tracker"] == 0, f"facade {name}: the step read the GPU "
+              f"{syncs['tracker']} times")
         print(f"[facades] {name}: {len(sub)} frames, {len(sub) / wall:.2f} "
               f"FPS (detect + update), syncs per frame: "
               f"{syncs_line(syncs, len(sub))} (plus the reads of the "
@@ -2152,6 +2371,7 @@ def streams_phase(device, kernels):
     print(f"[streams] host syncs per stream-frame: {syncs_line(syncs, n_sf)};"
           f" track outputs per stream {n_tracks}")
     stream_stack_vs_loop(pipe, chunks, device)
+    motion = motion_stacks(device, kernels, chunks)
 
     # two streams masked for a whole dispatch keep their states bit for bit
     before = pipe.states
@@ -2208,8 +2428,8 @@ def streams_phase(device, kernels):
 
     # card f32 against the CPU: 2 streams x 1 chunk, three cores
     lines = []
-    for name in ("deepsort", "bytetrack", "strongsort"):
-        kw = dict(tracker=name)
+    for name in ("deepsort", "bytetrack", "ocsort", "strongsort"):
+        kw = dict(tracker=name, **tracker_configs().get(name, {}))
         card = make_streams(device, n_streams=2, **f32, **kw)
         cpu = make_streams("cpu", n_streams=2, **kw)
         o_card = [card.step_chunk(scenes[:2, :k])]
@@ -2242,23 +2462,25 @@ def streams_phase(device, kernels):
           f"{d - 1} dispatches: {s * k * (d - 1) / wall:.2f} stream-frames/s;"
           f" per dispatch gmc {g_ms['gmc']:.3f} ms (all {s} streams in one "
           f"batched estimate), tracker {g_ms['tracker']:.3f} ms")
-    return launches
+    return {"deepsort": launches, "bytetrack": motion["bytetrack"],
+            "ocsort": motion["ocsort"]}
 
 
-def stream_stack_vs_loop(pipe, chunks, device):
+def stream_stack_vs_loop(pipe, chunks, device, tag="", bitwise=False):
     """The streams' tracker on the same detections two ways, in turns
     (loop, stack, stack, loop), each a pass over the dispatches from fresh
     states: the stack (one captured replay a dispatch, one bucket decision)
     and the streams one after another through the same stage (a replay and
     a bucket decision a stream), as the pipeline ran them before it stacked
     them. Tracker ms a dispatch (host clock around the tracker, synced),
-    replays, assignment launches and bucket reads a dispatch; the two ways'
-    tracks equal (ids, classes, boxes identical, conf within 1e-4)."""
+    replays, assignment and ORU launches and bucket reads a dispatch; the
+    two ways' tracks equal (ids, classes, boxes identical, conf within 1e-4;
+    with ``bitwise`` every tuple bitwise)."""
     import numpy as np
     import torch
-    from aicamera_tpu_torch.core import state as core_state
     from aicamera_tpu_torch.core.assignment import TRACKER_SYNCS
     from aicamera_tpu_torch.ops.assignment import KERNEL
+    from aicamera_tpu_torch.ops.oru import KERNEL as ORU
     from aicamera_tpu_torch.runtime.pipeline import BUCKET_SYNCS
 
     s, k = chunks[0].shape[:2]
@@ -2269,14 +2491,17 @@ def stream_stack_vs_loop(pipe, chunks, device):
             ft = torch.from_numpy(np.ascontiguousarray(c)).to(device)
             inputs.append(detect(ft.reshape(s * k, *ft.shape[2:]))[0])
     valid = np.ones((s, k), bool)
-    params = pipe.tracker_params
+    fresh = pipe._engine._init_tracker_state
+
+    def counts():
+        return (pipe.scan_replays(), KERNEL.launches, ORU.launches,
+                BUCKET_SYNCS.count, TRACKER_SYNCS.count)
 
     def one_pass(way):
-        counts = (pipe.scan_replays(), KERNEL.launches, BUCKET_SYNCS.count,
-                  TRACKER_SYNCS.count)
+        before = counts()
         ms, outs = [], []
-        stack = core_state.init_state(params, device, n_streams=s)
-        singles = [core_state.init_state(params, device) for _ in range(s)]
+        stack = fresh(n_streams=s)
+        singles = [fresh() for _ in range(s)]
         with torch.no_grad():
             for inp in inputs:
                 torch.cuda.synchronize()
@@ -2296,9 +2521,8 @@ def stream_stack_vs_loop(pipe, chunks, device):
                 ms.append((time.perf_counter() - t0) * 1e3)
                 outs.append(tuple(x.cpu() for x in o))
         n = len(inputs)
-        per_dispatch = [(now - was) / n for now, was in zip(
-            (pipe.scan_replays(), KERNEL.launches, BUCKET_SYNCS.count,
-             TRACKER_SYNCS.count), counts)]
+        per_dispatch = [(now - was) / n for now, was in zip(counts(),
+                                                            before)]
         return ms, outs, per_dispatch
 
     for way in ("loop", "stack"):
@@ -2309,32 +2533,101 @@ def stream_stack_vs_loop(pipe, chunks, device):
     total = exact = 0
     for (_, o_stack, _), (_, o_loop, _) in zip(got["stack"], got["loop"]):
         for si in range(s):
-            t, e = same_tracks(f"streams stack vs loop, stream {si}",
+            t, e = same_tracks(f"streams{tag} stack vs loop, stream {si}",
                                stream_tuples(o_stack, si),
                                stream_tuples(o_loop, si))
             total, exact = total + t, exact + e
-    check(total > 0, "streams stack vs loop: no track to compare")
+    check(total > 0, f"streams{tag} stack vs loop: no track to compare")
+    if bitwise:
+        check(exact == total, f"streams{tag} stack vs loop: {total - exact} "
+              f"of {total} tuples differ in conf")
     row = {}
     for way, runs in got.items():
         row[way] = {"tracker_ms_a_dispatch": [float(np.median(r[0]))
                                               for r in runs],
                     "replays": runs[0][2][0], "assignment_launches":
-                    runs[0][2][1], "bucket_reads": runs[0][2][2],
-                    "tracker_reads": runs[0][2][3]}
-        check(runs[0][2][3] == 0, f"streams {way}: tracker reads")
-    check(row["stack"]["bucket_reads"] <= 2, "streams stack: more than 2 "
-          "bucket reads a dispatch")
-    print("[streams] tracker on the same detections, in turns (loop, stack,"
-          " stack, loop; median ms a dispatch, host clock, synced): "
+                    runs[0][2][1], "oru_launches": runs[0][2][2],
+                    "bucket_reads": runs[0][2][3],
+                    "tracker_reads": runs[0][2][4]}
+        check(runs[0][2][4] == 0, f"streams{tag} {way}: tracker reads")
+    check(row["stack"]["bucket_reads"] <= 2, f"streams{tag} stack: more "
+          f"than 2 bucket reads a dispatch")
+    print(f"[streams]{tag} tracker on the same detections, in turns (loop, "
+          f"stack, stack, loop; median ms a dispatch, host clock, synced): "
           + "; ".join(f"{way} " + " / ".join(
               f"{t:.3f}" for t in r["tracker_ms_a_dispatch"])
               + f" ms, a dispatch {r['replays']:.2f} replays, "
                 f"{r['assignment_launches']:.2f} assignment launches, "
+                f"{r['oru_launches']:.2f} ORU launches, "
                 f"{r['bucket_reads']:.2f} bucket reads"
               for way, r in row.items())
           + f"; tracks: ids, classes, boxes identical on {total} tuples, "
             f"{exact} bitwise with conf")
     return row
+
+
+def motion_stacks(device, kernels, chunks):
+    """``[streams]``' ByteTrack and OC-SORT stacks (thresholds 0.4, as in
+    ``[trackers]``): stream-frames/s, one scan replay a dispatch (two where
+    a bucketed pass reruns), 3 K (ByteTrack) or 2 K (OC-SORT) assignment
+    launches and K ORU launches (OC-SORT) a replay, at most 2 bucket reads
+    and no tracker read a dispatch; then the stack against the streams one
+    by one on the same detections, in turns, tracks bitwise equal."""
+    import numpy as np
+    import torch
+    cfg = tracker_configs()
+    s, k = chunks[0].shape[:2]
+    d = len(chunks)
+    out = {}
+    for name, solves in (("bytetrack", 3), ("ocsort", 2)):
+        pipe = make_streams(device, n_streams=s, tracker=name, **cfg[name])
+        check(pipe.stacked, f"streams {name}: not one stack")
+        blank = np.zeros((s, k, *STREAM_HW, 3), np.uint8)
+        for _ in range(WARM_UP_ITERS):
+            pipe.step_chunk(blank)
+        for c in chunks:    # captures the capacities the chunks take
+            pipe.step_chunk(c)
+        for i in range(s):
+            pipe.reset_stream(i)
+        pipe.scan_stats.update(dict.fromkeys(pipe.scan_stats, 0))
+        reset_counts(kernels)
+        replays = pipe.scan_replays()
+        t0 = time.perf_counter()
+        outs = [tuple(x.cpu() for x in pipe.step_chunk(c)) for c in chunks]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        replays = pipe.scan_replays() - replays
+        launches = {kn.name: kn.launches for kn in kernels}
+        syncs = {n: c.count for n, c in sync_counters().items()}
+        reruns = pipe.scan_stats["rerun"]
+        check(replays == d + reruns, f"streams {name}: {replays} scan "
+              f"replays in {d} dispatches ({reruns} reruns)")
+        check_launches(launches, d, f"streams {name}",
+                       oru=k * replays if name == "ocsort" else 0)
+        check(launches["assignment"] == solves * k * replays, f"streams "
+              f"{name}: {launches['assignment']} assignment launches in "
+              f"{replays} replays of {k} frames")
+        check(syncs["tracker"] == 0, f"streams {name}: {syncs['tracker']} "
+              f"tracker reads")
+        check(syncs["scan bucket"] <= 2 * d, f"streams {name}: "
+              f"{syncs['scan bucket']} bucket reads in {d} dispatches")
+        n_tracks = [sum(map(len, stream_tuples(outs, si)))
+                    for si in range(s)]
+        check(sum(n_tracks) > 0, f"streams {name}: no track")
+        print(f"[streams] {name} stack, {s} streams x {d} dispatches of {k} "
+              f"frames: {s * k * d / wall:.2f} stream-frames/s, "
+              f"{wall / d * 1e3:.2f} ms per dispatch; a dispatch "
+              f"{replays / d:.2f} scan replays, "
+              f"{launches['assignment'] / d:.2f} assignment launches "
+              f"({solves} K a replay), {launches['oru'] / d:.2f} ORU "
+              f"launches, {syncs['scan bucket'] / d:.2f} bucket reads, "
+              f"{syncs['tracker'] / d:.2f} tracker reads; chunks "
+              f"{dict(pipe.scan_stats)}; track outputs per stream "
+              f"{n_tracks}")
+        out[name] = launches
+        out[name + "_vs_loop"] = stream_stack_vs_loop(
+            pipe, chunks, device, tag=f" {name}", bitwise=True)
+    return out
 
 
 def tenant_frames(scenes, pace):
@@ -4144,7 +4437,8 @@ def main() -> int:
                     help="stop after the kernel phase (build, compare, time)")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the kernel "
-                         "phases (assignment: those alone; main, bucket, "
+                         "phases (assignment or oru: those alone; main, "
+                         "bucket, "
                          "trackers, gmc, facades, "
                          "engine, cli, present, compare, streams, serving, "
                          "server, quality, int8, mot, train, parallel); "
@@ -4154,9 +4448,10 @@ def main() -> int:
     from aicamera_tpu_torch.ops.assignment import KERNEL as ASSIGNMENT
     from aicamera_tpu_torch.ops.assignment import AssignmentKernel
     from aicamera_tpu_torch.ops.letterbox import KERNEL as LETTERBOX
+    from aicamera_tpu_torch.ops.oru import KERNEL as ORU
     from aicamera_tpu_torch.scenes import moving_rectangles
 
-    kernels = [LETTERBOX, ASSIGNMENT]
+    kernels = [LETTERBOX, ASSIGNMENT, ORU]
     # the assignment kernel's phase probe: its own build, loaded by the
     # [assignment] phase only
     probe_build = AssignmentKernel(probe=True)
@@ -4179,8 +4474,9 @@ def main() -> int:
             return out
 
         records = [timed("kernel", kernel_phase, device),
-                   timed("assignment", assignment_phase, device)]
-        if args.kernels_only or args.only == "assignment":
+                   timed("assignment", assignment_phase, device),
+                   timed("oru", oru_phase, device)]
+        if args.kernels_only or args.only in ("assignment", "oru"):
             print(json.dumps({"kernels": records}))
             return 0
         frames = moving_rectangles(N_CHUNKS * CHUNK, FRAME_HW, n_objects=6,
@@ -4239,14 +4535,21 @@ def main() -> int:
     # and its JPEG and PNG requests with their raw twins, the quality runs
     # (bf16, f32), mot --run, and the trainers by part (one letterbox launch
     # a detector step, two a clip step, none in the ReID trainer; no solve)
+    # The ORU kernel is not on the (DeepSORT) main path: its launches are
+    # those of its own path, [trackers]' OC-SORT run, counted from 0 there.
+    own_path = {"oru": ("trackers", "ocsort")}
     for record in records:
         name = record["name"]
-        record["launches"] = by_path.get("main", {}).get(name)
+        path, sub = own_path.get(name, ("main", None))
+        counts = by_path.get(path, {})
+        record["launches"] = (counts if sub is None
+                              else counts.get(sub, {})).get(name)
+        record["launches_path"] = path if sub is None else f"{path} {sub}"
         record["launches_by_path"] = {
             path: (counts if path in ("train", "parallel") else
                    {t: v[name] for t, v in counts.items()}
                    if path in ("trackers", "gmc", "facades", "engine",
-                               "quality", "int8")
+                               "quality", "int8", "streams")
                    else counts[name])
             for path, counts in by_path.items()
             if name == "letterbox" or path not in ("train", "parallel")}

@@ -25,6 +25,8 @@ from aicamera_tpu.core import state as jstate  # noqa: E402
 from aicamera_tpu.core import tracker as jtrk  # noqa: E402
 from aicamera_tpu_torch import config  # noqa: E402
 from aicamera_tpu_torch.core import assignment as tasg  # noqa: E402
+from aicamera_tpu_torch.core import bytetrack as tbt  # noqa: E402
+from aicamera_tpu_torch.core import ocsort as toc  # noqa: E402
 from aicamera_tpu_torch.core import state as tstate  # noqa: E402
 from aicamera_tpu_torch.core import tracker as ttrk  # noqa: E402
 from aicamera_tpu_torch.ops import assignment as kasg  # noqa: E402
@@ -595,11 +597,33 @@ def test_one_capture_a_capacity_whatever_the_validity(monkeypatch):
         assert torch.equal(a, b[1])
 
 
-def test_deepsort_chunk_scan_reads_nothing():
-    """A DeepSORT chunk scan takes no tracker read: ``TRACKER_SYNCS`` stays
-    at 0 over every chunk (ByteTrack still reads, in its own branches)."""
+# every core at the synthetic grid's conf 0.5 (the motion cores'
+# thresholds lowered to 0.4) and SMALL's slot counts
+_MOTION = dict(max_tracks=SMALL["max_tracks"],
+               max_detections=SMALL["max_detections"])
+_APPEARANCE = dict(with_appearance=True, feature_dim=config.REID_FEATURE_DIM)
+CORES = {
+    "deepsort": {},
+    "bytetrack": dict(tracker="bytetrack", bytetrack_params=tbt.ByteTrackParams(
+        track_thresh=0.4, **_MOTION)),
+    "botsort": dict(tracker="botsort", bytetrack_params=tbt.ByteTrackParams(
+        track_thresh=0.4, **_MOTION, **_APPEARANCE)),
+    "ocsort": dict(tracker="ocsort", ocsort_params=toc.OCSortParams(
+        det_thresh=0.4, **_MOTION)),
+    "deepocsort": dict(tracker="deepocsort", ocsort_params=toc.OCSortParams(
+        det_thresh=0.4, **_MOTION, **_APPEARANCE)),
+}
+
+
+@pytest.mark.parametrize("tracker", sorted(CORES))
+def test_deepsort_chunk_scan_reads_nothing(tracker):
+    """Every core's chunk scan (DeepSORT, ByteTrack, BoT-SORT, OC-SORT, Deep
+    OC-SORT) takes no tracker read: ``TRACKER_SYNCS`` stays at 0 over every
+    chunk, and every chunk goes through the captured scan (on the CPU a
+    direct call) at the full and the bucketed capacity."""
     frames = list(moving_rectangles(6, (96, 128), n_objects=3, seed=3))
-    pipe, results, reads = _pipeline_run(frames)
+    pipe, results, reads = _pipeline_run(frames, **CORES[tracker])
     assert reads == 0 and sum(len(r.tracks) for r in results) > 0
-    _, _, byte_reads = _pipeline_run(frames, tracker="bytetrack")
-    assert byte_reads > 0
+    names = {e.name for engines in pipe._scan_engines
+             for e in engines.values()}
+    assert names == {f"{pipe.tracker_kind} scan T={t}" for t in (8, 16)}

@@ -354,6 +354,122 @@ def test_stream_stack_scan_reads_nothing_and_replays_once(cuda):
         == 2 + pipe.scan_stats["rerun"] - reruns
 
 
+@pytest.mark.parametrize("tracker,solves", [("bytetrack", 3),
+                                            ("ocsort", 2)])
+def test_motion_stack_scan_reads_nothing_and_replays_once(cuda, tracker,
+                                                          solves):
+    """A ByteTrack and an OC-SORT stream stack on the card: the chunk step
+    (the captured scan of all streams) runs under CUDA's sync debug mode
+    "error" (no read back), replays once a dispatch with 3 K (ByteTrack) or
+    2 K (OC-SORT) assignment launches and K ORU launches (OC-SORT), and its
+    tracks equal the streams stepped one by one through the same stage on
+    the same detections (ids, classes, boxes identical, conf within
+    1e-4)."""
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.core.bytetrack import ByteTrackParams
+    from aicamera_tpu_torch.core.ocsort import OCSortParams
+    from aicamera_tpu_torch.ops.assignment import KERNEL
+    from aicamera_tpu_torch.ops.oru import KERNEL as ORU
+    from aicamera_tpu_torch.parallel import MultiStreamPipeline
+    from aicamera_tpu_torch.runtime.pipeline import _format_tracks
+    from aicamera_tpu_torch.scenes import moving_rectangles
+    s, k, hw = 3, 2, (180, 320)
+    slots = dict(max_tracks=16, max_detections=8)
+    core = (dict(bytetrack_params=ByteTrackParams(track_thresh=0.4, **slots))
+            if tracker == "bytetrack"
+            else dict(ocsort_params=OCSortParams(det_thresh=0.4, **slots)))
+    pipe = MultiStreamPipeline(
+        s, hw, scan_bucket=0, device=cuda, input_shape=(256, 256),
+        max_reid_crops=4, detect_dtype="f32", reid_dtype="f32",
+        tracker=tracker, yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
+        reid_weights=str(config.REID_SYNTHETIC_PATH), **core)
+    frames = np.stack([moving_rectangles(3 * k, hw, n_objects=3, seed=q)
+                       for q in (3, 5, 7)])
+    detect, track = pipe._engine._get_stages(hw)
+    valid = np.ones((s, k), bool)
+    valid[1, 1] = False
+    stack = pipe.states
+    singles = [pipe._engine._init_tracker_state() for _ in range(s)]
+    got, want = [], []
+    for c in range(3):
+        chunk = torch.from_numpy(frames[:, c * k:(c + 1) * k]).to(cuda)
+        with torch.no_grad():
+            inputs, _ = detect(chunk.reshape(s * k, *chunk.shape[2:]))
+            track(stack, inputs.by_frame(s, k), valid.T)   # the capture
+            counts = (pipe.scan_replays(), KERNEL.launches, ORU.launches)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                stack, outs = track(stack, inputs.by_frame(s, k), valid.T)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert (pipe.scan_replays(), KERNEL.launches, ORU.launches) \
+                == (counts[0] + 1, counts[1] + solves * k,
+                    counts[2] + (k if tracker == "ocsort" else 0))
+            for si in range(s):
+                singles[si], o = track(singles[si], inputs.frames(
+                    si * k, (si + 1) * k), valid[si])
+                want.append([_format_tracks(*(x[t].cpu().numpy() for x in o))
+                             for t in range(k)])
+                got.append([_format_tracks(*(x[t, si].cpu().numpy()
+                                             for x in outs))
+                            for t in range(k)])
+    for g, w in zip(got, want):
+        for gf, wf in zip(g, w):
+            assert [t[:6] for t in gf] == [t[:6] for t in wf]
+            assert all(abs(a[6] - b[6]) <= 1e-4 for a, b in zip(gf, wf))
+    assert sum(len(f) for g in got for f in g) > 0
+
+
+def test_oru_kernel_matches_its_plain_version(cuda):
+    """The ORU kernel through ``oru_replay`` on card tensors against
+    ``oru_replay_plain`` on the same tensors, within 1e-5 of each slot's
+    largest entry, on ``chip_smoke.oru_cases`` (every gap 0 to 31, mixed
+    masks, no replay, all slots at 8 and 31, a ragged stack); one launch a
+    call; slots without a replay keep their input bitwise; CPU tensors
+    raise."""
+    from aicamera_tpu_torch.core import ocsort as oc
+    from aicamera_tpu_torch.ops.oru import KERNEL
+    max_gap = chip_smoke.ORU_MAX_AGE + 1
+    for name, args in chip_smoke.oru_cases():
+        card = [a.to(cuda) for a in args]
+        before = KERNEL.launches
+        got = oc.oru_replay(*card, max_gap)
+        assert KERNEL.launches == before + 1
+        want = oc.oru_replay_plain(*card, max_gap)
+        rel, _, _ = chip_smoke.oru_compare(got, want)
+        assert rel <= chip_smoke.ORU_TOL, (name, rel)
+        idle = ~card[4]
+        assert torch.equal(got[0][idle], card[0][idle]), name
+        assert torch.equal(got[1][idle], card[1][idle]), name
+    with pytest.raises(ValueError, match="CUDA"):
+        KERNEL(*chip_smoke.oru_cases()[0][1], max_gap)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_batched_solves_with_empty_masks_match_nothing(cuda, b):
+    """The kernel with no eligible row, no eligible column or neither: -1
+    everywhere (and the cascade's detections all unmatched), as the plain
+    version; the read-free stages of the motion cores rely on it."""
+    from aicamera_tpu_torch.core import assignment as asg
+    rng = np.random.RandomState(b)
+    cost = torch.from_numpy(rng.uniform(0, 1, (b, 128, 64)).astype(
+        np.float32)).to(cuda)
+    rows = torch.from_numpy(rng.rand(b, 128) < 0.5).to(cuda)
+    cols = torch.from_numpy(rng.rand(b, 64) < 0.5).to(cuda)
+    levels = torch.ones((b, 128), dtype=torch.int32, device=cuda)
+    for r, c in ((torch.zeros_like(rows), cols),
+                 (rows, torch.zeros_like(cols)),
+                 (torch.zeros_like(rows), torch.zeros_like(cols))):
+        got = asg.min_cost_matching(cost, r, c, 0.9)
+        assert (got == -1).all()
+        assert torch.equal(got, asg.min_cost_matching_plain(cost, r, c, 0.9))
+        one = asg.min_cost_matching(cost[0], r[0], c[0], 0.9)
+        assert (one == -1).all()
+        match, unmatched = asg.matching_cascade(cost, levels, r, c, 0.9, 3)
+        assert (match == -1).all() and torch.equal(unmatched, c)
+
+
 def test_a_deepsort_frame_is_two_assignment_launches(cuda):
     """A DeepSORT frame launches the assignment kernel twice (the cascade
     and the IoU solve) and nothing for the levels: captured, the cascade

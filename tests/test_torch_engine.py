@@ -287,6 +287,39 @@ def test_deepsort_with_serialized_reid_matches_weights(reid_engine):
     assert any(len(o) == 1 for o in ref)  # the scenario tracks
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_a_dtype_given_with_an_engine_file_warns(tmp_path, detector,
+                                                 reid_engine, reid_models,
+                                                 dtype):
+    """A ``.cudae`` engine's dtype is baked in: a ``detect_dtype`` or
+    ``reid_dtype`` given with the file is ignored with a warning, and the
+    outputs stay the engine's."""
+    path = tmp_path / "yolo.cudae"
+    detector.export_engine(FRAME_HW, path)
+    with pytest.warns(UserWarning, match=f"detect_dtype='{dtype}' is "
+                      f"ignored"):
+        det = tdet.YOLODetector(str(path), input_shape=INPUT_HW,
+                                device="cpu", detect_dtype=dtype)
+    for x, y in zip(det.detect(FRAMES[0]), detector.detect(FRAMES[0])):
+        np.testing.assert_array_equal(x, y)
+    with pytest.warns(UserWarning, match=f"reid_dtype='{dtype}' is ignored"):
+        rm = tapi.ReIDModel(str(reid_engine), device="cpu", reid_dtype=dtype)
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        2, *rm.input_shape, 3).astype(np.float32))
+    assert torch.equal(rm.device_apply(x), reid_models[1].device_apply(x))
+
+
+def test_an_engine_file_without_a_dtype_does_not_warn(tmp_path, detector,
+                                                      reid_engine):
+    import warnings
+    path = tmp_path / "yolo.cudae"
+    detector.export_engine(FRAME_HW, path)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tdet.YOLODetector(str(path), input_shape=INPUT_HW, device="cpu")
+        tapi.ReIDModel(str(reid_engine), device="cpu")
+
+
 def test_reid_export_refusals(reid_models, tmp_path):
     _, rm2 = reid_models
     with pytest.raises(ValueError, match="loaded from a serialized"):

@@ -4,9 +4,10 @@ The cases of ``tests/test_serving.py`` (packed readback, masked isolation,
 slot leasing and re-lease, validation, drain, shutdown, the eager, deadline
 and full-chunk triggers, the per-request deadline, ``wait_idle``), plus the
 port's: ``TrackingService`` and every tenant of the multi-tenant service
-give the track tuples of ``TrackingPipeline.process_frames`` over the same
-frames, a re-leased slot restarts its ids at 1, a failing dispatch
-reaches its futures, and the services default to the GPU.
+(DeepSORT, and the ByteTrack and OC-SORT stacks) give the track tuples of
+``TrackingPipeline.process_frames`` over the same frames, a re-leased slot
+restarts its ids at 1, a failing dispatch reaches its futures, and the
+services default to the GPU.
 
 Sizes as in ``tests/test_serving.py``: 96x128 frames, detector input
 128x128, a 16-track table, 4 ReID crops; the committed synthetic weights.
@@ -182,6 +183,72 @@ def test_each_tenant_equals_a_single_stream_pipeline(svc):
             list(range(len(frames)))
         n_tracks += sum(map(len, got))
     assert n_tracks > 0
+
+
+def _motion_kw(tracker):
+    """``PIPE_KW`` with a motion core, its threshold lowered to 0.4."""
+    from aicamera_tpu_torch.core.bytetrack import ByteTrackParams
+    from aicamera_tpu_torch.core.ocsort import OCSortParams
+    slots = dict(max_tracks=16, max_detections=8)
+    core = (dict(bytetrack_params=ByteTrackParams(track_thresh=0.4, **slots))
+            if tracker == "bytetrack"
+            else dict(ocsort_params=OCSortParams(det_thresh=0.4, **slots)))
+    return dict(PIPE_KW, tracker=tracker, **core)
+
+
+@pytest.mark.parametrize("tracker", ["bytetrack", "ocsort"])
+def test_motion_core_tenants_ride_the_stream_stack(tracker):
+    """A multi-tenant service over a motion core: its streams are one stack;
+    two tenants at different paces (their lanes masked in each other's
+    dispatches) each get the tuples of a ``TrackingPipeline`` over their
+    frames alone; a re-leased slot (``reset_stream`` on the stack) starts
+    again from id 1."""
+    kw = _motion_kw(tracker)
+    service = MultiTenantTrackingService(
+        n_streams=2, frame_hw=FRAME_HW, chunk_size=2, max_latency_ms=15.0,
+        **kw)
+
+    def reference(frames):
+        pipe = TrackingPipeline(chunk_size=2, **kw)
+        return [r.tracks for r in pipe.process_frames(iter(frames))]
+
+    try:
+        pipe = service.pipeline
+        assert pipe.stacked and tuple(pipe.states.active.shape) == (2, 16)
+        scenes = {0: _scene(6, seed=3), 1: _scene(4, seed=5)}
+        results = {}
+
+        def tenant(key, pause):
+            sid = service.open_stream()
+            futs = []
+            for f in scenes[key]:
+                futs.append(service.submit(sid, f))
+                time.sleep(pause)
+            results[key] = [f.result(timeout=300).tracks for f in futs]
+            service.close_stream(sid)
+
+        threads = [threading.Thread(target=tenant, args=(0, 0.0)),
+                   threading.Thread(target=tenant, args=(1, 0.03))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+        service.wait_idle(timeout=60)
+        for key, frames in scenes.items():
+            _assert_same_tracks(results[key], reference(frames))
+        assert sum(len(t) for r in results.values() for t in r) > 0
+        frames = scenes[0]
+        sid = service.open_stream()
+        got = [f.result(timeout=300).tracks
+               for f in [service.submit(sid, fr) for fr in frames]]
+        service.close_stream(sid)
+        service.wait_idle(timeout=60)
+        _assert_same_tracks(got, reference(frames))
+        assert sum(map(len, got)) > 0
+        assert min(t[4] for tr in got for t in tr) == 1
+    finally:
+        service.shutdown()
 
 
 def test_slot_leasing_and_release(svc):
