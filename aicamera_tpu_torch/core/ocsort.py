@@ -502,14 +502,16 @@ def oru_replay_plain(x, p, frozen_x, frozen_p, replay, gap, z1, z2,
 
 
 def oru_replay(x, p, frozen_x, frozen_p, replay, gap, z1, z2,
-               max_gap: int):
+               max_gap: int, variant: str = _oru_kernel.VARIANTS[0]):
     """:func:`oru_replay_plain`'s function. CUDA tensors: the kernel
     (``ops/oru.py``, one launch for every slot of every stream, nothing read
-    back); CPU tensors: :func:`oru_replay_plain`."""
+    back; ``variant`` names its design, ``"rows"`` by default); CPU tensors:
+    :func:`oru_replay_plain`, whatever the design named."""
     args = (x, p, frozen_x, frozen_p, replay, gap, z1, z2)
     _oru_kernel.check_args(*args)
+    _oru_kernel.check_variant(variant)
     if x.device.type == "cuda":
-        return _oru_kernel.KERNEL(*args, max_gap)
+        return _oru_kernel.KERNEL(*args, max_gap, variant)
     if x.device.type != "cpu":
         raise ValueError(f"the ORU replay runs on CUDA or CPU tensors (got "
                          f"{x.device})")

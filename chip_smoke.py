@@ -50,16 +50,25 @@ this file; exits non-zero otherwise. In order it:
    version, the probe's sums per problem on batches, and one batched launch
    timed against the same 8 problems launched one by one, in turns, at
    128x64 and 32x64, with its per-call, plain and scipy times and bound;
-   ``[oru]``: OC-SORT's ORU replay kernel (``csrc/oru.cu``) through the
-   public ``core.ocsort.oru_replay`` on card tensors against
-   ``oru_replay_plain`` on the same tensors, within 1e-5 of each slot's
-   scale (the lanes that come out bitwise counted), on seeded stacks of B =
-   1 and 8 streams of 128 slots with every gap from 0 to 31 on mixed masks,
-   no replay, every slot at gap 8 and at 31, and a ragged stack; then its
-   device ms a launch by graph replay at B = 1 and 8 with no replay, gap 8
-   and gap 31, per call, the plain version's, and its bound (the larger of
-   the launch data's bytes and operations and an empty kernel's replay; no
-   single PyTorch call computes it);
+   ``[oru]``: OC-SORT's ORU replay kernel (``csrc/oru.cu``), both designs:
+   the default (``rows``) through the public ``core.ocsort.oru_replay`` and
+   ``v1`` through the wrapper, on card tensors, bitwise equal to each other
+   on every lane (NaN where NaN) and each within 1e-5 of each slot's scale
+   of ``oru_replay_plain`` on the same tensors (the lanes bitwise the plain
+   version counted), on seeded stacks of B = 1 and 8 streams of 128 slots
+   with every gap from 0 to 31 on mixed masks, no replay, every slot at gap
+   8 and at 31, a ragged stack, degenerate boxes and gaps (s = 0, r = 0,
+   NaN in z2, gaps 0 and past ``max_gap``), and every timed set; the phase
+   probe of both (a second build with ``-DAICAM_ORU_PROBE``: a slot's load,
+   store and replay cycles, cycles a virtual step, a block's cycles); both
+   designs timed in turns (v1, rows, rows, v1) by graph replay at B = 1
+   and 8 with no replay, gap 8 and gap 31, with the default's per-call ms,
+   the plain version's, and the bound (the larger of the launch data's
+   bytes and operations and an empty kernel's replay; no single PyTorch
+   call computes it); ``[streams]`` adds both designs on the OC-SORT
+   stack's own inputs (a spy on ``oru_replay`` over an eager rerun of its
+   dispatches: frames that replay, the gap histogram, the two held and
+   timed in turns);
 4. drives the main path at full width: ``TrackingPipeline(device="cuda")``
    with YOLOv8n at 640x640, T=128 track slots, N=64 detection slots, a
    100-feature gallery of 512-d features and 32 ReID crops, on seeded
@@ -1365,6 +1374,8 @@ ORU_TIMED_SETS = 4   # distinct input sets the timed launches rotate over
 # Joseph-form update: S, the Cholesky, 7 solves, K (z - x), (I - KH) P
 # (I - KH)^T + K R K^T) each step, the bare predict between two
 ORU_SETUP_OPS, ORU_UPDATE_OPS, ORU_PREDICT_OPS = 20, 2252, 94
+# the probe's phases of a virtual step (csrc/oru.cu's ProbeSlot)
+ORU_STEP_PHASES = ("gain", "joseph", "predict")
 
 
 def oru_inputs(b, gap=None, replay_share=0.6, seed=0, t=ORU_T):
@@ -1406,30 +1417,87 @@ def oru_inputs(b, gap=None, replay_share=0.6, seed=0, t=ORU_T):
             torch.from_numpy(replay), g, z1.contiguous(), z2.contiguous())
 
 
+def oru_degenerate(seed=7):
+    """``B = 2`` streams of 16 slots with degenerate boxes and gaps: in z1
+    and z2 an area s of 0, an aspect r of 0, both; a NaN in z2's centre and
+    in its area; gaps 1, ``max_gap`` and beyond it (32, 40, 1000: the
+    replay stops at ``max_gap``); a warp of 4 slots (12-15) whose replaying
+    slots all roll back with gap 0 (no step) beside one that does not
+    replay though its gap is set."""
+    x, p, fx, fp, replay, gap, z1, z2 = oru_inputs(2, seed=seed, t=16)
+    nan = float("nan")
+    # (gap, z1 column and value, z2 column and value) by slot
+    edits = [(1, None, None), (2, (2, 0.0), None), (5, None, (2, 0.0)),
+             (ORU_MAX_AGE + 1, (3, 0.0), None), (32, None, (3, 0.0)),
+             (40, (2, 0.0), (2, 0.0)), (1000, None, None),
+             (3, None, (0, nan)), (8, None, (2, nan)),
+             (8, (3, 0.0), (3, 0.0)), (31, (2, 0.0), (3, 0.0)),
+             (6, (2, 0.0), (2, nan)), (0, None, None), (0, (2, 0.0), None),
+             (12, None, None), (0, None, None)]
+    for t, (g, a, b) in enumerate(edits):
+        gap[:, t] = g
+        if a is not None:
+            z1[:, t, a[0]] = a[1]
+        if b is not None:
+            z2[:, t, b[0]] = b[1]
+    replay[:] = True
+    replay[:, 14] = False
+    return x, p, fx, fp, replay, gap, z1, z2
+
+
 def oru_cases():
     """``[(name, inputs)]`` the card checks the kernel on: B = 1 and 8
     streams with every gap from 0 to ``ORU_MAX_AGE + 1`` on mixed masks, no
-    replay, every slot at gap 8 and at 31, and a small ragged stack."""
+    replay, every slot at gap 8 and at 31, a small ragged stack (111 slots:
+    a last block of 7) and the degenerate boxes and gaps."""
     return [("B=8 mixed gaps 0-31", oru_inputs(8, seed=1)),
             ("B=1 mixed gaps 0-31", oru_inputs(1, seed=2)),
             ("B=8 no replay", oru_inputs(8, gap=0, seed=3)),
             ("B=8 gap 8", oru_inputs(8, gap=8, seed=4)),
             ("B=8 gap 31", oru_inputs(8, gap=31, seed=5)),
-            ("B=3 T=37 mixed", oru_inputs(3, seed=6, t=37))]
+            ("B=3 T=37 mixed", oru_inputs(3, seed=6, t=37)),
+            ("B=2 T=16 degenerate", oru_degenerate())]
+
+
+def same_bits(a, b):
+    """Elementwise: the same bits, or NaN in both."""
+    import torch
+    return ((a.view(torch.int32) == b.view(torch.int32))
+            | (torch.isnan(a) & torch.isnan(b)))
 
 
 def oru_compare(got, want):
     """Kernel ``got`` against plain ``want`` (each ``(x, p)``): the largest
-    error of a slot's x and p over that slot's largest entry (at least 1),
-    the lanes bitwise equal, and the lanes."""
-    (gx, gp), (wx, wp) = got, want
-    ex = (gx - wx).abs().amax(-1) / wx.abs().amax(-1).clamp(min=1.0)
-    ep = (gp - wp).abs().amax((-2, -1)) / wp.abs().amax((-2, -1)).clamp(
-        min=1.0)
-    rel = float(max(ex.max(), ep.max()))
-    same = (gx == wx).all(-1) & (gp == wp).all(-1).all(-1)
-    finite = bool(gx.isfinite().all() and gp.isfinite().all())
-    return (rel if finite else float("inf")), int(same.sum()), same.numel()
+    error of a slot's finite x and p entries over that slot's largest
+    finite entry (at least 1), infinite where a NaN or an infinity of one
+    is not the other's; the lanes bitwise equal (NaN where NaN), and the
+    lanes."""
+    import torch
+    rel = 0.0
+    for g, w, dims in ((got[0], want[0], (-1,)), (got[1], want[1], (-2, -1))):
+        odd = ~(torch.isfinite(g) & torch.isfinite(w))
+        if bool((odd & ~same_bits(g, w)).any()):
+            return float("inf"), *oru_lanes_same(got, want)
+        err = torch.where(odd, 0.0, g - w).abs().amax(dims)
+        scale = torch.where(odd, 0.0, w).abs().amax(dims).clamp(min=1.0)
+        rel = max(rel, float((err / scale).max()))
+    return (rel, *oru_lanes_same(got, want))
+
+
+def oru_lanes_same(got, want):
+    """``(lanes bitwise equal, lanes)`` of two ``(x, p)``: a lane is a
+    slot's x and p, NaN where NaN."""
+    same = (same_bits(got[0], want[0]).all(-1)
+            & same_bits(got[1], want[1]).all(-1).all(-1))
+    return int(same.sum()), same.numel()
+
+
+def oru_finite_err(got, want):
+    """The largest absolute difference of the finite entries."""
+    import torch
+    return max(float(torch.where(torch.isfinite(g) & torch.isfinite(w),
+                                 g - w, 0.0).abs().max())
+               for g, w in zip(got, want))
 
 
 def oru_work(args, max_gap=ORU_MAX_AGE + 1):
@@ -1440,69 +1508,190 @@ def oru_work(args, max_gap=ORU_MAX_AGE + 1):
     x, _, _, _, replay, gap = args[:6]
     lanes = replay.numel()
     n_rep = int(replay.sum())
-    steps = gap.clamp(max=max_gap)[replay].long()
+    steps = gap.clamp(max=max_gap)[replay].long().clamp(min=0)
     n_bytes = lanes * (56 * 4 * 2 + 1 + 4) + n_rep * 8 * 4
     ops = (n_rep * ORU_SETUP_OPS + int(steps.sum()) * ORU_UPDATE_OPS
            + int((steps - 1).clamp(min=0).sum()) * ORU_PREDICT_OPS)
     return n_bytes, ops
 
 
-def oru_phase(device):
-    """The ORU kernel (``csrc/oru.cu``) through the public ``oru_replay`` on
-    card tensors against ``oru_replay_plain`` on the same tensors, within
-    ``ORU_TOL`` of each slot's scale, on :func:`oru_cases` (the bitwise
-    lanes counted); then its device time by graph replay at B = 1 and 8, T =
-    128, with no replay, every slot at gap 8 and at 31, per call, the plain
-    version's, and its bound: the larger of the bytes and operations of the
-    launch's data and an empty kernel's replay."""
-    import torch
-    from aicamera_tpu_torch.core import ocsort as oc
-    from aicamera_tpu_torch.ops.oru import KERNEL
+class OruChecks:
+    """Both designs of the ORU kernel on one set of card inputs: the
+    default design through the public ``oru_replay``, ``v1`` through the
+    wrapper, one launch each; the two bitwise equal on every lane (NaN
+    where NaN), each within ``ORU_TOL`` of ``oru_replay_plain`` on the same
+    tensors, slots without a replay unchanged. Counts the lanes."""
 
-    max_gap = ORU_MAX_AGE + 1
-    worst_rel = worst_abs = 0.0
-    exact = lanes = 0
-    for name, args in oru_cases():
-        card = [a.to(device) for a in args]
+    def __init__(self):
+        self.lanes = self.designs_bitwise = self.plain_bitwise = 0
+        self.rel = self.abs = 0.0
+
+    def hold(self, tag, card, max_gap):
+        import torch
+        from aicamera_tpu_torch.core import ocsort as oc
+        from aicamera_tpu_torch.ops.oru import KERNEL, VARIANTS
         before = KERNEL.launches
         got = oc.oru_replay(*card, max_gap)
+        check(KERNEL.launches == before + 1, f"[oru] {tag}: the default "
+              f"design did not launch once")
+        old = KERNEL(*card, max_gap, variant=VARIANTS[1])
+        check(KERNEL.launches == before + 2, f"[oru] {tag}: v1 did not "
+              f"launch once")
         torch.cuda.synchronize()
-        check(KERNEL.launches == before + 1, f"[oru] {name}: the kernel did "
-              f"not launch once")
         want = oc.oru_replay_plain(*card, max_gap)
-        rel, same, n = oru_compare(got, want)
-        check(rel <= ORU_TOL, f"[oru] {name}: kernel vs plain {rel:.3g} of "
-              f"a slot's scale (tolerance {ORU_TOL})")
+        same, n = oru_lanes_same(got, old)
+        check(same == n, f"[oru] {tag}: {n - same} of {n} lanes of the "
+              f"{VARIANTS[0]} design differ from v1's")
+        for design, out in ((VARIANTS[0], got), (VARIANTS[1], old)):
+            rel, _, _ = oru_compare(out, want)
+            check(rel <= ORU_TOL, f"[oru] {tag}: {design} vs plain {rel:.3g}"
+                  f" of a slot's scale (tolerance {ORU_TOL})")
+            self.rel = max(self.rel, rel)
+            self.abs = max(self.abs, oru_finite_err(out, want))
         idle = ~card[4]
         check(torch.equal(got[0][idle], card[0][idle])
               and torch.equal(got[1][idle], card[1][idle]),
-              f"[oru] {name}: a slot without a replay changed")
-        worst_rel = max(worst_rel, rel)
-        worst_abs = max(worst_abs, float((got[0] - want[0]).abs().max()),
-                        float((got[1] - want[1]).abs().max()))
-        exact, lanes = exact + same, lanes + n
-        print(f"[oru] {name}: kernel vs plain on the card, max error "
-              f"{rel:.3g} of a slot's scale (tolerance {ORU_TOL}); {same} of "
-              f"{n} lanes bitwise")
+              f"[oru] {tag}: a slot without a replay changed")
+        exact, _ = oru_lanes_same(got, want)
+        self.lanes += n
+        self.designs_bitwise += same
+        self.plain_bitwise += exact
+        return got, exact, n
+
+    def line(self):
+        from aicamera_tpu_torch.ops.oru import VARIANTS
+        return (f"{VARIANTS[0]} bitwise v1 on {self.designs_bitwise} of "
+                f"{self.lanes} lanes; both within {self.rel:.3g} of a slot's "
+                f"scale of the plain version (tolerance {ORU_TOL}, max "
+                f"|diff| {self.abs:.3g}), bitwise on {self.plain_bitwise}")
+
+
+def oru_turns(launch_of, n_sets):
+    """Both designs timed in turns (v1, default, default, v1): graph
+    replays of ``launch_of(variant)(i)`` over ``n_sets`` sets; per design
+    the two medians and the replays' least and most, ms a launch."""
+    from aicamera_tpu_torch.ops.oru import VARIANTS
+    got = {}
+    for variant in (VARIANTS[1], VARIANTS[0], VARIANTS[0], VARIANTS[1]):
+        got.setdefault(variant, []).append(
+            time_device_stats(launch_of(variant), n_sets))
+    return {v: {"ms": [t[0] for t in ts],
+                "spread_ms": [min(t[1] for t in ts), max(t[2] for t in ts)]}
+            for v, ts in got.items()}
+
+
+def turns_line(turns):
+    return "; ".join(
+        f"{v} {' '.join(f'{t:.5f}' for t in r['ms'])} ms (replays "
+        f"{r['spread_ms'][0]:.5f}-{r['spread_ms'][1]:.5f})"
+        for v, r in turns.items())
+
+
+def oru_probe(device, max_gap, sm_mhz):
+    """The phase probe of both designs (a second build with
+    ``-DAICAM_ORU_PROBE``) on the timed shapes' first input set and the
+    mixed stack: per slot its load and store cycles, a virtual step's
+    cycles by phase (gain, Joseph product, predict), a block's cycles from
+    entry to exit; the probe build's outputs bitwise v1's."""
+    import torch
+    from aicamera_tpu_torch.ops.oru import KERNEL, VARIANTS, OruKernel
+    probe = OruKernel(probe=True)
+    rows = []
+    shapes = [(f"B={b} T={ORU_T} " + (f"gap {g}" if g else "no replay"),
+               oru_inputs(b, gap=g, seed=0)) for b in (1, 8)
+              for g in (0, 8, 31)]
+    shapes.append(("B=8 mixed gaps 0-31", oru_inputs(8, seed=1)))
+    for name, args in shapes:
+        card = [a.to(device) for a in args]
+        want = KERNEL(*card, max_gap, variant=VARIANTS[1])
+        for variant in VARIANTS:
+            probe.read_probe(reset=True)
+            out = probe(*card, max_gap, variant=variant)
+            torch.cuda.synchronize()
+            got = probe.read_probe(reset=True)
+            same, n = oru_lanes_same(out, want)
+            check(same == n, f"[oru] probe {variant} {name}: {n - same} "
+                  f"lanes differ from v1")
+            slots = got["slots"]
+            check(slots == n, f"[oru] probe counted {slots} slots of {n}")
+            steps = got["steps"]
+            row = {"shape": name, "variant": variant, "slots": slots,
+                   "replaying": got["replaying"], "steps": steps,
+                   "blocks": got["blocks"],
+                   "load_cycles_a_slot": got["load"] / slots,
+                   "store_cycles_a_slot": got["store"] / slots,
+                   **{f"{k}_cycles_a_step": got[k] / steps if steps else None
+                      for k in ORU_STEP_PHASES},
+                   "block_cycles": got["total"] / got["blocks"]}
+            row["step_cycles"] = (sum(got[k] for k in ORU_STEP_PHASES)
+                                  / steps if steps else None)
+            row["us_a_step_at_max_clock"] = (
+                row["step_cycles"] / sm_mhz[1] if steps else None)
+            rows.append(row)
+            step = ("" if not steps else
+                    f", a virtual step {row['step_cycles']:.0f} cycles ("
+                    + ", ".join(f"{k} {row[k + '_cycles_a_step']:.0f}"
+                                for k in ORU_STEP_PHASES)
+                    + f"; {row['us_a_step_at_max_clock']:.3f} us at "
+                      f"{sm_mhz[1]:.0f} MHz)")
+            print(f"[oru] probe {variant} {name}: {slots} slots, "
+                  f"{got['replaying']} replaying, {got['steps']} steps, "
+                  f"{got['blocks']} blocks; a slot's leading thread: load "
+                  f"{row['load_cycles_a_slot']:.0f} cycles, store "
+                  f"{row['store_cycles_a_slot']:.0f}{step}; a block "
+                  f"{row['block_cycles']:.0f} cycles entry to exit")
+    return rows
+
+
+def oru_phase(device):
+    """Both designs of the ORU kernel (``csrc/oru.cu``): the default through
+    the public ``oru_replay`` and ``v1`` through the wrapper, on card
+    tensors, against each other bitwise and against ``oru_replay_plain`` on
+    the same tensors within ``ORU_TOL`` of each slot's scale, on
+    :func:`oru_cases` and every timed set; the phase probe of both; both
+    timed in turns by graph replay at B = 1 and 8, T = 128, with no replay,
+    every slot at gap 8 and at 31, with the default design's time per call,
+    the plain version's, and the bound: the larger of the bytes and
+    operations of the launch's data and an empty kernel's replay."""
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch.core import ocsort as oc
+    from aicamera_tpu_torch.ops.oru import KERNEL, VARIANTS
+
+    max_gap = ORU_MAX_AGE + 1
+    checks = OruChecks()
+    for name, args in oru_cases():
+        _, exact, n = checks.hold(name, [a.to(device) for a in args],
+                                  max_gap)
+        print(f"[oru] {name}: {VARIANTS[0]} bitwise v1 on all {n} lanes, "
+              f"{exact} bitwise the plain version")
     try:
         KERNEL(*oru_cases()[0][1], max_gap)
         check(False, "[oru] the kernel took CPU tensors")
     except ValueError:
         pass
+    sm_mhz = sm_clock_mhz()
+    probes = oru_probe(device, max_gap, sm_mhz)
 
     launch_floor = time_device_ms(lambda i: torch.cuda._sleep(0), 1,
                                   rounds=64)
     rows = []
     for b in (1, 8):
         for gap in (0, 8, 31):
+            shape = f"B={b} T={ORU_T} " + (f"gap {gap}" if gap
+                                           else "no replay")
             sets = [[a.to(device) for a in oru_inputs(b, gap=gap, seed=s)]
                     for s in range(ORU_TIMED_SETS)]
+            for i, card in enumerate(sets):
+                checks.hold(f"{shape} set {i}", card, max_gap)
             outs = [None] * len(sets)
 
-            def launch(i):
-                outs[i] = KERNEL(*sets[i], max_gap)
+            def launch_of(variant):
+                def launch(i):
+                    outs[i] = KERNEL(*sets[i], max_gap, variant=variant)
+                return launch
 
-            device_ms, lo, hi = time_device_stats(launch, len(sets))
+            turns = oru_turns(launch_of, len(sets))
             ms = sorted(time_ms(lambda: oc.oru_replay(*sets[0], max_gap))
                         for _ in range(3))[1]
             plain_ms = time_ms(lambda: oc.oru_replay_plain(*sets[0],
@@ -1512,9 +1701,10 @@ def oru_phase(device):
             t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
             t_ops = ops / PEAK_F32_FLOPS * 1e3
             bound = max(t_bytes, t_ops, launch_floor)
-            r = {"shape": f"B={b} T={ORU_T} "
-                          + (f"gap {gap}" if gap else "no replay"),
-                 "device_ms": device_ms, "spread_ms": [lo, hi], "ms": ms,
+            device_ms = float(np.median(turns[VARIANTS[0]]["ms"]))
+            earlier_ms = float(np.median(turns[VARIANTS[1]]["ms"]))
+            r = {"shape": shape, "device_ms": device_ms,
+                 "earlier_ms": earlier_ms, "turns": turns, "ms": ms,
                  "plain_ms": plain_ms, "library_ms": None,
                  "bound_ms": bound,
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1522,26 +1712,110 @@ def oru_phase(device):
                                 else "work"),
                  "bytes": n_bytes, "ops": ops}
             rows.append(r)
-            print(f"[oru] {r['shape']}: device {device_ms:.5f} ms a launch "
-                  f"(graph replay, L2-resident; replays {lo:.5f}-{hi:.5f}),"
-                  f" per call {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-                  f"{bound:.6f} ms (the larger of {n_bytes} bytes, "
-                  f"{t_bytes:.6f} ms, {ops} operations, {t_ops:.6f} ms, and "
-                  f"an empty kernel's replay, {launch_floor:.6f} ms: "
-                  f"{r['bound_term']}): {100 * bound / device_ms:.1f}% of "
-                  f"the bound; library: no single PyTorch call")
+            print(f"[oru] {shape} in turns (graph replay, L2-resident, ms a "
+                  f"launch): {turns_line(turns)}; {VARIANTS[0]} "
+                  f"{100 * bound / device_ms:.1f}% of the bound, v1 "
+                  f"{100 * bound / earlier_ms:.1f}%; per call {ms:.4f} ms, "
+                  f"plain {plain_ms:.3f} ms, bound {bound:.6f} ms (the "
+                  f"larger of {n_bytes} bytes, {t_bytes:.6f} ms, {ops} "
+                  f"operations, {t_ops:.6f} ms, and an empty kernel's "
+                  f"replay, {launch_floor:.6f} ms: {r['bound_term']}); "
+                  f"library: no single PyTorch call")
+    print(f"[oru] checked: {checks.line()}")
     KERNEL.launches = 0  # comparison and timing launches do not count
     main = rows[3]   # B=8 with no replay: the [streams] stack's usual frame
     return {"name": KERNEL.name, "route": "cuda",
             "source": "aicamera_tpu_torch/csrc/oru.cu",
             "replaces": KERNEL.replaces, "launches": None,
-            "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+            "max_abs_err": checks.abs, "max_rel_err": checks.rel,
             "ms": main["ms"], "device_ms": main["device_ms"],
+            "earlier_ms": main["earlier_ms"],
+            "device_ms_by_design": {VARIANTS[0]: main["device_ms"],
+                                    VARIANTS[1]: main["earlier_ms"]},
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "bound_term": main["bound_term"],
             "library_ms": None, "launch_floor_ms": launch_floor,
-            "lanes_checked": lanes, "lanes_bitwise": exact,
-            "shapes": rows}
+            "lanes_checked": checks.lanes,
+            "lanes_bitwise_designs": checks.designs_bitwise,
+            "lanes_bitwise_plain": checks.plain_bitwise,
+            "shapes": rows, "probe": probes}
+
+
+def oru_main_path(pipe, chunks, device, record=None):
+    """The ORU kernel on the ``[streams]`` OC-SORT stack's own inputs: the
+    stack rerun over the same chunks from fresh states with its scans eager
+    (a captured scan calls the step only while it captures), a spy on
+    ``core.ocsort.oru_replay`` cloning every frame's arguments; then how
+    many frames replay and the gap histogram, both designs held on every
+    frame's inputs as in ``[oru]``, and both timed in turns over the
+    frames. The row goes into ``record`` (the kernel's JSON record)."""
+    import collections
+    import numpy as np
+    import torch
+    from aicamera_tpu_torch.core import ocsort as oc
+    from aicamera_tpu_torch.ops.oru import KERNEL, VARIANTS
+
+    frames = []
+    real = oc.oru_replay
+
+    def spy(*args, **kw):
+        frames.append([a.clone() for a in args[:8]] + [args[8]])
+        return real(*args, **kw)
+
+    for i in range(pipe.n_streams):
+        pipe.reset_stream(i)
+    oc.oru_replay = spy
+    try:
+        with eager_scans(pipe._engine), torch.no_grad():
+            for c in chunks:
+                pipe.step_chunk(c)
+        torch.cuda.synchronize()
+    finally:
+        oc.oru_replay = real
+    check(len(frames) == len(chunks) * chunks[0].shape[1], f"[oru] "
+          f"{len(frames)} ORU calls in {len(chunks)} chunks")
+    max_gap = frames[0][8]
+    checks = OruChecks()
+    hist = collections.Counter()
+    replaying = 0
+    for i, f in enumerate(frames):
+        checks.hold(f"main path frame {i}", f[:8], max_gap)
+        g = f[5][f[4]].tolist()
+        replaying += bool(g)
+        hist.update(g)
+    outs = [None] * len(frames)
+
+    def launch_of(variant):
+        def launch(i):
+            outs[i] = KERNEL(*frames[i][:8], max_gap, variant=variant)
+        return launch
+
+    turns = oru_turns(launch_of, len(frames))
+    work = [oru_work(f[:8], max_gap) for f in frames]
+    launch_floor = time_device_ms(lambda i: torch.cuda._sleep(0), 1,
+                                  rounds=64)
+    bound = max(launch_floor, max(b for b, _ in work) / PEAK_BYTES_PER_S
+                * 1e3, max(o for _, o in work) / PEAK_F32_FLOPS * 1e3)
+    KERNEL.launches = 0
+    row = {"frames": len(frames), "shape": tuple(frames[0][0].shape),
+           "frames_replaying": replaying,
+           "gap_histogram": dict(sorted(hist.items())), "turns": turns,
+           "device_ms": float(np.median(turns[VARIANTS[0]]["ms"])),
+           "earlier_ms": float(np.median(turns[VARIANTS[1]]["ms"])),
+           "bound_ms": bound, "lanes_checked": checks.lanes,
+           "lanes_bitwise_designs": checks.designs_bitwise,
+           "lanes_bitwise_plain": checks.plain_bitwise}
+    print(f"[oru] the [streams] OC-SORT stack's own inputs: {len(frames)} "
+          f"frames of {tuple(frames[0][0].shape)[:-1]} slots, "
+          f"{replaying} with a replay, gaps {row['gap_histogram']}; "
+          f"{checks.line()}")
+    print(f"[oru] those frames in turns (graph replay, ms a launch): "
+          f"{turns_line(turns)}; bound {bound:.6f} ms: {VARIANTS[0]} "
+          f"{100 * bound / row['device_ms']:.1f}% of it, v1 "
+          f"{100 * bound / row['earlier_ms']:.1f}%")
+    if record is not None:
+        record["main_path"] = row
+    return row
 
 
 def make_pipeline(device, synthetic_load=24, **kw):
@@ -2284,9 +2558,11 @@ def reset_counts(kernels):
     torch.cuda.synchronize()
 
 
-def streams_phase(device, kernels):
+def streams_phase(device, kernels, oru_record=None):
     """``MultiStreamPipeline`` at BASELINE config 4's width: 8 streams of
-    720p, chunk 4, DeepSORT defaults; then its checks."""
+    720p, chunk 4, DeepSORT defaults; then its checks (``oru_record``: the
+    ORU kernel's JSON record, which takes the row of its timing on the
+    OC-SORT stack's own inputs)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2371,7 +2647,7 @@ def streams_phase(device, kernels):
     print(f"[streams] host syncs per stream-frame: {syncs_line(syncs, n_sf)};"
           f" track outputs per stream {n_tracks}")
     stream_stack_vs_loop(pipe, chunks, device)
-    motion = motion_stacks(device, kernels, chunks)
+    motion = motion_stacks(device, kernels, chunks, oru_record)
 
     # two streams masked for a whole dispatch keep their states bit for bit
     before = pipe.states
@@ -2566,13 +2842,15 @@ def stream_stack_vs_loop(pipe, chunks, device, tag="", bitwise=False):
     return row
 
 
-def motion_stacks(device, kernels, chunks):
+def motion_stacks(device, kernels, chunks, oru_record=None):
     """``[streams]``' ByteTrack and OC-SORT stacks (thresholds 0.4, as in
     ``[trackers]``): stream-frames/s, one scan replay a dispatch (two where
     a bucketed pass reruns), 3 K (ByteTrack) or 2 K (OC-SORT) assignment
     launches and K ORU launches (OC-SORT) a replay, at most 2 bucket reads
     and no tracker read a dispatch; then the stack against the streams one
-    by one on the same detections, in turns, tracks bitwise equal."""
+    by one on the same detections, in turns, tracks bitwise equal; then the
+    ORU kernel on the OC-SORT stack's own inputs (:func:`oru_main_path`,
+    its row into ``oru_record``)."""
     import numpy as np
     import torch
     cfg = tracker_configs()
@@ -2627,6 +2905,8 @@ def motion_stacks(device, kernels, chunks):
         out[name] = launches
         out[name + "_vs_loop"] = stream_stack_vs_loop(
             pipe, chunks, device, tag=f" {name}", bitwise=True)
+        if name == "ocsort":
+            oru_main_path(pipe, chunks, device, oru_record)
     return out
 
 
@@ -4449,12 +4729,13 @@ def main() -> int:
     from aicamera_tpu_torch.ops.assignment import AssignmentKernel
     from aicamera_tpu_torch.ops.letterbox import KERNEL as LETTERBOX
     from aicamera_tpu_torch.ops.oru import KERNEL as ORU
+    from aicamera_tpu_torch.ops.oru import OruKernel
     from aicamera_tpu_torch.scenes import moving_rectangles
 
     kernels = [LETTERBOX, ASSIGNMENT, ORU]
-    # the assignment kernel's phase probe: its own build, loaded by the
-    # [assignment] phase only
-    probe_build = AssignmentKernel(probe=True)
+    # the phase probes of the assignment and ORU kernels: their own builds,
+    # loaded by the [assignment] and [oru] phases only
+    probe_builds = [AssignmentKernel(probe=True), OruKernel(probe=True)]
     t_start = time.perf_counter()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -4462,7 +4743,7 @@ def main() -> int:
         print(f"[gpu] {ident}")
         print(f"[gpu] torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"python {sys.version.split()[0]}")
-        build_s = build_kernels(kernels + [probe_build])
+        build_s = build_kernels(kernels + probe_builds)
         print(f"[build] {len(kernels)} kernel(s) built in {build_s:.2f} s")
         device = torch.device("cuda")
         phase_s = {}
@@ -4509,7 +4790,7 @@ def main() -> int:
             timed("present", present_phase)
         if only is None or "compare" in only:
             timed("compare", compare_phase, frames)
-        run("streams", streams_phase, device, kernels)
+        run("streams", streams_phase, device, kernels, records[2])
         if only is None or "serving" in only:
             by_path["serving"], by_path["multi_tenant"] = timed(
                 "serving", serving_phase, device, frames, kernels)

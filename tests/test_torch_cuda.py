@@ -422,28 +422,108 @@ def test_motion_stack_scan_reads_nothing_and_replays_once(cuda, tracker,
 
 
 def test_oru_kernel_matches_its_plain_version(cuda):
-    """The ORU kernel through ``oru_replay`` on card tensors against
-    ``oru_replay_plain`` on the same tensors, within 1e-5 of each slot's
-    largest entry, on ``chip_smoke.oru_cases`` (every gap 0 to 31, mixed
-    masks, no replay, all slots at 8 and 31, a ragged stack); one launch a
-    call; slots without a replay keep their input bitwise; CPU tensors
-    raise."""
+    """Both designs of the ORU kernel on ``chip_smoke.oru_cases`` (every gap
+    0 to 31, mixed masks, no replay, all slots at 8 and 31, a ragged stack
+    of 111 slots, degenerate boxes and gaps): the default through
+    ``oru_replay`` and v1 through the wrapper, one launch a call; the
+    default bitwise v1 on every lane (NaN where NaN); both within 1e-5 of
+    each slot's largest entry of ``oru_replay_plain`` on the same tensors;
+    slots without a replay keep their input bitwise; CPU tensors raise."""
     from aicamera_tpu_torch.core import ocsort as oc
-    from aicamera_tpu_torch.ops.oru import KERNEL
+    from aicamera_tpu_torch.ops.oru import KERNEL, VARIANTS
     max_gap = chip_smoke.ORU_MAX_AGE + 1
     for name, args in chip_smoke.oru_cases():
         card = [a.to(cuda) for a in args]
         before = KERNEL.launches
         got = oc.oru_replay(*card, max_gap)
         assert KERNEL.launches == before + 1
+        old = KERNEL(*card, max_gap, variant="v1")
+        assert KERNEL.launches == before + 2
+        same, lanes = chip_smoke.oru_lanes_same(got, old)
+        assert same == lanes, (name, lanes - same)
         want = oc.oru_replay_plain(*card, max_gap)
-        rel, _, _ = chip_smoke.oru_compare(got, want)
-        assert rel <= chip_smoke.ORU_TOL, (name, rel)
+        for out in (got, old):
+            rel, _, _ = chip_smoke.oru_compare(out, want)
+            assert rel <= chip_smoke.ORU_TOL, (name, rel)
         idle = ~card[4]
-        assert torch.equal(got[0][idle], card[0][idle]), name
-        assert torch.equal(got[1][idle], card[1][idle]), name
-    with pytest.raises(ValueError, match="CUDA"):
-        KERNEL(*chip_smoke.oru_cases()[0][1], max_gap)
+        for out in (got, old):
+            assert torch.equal(out[0][idle], card[0][idle]), name
+            assert torch.equal(out[1][idle], card[1][idle]), name
+    for variant in VARIANTS:
+        with pytest.raises(ValueError, match="CUDA"):
+            KERNEL(*chip_smoke.oru_cases()[0][1], max_gap, variant=variant)
+
+
+@pytest.mark.parametrize("variant", ["rows", "v1"])
+def test_oru_variant_launches_once_and_rejects_unknown(cuda, variant):
+    """``oru_replay(variant=...)`` on card tensors: one launch of the named
+    design, bitwise the wrapper's; an unknown design raises before any
+    launch."""
+    from aicamera_tpu_torch.core import ocsort as oc
+    from aicamera_tpu_torch.ops.oru import KERNEL
+    card = [a.to(cuda) for a in chip_smoke.oru_inputs(2, seed=11)]
+    max_gap = chip_smoke.ORU_MAX_AGE + 1
+    before = KERNEL.launches
+    got = oc.oru_replay(*card, max_gap, variant=variant)
+    assert KERNEL.launches == before + 1
+    want = KERNEL(*card, max_gap, variant=variant)
+    assert chip_smoke.oru_lanes_same(got, want) == (256, 256)
+    with pytest.raises(ValueError, match="variant"):
+        oc.oru_replay(*card, max_gap, variant="lanes")
+    assert KERNEL.launches == before + 2
+
+
+def test_oru_designs_agree_off_the_16_byte_grid(cuda):
+    """A stack whose x and p start 4 bytes past the 16-byte grid (views into
+    larger buffers) takes the default design's scalar copy: still bitwise
+    v1 and within 1e-5 of the plain version, idle slots unchanged."""
+    from aicamera_tpu_torch.core import ocsort as oc
+    from aicamera_tpu_torch.ops.oru import KERNEL
+    x, p, *rest = [a.to(cuda) for a in chip_smoke.oru_inputs(3, seed=12,
+                                                             t=37)]
+    xs = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    ps = torch.empty(p.numel() + 1, device=cuda)[1:].view(p.shape)
+    xs.copy_(x)
+    ps.copy_(p)
+    assert xs.data_ptr() % 16 and ps.data_ptr() % 16
+    max_gap = chip_smoke.ORU_MAX_AGE + 1
+    got = oc.oru_replay(xs, ps, *rest, max_gap)
+    old = KERNEL(xs, ps, *rest, max_gap, variant="v1")
+    assert chip_smoke.oru_lanes_same(got, old) == (111, 111)
+    assert chip_smoke.oru_lanes_same(got, oc.oru_replay(
+        x, p, *rest, max_gap)) == (111, 111)
+    rel, _, _ = chip_smoke.oru_compare(got, oc.oru_replay_plain(
+        xs, ps, *rest, max_gap))
+    assert rel <= chip_smoke.ORU_TOL
+    idle = ~rest[2]
+    assert torch.equal(got[1][idle], p[idle])
+
+
+def test_oru_probe_build_counts_slots_and_steps(cuda):
+    """The probe build (``-DAICAM_ORU_PROBE``) of both designs: outputs
+    bitwise the plain build's v1, one slot counted a slot, the replaying
+    slots and their ``min(gap, max_gap)`` steps, one block per 8 slots
+    (rows) or 128 (v1), and cycles in every phase."""
+    from aicamera_tpu_torch.ops.oru import KERNEL, OruKernel
+    probe = OruKernel(probe=True)
+    card = [a.to(cuda) for a in chip_smoke.oru_inputs(3, seed=13, t=37)]
+    max_gap = chip_smoke.ORU_MAX_AGE + 1
+    want = KERNEL(*card, max_gap, variant="v1")
+    replay, gap = card[4], card[5]
+    steps = int(gap.clamp(max=max_gap)[replay].clamp(min=0).sum())
+    for variant, per_block in (("rows", 8), ("v1", 128)):
+        probe.read_probe(reset=True)
+        got = probe(*card, max_gap, variant=variant)
+        torch.cuda.synchronize()
+        sums = probe.read_probe(reset=True)
+        assert chip_smoke.oru_lanes_same(got, want) == (111, 111)
+        assert sums["slots"] == 111
+        assert sums["replaying"] == int(replay.sum())
+        assert sums["steps"] == steps
+        assert sums["blocks"] == -(-111 // per_block)
+        assert min(sums[k] for k in ("load", "gain", "joseph", "predict",
+                                     "store", "total")) > 0
+    assert probe.launches == 2
 
 
 @pytest.mark.parametrize("b", [1, 8])
