@@ -43,11 +43,12 @@ _WARMUP_ITERS = 2
 
 
 def detect_step(model, dtype: torch.dtype, spec, conf_threshold: float,
-                nms_threshold: float, fixed_iters: bool):
+                nms_threshold: float):
     """The fused detect step of one frame shape: ``(H, W, 3)`` uint8 on the
     device -> ``(boxes (100, 4) f32 in frame coordinates, scores (100,),
-    labels (100,) int32, valid (100,) bool)``, the JAX package's step.
-    ``fixed_iters``: the NMS keep without reads (a captured step)."""
+    labels (100,) int32, valid (100,) bool)``, the JAX package's step. Its
+    NMS keep is the NMS kernel on the card, which reads nothing, so the step
+    can be captured; on the CPU it is the plain keep."""
     # The NMS pre-filter follows conf_threshold below the default 0.25
     # floor, so that low-score recipes (ByteTrack's second stage) see
     # those boxes.
@@ -59,8 +60,7 @@ def detect_step(model, dtype: torch.dtype, spec, conf_threshold: float,
             levels = model(x)
         num, nboxes, nscores, nlabels = fused_decode_nms(
             levels, score_threshold=nms_floor, iou_threshold=nms_threshold,
-            top_k=config.YOLO_NMS_TOPK, max_det=config.YOLO_MAX_DETECTIONS,
-            fixed_iters=fixed_iters)
+            top_k=config.YOLO_NMS_TOPK, max_det=config.YOLO_MAX_DETECTIONS)
         boxes = scale_boxes_back(nboxes[0], spec)
         present = torch.arange(boxes.shape[0], device=boxes.device) < num[0]
         valid = present & (nscores[0] >= conf_threshold)
@@ -71,10 +71,10 @@ def detect_step(model, dtype: torch.dtype, spec, conf_threshold: float,
 
 def tiled_step(model, dtype: torch.dtype, frame_hw, input_shape, grid,
                overlap: float, include_full: bool, merge_criterion: str,
-               conf_threshold: float, nms_threshold: float,
-               fixed_iters: bool):
+               conf_threshold: float, nms_threshold: float):
     """The tiled detect step (``detect_tiled``) of one frame shape and
-    layout, with :func:`detect_step`'s contract."""
+    layout, with :func:`detect_step`'s contract: two NMS kernel calls on the
+    card (the tiles and the full frame as one batch, then the merge)."""
     origins, tile_hw = tile_layout(frame_hw, grid, overlap)
     tile_spec = letterbox_spec(tile_hw, input_shape)
     full_spec = letterbox_spec(tuple(frame_hw), input_shape)
@@ -94,8 +94,7 @@ def tiled_step(model, dtype: torch.dtype, frame_hw, input_shape, grid,
             levels = model(x)
         num, nboxes, nscores, nlabels = fused_decode_nms(
             levels, score_threshold=nms_floor, iou_threshold=nms_threshold,
-            top_k=config.YOLO_NMS_TOPK, max_det=max_det,
-            fixed_iters=fixed_iters)
+            top_k=config.YOLO_NMS_TOPK, max_det=max_det)
         tb = scale_boxes_back(nboxes[:t], tile_spec) \
             + device_constant(offsets, torch.float32, dev)[:, None]
         slot = torch.arange(max_det, device=dev)
@@ -108,8 +107,7 @@ def tiled_step(model, dtype: torch.dtype, frame_hw, input_shape, grid,
         allb, alls, allc, allv = (torch.cat(p) for p in zip(*parts))
         num_m, mb, ms, mc = merge_detections(
             allb, alls, allc, allv, nms_threshold, max_det,
-            frame_hw=tuple(frame_hw), criterion=merge_criterion,
-            fixed_iters=fixed_iters)
+            frame_hw=tuple(frame_hw), criterion=merge_criterion)
         valid = (slot < num_m) & (ms >= conf_threshold)
         return mb, ms, mc, valid
 
@@ -134,7 +132,7 @@ def serialized_step(header: dict, weights: dict, device: torch.device):
         model = model.to(device=device, dtype=dtype).eval()
     spec = letterbox_spec(tuple(meta["frame_hw"]), tuple(meta["input_shape"]))
     return detect_step(model, dtype, spec, meta["conf_threshold"],
-                       meta["nms_threshold"], device.type == "cuda")
+                       meta["nms_threshold"])
 
 
 class YOLODetector:
@@ -280,8 +278,7 @@ class YOLODetector:
         return self._engine(
             key, f"yolov8{self.variant}_detect_{key[0]}x{key[1]}",
             lambda: detect_step(self.model, self._dtype, self._spec(key),
-                                self.conf_threshold, self.nms_threshold,
-                                self.device.type == "cuda"))
+                                self.conf_threshold, self.nms_threshold))
 
     def _tiled_engine(self, frame_hw, grid, overlap, include_full,
                       merge_criterion):
@@ -297,8 +294,7 @@ class YOLODetector:
             lambda: tiled_step(self.model, self._dtype, frame_hw,
                                self.input_shape, grid, overlap, include_full,
                                merge_criterion, self.conf_threshold,
-                               self.nms_threshold,
-                               self.device.type == "cuda"))
+                               self.nms_threshold))
 
     @staticmethod
     def _host(boxes, scores, labels, valid):

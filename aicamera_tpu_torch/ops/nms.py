@@ -6,22 +6,38 @@ contract. Tie order follows ``lax.top_k``: on equal scores the lower index
 comes first, which a stable descending sort gives (``torch.topk`` on CUDA
 promises no order). Labels come from the argmax over logits (first maximum).
 
-The greedy keep is the JAX package's fixpoint iteration, run batched over the
-chunk: a frame that has converged stays fixed under further iterations, so
-iterating until every frame has converged gives each frame's own fixpoint.
-Each iteration costs one host sync (``NMS_SYNCS`` counts them). With
-``fixed_iters=True`` it runs K iterations and reads nothing, for steps that
-a CUDA graph captures (``runtime/engine.py``); the result is the same.
+The greedy keep over a chunk's score-ordered candidates runs where its
+tensors lie. On the card it is the NMS kernel (``csrc/nms.cu``, ``KERNEL``):
+one call for every frame of the batch, the overlap computed in the kernel,
+nothing read back, so a CUDA graph can capture it; each call adds one to
+``KERNEL.launches``. On the CPU it is the plain version, the JAX package's
+fixpoint iteration run batched over the chunk (:func:`_greedy_keep` over
+:func:`_pairwise_iou_xyxy` or :func:`_pairwise_ios_xyxy`): a frame that has
+converged stays fixed under further iterations, so iterating until every
+frame has converged gives each frame's own fixpoint. Each iteration costs
+one read (``NMS_SYNCS`` counts them); with ``fixed_iters=True`` it runs K
+iterations and reads nothing, the same result. The two give the same kept
+set bit for bit: the kernel's overlap is the same sequence of rounded
+operations. There is no fallback from one to the other: a CUDA tensor
+launches the kernel or raises.
+
+Replaces the JAX package's device loop (XLA, not Pallas):
+``aicamera_tpu/ops/nms.py``'s ``_greedy_keep`` and its ``lax.while_loop``,
+over the overlap that ``_suppress_and_emit`` builds.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
 
 from ..syncs import SyncCounter
+from . import cuda_build
+from .letterbox import _current_stream
 
 # Class-aware NMS trick: shift boxes per class so different classes never
 # overlap. Larger than any letterboxed coordinate.
@@ -71,16 +87,19 @@ _PAIRWISE = {"iou": _pairwise_iou_xyxy, "ios": _pairwise_ios_xyxy}
 
 def _greedy_keep(overlap: torch.Tensor, valid: torch.Tensor,
                  fixed_iters: bool = False) -> torch.Tensor:
-    """Exact greedy-NMS keep set by fixpoint iteration, batched.
+    """Exact greedy-NMS keep set by fixpoint iteration, batched: the plain
+    version (the CPU path, and the kernel's oracle on the card).
 
     ``overlap`` (B, K, K) bool, ``valid`` (B, K) bool over score-ordered
     candidates. The greedy scan is the unique fixpoint of
     ``kept[i] = valid[i] and not any_{j<i}(kept[j] and overlap[j, i])``;
     Jacobi iteration from ``kept = valid`` reaches it in at most K steps
     (``kept[i]`` is final once every ``kept[j<i]`` is, so after ``i + 1``
-    steps). The eager path stops at the fixpoint, one read a step;
+    steps). The eager form stops at the fixpoint, one read a step;
     ``fixed_iters`` runs all K steps with no read: the steps after the
-    fixpoint change nothing.
+    fixpoint change nothing. :func:`_suppress_and_emit` takes this only for
+    CPU tensors; on the card it launches the kernel, whatever
+    ``fixed_iters`` says.
     """
     k = overlap.shape[-1]
     lower = torch.tril(torch.ones((k, k), dtype=torch.bool,
@@ -102,6 +121,135 @@ def _greedy_keep(overlap: torch.Tensor, valid: torch.Tensor,
     return kept
 
 
+def greedy_keep_plain(shifted: torch.Tensor, valid: torch.Tensor,
+                      threshold: float, criterion: str = "iou",
+                      fixed_iters: bool = False) -> torch.Tensor:
+    """What the NMS kernel computes, in plain PyTorch: the keep set of
+    class-shifted boxes ``shifted (..., K, 4)`` under ``valid (..., K)``,
+    ``_greedy_keep(pairwise(shifted) > threshold, valid)``."""
+    return _greedy_keep(_pairwise(criterion)(shifted) > threshold, valid,
+                        fixed_iters)
+
+
+def _pairwise(criterion: str):
+    pairwise = _PAIRWISE.get(criterion)
+    if pairwise is None:
+        raise ValueError(f"criterion must be 'iou' or 'ios', got "
+                         f"{criterion!r}")
+    return pairwise
+
+
+MAX_K = 16384  # the most candidates a frame the kernel takes
+
+
+def check_args(shifted: torch.Tensor, valid: torch.Tensor, threshold,
+               criterion: str) -> None:
+    """The argument checks the kernel relies on (device-independent):
+    ``shifted`` f32 ``(..., K, 4)`` with ``1 <= K <= MAX_K`` and at most
+    65535 frames, ``valid`` bool ``(..., K)`` of the same frames, both
+    contiguous and on one device; ``threshold`` a Python or numpy number;
+    ``criterion`` ``"iou"`` or ``"ios"``."""
+    _pairwise(criterion)
+    if shifted.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"the NMS kernel takes float32 boxes and bool valid "
+                        f"(got {shifted.dtype}, {valid.dtype})")
+    if shifted.ndim < 2 or shifted.shape[-1] != 4:
+        raise ValueError(f"boxes must be (..., K, 4) (got "
+                         f"{tuple(shifted.shape)})")
+    if tuple(valid.shape) != tuple(shifted.shape[:-1]):
+        raise ValueError(f"valid must be {tuple(shifted.shape[:-1])} (got "
+                         f"{tuple(valid.shape)})")
+    k = shifted.shape[-2]
+    frames = valid.numel() // max(k, 1)
+    if not 1 <= k <= MAX_K or not 1 <= frames <= 65535:
+        raise ValueError(f"the NMS kernel takes 1 <= K <= {MAX_K} candidates "
+                         f"and 1 to 65535 frames (got "
+                         f"{tuple(shifted.shape)})")
+    if not (shifted.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("the NMS kernel takes contiguous boxes and valid")
+    if valid.device != shifted.device:
+        raise ValueError(f"valid is on {valid.device}, boxes on "
+                         f"{shifted.device}")
+    if not np.isscalar(threshold):
+        raise TypeError(f"threshold must be a number (got "
+                        f"{type(threshold).__name__}): a tensor would be "
+                        f"read back")
+
+
+class NmsKernel:
+    """Builds, loads and launches ``csrc/nms.cu``; counts calls. A call is
+    the kernel's two launches (the overlap mask, then the scan) for every
+    frame of the batch, and adds one to ``launches``."""
+
+    name = "nms"
+    source = cuda_build.CSRC_DIR / "nms.cu"
+    replaces = ("aicamera_tpu/ops/nms.py:36 _greedy_keep (its "
+                "lax.while_loop at :66) over the overlap of "
+                "_suppress_and_emit at :109 (XLA, not Pallas)")
+    #: no fused multiply-adds: each operation rounds as the plain version's
+    #: separate PyTorch kernels round it
+    flags = ("--fmad=false",)
+
+    def __init__(self):
+        self.launches = 0
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = cuda_build.load_library(self.source, (), self.flags)
+                ptr, i32 = ctypes.c_void_p, ctypes.c_int
+                lib.aicam_nms_keep.argtypes = [i32, i32, ptr, ptr,
+                                               ctypes.c_float, i32, ptr, ptr,
+                                               ptr]
+                lib.aicam_nms_keep.restype = i32
+                lib.aicam_nms_max_k.restype = i32
+                if lib.aicam_nms_max_k() != MAX_K:
+                    raise RuntimeError("csrc/nms.cu's kMaxK is not MAX_K")
+                self._lib = lib
+            return self._lib
+
+    def __call__(self, shifted: torch.Tensor, valid: torch.Tensor,
+                 threshold: float, criterion: str = "iou") -> torch.Tensor:
+        """The keep set ``(..., K)`` bool of class-shifted, score-ordered
+        boxes ``shifted (..., K, 4)`` f32 under ``valid (..., K)`` bool:
+        ``_greedy_keep(pairwise(shifted) > threshold, valid)`` bit for bit,
+        ``threshold`` compared as the f32 it rounds to. Takes CUDA tensors
+        only, 1 <= K <= ``MAX_K`` (16384) and at most 65535 frames; raises
+        on anything else."""
+        check_args(shifted, valid, threshold, criterion)
+        if shifted.device.type != "cuda":
+            raise ValueError(f"the NMS kernel needs CUDA tensors (got "
+                             f"{shifted.device})")
+        lib = self._lib or self.load()
+        k = shifted.shape[-2]
+        frames = valid.numel() // k
+        words = -(-k // 32)
+        dev = shifted.device
+        # the overlap mask, (frames, W, 32 W) words; torch.empty is 16-byte
+        # aligned (the scan reads it in 16-byte loads)
+        mask = torch.empty((frames, words, 32 * words), dtype=torch.int32,
+                           device=dev)
+        kept = torch.empty(valid.shape, dtype=torch.bool, device=dev)
+        args = (frames, k, shifted.data_ptr(), valid.data_ptr(),
+                float(np.float32(threshold)), 0 if criterion == "iou" else 1,
+                mask.data_ptr(), kept.data_ptr())
+        if dev.index == torch.cuda.current_device():
+            err = lib.aicam_nms_keep(*args, _current_stream(dev))
+        else:
+            with torch.cuda.device(dev):
+                err = lib.aicam_nms_keep(*args, _current_stream(dev))
+        if err != 0:
+            raise RuntimeError(f"NMS kernel launch failed: CUDA error {err} "
+                               f"(boxes {tuple(shifted.shape)}, {criterion})")
+        self.launches += 1
+        return kept
+
+
+KERNEL = NmsKernel()
+
+
 def _suppress_and_emit(k_boxes, k_score, k_cls, k_valid, iou_threshold,
                        top_k: int, max_det: int,
                        class_offset: float = _CLASS_OFFSET,
@@ -109,15 +257,16 @@ def _suppress_and_emit(k_boxes, k_score, k_cls, k_valid, iou_threshold,
     """Shared NMS tail over (B, K) score-ordered candidates: class shift,
     greedy suppression, emit the top ``max_det`` kept candidates.
     ``class_offset`` must exceed the largest box coordinate; ``criterion``
-    is the pairwise overlap measure, ``"iou"`` or ``"ios"``;
-    ``fixed_iters`` as in :func:`_greedy_keep`."""
-    pairwise = _PAIRWISE.get(criterion)
-    if pairwise is None:
-        raise ValueError(f"criterion must be 'iou' or 'ios', got "
-                         f"{criterion!r}")
+    is the pairwise overlap measure, ``"iou"`` or ``"ios"``. The keep is
+    the NMS kernel for CUDA tensors (no read; ``fixed_iters`` changes
+    nothing there) and the plain version for CPU tensors (``fixed_iters``
+    as in :func:`_greedy_keep`)."""
     shifted = k_boxes + (k_cls.float() * class_offset)[..., None]
-    overlap = pairwise(shifted) > iou_threshold
-    kept = _greedy_keep(overlap, k_valid, fixed_iters)
+    if shifted.device.type == "cuda":
+        kept = KERNEL(shifted, k_valid, iou_threshold, criterion)
+    else:
+        kept = greedy_keep_plain(shifted, k_valid, iou_threshold, criterion,
+                                 fixed_iters)
 
     order_score = torch.where(kept, k_score, torch.full_like(k_score, -1.0))
     if max_det > top_k:  # more output slots than candidates: pad
@@ -164,8 +313,10 @@ def fused_decode_nms(level_outputs, score_threshold: float = 0.25,
     ``level_outputs``: per level ``(box_bins (B, h, w, 4*reg_max),
     cls_logits (B, h, w, C))`` NHWC. Returns ``num (B,) int32, boxes
     (B, max_det, 4) f32, scores (B, max_det) f32, labels (B, max_det)
-    int32`` in letterboxed coordinates. ``fixed_iters``: the greedy keep
-    without reads (the same result), for a captured step.
+    int32`` in letterboxed coordinates. The greedy keep is the NMS kernel
+    on the card (no read) and the plain version on the CPU;
+    ``fixed_iters``: the plain version without reads (the same result),
+    which the kernel makes moot on the card.
     """
     reg_max = level_outputs[0][0].shape[-1] // 4
     level_hw = tuple((bb.shape[1], bb.shape[2]) for bb, _ in level_outputs)

@@ -72,7 +72,7 @@ def merge_detections(boxes: torch.Tensor, scores: torch.Tensor,
                      cls: torch.Tensor, valid: torch.Tensor,
                      iou_threshold: float, max_det: int,
                      frame_hw: Tuple[int, int] | None = None,
-                     criterion: str = "iou", fixed_iters: bool = False):
+                     criterion: str = "iou"):
     """Global class-aware NMS over concatenated per-tile detections.
 
     ``boxes`` ``(N, 4)`` xyxy in frame coordinates (already offset);
@@ -80,8 +80,8 @@ def merge_detections(boxes: torch.Tensor, scores: torch.Tensor,
     boxes live in; the class offset then scales with it (it must exceed
     every coordinate). ``criterion``: ``"iou"`` (the in-model NMS's
     measure) or ``"ios"`` (intersection over the smaller area, which
-    collapses tile-boundary fragments). ``fixed_iters``: the greedy keep
-    without reads, as in ``ops.nms.fused_decode_nms``.
+    collapses tile-boundary fragments). The greedy keep is the NMS kernel
+    for CUDA tensors (no read) and the plain version for CPU tensors.
 
     Returns ``(num, boxes (max_det, 4), scores (max_det,), labels
     (max_det,))``, the contract of ``fused_decode_nms`` for one image.
@@ -98,6 +98,5 @@ def merge_detections(boxes: torch.Tensor, scores: torch.Tensor,
     num, out_boxes, out_scores, out_cls = _suppress_and_emit(
         boxes[k_idx][None], k_score[None], cls[k_idx][None],
         (k_score > 0)[None], iou_threshold, n, max_det,
-        class_offset=class_offset, criterion=criterion,
-        fixed_iters=fixed_iters)
+        class_offset=class_offset, criterion=criterion)
     return num[0], out_boxes[0], out_scores[0], out_cls[0]

@@ -69,6 +69,21 @@ this file; exits non-zero otherwise. In order it:
    stack's own inputs (a spy on ``oru_replay`` over an eager rerun of its
    dispatches: frames that replay, the gap histogram, the two held and
    timed in turns);
+   ``[nms]``: the greedy-NMS keep kernel (``csrc/nms.cu``) through its
+   wrapper on card tensors, bitwise against the plain version's eager and
+   fixed-K forms on the same tensors and against the CPU's, on the main
+   path's own candidates (one chunk of the pipeline with the kernel's
+   arguments recorded: B = 8, K = 300) and ``nms_cases``: the
+   ``[streams]`` dispatch's B = 32, the facade's B = 1, the tiled merge at
+   K = 500 by IoU and by IoS, seeded crowded scenes, the suppression chain
+   of length K, K = 1, 33 and 1100, none and all valid, NaN, infinite and
+   degenerate boxes, overlaps exactly at the threshold, K = 4096 and 16384;
+   ``_suppress_and_emit`` on the card against the CPU; one call under
+   CUDA's sync debug mode "error"; then its time by graph replay at those
+   shapes against its bound (the larger of the bytes and the operations
+   the call's data needs) and an empty kernel's replay, its time per call,
+   the plain eager form's (a read an iteration) and the plain fixed-K
+   form's (graph replay); no single PyTorch call computes it;
 4. drives the main path at full width: ``TrackingPipeline(device="cuda")``
    with YOLOv8n at 640x640, T=128 track slots, N=64 detection slots, a
    100-feature gallery of 512-d features and 32 ReID crops, on seeded
@@ -112,9 +127,12 @@ this file; exits non-zero otherwise. In order it:
    captured letterbox bitwise against its plain version, ``.cudae`` round
    trips in a temporary directory (detect and ReID, bitwise), the ReID
    engine at batches 1, 5 and 32, a capture that reads the GPU (it must
-   raise); times of the eager step and the replay, the fixed-K NMS keep
-   alone, the output copies, the capture, ``device_cost`` beside the
-   replay, and the graph nodes;
+   raise: the detect step followed by the plain keep's early-exit form;
+   the eager detect step itself now captures); times of the eager step and
+   the replay, the output copies, the capture, ``device_cost`` beside the
+   replay, and the graph nodes; the detect replay in turns against the same
+   step captured with the plain fixed-K keep where the kernel runs (its
+   replay ms and graph nodes beside the kernel's);
 9. ``[cli]``: writes the 64 frames to a ``.npy`` in a temporary directory
    and runs ``aicamera_tpu_torch.cli.main`` on it on the card with
    ``--no_save --profile --checkpoint``, then a ``--resume`` run of 16
@@ -236,12 +254,17 @@ this file; exits non-zero otherwise. In order it:
     composed ``meshes=`` stage-split detector; ms a dispatch and a step
     per rank (two ranks sharing one card: no scaling figure).
 
+Every path that detects launches the NMS kernel once a chunk, dispatch,
+request or ``detect`` replay (twice a ``detect_tiled`` replay) and reads
+nothing in its NMS: no read of the plain keep's eager form on the card
+outside ``[nms]``'s and ``[engine]``'s yardsticks, checked after every
+path and at the end.
 The last two lines of output are the kernels' JSON record (letterbox,
-assignment and oru, each with its launches by path: the letterbox's and the
-assignment's on the main path, the ORU kernel's on ``[trackers]``' OC-SORT
-run) and the device JSON record.
-``--kernels-only`` stops after step 3, as do ``--only assignment`` and
-``--only oru``;
+assignment, oru and nms, each with its launches by path: the letterbox's,
+the assignment's and the NMS kernel's on the main path, the ORU kernel's on
+``[trackers]``' OC-SORT run) and the device JSON record.
+``--kernels-only`` stops after step 3, as do ``--only assignment``,
+``--only oru`` and ``--only nms``;
 ``--only`` runs the kernel phases and the named phases (``int8`` brings
 ``quality`` along, ``present`` brings ``cli``; ``--only parallel`` runs
 step 17 alone).
@@ -1818,6 +1841,388 @@ def oru_main_path(pipe, chunks, device, record=None):
     return row
 
 
+NMS_THR = 0.5        # config.YOLO_NMS_THRESHOLD, the detect paths' default
+NMS_TOPK = 300       # config.YOLO_NMS_TOPK: candidates a frame, detect paths
+NMS_TILED_K = 500    # the 2x2 tiled merge with the full frame: 5 x 100
+NMS_TIMED_SETS = 8   # distinct input sets the timed launches rotate over
+
+
+def nms_inputs(b, k, seed=0, classes=4, frame_hw=(640, 640),
+               offset=8192.0, valid="prefix"):
+    """One NMS call's inputs on the CPU, as a detect path hands them to the
+    kernel: ``(shifted (b, k, 4) f32, valid (b, k) bool)`` for a seeded
+    crowded scene. Each frame has ``k // 6`` objects, each candidate a
+    jittered copy of one object's box (a detector's duplicates: IoUs
+    from 0 to 1), mostly of its object's class, shifted by
+    ``class * offset``. ``valid``: ``"prefix"`` (score-ordered candidates
+    above the floor: a seeded prefix of each frame), ``"all"`` or
+    ``"none"``."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    h, w = frame_hw
+    n_obj = max(1, k // 6)
+    ctr = rng.uniform(0, 1, (b, n_obj, 2)) * np.array([w, h])
+    size = rng.uniform(8, 0.25 * min(h, w), (b, n_obj, 2))
+    obj_cls = rng.randint(0, classes, (b, n_obj))
+    pick = rng.randint(0, n_obj, (b, k))
+    c = np.take_along_axis(ctr, pick[..., None], 1)
+    s = np.take_along_axis(size, pick[..., None], 1)
+    boxes = np.concatenate([c - s / 2, c + s / 2], -1)
+    boxes += rng.normal(0, 0.12, (b, k, 4)) * np.concatenate([s, s], -1)
+    cls = np.take_along_axis(obj_cls, pick, 1)
+    stray = rng.rand(b, k) < 0.1
+    cls = np.where(stray, rng.randint(0, classes, (b, k)), cls)
+    shifted = (boxes.astype(np.float32)
+               + (cls.astype(np.float32) * np.float32(offset))[..., None])
+    if valid == "prefix":
+        n = rng.randint(k // 2, k + 1, b)
+        mask = np.arange(k)[None] < n[:, None]
+    else:
+        mask = np.full((b, k), valid == "all")
+    return (torch.from_numpy(np.ascontiguousarray(shifted, np.float32)),
+            torch.from_numpy(mask))
+
+
+def nms_chain(b, k):
+    """The worst case of the fixpoint: box i overlaps only boxes i - 1 and
+    i + 1 (IoU 0.6), so each kept box frees the next but one, and the JAX
+    loop and the plain eager form take K steps."""
+    import numpy as np
+    import torch
+    x = np.arange(k, dtype=np.float32) * 2.5
+    one = np.stack([x, np.zeros(k), x + 10.0, np.full(k, 10.0)], -1)
+    shifted = np.broadcast_to(one.astype(np.float32), (b, k, 4)).copy()
+    return torch.from_numpy(shifted), torch.ones((b, k), dtype=torch.bool)
+
+
+def nms_odd_boxes(b=8, k=300, seed=11):
+    """A crowded scene with NaN, infinite, zero-area and inverted boxes
+    among the candidates, and pairs whose overlap is exactly 0.3 (IoU
+    3/10 and IoS 3/10, where the f32 threshold 0.3 rounds up and a
+    comparison in double would differ)."""
+    import torch
+    shifted, valid = nms_inputs(b, k, seed=seed)
+    nan, inf = float("nan"), float("inf")
+    odd = [(nan, 0.0, 10.0, 10.0), (0.0, nan, 10.0, 10.0),
+           (0.0, 0.0, nan, nan), (-inf, 0.0, inf, 10.0),
+           (0.0, 0.0, inf, inf), (5.0, 5.0, 5.0, 5.0), (9.0, 9.0, 1.0, 1.0),
+           (0.0, 0.0, 10.0, 1.0), (0.0, 0.0, 3.0, 1.0),
+           (7.0, 0.0, 17.0, 1.0), (inf, inf, inf, inf),
+           (-inf, -inf, -inf, -inf), (nan, nan, nan, nan)]
+    for f in range(b):
+        for n, box in enumerate(odd):
+            i = (7 * n + 3 * f) % k
+            shifted[f, i] = torch.tensor(box)
+        valid[f, :40] = True
+    return shifted, valid
+
+
+def nms_cases(card_only=False):
+    """``[(name, shifted, valid, threshold, criterion)]`` on the CPU: the
+    shapes of every detect path (the main path's chunk B = 8 and the
+    facade B = 1 at K = 300; the tiled
+    merge at K = 500 in frame space, by IoU and by IoS), seeded crowded
+    scenes, the suppression chain of length K, K not a multiple of 32, no
+    candidate valid and every one valid, NaN, infinite and degenerate
+    boxes, overlaps exactly at the threshold, and K past 32 words (1100).
+    ``card_only`` adds what the CPU tests leave to the card: the
+    ``[streams]`` dispatch's B = 32, B = 2 at K = 4096 and B = 1 at
+    ``ops.nms.MAX_K``."""
+    from aicamera_tpu_torch.ops.nms import MAX_K
+    tiled = dict(frame_hw=(540, 960))
+    cases = [("B=8 K=300 crowded", *nms_inputs(8, NMS_TOPK, seed=1),
+              NMS_THR, "iou"),
+             ("B=8 K=300 crowded seed 2", *nms_inputs(8, NMS_TOPK, seed=2),
+              0.45, "iou"),
+             ("B=1 K=300 crowded", *nms_inputs(1, NMS_TOPK, seed=4),
+              NMS_THR, "iou"),
+             ("B=1 K=500 tiled iou", *nms_inputs(1, NMS_TILED_K, seed=5,
+                                                 **tiled), NMS_THR, "iou"),
+             ("B=1 K=500 tiled ios", *nms_inputs(1, NMS_TILED_K, seed=5,
+                                                 **tiled), NMS_THR, "ios"),
+             ("B=8 K=500 crowded ios", *nms_inputs(8, NMS_TILED_K, seed=6),
+              0.7, "ios"),
+             ("B=1 K=300 chain", *nms_chain(1, NMS_TOPK), NMS_THR, "iou"),
+             ("B=1 K=500 chain ios", *nms_chain(1, NMS_TILED_K), NMS_THR,
+              "ios"),
+             ("B=8 K=33", *nms_inputs(8, 33, seed=7), NMS_THR, "iou"),
+             ("B=1 K=1", *nms_inputs(1, 1, seed=8), NMS_THR, "iou"),
+             ("B=8 K=300 none valid", *nms_inputs(8, NMS_TOPK, seed=9,
+                                                  valid="none"),
+              NMS_THR, "iou"),
+             ("B=8 K=300 all valid", *nms_inputs(8, NMS_TOPK, seed=10,
+                                                 valid="all"),
+              NMS_THR, "iou"),
+             ("B=8 K=300 odd boxes iou", *nms_odd_boxes(), 0.3, "iou"),
+             ("B=8 K=300 odd boxes ios", *nms_odd_boxes(), 0.3, "ios"),
+             ("B=1 K=1100 crowded", *nms_inputs(1, 1100, seed=12),
+              NMS_THR, "iou")]
+    if card_only:
+        cases += [("B=32 K=300 crowded", *nms_inputs(32, NMS_TOPK, seed=3),
+                   NMS_THR, "iou"),
+                  ("B=2 K=4096 crowded", *nms_inputs(2, 4096, seed=13),
+                   NMS_THR, "iou"),
+                  (f"B=1 K={MAX_K} crowded", *nms_inputs(1, MAX_K, seed=14),
+                   NMS_THR, "iou")]
+    return cases
+
+
+NMS_PAIR_OPS = 14    # a pair's overlap in csrc/nms.cu: 4 max/min, 2 sub,
+#                      2 clamps, mul, add, sub (or min), clamp, div, compare
+NMS_BOX_OPS = 5      # a box's area: 2 sub, 2 clamps, mul
+
+
+class KernelStandIn:
+    """Stands for ``ops.nms.KERNEL`` inside ``with`` (``_suppress_and_emit``
+    looks it up at each call); ``self.kernel`` is the kernel."""
+
+    def __enter__(self):
+        from aicamera_tpu_torch.ops import nms
+        self.kernel = nms.KERNEL
+        nms.KERNEL = self
+        return self
+
+    def __exit__(self, *exc):
+        from aicamera_tpu_torch.ops import nms
+        nms.KERNEL = self.kernel
+
+
+class SpyKernel(KernelStandIn):
+    """Records a clone of every call's arguments, then calls the kernel."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, shifted, valid, threshold, criterion="iou"):
+        self.calls.append((shifted.clone(), valid.clone(), threshold,
+                           criterion))
+        return self.kernel(shifted, valid, threshold, criterion)
+
+
+class PlainKeep(KernelStandIn):
+    """A yardstick: the plain version in its fixed-K form, which reads
+    nothing and captures, where the kernel would run."""
+
+    def __call__(self, shifted, valid, threshold, criterion="iou"):
+        from aicamera_tpu_torch.ops.nms import greedy_keep_plain
+        return greedy_keep_plain(shifted, valid, threshold, criterion, True)
+
+
+CARD_NMS_READS = [0]  # reads of CUDA tensors by ops.nms.NMS_SYNCS
+
+
+def watch_nms_reads():
+    """Counts, in ``CARD_NMS_READS``, every read ``ops.nms.NMS_SYNCS`` takes
+    of a CUDA tensor: the plain keep's eager form on the card, which no path
+    runs. Only the yardsticks of ``[nms]`` and ``[engine]`` run it, and they
+    set the count back (:func:`yardstick_reads`)."""
+    from aicamera_tpu_torch.ops.nms import NMS_SYNCS
+    flag = NMS_SYNCS.flag
+
+    def counted(t):
+        CARD_NMS_READS[0] += bool(t.is_cuda)
+        return flag(t)
+
+    NMS_SYNCS.flag = counted
+
+
+@contextlib.contextmanager
+def yardstick_reads():
+    """Inside, reads of the plain keep on the card do not count as a path's
+    (``CARD_NMS_READS`` is set back on exit)."""
+    before = CARD_NMS_READS[0]
+    try:
+        yield
+    finally:
+        CARD_NMS_READS[0] = before
+
+
+def nms_work(valid):
+    """``(bytes, operations)`` one call must do for ``valid (B, K)``, counted
+    from this data: the greedy keep needs only the valid candidates, so a
+    frame with n valid reads n boxes (16 bytes each) and its K valid bytes,
+    writes its K kept bytes, and computes n areas and the n (n - 1) / 2
+    overlaps among them."""
+    b, k = valid.shape[0], valid.shape[-1]
+    n = [int(x) for x in valid.reshape(b, k).sum(-1).tolist()]
+    n_bytes = sum(16 * m + 2 * k for m in n)
+    ops = sum(m * NMS_BOX_OPS + m * (m - 1) // 2 * NMS_PAIR_OPS for m in n)
+    return n_bytes, ops
+
+
+def nms_main_path_inputs(device):
+    """The main path's own candidates: one chunk of ``TrackingPipeline``
+    (the main path's settings, its first 8 seeded frames) with the kernel's
+    arguments recorded (``SpyKernel``): B = 8, K = 300."""
+    from aicamera_tpu_torch.scenes import moving_rectangles
+    frames = moving_rectangles(N_CHUNKS * CHUNK, FRAME_HW, n_objects=6,
+                               seed=SEED)[:CHUNK]
+    pipe = make_pipeline(device)
+    with SpyKernel() as spy:
+        list(pipe.process_frames(iter(frames)))
+    check(len(spy.calls) == 1, f"[nms] {len(spy.calls)} NMS calls in one "
+          f"main-path chunk")
+    return spy.calls[0]
+
+
+def nms_hold(tag, shifted, valid, thr, criterion, fixed=True, cpu=True):
+    """The kernel through its wrapper against the plain version on the same
+    card tensors, eager and (``fixed``) fixed-K, and (``cpu``) the plain
+    version on the CPU; bitwise. Returns the kept set, the forms held and
+    the most kept bits that differed from one of them."""
+    import torch
+    from aicamera_tpu_torch.ops.nms import KERNEL, greedy_keep_plain
+    before = KERNEL.launches
+    got = KERNEL(shifted, valid, thr, criterion)
+    check(KERNEL.launches == before + 1, f"[nms] {tag}: not one launch")
+    torch.cuda.synchronize()
+    with yardstick_reads():
+        wants = {"eager": greedy_keep_plain(shifted, valid, thr, criterion)}
+    if fixed:
+        wants["fixed-K"] = greedy_keep_plain(shifted, valid, thr, criterion,
+                                             True)
+    if cpu:
+        wants["CPU"] = greedy_keep_plain(shifted.cpu(), valid.cpu(), thr,
+                                         criterion).to(shifted.device)
+    diffs = []
+    for form, want in wants.items():
+        diffs.append(int((got != want).sum()))
+        check(diffs[-1] == 0, f"[nms] {tag}: {diffs[-1]} of {got.numel()} "
+              f"kept bits differ from the plain version's {form} form")
+    check(not bool((got & ~valid).any()), f"[nms] {tag}: kept an invalid "
+          f"candidate")
+    return got, tuple(wants), max(diffs)
+
+
+def nms_phase(device):
+    """The NMS kernel (``csrc/nms.cu``) through its wrapper on card tensors,
+    bitwise against the plain version's eager and fixed-K forms on the same
+    tensors (and the CPU's) on the main path's own candidates and
+    :func:`nms_cases` (``card_only``); one call under CUDA's sync debug mode
+    "error"; then its time by graph replay at the detect paths' shapes
+    against its bound (the larger of :func:`nms_work`'s bytes and
+    operations), an empty kernel's replay, its time per call, the plain
+    eager form's (it reads once an iteration) and the plain fixed-K form's
+    (graph replay). No single PyTorch call computes a greedy NMS."""
+    import torch
+    from aicamera_tpu_torch.ops.nms import (KERNEL, MAX_K, _suppress_and_emit,
+                                            greedy_keep_plain)
+
+    main = nms_main_path_inputs(device)
+    cases = [("main path chunk B=8 K=300", *main)]
+    cases += [(n, s.to(device), v.to(device), t, c)
+              for n, s, v, t, c in nms_cases(card_only=True)]
+    frames = candidates = kept_total = max_diff = 0
+    for name, s, v, thr, crit in cases:
+        k = v.shape[-1]
+        got, forms, diff = nms_hold(name, s, v, thr, crit, fixed=k <= 4096,
+                                    cpu=k <= 4096)
+        max_diff = max(max_diff, diff)
+        frames += v.shape[0]
+        candidates += v.numel()
+        kept_total += int(got.sum())
+        print(f"[nms] {name} ({crit}, threshold {thr}): {int(v.sum())} "
+              f"valid, {int(got.sum())} kept; bitwise the plain version's "
+              f"{', '.join(forms)} forms")
+    # the public tail on the main path's candidates, card vs CPU
+    s, v, thr, crit = main
+    b, k = v.shape
+    score = torch.linspace(1.0, 0.01, k, device=device).expand(b, k)
+    cls = torch.zeros((b, k), dtype=torch.int32, device=device)
+    on_card = _suppress_and_emit(s, score, cls, v, thr, k, 100,
+                                 criterion=crit)
+    on_cpu = _suppress_and_emit(s.cpu(), score.cpu(), cls.cpu(), v.cpu(),
+                                thr, k, 100, criterion=crit)
+    check(all(torch.equal(a.cpu(), c) for a, c in zip(on_card, on_cpu)),
+          "[nms] _suppress_and_emit on the card != on the CPU")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        KERNEL(s, v, thr, crit)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    try:
+        KERNEL(s.cpu(), v.cpu(), thr, crit)
+        check(False, "[nms] the kernel took CPU tensors")
+    except ValueError:
+        pass
+    print(f"[nms] checked {len(cases)} cases, {frames} frames, {candidates} "
+          f"candidates ({kept_total} kept): bitwise the plain version; "
+          f"K up to {MAX_K}; no read under sync debug mode \"error\"; "
+          f"_suppress_and_emit on the main path's candidates card == CPU")
+
+    launch_floor = time_device_ms(lambda i: torch.cuda._sleep(0), 1,
+                                  rounds=64)
+    shapes = [("B=8 K=300 (the main path's own chunk)", 8, NMS_TOPK, "iou"),
+              ("B=8 K=300 (seeded crowded chunks)", 8, NMS_TOPK, "iou"),
+              ("B=32 K=300 ([streams] dispatch)", 32, NMS_TOPK, "iou"),
+              ("B=1 K=300 (facade detect)", 1, NMS_TOPK, "iou"),
+              ("B=1 K=500 (tiled merge, iou)", 1, NMS_TILED_K, "iou"),
+              ("B=1 K=500 (tiled merge, ios)", 1, NMS_TILED_K, "ios")]
+    rows = []
+    for shape, b, k, crit in shapes:
+        if "own" in shape:
+            sets = [main[:2]]   # as the path leaves them: in the L2
+        else:
+            sets = [tuple(t.to(device) for t in nms_inputs(
+                        b, k, seed=100 + i, frame_hw=(
+                            (540, 960) if k == NMS_TILED_K else (640, 640))))
+                    for i in range(NMS_TIMED_SETS)]
+        for i, (s, v) in enumerate(sets):
+            max_diff = max(max_diff, nms_hold(f"{shape} set {i}", s, v,
+                                              NMS_THR, crit, cpu=False)[2])
+        outs = [None] * len(sets)
+
+        def launch(i):
+            outs[i] = KERNEL(*sets[i], NMS_THR, crit)
+
+        dev_ms, lo, hi = time_device_stats(launch, len(sets),
+                                           rounds=64 // len(sets))
+        s0, v0 = sets[0]
+        ms = sorted(time_ms(lambda: KERNEL(s0, v0, NMS_THR, crit))
+                    for _ in range(3))[1]
+        with yardstick_reads():
+            plain_ms = time_ms(lambda: greedy_keep_plain(s0, v0, NMS_THR,
+                                                         crit),
+                               iters=5, warmup=1)
+            fixed_ms = time_device_ms(
+                lambda i: greedy_keep_plain(s0, v0, NMS_THR, crit, True), 1,
+                rounds=1, replays=3)
+        n_bytes, ops = nms_work(v0)
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        r = {"shape": shape, "device_ms": dev_ms, "spread_ms": [lo, hi],
+             "ms": ms, "plain_ms": plain_ms, "plain_fixed_ms": fixed_ms,
+             "library_ms": None, "bound_ms": bound,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "bytes": n_bytes, "ops": ops, "launch_floor_ms": launch_floor}
+        rows.append(r)
+        print(f"[nms] {shape}: device {dev_ms:.5f} ms a call (two launches; "
+              f"graph replay, L2-resident, replays {lo:.5f}-{hi:.5f}), "
+              f"{100 * bound / dev_ms:.3f}% of the bound, "
+              f"{dev_ms / launch_floor:.2f}x an empty kernel's replay "
+              f"({launch_floor:.6f} ms); per call {ms:.4f} ms; plain eager "
+              f"{plain_ms:.4f} ms (reads), plain fixed-K {fixed_ms:.4f} ms "
+              f"(graph replay); bound {bound:.6f} ms (the larger of "
+              f"{n_bytes} bytes, {t_bytes:.6f} ms, and {ops} operations, "
+              f"{t_ops:.6f} ms); library: no single PyTorch call")
+    KERNEL.launches = 0  # comparison and timing launches do not count
+    top = rows[0]
+    return {"name": KERNEL.name, "route": "cuda",
+            "source": "aicamera_tpu_torch/csrc/nms.cu",
+            "replaces": KERNEL.replaces, "launches": None,
+            "max_abs_err": float(max_diff), "ms": top["ms"],
+            "device_ms": top["device_ms"], "plain_ms": top["plain_ms"],
+            "plain_fixed_ms": top["plain_fixed_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None, "library": "no single PyTorch call",
+            "launch_floor_ms": launch_floor, "cases_checked": len(cases),
+            "frames_checked": frames, "candidates_checked": candidates,
+            "shapes": rows}
+
+
 def make_pipeline(device, synthetic_load=24, **kw):
     from aicamera_tpu_torch import config
     from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline
@@ -1863,17 +2268,22 @@ def counted_run(pipe, frames, kernels, timed=False):
         pipe.stage_timer = None
     check(len(results) == len(frames),
           f"{len(results)} results for {len(frames)} frames")
+    check(syncs["NMS"] == 0, f"{syncs['NMS']} NMS reads in a run on the card")
     return results, wall, launches, syncs, stage_ms
 
 
 def check_launches(launches, n_chunks, what, solves=True, oru=0):
-    """The letterbox once per chunk (dispatch, call); the assignment kernel
+    """The letterbox and the NMS kernel once per chunk (dispatch, call;
+    ``detect_tiled`` twice); the assignment kernel
     at least once where the path must solve (``solves``: a tracker core;
     detection alone solves nothing): its count follows the frames and the
     cores, and is printed; the ORU kernel ``oru`` times (one a frame an
-    OC-SORT core steps, none on the other paths)."""
+    OC-SORT core steps, none on the other paths). No path reads the card in
+    its NMS (``CARD_NMS_READS``)."""
+    check(CARD_NMS_READS[0] == 0, f"{what}: {CARD_NMS_READS[0]} NMS reads "
+          f"on the card")
     for name, n in launches.items():
-        if name == "letterbox":
+        if name in ("letterbox", "nms"):
             check(n == n_chunks, f"{what}: {name} launched {n} times over "
                   f"{n_chunks} chunks")
         elif name == "oru":
@@ -1931,6 +2341,8 @@ def main_path_phase(device, frames, kernels):
           f"{launches['assignment'] / n:.3f} (a cascade and an IoU solve)")
     check(syncs["tracker"] == 0, f"the DeepSORT step read the GPU "
           f"{syncs['tracker']} times")
+    print(f"[main] reads a frame in all: {sum(syncs.values()) / n:.3f} (NMS "
+          f"{syncs['NMS'] / n:.3f}: the NMS kernel reads nothing)")
     # a cascade and an IoU solve a frame, a replay of a chunk's frames each
     # chunk and each rerun of a bucketed one
     want = 2 * CHUNK * (N_CHUNKS + pipe.scan_stats["rerun"])
@@ -3363,6 +3775,8 @@ def quality_phase(device, kernels):
 
 
 ENGINE_FRAMES = 8     # [engine]: facade frames through each engine
+ENGINE_NMS: dict = {}  # [engine]: the detect replay with the kernel and
+#                        with the plain keep, for the NMS kernel's record
 ENGINE_TIMED = 30     # [engine]: timed calls of each way
 REID_BATCHES = (1, 5, 32)
 
@@ -3397,7 +3811,7 @@ def engine_phase(device, frames, kernels):
     from aicamera_tpu_torch.detector import (YOLODetector, detect_step,
                                              tiled_step)
     from aicamera_tpu_torch.ops import letterbox as lb
-    from aicamera_tpu_torch.ops.nms import _greedy_keep
+    from aicamera_tpu_torch.ops.nms import greedy_keep_plain
     from aicamera_tpu_torch.ops.preprocess import letterbox_spec
     from aicamera_tpu_torch.ops.tiling import extract_tiles, tile_layout
     from aicamera_tpu_torch.runtime.engine import CUDAGraphEngine
@@ -3413,11 +3827,11 @@ def engine_phase(device, frames, kernels):
         teng = det._tiled_engine(FRAME_HW, (2, 2), 0.2, True, "iou")
         ways = (("detect", eng, detect_step(
                     det.model, det._dtype, det._spec(FRAME_HW),
-                    det.conf_threshold, det.nms_threshold, False)),
+                    det.conf_threshold, det.nms_threshold)),
                 ("detect_tiled", teng, tiled_step(
                     det.model, det._dtype, FRAME_HW, det.input_shape, (2, 2),
-                    0.2, True, "iou", det.conf_threshold, det.nms_threshold,
-                    False)))
+                    0.2, True, "iou", det.conf_threshold,
+                    det.nms_threshold)))
         for path, e, eager in ways:
             bitwise = n_det = 0
             for f in up:
@@ -3435,7 +3849,7 @@ def engine_phase(device, frames, kernels):
                 bitwise += same
                 n_det += int(valid.sum())
             print(f"[engine] {tag} {path} (960x540): replay vs the eager step "
-                  f"(early-exit NMS) on {len(up)} frames: counts and labels "
+                  f"(the NMS kernel) on {len(up)} frames: counts and labels "
                   f"identical, outputs bitwise on {bitwise}/{len(up)}; "
                   f"{n_det} detections; captured in {e.compile_seconds:.3f} "
                   f"s after {e.warmup_seconds:.3f} s of warm-up passes; "
@@ -3500,13 +3914,10 @@ def engine_phase(device, frames, kernels):
     det = dets["bf16"]
     eng = det.get_engine(FRAME_HW)
     eager = detect_step(det.model, det._dtype, det._spec(FRAME_HW),
-                        det.conf_threshold, det.nms_threshold, False)
-    fixed = detect_step(det.model, det._dtype, det._spec(FRAME_HW),
-                        det.conf_threshold, det.nms_threshold, True)
+                        det.conf_threshold, det.nms_threshold)
     cap = graph_of(eng)
     with torch.no_grad():
         t_eager = wall_ms(lambda: eager(up[0]))
-        t_fixed = wall_ms(lambda: fixed(up[0]))
     t_call = wall_ms(lambda: eng(up[0]))
     t_host_call = wall_ms(lambda: eng(torch.from_numpy(frames[0])))
     t_detect = wall_ms(lambda: det.detect(frames[0]))
@@ -3516,34 +3927,37 @@ def engine_phase(device, frames, kernels):
     cost = eng.cost_analysis()
     bound = max(cost["flops"] / PEAK_BF16_FLOPS,
                 cost["bytes accessed"] / PEAK_BYTES_PER_S) * 1e3
-    # the fixed-K greedy keep alone, at the detect step's top_k=300
-    g = torch.Generator(device=device).manual_seed(SEED)
-    k = config.YOLO_NMS_TOPK
-    ov = torch.rand((1, k, k), device=device, generator=g) < 0.02
-    ov = ov | ov.transpose(1, 2)
-    va = torch.ones((1, k), dtype=torch.bool, device=device)
-    nms_eng = CUDAGraphEngine(lambda o, v: _greedy_keep(o, v, True),
-                              [ov, va], name="greedy_keep_fixed",
-                              warmup_iters=1, device=device)
-    check(torch.equal(nms_eng(ov, va), _greedy_keep(ov, va)),
-          "[engine] fixed-K greedy keep != the early-exit keep")
-    t_nms = time_ms(graph_of(nms_eng).graph.replay, iters=ENGINE_TIMED)
-    t_nms_eager = wall_ms(lambda: _greedy_keep(ov, va))
+    # the same step captured with the plain fixed-K keep where the kernel
+    # runs (the engines' keep before the kernel), replayed in turns
+    with PlainKeep():
+        plain_eng = CUDAGraphEngine(eager, [up[0]], name="detect_plain_keep",
+                                    warmup_iters=1, device=device)
+    plain_cap = graph_of(plain_eng)
+    check(all(torch.equal(a, b) for a, b in zip(plain_eng(up[0]),
+                                                 eng(up[0]))),
+          "[engine] the detect replay with the plain keep differs")
+    turns = [time_ms(c.graph.replay, iters=ENGINE_TIMED)
+             for c in (plain_cap, cap, cap, plain_cap)]
     print(f"[engine] bf16 detect at K=1 (960x540): eager step "
-          f"{t_eager:.3f} ms (early-exit NMS, reads), eager with fixed-K NMS "
-          f"{t_fixed:.3f} ms; engine call {t_call:.3f} ms from a device "
-          f"frame, {t_host_call:.3f} ms from a host frame; facade detect() "
-          f"{t_detect:.3f} ms (upload, replay, four reads); replay alone "
-          f"{t_replay:.3f} ms on the device ({cap.nodes} graph nodes); "
-          f"output copies {t_copies:.4f} ms device, {h_copies:.4f} ms host; "
-          f"capture {eng.compile_seconds:.3f} s, warm-up "
-          f"{eng.warmup_seconds:.3f} s")
+          f"{t_eager:.3f} ms (the NMS kernel: no read); engine call "
+          f"{t_call:.3f} ms from a device frame, {t_host_call:.3f} ms from a "
+          f"host frame; facade detect() {t_detect:.3f} ms (upload, replay, "
+          f"four reads); replay alone {t_replay:.3f} ms on the device "
+          f"({cap.nodes} graph nodes); output copies {t_copies:.4f} ms "
+          f"device, {h_copies:.4f} ms host; capture "
+          f"{eng.compile_seconds:.3f} s, warm-up {eng.warmup_seconds:.3f} s")
+    print(f"[engine] detect replay in turns, the plain fixed-K keep in the "
+          f"kernel's place / the NMS kernel / the kernel / the plain keep: "
+          + " / ".join(f"{t:.3f}" for t in turns) + f" ms; graph nodes "
+          f"{plain_cap.nodes} with the plain keep, {cap.nodes} with the "
+          f"kernel; outputs bitwise equal")
     print(f"[engine] device_cost of the detect step: {cost['flops']:.4g} "
           f"FLOPs, {cost['bytes accessed']:.4g} bytes (letterbox included): "
           f"bound {bound:.4f} ms against the replay's {t_replay:.3f} ms")
-    print(f"[engine] fixed-K greedy keep alone (K={k}, 1 frame): replay "
-          f"{t_nms:.3f} ms ({graph_of(nms_eng).nodes} graph nodes); the "
-          f"early-exit keep {t_nms_eager:.3f} ms wall with its reads")
+    ENGINE_NMS.update(replay_ms=t_replay, nodes=cap.nodes,
+                      plain_keep_replay_ms=[turns[0], turns[3]],
+                      kernel_replay_ms=[turns[1], turns[2]],
+                      plain_keep_nodes=plain_cap.nodes)
 
     # the ReID engine at batches 1, 5, 32 (bf16, the default)
     rb = quiet(lambda: ReIDModel(reid, device=device))
@@ -3563,18 +3977,24 @@ def engine_phase(device, frames, kernels):
           "at batch " + "; ".join(rows))
 
     # a capture that reads the GPU raises; the card keeps working
+    def reads(f):
+        boxes, _, _, valid = eager(f)
+        return greedy_keep_plain(boxes[None], valid[None], det.nms_threshold)
+
     try:
-        CUDAGraphEngine(eager, [up[0]], name="reads", warmup_iters=1,
-                        device=device)
-        check(False, "[engine] capturing the eager step (it reads the GPU) "
-              "did not raise")
+        with yardstick_reads():
+            CUDAGraphEngine(reads, [up[0]], name="reads", warmup_iters=1,
+                            device=device)
+        check(False, "[engine] capturing a step that reads the GPU did not "
+              "raise")
     except RuntimeError as e:
         check("capture failed" in str(e), f"[engine] unexpected error {e}")
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(eng(up[0]), eng(up[0]))),
           "[engine] the engine after a failed capture")
-    print("[engine] capturing the eager step (its NMS reads the GPU) raised "
-          "RuntimeError; the card kept working")
+    print("[engine] capturing the detect step followed by the plain keep's "
+          "early-exit form (it reads the GPU) raised RuntimeError; the card "
+          "kept working; the eager detect step itself captured (above)")
     reset_counts(kernels)
     for f in frames[:ENGINE_FRAMES]:
         det.detect(f)
@@ -4717,7 +5137,8 @@ def main() -> int:
                     help="stop after the kernel phase (build, compare, time)")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the kernel "
-                         "phases (assignment or oru: those alone; main, "
+                         "phases (assignment, oru or nms: the kernel phases "
+                         "alone; main, "
                          "bucket, "
                          "trackers, gmc, facades, "
                          "engine, cli, present, compare, streams, serving, "
@@ -4728,11 +5149,13 @@ def main() -> int:
     from aicamera_tpu_torch.ops.assignment import KERNEL as ASSIGNMENT
     from aicamera_tpu_torch.ops.assignment import AssignmentKernel
     from aicamera_tpu_torch.ops.letterbox import KERNEL as LETTERBOX
+    from aicamera_tpu_torch.ops.nms import KERNEL as NMS
     from aicamera_tpu_torch.ops.oru import KERNEL as ORU
     from aicamera_tpu_torch.ops.oru import OruKernel
     from aicamera_tpu_torch.scenes import moving_rectangles
 
-    kernels = [LETTERBOX, ASSIGNMENT, ORU]
+    kernels = [LETTERBOX, ASSIGNMENT, ORU, NMS]
+    watch_nms_reads()
     # the phase probes of the assignment and ORU kernels: their own builds,
     # loaded by the [assignment] and [oru] phases only
     probe_builds = [AssignmentKernel(probe=True), OruKernel(probe=True)]
@@ -4756,8 +5179,9 @@ def main() -> int:
 
         records = [timed("kernel", kernel_phase, device),
                    timed("assignment", assignment_phase, device),
-                   timed("oru", oru_phase, device)]
-        if args.kernels_only or args.only in ("assignment", "oru"):
+                   timed("oru", oru_phase, device),
+                   timed("nms", nms_phase, device)]
+        if args.kernels_only or args.only in ("assignment", "oru", "nms"):
             print(json.dumps({"kernels": records}))
             return 0
         frames = moving_rectangles(N_CHUNKS * CHUNK, FRAME_HW, n_objects=6,
@@ -4804,6 +5228,10 @@ def main() -> int:
         run("mot", mot_phase, device, kernels)
         run("train", train_phase, device, kernels)
         run("parallel", parallel_phase, device, kernels)
+        check(CARD_NMS_READS[0] == 0, f"{CARD_NMS_READS[0]} NMS reads on "
+              f"the card outside the yardsticks")
+        print("[nms] no path read the card in its NMS (0 reads of the plain "
+              "keep's eager form on the card outside the yardsticks)")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4819,6 +5247,8 @@ def main() -> int:
     # The ORU kernel is not on the (DeepSORT) main path: its launches are
     # those of its own path, [trackers]' OC-SORT run, counted from 0 there.
     own_path = {"oru": ("trackers", "ocsort")}
+    if ENGINE_NMS:
+        records[3]["engine_detect"] = dict(ENGINE_NMS)
     for record in records:
         name = record["name"]
         path, sub = own_path.get(name, ("main", None))

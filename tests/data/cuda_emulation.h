@@ -1,9 +1,13 @@
 // A CPU emulation of the CUDA built-ins that aicamera_tpu_torch/csrc/oru.cu
-// uses, for tests/test_torch_oru.py: a kernel launch runs its blocks one
-// after another, each block's threads as std::threads; __syncthreads is a
-// barrier of the block; __shfl_sync, __any_sync and __reduce_max_sync are
-// barriers of the warp on each side of an exchange (every lane of a warp
-// takes part, as the kernel's full-warp masks say). f32 arithmetic is the host's
+// and csrc/nms.cu use, for tests/test_torch_oru.py and
+// tests/test_torch_nms_kernel.py: a kernel launch runs its blocks one after
+// another (a 2-D grid row by row), a block's threads as std::threads;
+// __shared__ variables are function statics, which the blocks share one
+// after another as a block's threads share them on the card;
+// __syncthreads is a barrier of the block; __shfl_sync, __any_sync,
+// __reduce_max_sync, __ballot_sync and __syncwarp are barriers of the warp
+// on each side of an exchange (every lane of a warp takes part, as the
+// kernels' full-warp masks say). f32 arithmetic is the host's
 // IEEE single precision (built with -ffp-contract=off, as the kernel is
 // with --fmad=false), so what the emulation shows about the order of the
 // operations holds for the card; what the card's compiler does does not
@@ -19,12 +23,22 @@
 
 #define __global__
 #define __device__
+#define __host__
+#define __shared__ static
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
 
 struct float4 { float x, y, z, w; };
-struct dim3 { unsigned x = 0, y = 0, z = 0; };
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return {x, y, z, w};
+}
+struct dim3 {
+  unsigned x = 0, y = 0, z = 0;
+  dim3() = default;
+  dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
 inline thread_local dim3 threadIdx, blockIdx;
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -46,6 +60,7 @@ struct EmuBlock {
   std::barrier<>* block;
   std::vector<std::unique_ptr<std::barrier<>>> warps;
   float exchange[1024];
+  unsigned words[1024];
   int votes[1024];
 };
 inline EmuBlock* g_emu_block;
@@ -61,6 +76,28 @@ inline float __shfl_sync(unsigned, float v, int src, int width) {
   warp_barrier().arrive_and_wait();
   return got;
 }
+inline unsigned __shfl_sync(unsigned, unsigned v, int src, int width = 32) {
+  const int t = threadIdx.x;
+  g_emu_block->words[t] = v;
+  warp_barrier().arrive_and_wait();
+  const unsigned got = g_emu_block->words[t / width * width + src];
+  warp_barrier().arrive_and_wait();
+  return got;
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int t = threadIdx.x, w = t / 32 * 32;
+  g_emu_block->votes[t] = pred != 0;
+  warp_barrier().arrive_and_wait();
+  unsigned bits = 0;
+  for (int i = 0; i < 32; ++i)
+    bits |= (unsigned)(g_emu_block->votes[w + i] != 0) << i;
+  warp_barrier().arrive_and_wait();
+  return bits;
+}
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  warp_barrier().arrive_and_wait();
+}
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __reduce_max_sync(unsigned, int v) {
   const int t = threadIdx.x, w = t / 32 * 32;
   g_emu_block->votes[t] = v;
@@ -95,23 +132,33 @@ inline unsigned long long atomicAdd(unsigned long long* a,
 }
 inline void __syncthreads() { g_emu_block->block->arrive_and_wait(); }
 
-// kernel<<<blocks, threads>>>(args...); threads a multiple of 32
+// kernel<<<grid, threads>>>(args...); threads a multiple of 32. The
+// block's threads are made once a launch and run the blocks one after
+// another, all of a block's threads done before the next block starts.
+template <class Kernel, class... Args>
+void emu_launch(dim3 grid, int threads, Kernel kernel, Args... args) {
+  std::barrier<> block(threads), next(threads);
+  EmuBlock emu;
+  emu.block = &block;
+  for (int w = 0; w < threads / 32; ++w)
+    emu.warps.push_back(std::make_unique<std::barrier<>>(32));
+  g_emu_block = &emu;
+  std::vector<std::thread> lanes;
+  for (int t = 0; t < threads; ++t)
+    lanes.emplace_back([&, t] {
+      threadIdx.x = t;
+      for (unsigned by = 0; by < grid.y; ++by)
+        for (unsigned bx = 0; bx < grid.x; ++bx) {
+          blockIdx.x = bx;
+          blockIdx.y = by;
+          kernel(args...);
+          next.arrive_and_wait();
+        }
+    });
+  for (auto& lane : lanes) lane.join();
+}
+
 template <class Kernel, class... Args>
 void emu_launch(int blocks, int threads, Kernel kernel, Args... args) {
-  for (int b = 0; b < blocks; ++b) {
-    std::barrier<> block(threads);
-    EmuBlock emu;
-    emu.block = &block;
-    for (int w = 0; w < threads / 32; ++w)
-      emu.warps.push_back(std::make_unique<std::barrier<>>(32));
-    g_emu_block = &emu;
-    std::vector<std::thread> lanes;
-    for (int t = 0; t < threads; ++t)
-      lanes.emplace_back([=] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        kernel(args...);
-      });
-    for (auto& lane : lanes) lane.join();
-  }
+  emu_launch(dim3(blocks), threads, kernel, args...);
 }

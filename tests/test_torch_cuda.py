@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 import chip_smoke  # noqa: E402
 from aicamera_tpu_torch.ops import letterbox as lb  # noqa: E402
+from aicamera_tpu_torch.ops import nms as tnms  # noqa: E402
 from aicamera_tpu_torch.ops.preprocess import letterbox_spec  # noqa: E402
 
 
@@ -802,8 +803,8 @@ def test_synthetic_world_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.parametrize("tiled", [False, True])
 def test_captured_detect_equals_the_eager_step(cuda, tiled):
     """The detect (or tiled) engine replayed from its CUDA graph against the
-    eager step with the early-exit NMS, f32 with TF32 off: bitwise; each
-    replay counts the letterbox launches it repeats (1, or 2 tiled)."""
+    eager step, f32 with TF32 off: bitwise; each replay counts the letterbox
+    and NMS kernel launches it repeats (1 each, or 2 tiled)."""
     from aicamera_tpu_torch import config
     from aicamera_tpu_torch.detector import (YOLODetector, detect_step,
                                              tiled_step)
@@ -815,17 +816,19 @@ def test_captured_detect_equals_the_eager_step(cuda, tiled):
         eng = det._tiled_engine(hw, (2, 2), 0.2, True, "iou")
         eager = tiled_step(det.model, det._dtype, hw, det.input_shape,
                            (2, 2), 0.2, True, "iou", det.conf_threshold,
-                           det.nms_threshold, False)
+                           det.nms_threshold)
     else:
         eng = det.get_engine(hw)
         eager = detect_step(det.model, det._dtype, det._spec(hw),
-                            det.conf_threshold, det.nms_threshold, False)
+                            det.conf_threshold, det.nms_threshold)
     n = 0
     for f in moving_rectangles(3, hw, n_objects=3, seed=3):
         frame = torch.from_numpy(f).to(cuda)
         launches = lb.KERNEL.launches
+        nms_launches = tnms.KERNEL.launches
         got = eng(frame)
         assert lb.KERNEL.launches == launches + (2 if tiled else 1)
+        assert tnms.KERNEL.launches == nms_launches + (2 if tiled else 1)
         with torch.no_grad():
             want = eager(frame)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -834,18 +837,31 @@ def test_captured_detect_equals_the_eager_step(cuda, tiled):
 
 
 def test_a_capture_that_reads_the_gpu_raises(cuda):
-    """The eager step reads the GPU (its NMS's early exit): capturing it
-    raises, with no eager fallback, and the card keeps working."""
+    """A step that reads the GPU (the detect step followed by the plain
+    keep's early-exit form, which reads once an iteration): capturing it
+    raises, with no eager fallback, and the card keeps working. The detect
+    step itself reads nothing on the card (its keep is the NMS kernel) and
+    captures."""
     from aicamera_tpu_torch import config
     from aicamera_tpu_torch.detector import YOLODetector, detect_step
+    from aicamera_tpu_torch.ops.nms import greedy_keep_plain
     from aicamera_tpu_torch.runtime.engine import CUDAGraphEngine
     det = YOLODetector(str(config.YOLO_SYNTHETIC_PATH),
                        input_shape=(256, 256))
     eager = detect_step(det.model, det._dtype, det._spec((180, 320)),
-                        det.conf_threshold, det.nms_threshold, False)
+                        det.conf_threshold, det.nms_threshold)
+
+    def reads(frame):
+        boxes, _, _, valid = eager(frame)
+        return greedy_keep_plain(boxes[None], valid[None], 0.5)
+
     frame = torch.zeros((180, 320, 3), dtype=torch.uint8, device=cuda)
     with pytest.raises(RuntimeError, match="capture failed"):
-        CUDAGraphEngine(eager, [frame], warmup_iters=1)
+        CUDAGraphEngine(reads, [frame], warmup_iters=1)
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    captured = CUDAGraphEngine(eager, [frame], warmup_iters=1)
+    assert all(torch.equal(a, b) for a, b in zip(captured(frame),
+                                                 eager(frame)))
     assert torch.cuda.current_stream() == torch.cuda.default_stream()
     assert det.get_engine((180, 320))(frame)[0].shape == (100, 4)
 
@@ -928,3 +944,84 @@ def test_stream_mesh_of_one_nccl_rank_equals_the_single_device(cuda):
             for a, b in zip(got, ref):
                 assert torch.equal(a, b)
     assert want[-1][4].any()
+
+
+def test_nms_kernel_bitwise_equals_plain_version(cuda):
+    """The NMS kernel on ``chip_smoke.nms_cases(card_only=True)`` (the detect
+    paths' shapes: B = 8, 32 and 1 at K = 300, the tiled merge at K = 500
+    by IoU and IoS; crowded scenes, the chain of length K, K = 1, 33 and
+    1100, none and all valid, NaN, infinite and degenerate boxes, overlaps
+    exactly at the threshold; K = 4096 and ``MAX_K``): one launch a call,
+    bitwise the plain version's eager form on the same tensors and its
+    fixed-K form up to K = 1100; CPU tensors raise. Tolerance: bitwise."""
+    for name, shifted, valid, thr, criterion in chip_smoke.nms_cases(
+            card_only=True):
+        s, v = shifted.to(cuda), valid.to(cuda)
+        before = tnms.KERNEL.launches
+        got = tnms.KERNEL(s, v, thr, criterion)
+        assert tnms.KERNEL.launches == before + 1
+        assert got.dtype == torch.bool and got.shape == v.shape
+        want = tnms.greedy_keep_plain(s, v, thr, criterion)
+        assert torch.equal(got, want), name
+        if v.shape[-1] <= 1100:
+            fixed = tnms.greedy_keep_plain(s, v, thr, criterion,
+                                           fixed_iters=True)
+            assert torch.equal(got, fixed), name
+    with pytest.raises(ValueError, match="CUDA"):
+        tnms.KERNEL(shifted, valid, thr, criterion)
+
+
+def test_nms_kernel_reads_nothing_and_captures(cuda):
+    """The kernel under CUDA's sync debug mode "error" (no read back), and
+    captured into a CUDA graph: replays bitwise the eager call."""
+    _, shifted, valid, thr, criterion = chip_smoke.nms_cases()[0]
+    s, v = shifted.to(cuda), valid.to(cuda)
+    want = tnms.greedy_keep_plain(s, v, thr, criterion)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tnms.KERNEL(s, v, thr, criterion)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tnms.KERNEL(s, v, thr, criterion)
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        out = tnms.KERNEL(s, v, thr, criterion)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_pipeline_on_the_card_makes_no_nms_read(cuda):
+    """``TrackingPipeline(device="cuda")``: one NMS launch a chunk and no
+    NMS read; the detections and tuples of the card run equal those with
+    the plain keep in its place (the keep swapped for its fixed-K form)."""
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.core.state import TrackerParams
+    from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline
+    from aicamera_tpu_torch.scenes import moving_rectangles
+    pipe = TrackingPipeline(
+        input_shape=(256, 256), chunk_size=4, synthetic_load=8,
+        max_reid_crops=4, device="cuda",
+        tracker_params=TrackerParams(max_tracks=16, max_detections=8,
+                                     nn_budget=4, max_age=10),
+        yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
+        reid_weights=str(config.REID_SYNTHETIC_PATH))
+    frames = moving_rectangles(16, (180, 320), n_objects=3, seed=3)
+    launches, reads = tnms.KERNEL.launches, tnms.NMS_SYNCS.count
+    got = list(pipe.process_frames(iter(frames)))
+    assert tnms.KERNEL.launches == launches + 4
+    assert tnms.NMS_SYNCS.count == reads
+    pipe.reset()
+    with chip_smoke.PlainKeep():
+        want = list(pipe.process_frames(iter(frames)))
+    assert sum(len(r.tracks) for r in got) > 0
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g.det_boxes, w.det_boxes)
+        np.testing.assert_array_equal(g.det_scores, w.det_scores)
+        assert repr(g.tracks) == repr(w.tracks)
