@@ -6,24 +6,31 @@ contract. Tie order follows ``lax.top_k``: on equal scores the lower index
 comes first, which a stable descending sort gives (``torch.topk`` on CUDA
 promises no order). Labels come from the argmax over logits (first maximum).
 
-The greedy keep over a chunk's score-ordered candidates runs where its
-tensors lie. On the card it is the NMS kernel (``csrc/nms.cu``, ``KERNEL``):
-one call for every frame of the batch, the overlap computed in the kernel,
-nothing read back, so a CUDA graph can capture it; each call adds one to
-``KERNEL.launches``. On the CPU it is the plain version, the JAX package's
-fixpoint iteration run batched over the chunk (:func:`_greedy_keep` over
-:func:`_pairwise_iou_xyxy` or :func:`_pairwise_ios_xyxy`): a frame that has
+The tail over a chunk's score-ordered candidates (:func:`_suppress_and_emit`:
+class shift, greedy keep, emit) runs where its tensors lie. On the card it is
+the NMS kernel (``csrc/nms.cu``, ``KERNEL``): one launch for every frame of
+the batch, the shift, the overlaps, the scan and the emit in it, nothing
+read back and no scratch, so a CUDA graph can capture it; each call adds one
+to ``KERNEL.launches``. On the CPU it is the plain version
+(:func:`suppress_and_emit_plain`): the JAX package's fixpoint iteration run
+batched over the chunk (:func:`_greedy_keep` over
+:func:`_pairwise_iou_xyxy` or :func:`_pairwise_ios_xyxy`; a frame that has
 converged stays fixed under further iterations, so iterating until every
-frame has converged gives each frame's own fixpoint. Each iteration costs
-one read (``NMS_SYNCS`` counts them); with ``fixed_iters=True`` it runs K
-iterations and reads nothing, the same result. The two give the same kept
-set bit for bit: the kernel's overlap is the same sequence of rounded
-operations. There is no fallback from one to the other: a CUDA tensor
-launches the kernel or raises.
+frame has converged gives each frame's own fixpoint), then a stable top-k
+emit. Each iteration costs one read (``NMS_SYNCS`` counts them); with
+``fixed_iters=True`` it runs K iterations and reads nothing, the same
+result. The two give the same outputs bit for bit: the kernel's shift and
+overlap are the same sequences of rounded operations, and its emit in index
+order is the stable top-k because the kept candidates' scores do not
+increase along K. There is no fallback from one to the other: a CUDA tensor
+launches the kernel or raises. ``KERNEL.keep_v1`` is the kernel's first
+design (the keep alone of shifted boxes, two launches), kept for
+measurements and tests on no path.
 
-Replaces the JAX package's device loop (XLA, not Pallas):
-``aicamera_tpu/ops/nms.py``'s ``_greedy_keep`` and its ``lax.while_loop``,
-over the overlap that ``_suppress_and_emit`` builds.
+Replaces the JAX package's device loop (XLA, not Pallas) and the jitted
+program around it: ``aicamera_tpu/ops/nms.py``'s ``_greedy_keep`` and its
+``lax.while_loop``, over the overlap that ``_suppress_and_emit`` builds,
+with its class shift and emit.
 """
 
 from __future__ import annotations
@@ -144,7 +151,8 @@ MAX_K = 16384  # the most candidates a frame the kernel takes
 
 def check_args(shifted: torch.Tensor, valid: torch.Tensor, threshold,
                criterion: str) -> None:
-    """The argument checks the kernel relies on (device-independent):
+    """The argument checks the first design (:meth:`NmsKernel.keep_v1`)
+    relies on (device-independent):
     ``shifted`` f32 ``(..., K, 4)`` with ``1 <= K <= MAX_K`` and at most
     65535 frames, ``valid`` bool ``(..., K)`` of the same frames, both
     contiguous and on one device; ``threshold`` a Python or numpy number;
@@ -176,48 +184,180 @@ def check_args(shifted: torch.Tensor, valid: torch.Tensor, threshold,
                         f"read back")
 
 
+def check_emit_args(k_boxes: torch.Tensor, k_score: torch.Tensor,
+                    k_cls: torch.Tensor, k_valid: torch.Tensor, threshold,
+                    max_det: int, class_offset, criterion: str) -> None:
+    """The argument checks the one-launch kernel relies on
+    (device-independent): ``k_boxes`` f32 ``(B, K, 4)``, ``k_cls`` int32 and
+    ``k_valid`` bool ``(B, K)``, all three contiguous, ``k_score`` f32
+    ``(B, K)`` with contiguous rows (any row stride: the top-k's slice),
+    ``1 <= K <= MAX_K`` and ``1 <= B <= 65535``, all on one device;
+    ``threshold`` and ``class_offset`` Python or numpy numbers;
+    ``max_det`` an int >= 0; ``criterion`` ``"iou"`` or ``"ios"``."""
+    _pairwise(criterion)
+    if k_boxes.ndim != 3 or k_boxes.shape[-1] != 4:
+        raise ValueError(f"boxes must be (B, K, 4) (got "
+                         f"{tuple(k_boxes.shape)})")
+    b, k = k_boxes.shape[:2]
+    want = {"boxes": (k_boxes, torch.float32), "score": (k_score,
+                                                         torch.float32),
+            "cls": (k_cls, torch.int32), "valid": (k_valid, torch.bool)}
+    for name, (t, dtype) in want.items():
+        if t.dtype != dtype:
+            raise TypeError(f"the NMS kernel takes {dtype} {name} (got "
+                            f"{t.dtype})")
+        if name != "boxes" and tuple(t.shape) != (b, k):
+            raise ValueError(f"{name} must be {(b, k)} (got "
+                             f"{tuple(t.shape)})")
+        if t.device != k_boxes.device:
+            raise ValueError(f"{name} is on {t.device}, boxes on "
+                             f"{k_boxes.device}")
+    if not 1 <= k <= MAX_K or not 1 <= b <= 65535:
+        raise ValueError(f"the NMS kernel takes 1 <= K <= {MAX_K} candidates "
+                         f"and 1 to 65535 frames (got "
+                         f"{tuple(k_boxes.shape)})")
+    if not (k_boxes.is_contiguous() and k_cls.is_contiguous()
+            and k_valid.is_contiguous() and (k == 1 or k_score.stride(1)
+                                             == 1)):
+        raise ValueError("the NMS kernel takes contiguous boxes, classes, "
+                         "valid and score rows")
+    for name, v in (("threshold", threshold), ("class_offset",
+                                                 class_offset)):
+        if not np.isscalar(v):
+            raise TypeError(f"{name} must be a number (got "
+                            f"{type(v).__name__}): a tensor would be read "
+                            f"back")
+    if not isinstance(max_det, (int, np.integer)) or max_det < 0:
+        raise ValueError(f"max_det must be an int >= 0 (got {max_det!r})")
+
+
+# the one-launch design's phase probe, in the order of csrc/nms.cu's
+# ProbeSlot: blocks, thread 0's cycles by phase (the rest of the staging
+# copy's wait, n (the copy in flight), the shift, the diagonal words, the
+# scan's barrier waits, its resolves and its items, the emit, later tiles,
+# the tail), each block's cycles from entry to exit, and counts of scan
+# steps, diagonal items and OR items
+PROBE_SLOTS = ("blocks", "stage", "count", "shift", "diag", "wait",
+               "resolve", "items", "emit", "stream", "tail", "total",
+               "steps", "diag_items", "or_items")
+
+
 class NmsKernel:
-    """Builds, loads and launches ``csrc/nms.cu``; counts calls. A call is
-    the kernel's two launches (the overlap mask, then the scan) for every
-    frame of the batch, and adds one to ``launches``."""
+    """Builds, loads and launches ``csrc/nms.cu``; counts calls. A call of
+    the kernel is one launch that does the whole tail for every frame of
+    the batch; a call of ``keep_v1`` is the first design's two launches
+    (the overlap mask, then the scan). Each adds one to ``launches``.
+    ``probe=True``: the build with the one-launch design's phase probe
+    (``-DAICAM_NMS_PROBE``; measurements only), read by
+    :meth:`read_probe`."""
 
     name = "nms"
     source = cuda_build.CSRC_DIR / "nms.cu"
     replaces = ("aicamera_tpu/ops/nms.py:36 _greedy_keep (its "
-                "lax.while_loop at :66) over the overlap of "
-                "_suppress_and_emit at :109 (XLA, not Pallas)")
+                "lax.while_loop at :66) over _suppress_and_emit's overlap "
+                "(:109), with the class shift (:108) and the emit (:112-125) "
+                "around it (XLA, not Pallas)")
     #: no fused multiply-adds: each operation rounds as the plain version's
     #: separate PyTorch kernels round it
     flags = ("--fmad=false",)
 
-    def __init__(self):
+    def __init__(self, probe: bool = False):
         self.launches = 0
+        self.probe = probe
+        self.defines = ("AICAM_NMS_PROBE",) if probe else ()
         self._lib = None
         self._lock = threading.Lock()
 
     def load(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
-                lib = cuda_build.load_library(self.source, (), self.flags)
-                ptr, i32 = ctypes.c_void_p, ctypes.c_int
-                lib.aicam_nms_keep.argtypes = [i32, i32, ptr, ptr,
-                                               ctypes.c_float, i32, ptr, ptr,
-                                               ptr]
+                lib = cuda_build.load_library(self.source, self.defines,
+                                              self.flags)
+                ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+                lib.aicam_nms_emit.argtypes = (
+                    [i32, i32, ptr, ptr, ctypes.c_longlong, ptr, ptr, f32,
+                     f32, i32, i32] + [ptr] * 6)
+                lib.aicam_nms_emit.restype = i32
+                lib.aicam_nms_keep.argtypes = [i32, i32, ptr, ptr, f32, i32,
+                                               ptr, ptr, ptr]
                 lib.aicam_nms_keep.restype = i32
                 lib.aicam_nms_max_k.restype = i32
                 if lib.aicam_nms_max_k() != MAX_K:
                     raise RuntimeError("csrc/nms.cu's kMaxK is not MAX_K")
+                if self.probe:
+                    lib.aicam_nms_probe.argtypes = [ctypes.c_void_p, i32]
+                    lib.aicam_nms_probe.restype = i32
                 self._lib = lib
             return self._lib
 
-    def __call__(self, shifted: torch.Tensor, valid: torch.Tensor,
-                 threshold: float, criterion: str = "iou") -> torch.Tensor:
-        """The keep set ``(..., K)`` bool of class-shifted, score-ordered
-        boxes ``shifted (..., K, 4)`` f32 under ``valid (..., K)`` bool:
-        ``_greedy_keep(pairwise(shifted) > threshold, valid)`` bit for bit,
-        ``threshold`` compared as the f32 it rounds to. Takes CUDA tensors
-        only, 1 <= K <= ``MAX_K`` (16384) and at most 65535 frames; raises
-        on anything else."""
+    def read_probe(self, reset: bool = True) -> dict:
+        """The probe's sums since the last reset (``PROBE_SLOTS``);
+        synchronous. ``reset`` zeroes them."""
+        if not self.probe:
+            raise RuntimeError("read_probe needs NmsKernel(probe=True)")
+        lib = self.load()
+        buf = (ctypes.c_ulonglong * len(PROBE_SLOTS))()
+        got = lib.aicam_nms_probe(buf, int(reset))
+        if got != len(PROBE_SLOTS):
+            raise RuntimeError(f"NMS probe read failed ({got})")
+        return dict(zip(PROBE_SLOTS, buf))
+
+    def _launch(self, fn, dev, args, what):
+        if dev.index == torch.cuda.current_device():
+            err = fn(*args, _current_stream(dev))
+        else:
+            with torch.cuda.device(dev):
+                err = fn(*args, _current_stream(dev))
+        if err != 0:
+            raise RuntimeError(f"NMS kernel launch failed: CUDA error {err} "
+                               f"({what})")
+        self.launches += 1
+
+    def __call__(self, k_boxes: torch.Tensor, k_score: torch.Tensor,
+                 k_cls: torch.Tensor, k_valid: torch.Tensor, threshold,
+                 max_det: int, class_offset=_CLASS_OFFSET,
+                 criterion: str = "iou"):
+        """The whole tail of (B, K) score-ordered candidates (scores not
+        increasing along K) in one launch: ``(num (B,) int32, boxes
+        (B, max_det, 4) f32, scores (B, max_det) f32, labels (B, max_det)
+        int32, kept (B, K) bool)``, bit for bit
+        :func:`suppress_and_emit_plain`'s, ``threshold`` and
+        ``class_offset`` taken as the f32 they round to. Takes CUDA
+        tensors only (:func:`check_emit_args`); raises on anything else."""
+        check_emit_args(k_boxes, k_score, k_cls, k_valid, threshold,
+                        max_det, class_offset, criterion)
+        if k_boxes.device.type != "cuda":
+            raise ValueError(f"the NMS kernel needs CUDA tensors (got "
+                             f"{k_boxes.device})")
+        lib = self._lib or self.load()
+        b, k = k_valid.shape
+        dev = k_boxes.device
+        num = torch.empty((b,), dtype=torch.int32, device=dev)
+        out_boxes = torch.empty((b, max_det, 4), dtype=torch.float32,
+                                device=dev)
+        out_score = torch.empty((b, max_det), dtype=torch.float32,
+                                device=dev)
+        out_cls = torch.empty((b, max_det), dtype=torch.int32, device=dev)
+        kept = torch.empty((b, k), dtype=torch.bool, device=dev)
+        args = (b, k, k_boxes.data_ptr(), k_score.data_ptr(),
+                k_score.stride(0), k_cls.data_ptr(), k_valid.data_ptr(),
+                float(np.float32(class_offset)),
+                float(np.float32(threshold)), 0 if criterion == "iou" else 1,
+                int(max_det), num.data_ptr(), out_boxes.data_ptr(),
+                out_score.data_ptr(), out_cls.data_ptr(), kept.data_ptr())
+        self._launch(lib.aicam_nms_emit, dev, args,
+                     f"boxes {tuple(k_boxes.shape)}, {criterion}")
+        return num, out_boxes, out_score, out_cls, kept
+
+    def keep_v1(self, shifted: torch.Tensor, valid: torch.Tensor,
+                threshold: float, criterion: str = "iou") -> torch.Tensor:
+        """The first design: the keep set ``(..., K)`` bool of class-shifted,
+        score-ordered boxes ``shifted (..., K, 4)`` f32 under ``valid
+        (..., K)`` bool, ``_greedy_keep(pairwise(shifted) > threshold,
+        valid)`` bit for bit, ``threshold`` compared as the f32 it rounds
+        to; two launches and a scratch mask. Takes CUDA tensors only, 1 <=
+        K <= ``MAX_K`` (16384) and at most 65535 frames; raises on anything
+        else. On no path: for measurements and tests."""
         check_args(shifted, valid, threshold, criterion)
         if shifted.device.type != "cuda":
             raise ValueError(f"the NMS kernel needs CUDA tensors (got "
@@ -235,39 +375,19 @@ class NmsKernel:
         args = (frames, k, shifted.data_ptr(), valid.data_ptr(),
                 float(np.float32(threshold)), 0 if criterion == "iou" else 1,
                 mask.data_ptr(), kept.data_ptr())
-        if dev.index == torch.cuda.current_device():
-            err = lib.aicam_nms_keep(*args, _current_stream(dev))
-        else:
-            with torch.cuda.device(dev):
-                err = lib.aicam_nms_keep(*args, _current_stream(dev))
-        if err != 0:
-            raise RuntimeError(f"NMS kernel launch failed: CUDA error {err} "
-                               f"(boxes {tuple(shifted.shape)}, {criterion})")
-        self.launches += 1
+        self._launch(lib.aicam_nms_keep, dev, args,
+                     f"v1, boxes {tuple(shifted.shape)}, {criterion}")
         return kept
 
 
 KERNEL = NmsKernel()
 
 
-def _suppress_and_emit(k_boxes, k_score, k_cls, k_valid, iou_threshold,
-                       top_k: int, max_det: int,
-                       class_offset: float = _CLASS_OFFSET,
-                       criterion: str = "iou", fixed_iters: bool = False):
-    """Shared NMS tail over (B, K) score-ordered candidates: class shift,
-    greedy suppression, emit the top ``max_det`` kept candidates.
-    ``class_offset`` must exceed the largest box coordinate; ``criterion``
-    is the pairwise overlap measure, ``"iou"`` or ``"ios"``. The keep is
-    the NMS kernel for CUDA tensors (no read; ``fixed_iters`` changes
-    nothing there) and the plain version for CPU tensors (``fixed_iters``
-    as in :func:`_greedy_keep`)."""
-    shifted = k_boxes + (k_cls.float() * class_offset)[..., None]
-    if shifted.device.type == "cuda":
-        kept = KERNEL(shifted, k_valid, iou_threshold, criterion)
-    else:
-        kept = greedy_keep_plain(shifted, k_valid, iou_threshold, criterion,
-                                 fixed_iters)
-
+def emit_plain(kept, k_boxes, k_score, k_cls, top_k: int, max_det: int):
+    """The emit in plain PyTorch: the stable top ``max_det`` of
+    ``where(kept, k_score, -1)`` over (B, K) candidates, those with a score
+    above 0 written, every other slot zeros. Returns ``(num, boxes, scores,
+    labels)``."""
     order_score = torch.where(kept, k_score, torch.full_like(k_score, -1.0))
     if max_det > top_k:  # more output slots than candidates: pad
         pad = max_det - top_k
@@ -287,6 +407,48 @@ def _suppress_and_emit(k_boxes, k_score, k_cls, k_valid, iou_threshold,
                             torch.zeros_like(out_score))
     num = out_valid.sum(-1).to(torch.int32)
     return num, out_boxes, out_score, out_cls
+
+
+def suppress_and_emit_plain(k_boxes, k_score, k_cls, k_valid, iou_threshold,
+                            top_k: int, max_det: int,
+                            class_offset: float = _CLASS_OFFSET,
+                            criterion: str = "iou",
+                            fixed_iters: bool = False):
+    """What the NMS kernel computes, in plain PyTorch (the CPU path, and the
+    kernel's oracle on the card): class shift, greedy keep
+    (:func:`greedy_keep_plain`, ``fixed_iters`` as in :func:`_greedy_keep`),
+    then :func:`emit_plain`. Returns ``(num, boxes, scores, labels,
+    kept)``."""
+    shifted = k_boxes + (k_cls.float() * class_offset)[..., None]
+    kept = greedy_keep_plain(shifted, k_valid, iou_threshold, criterion,
+                             fixed_iters)
+    return (*emit_plain(kept, k_boxes, k_score, k_cls, top_k, max_det),
+            kept)
+
+
+def _suppress_and_emit(k_boxes, k_score, k_cls, k_valid, iou_threshold,
+                       top_k: int, max_det: int,
+                       class_offset: float = _CLASS_OFFSET,
+                       criterion: str = "iou", fixed_iters: bool = False):
+    """Shared NMS tail over (B, K) score-ordered candidates: class shift,
+    greedy suppression, emit the top ``max_det`` kept candidates. The
+    candidates' scores must not increase along K (both callers sort them:
+    ``fused_decode_nms`` by a stable top-k, ``merge_detections`` fully), as
+    the JAX package's docstring says of its inputs. ``class_offset`` must
+    exceed the largest box coordinate; ``criterion`` is the pairwise
+    overlap measure, ``"iou"`` or ``"ios"``. Returns ``(num, boxes, scores,
+    labels)``. CUDA tensors take the NMS kernel, one launch with no read
+    (``fixed_iters`` changes nothing there); CPU tensors the plain version
+    (:func:`suppress_and_emit_plain`, ``fixed_iters`` as in
+    :func:`_greedy_keep`)."""
+    if k_boxes.device.type == "cuda":
+        out = KERNEL(k_boxes, k_score, k_cls, k_valid, iou_threshold,
+                     max_det, class_offset, criterion)
+    else:
+        out = suppress_and_emit_plain(k_boxes, k_score, k_cls, k_valid,
+                                      iou_threshold, top_k, max_det,
+                                      class_offset, criterion, fixed_iters)
+    return out[:4]
 
 
 @functools.lru_cache(maxsize=64)
@@ -313,8 +475,8 @@ def fused_decode_nms(level_outputs, score_threshold: float = 0.25,
     ``level_outputs``: per level ``(box_bins (B, h, w, 4*reg_max),
     cls_logits (B, h, w, C))`` NHWC. Returns ``num (B,) int32, boxes
     (B, max_det, 4) f32, scores (B, max_det) f32, labels (B, max_det)
-    int32`` in letterboxed coordinates. The greedy keep is the NMS kernel
-    on the card (no read) and the plain version on the CPU;
+    int32`` in letterboxed coordinates. The tail is the NMS kernel on the
+    card (one launch, no read) and the plain version on the CPU;
     ``fixed_iters``: the plain version without reads (the same result),
     which the kernel makes moot on the card.
     """

@@ -69,21 +69,27 @@ this file; exits non-zero otherwise. In order it:
    stack's own inputs (a spy on ``oru_replay`` over an eager rerun of its
    dispatches: frames that replay, the gap histogram, the two held and
    timed in turns);
-   ``[nms]``: the greedy-NMS keep kernel (``csrc/nms.cu``) through its
-   wrapper on card tensors, bitwise against the plain version's eager and
-   fixed-K forms on the same tensors and against the CPU's, on the main
-   path's own candidates (one chunk of the pipeline with the kernel's
-   arguments recorded: B = 8, K = 300) and ``nms_cases``: the
-   ``[streams]`` dispatch's B = 32, the facade's B = 1, the tiled merge at
-   K = 500 by IoU and by IoS, seeded crowded scenes, the suppression chain
-   of length K, K = 1, 33 and 1100, none and all valid, NaN, infinite and
-   degenerate boxes, overlaps exactly at the threshold, K = 4096 and 16384;
-   ``_suppress_and_emit`` on the card against the CPU; one call under
-   CUDA's sync debug mode "error"; then its time by graph replay at those
-   shapes against its bound (the larger of the bytes and the operations
-   the call's data needs) and an empty kernel's replay, its time per call,
-   the plain eager form's (a read an iteration) and the plain fixed-K
-   form's (graph replay); no single PyTorch call computes it;
+   ``[nms]``: the NMS kernel (``csrc/nms.cu``): the one-launch tail
+   (class shift, greedy keep, emit) through its wrapper on card tensors,
+   its five outputs (num, boxes, scores, labels, kept) bitwise against the
+   plain tail's eager and fixed-K forms on the same tensors and against
+   the CPU's, and its kept set against the first design's (``keep_v1``),
+   on the main path's own candidates (one chunk of the pipeline with the
+   kernel's arguments recorded: B = 8, K = 300) and ``nms_tail_cases``:
+   the ``[streams]`` dispatch's B = 32, the facade's B = 1, the tiled
+   merge at K = 500 by IoU and by IoS with its frame-scaled class offset,
+   seeded crowded scenes, the suppression chain of length K, K = 1, 33
+   and 1100, none and all valid, NaN, infinite and degenerate boxes,
+   overlaps exactly at the threshold, max_det below the kept count and
+   past K, K = 4096 and 16384; ``_suppress_and_emit`` on the card against
+   the CPU; one call under CUDA's sync debug mode "error"; then, at the
+   detect paths' six shapes, three designs timed in turns by graph replay
+   (the first design's tail: shift, v1 keep and emit as eager launches;
+   the v1 keep alone; the one launch) against the bound (the larger of
+   the bytes and the operations the call's data needs and an empty
+   kernel's replay), with the time per call, the plain eager tail's (a
+   read an iteration) and the plain fixed-K tail's (graph replay); no
+   single PyTorch call computes it;
 4. drives the main path at full width: ``TrackingPipeline(device="cuda")``
    with YOLOv8n at 640x640, T=128 track slots, N=64 detection slots, a
    100-feature gallery of 512-d features and 32 ReID crops, on seeded
@@ -131,7 +137,7 @@ this file; exits non-zero otherwise. In order it:
    the eager detect step itself now captures); times of the eager step and
    the replay, the output copies, the capture, ``device_cost`` beside the
    replay, and the graph nodes; the detect replay in turns against the same
-   step captured with the plain fixed-K keep where the kernel runs (its
+   step captured with the plain fixed-K tail where the kernel runs (its
    replay ms and graph nodes beside the kernel's);
 9. ``[cli]``: writes the 64 frames to a ``.npy`` in a temporary directory
    and runs ``aicamera_tpu_torch.cli.main`` on it on the card with
@@ -1589,18 +1595,19 @@ class OruChecks:
                 f"|diff| {self.abs:.3g}), bitwise on {self.plain_bitwise}")
 
 
-def oru_turns(launch_of, n_sets):
-    """Both designs timed in turns (v1, default, default, v1): graph
-    replays of ``launch_of(variant)(i)`` over ``n_sets`` sets; per design
-    the two medians and the replays' least and most, ms a launch."""
-    from aicamera_tpu_torch.ops.oru import VARIANTS
+def design_turns(launch_of, n_sets, designs, rounds=8):
+    """Designs timed in turns, each in order and then back in the reverse
+    order (ORU: v1, rows, rows, v1): graph replays of
+    ``launch_of(design)(i)`` over ``n_sets`` sets, ``rounds`` times each;
+    per design the two medians and the replays' least and most, ms a
+    launch."""
     got = {}
-    for variant in (VARIANTS[1], VARIANTS[0], VARIANTS[0], VARIANTS[1]):
-        got.setdefault(variant, []).append(
-            time_device_stats(launch_of(variant), n_sets))
-    return {v: {"ms": [t[0] for t in ts],
+    for design in tuple(designs) + tuple(designs)[::-1]:
+        got.setdefault(design, []).append(
+            time_device_stats(launch_of(design), n_sets, rounds=rounds))
+    return {d: {"ms": [t[0] for t in ts],
                 "spread_ms": [min(t[1] for t in ts), max(t[2] for t in ts)]}
-            for v, ts in got.items()}
+            for d, ts in got.items()}
 
 
 def turns_line(turns):
@@ -1714,7 +1721,8 @@ def oru_phase(device):
                     outs[i] = KERNEL(*sets[i], max_gap, variant=variant)
                 return launch
 
-            turns = oru_turns(launch_of, len(sets))
+            turns = design_turns(launch_of, len(sets),
+                                 (VARIANTS[1], VARIANTS[0]))
             ms = sorted(time_ms(lambda: oc.oru_replay(*sets[0], max_gap))
                         for _ in range(3))[1]
             plain_ms = time_ms(lambda: oc.oru_replay_plain(*sets[0],
@@ -1813,7 +1821,7 @@ def oru_main_path(pipe, chunks, device, record=None):
             outs[i] = KERNEL(*frames[i][:8], max_gap, variant=variant)
         return launch
 
-    turns = oru_turns(launch_of, len(frames))
+    turns = design_turns(launch_of, len(frames), (VARIANTS[1], VARIANTS[0]))
     work = [oru_work(f[:8], max_gap) for f in frames]
     launch_floor = time_device_ms(lambda i: torch.cuda._sleep(0), 1,
                                   rounds=64)
@@ -1847,16 +1855,15 @@ NMS_TILED_K = 500    # the 2x2 tiled merge with the full frame: 5 x 100
 NMS_TIMED_SETS = 8   # distinct input sets the timed launches rotate over
 
 
-def nms_inputs(b, k, seed=0, classes=4, frame_hw=(640, 640),
-               offset=8192.0, valid="prefix"):
-    """One NMS call's inputs on the CPU, as a detect path hands them to the
-    kernel: ``(shifted (b, k, 4) f32, valid (b, k) bool)`` for a seeded
-    crowded scene. Each frame has ``k // 6`` objects, each candidate a
-    jittered copy of one object's box (a detector's duplicates: IoUs
-    from 0 to 1), mostly of its object's class, shifted by
-    ``class * offset``. ``valid``: ``"prefix"`` (score-ordered candidates
-    above the floor: a seeded prefix of each frame), ``"all"`` or
-    ``"none"``."""
+def nms_scene(b, k, seed=0, classes=4, frame_hw=(640, 640),
+              valid="prefix"):
+    """A seeded crowded scene of ``b`` frames of ``k`` candidates on the
+    CPU, unshifted: ``(boxes (b, k, 4) f32, cls (b, k) int32, valid (b, k)
+    bool)``. Each frame has ``k // 6`` objects, each candidate a jittered
+    copy of one object's box (a detector's duplicates: IoUs from 0 to 1),
+    mostly of its object's class. ``valid``: ``"prefix"`` (score-ordered
+    candidates above the floor: a seeded prefix of each frame), ``"all"``
+    or ``"none"``."""
     import numpy as np
     import torch
     rng = np.random.RandomState(seed)
@@ -1873,15 +1880,80 @@ def nms_inputs(b, k, seed=0, classes=4, frame_hw=(640, 640),
     cls = np.take_along_axis(obj_cls, pick, 1)
     stray = rng.rand(b, k) < 0.1
     cls = np.where(stray, rng.randint(0, classes, (b, k)), cls)
-    shifted = (boxes.astype(np.float32)
-               + (cls.astype(np.float32) * np.float32(offset))[..., None])
     if valid == "prefix":
         n = rng.randint(k // 2, k + 1, b)
         mask = np.arange(k)[None] < n[:, None]
     else:
         mask = np.full((b, k), valid == "all")
-    return (torch.from_numpy(np.ascontiguousarray(shifted, np.float32)),
-            torch.from_numpy(mask))
+    return (torch.from_numpy(np.ascontiguousarray(boxes, np.float32)),
+            torch.from_numpy(cls.astype(np.int32)), torch.from_numpy(mask))
+
+
+def nms_inputs(b, k, seed=0, classes=4, frame_hw=(640, 640),
+               offset=8192.0, valid="prefix"):
+    """One keep's inputs on the CPU, as the first design took them: the
+    scene of :func:`nms_scene` shifted by ``class * offset``, ``(shifted
+    (b, k, 4) f32, valid (b, k) bool)``."""
+    import numpy as np
+    import torch
+    boxes, cls, mask = nms_scene(b, k, seed, classes, frame_hw, valid)
+    shifted = (boxes.numpy()
+               + (cls.numpy().astype(np.float32)
+                  * np.float32(offset))[..., None])
+    return torch.from_numpy(np.ascontiguousarray(shifted, np.float32)), mask
+
+
+def nms_scores(b, k, seed=0):
+    """Seeded ``(b, k)`` f32 scores that do not increase along K, as the
+    tail's callers sort them: ties among them (two decimals) and a tail at
+    or below 0 (a candidate there is not emitted even where kept)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(1000 + seed)
+    s = np.round(rng.uniform(-0.1, 1.0, (b, k)), 2)
+    return torch.from_numpy(-np.sort(-s, axis=1).astype(np.float32))
+
+
+def nms_tail_case(name, shifted, valid, thr, criterion, max_det=100,
+                  seed=0):
+    """A keep case as a case of the tail: the boxes as given with every
+    class 0 (a shift of 0: the same kept set) and :func:`nms_scores`.
+    ``(name, boxes, score, cls, valid, thr, criterion, max_det,
+    class_offset)``."""
+    import torch
+    b, k = valid.shape
+    return (name, shifted, nms_scores(b, k, seed),
+            torch.zeros((b, k), dtype=torch.int32), valid, thr, criterion,
+            max_det, 8192.0)
+
+
+def nms_tail_cases(card_only=False):
+    """The tail's cases (``(name, boxes, score, cls, valid, thr, criterion,
+    max_det, class_offset)`` on the CPU): every case of :func:`nms_cases`
+    at max_det 100 (K = 1 and 33 below it), and the emit's own: max_det
+    below the kept count, max_det past K, classes shifted by the main
+    path's offset (8192) and by the tiled merge's frame-scaled one (2 x
+    960 at 540x960), by IoU and by IoS."""
+    cases = [nms_tail_case(*c, seed=i)
+             for i, c in enumerate(nms_cases(card_only))]
+    tiled = dict(frame_hw=(540, 960))
+    for name, (b, k, seed, kw), thr, crit, max_det, offset in (
+            ("B=8 K=300 classes, max_det 5", (8, NMS_TOPK, 21, {}),
+             NMS_THR, "iou", 5, 8192.0),
+            ("B=8 K=300 classes, max_det 100", (8, NMS_TOPK, 22, {}),
+             NMS_THR, "iou", 100, 8192.0),
+            ("B=2 K=40 classes, max_det 64 > K", (2, 40, 23, {}), NMS_THR,
+             "iou", 64, 8192.0),
+            ("B=1 K=500 tiled merge iou, offset 1920",
+             (1, NMS_TILED_K, 24, tiled), NMS_THR, "iou", 100, 1920.0),
+            ("B=1 K=500 tiled merge ios, offset 1920",
+             (1, NMS_TILED_K, 24, tiled), NMS_THR, "ios", 100, 1920.0),
+            ("B=4 K=500 classes ios, max_det 7", (4, NMS_TILED_K, 25, {}),
+             0.6, "ios", 7, 8192.0)):
+        boxes, cls, valid = nms_scene(b, k, seed, **kw)
+        cases.append((name, boxes, nms_scores(b, k, seed), cls, valid, thr,
+                      crit, max_det, offset))
+    return cases
 
 
 def nms_chain(b, k):
@@ -1971,6 +2043,9 @@ def nms_cases(card_only=False):
 NMS_PAIR_OPS = 14    # a pair's overlap in csrc/nms.cu: 4 max/min, 2 sub,
 #                      2 clamps, mul, add, sub (or min), clamp, div, compare
 NMS_BOX_OPS = 5      # a box's area: 2 sub, 2 clamps, mul
+NMS_SHIFT_OPS = 6    # a box's class shift: int to float, mul, 4 adds
+NMS_SLOT_BYTES = 24  # an output slot: box 16, score 4, label 4
+TAIL_PARTS = ("num", "boxes", "scores", "labels", "kept")
 
 
 class KernelStandIn:
@@ -1994,19 +2069,33 @@ class SpyKernel(KernelStandIn):
     def __init__(self):
         self.calls = []
 
-    def __call__(self, shifted, valid, threshold, criterion="iou"):
-        self.calls.append((shifted.clone(), valid.clone(), threshold,
-                           criterion))
-        return self.kernel(shifted, valid, threshold, criterion)
+    def __call__(self, *args):
+        self.calls.append(tuple(a.clone() if hasattr(a, "clone") else a
+                                for a in args))
+        return self.kernel(*args)
 
 
-class PlainKeep(KernelStandIn):
-    """A yardstick: the plain version in its fixed-K form, which reads
-    nothing and captures, where the kernel would run."""
+class PlainTail(KernelStandIn):
+    """A yardstick: the plain tail in its fixed-K form, which reads nothing
+    and captures, where the kernel would run."""
 
-    def __call__(self, shifted, valid, threshold, criterion="iou"):
-        from aicamera_tpu_torch.ops.nms import greedy_keep_plain
-        return greedy_keep_plain(shifted, valid, threshold, criterion, True)
+    def __call__(self, k_boxes, k_score, k_cls, k_valid, threshold, max_det,
+                 class_offset, criterion="iou"):
+        from aicamera_tpu_torch.ops.nms import suppress_and_emit_plain
+        return suppress_and_emit_plain(k_boxes, k_score, k_cls, k_valid,
+                                       threshold, k_valid.shape[-1], max_det,
+                                       class_offset, criterion, True)
+
+
+def v1_tail(k_boxes, k_score, k_cls, k_valid, threshold, max_det,
+            class_offset, criterion="iou"):
+    """The tail as the first design ran it: the class shift and the emit as
+    eager PyTorch launches around the v1 keep's two."""
+    from aicamera_tpu_torch.ops.nms import KERNEL, emit_plain
+    shifted = k_boxes + (k_cls.float() * class_offset)[..., None]
+    kept = KERNEL.keep_v1(shifted, k_valid, threshold, criterion)
+    k = k_valid.shape[-1]
+    return (*emit_plain(kept, k_boxes, k_score, k_cls, k, max_det), kept)
 
 
 CARD_NMS_READS = [0]  # reads of CUDA tensors by ops.nms.NMS_SYNCS
@@ -2038,23 +2127,27 @@ def yardstick_reads():
         CARD_NMS_READS[0] = before
 
 
-def nms_work(valid):
-    """``(bytes, operations)`` one call must do for ``valid (B, K)``, counted
-    from this data: the greedy keep needs only the valid candidates, so a
-    frame with n valid reads n boxes (16 bytes each) and its K valid bytes,
-    writes its K kept bytes, and computes n areas and the n (n - 1) / 2
-    overlaps among them."""
+def nms_work(valid, max_det):
+    """``(bytes, operations)`` one call of the tail must do for ``valid (B,
+    K)``, counted from this data: the greedy keep needs only the valid
+    candidates, so a frame with n valid reads n boxes, scores and classes
+    (24 bytes each) and its K valid bytes, writes its K kept bytes, its
+    ``max_det`` output slots and its count, and computes n shifts and
+    areas and the n (n - 1) / 2 overlaps among them."""
     b, k = valid.shape[0], valid.shape[-1]
     n = [int(x) for x in valid.reshape(b, k).sum(-1).tolist()]
-    n_bytes = sum(16 * m + 2 * k for m in n)
-    ops = sum(m * NMS_BOX_OPS + m * (m - 1) // 2 * NMS_PAIR_OPS for m in n)
+    n_bytes = sum(24 * m + 2 * k + NMS_SLOT_BYTES * max_det + 4 for m in n)
+    ops = sum(m * (NMS_SHIFT_OPS + NMS_BOX_OPS)
+              + m * (m - 1) // 2 * NMS_PAIR_OPS for m in n)
     return n_bytes, ops
 
 
 def nms_main_path_inputs(device):
     """The main path's own candidates: one chunk of ``TrackingPipeline``
     (the main path's settings, its first 8 seeded frames) with the kernel's
-    arguments recorded (``SpyKernel``): B = 8, K = 300."""
+    arguments recorded (``SpyKernel``): B = 8, K = 300, ``(k_boxes,
+    k_score, k_cls, k_valid, threshold, max_det, class_offset,
+    criterion)``."""
     from aicamera_tpu_torch.scenes import moving_rectangles
     frames = moving_rectangles(N_CHUNKS * CHUNK, FRAME_HW, n_objects=6,
                                seed=SEED)[:CHUNK]
@@ -2066,90 +2159,171 @@ def nms_main_path_inputs(device):
     return spy.calls[0]
 
 
-def nms_hold(tag, shifted, valid, thr, criterion, fixed=True, cpu=True):
-    """The kernel through its wrapper against the plain version on the same
-    card tensors, eager and (``fixed``) fixed-K, and (``cpu``) the plain
-    version on the CPU; bitwise. Returns the kept set, the forms held and
-    the most kept bits that differed from one of them."""
+def bit_diffs(a, b):
+    """Elements of ``a`` whose bits differ from ``b``'s (all of them where
+    the shapes or types differ): NaN equals NaN of the same bits."""
     import torch
-    from aicamera_tpu_torch.ops.nms import KERNEL, greedy_keep_plain
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return max(a.numel(), 1)
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(
+            torch.int32)
+    return int((a != b).sum())
+
+
+def nms_hold(tag, args, fixed=True, cpu=True):
+    """The one-launch kernel through its wrapper against the plain tail on
+    the same card tensors, eager and (``fixed``) fixed-K, and (``cpu``) the
+    plain tail on the CPU, all five outputs; its kept set against the first
+    design's (``keep_v1`` of the plain shift); bitwise. ``args``: the
+    kernel's ``(k_boxes, k_score, k_cls, k_valid, threshold, max_det,
+    class_offset, criterion)``. Returns the outputs, the forms held and the
+    most elements that differed from one of them."""
+    import torch
+    from aicamera_tpu_torch.ops.nms import KERNEL, suppress_and_emit_plain
+    boxes, score, cls, valid, thr, max_det, offset, crit = args
+    k = valid.shape[-1]
     before = KERNEL.launches
-    got = KERNEL(shifted, valid, thr, criterion)
+    got = KERNEL(*args)
     check(KERNEL.launches == before + 1, f"[nms] {tag}: not one launch")
     torch.cuda.synchronize()
     with yardstick_reads():
-        wants = {"eager": greedy_keep_plain(shifted, valid, thr, criterion)}
+        wants = {"eager": suppress_and_emit_plain(
+            boxes, score, cls, valid, thr, k, max_det, offset, crit)}
     if fixed:
-        wants["fixed-K"] = greedy_keep_plain(shifted, valid, thr, criterion,
-                                             True)
+        wants["fixed-K"] = suppress_and_emit_plain(
+            boxes, score, cls, valid, thr, k, max_det, offset, crit, True)
     if cpu:
-        wants["CPU"] = greedy_keep_plain(shifted.cpu(), valid.cpu(), thr,
-                                         criterion).to(shifted.device)
+        wants["CPU"] = [t.to(boxes.device) for t in suppress_and_emit_plain(
+            boxes.cpu(), score.cpu(), cls.cpu(), valid.cpu(), thr, k,
+            max_det, offset, crit)]
     diffs = []
     for form, want in wants.items():
-        diffs.append(int((got != want).sum()))
-        check(diffs[-1] == 0, f"[nms] {tag}: {diffs[-1]} of {got.numel()} "
-              f"kept bits differ from the plain version's {form} form")
-    check(not bool((got & ~valid).any()), f"[nms] {tag}: kept an invalid "
+        for part, a, w in zip(TAIL_PARTS, got, want):
+            diffs.append(bit_diffs(a, w))
+            check(diffs[-1] == 0, f"[nms] {tag}: {diffs[-1]} of {a.numel()} "
+                  f"{part} differ from the plain tail's {form} form")
+    shifted = boxes + (cls.float() * offset)[..., None]
+    diffs.append(bit_diffs(got[4], KERNEL.keep_v1(shifted, valid, thr,
+                                                  crit)))
+    check(diffs[-1] == 0, f"[nms] {tag}: {diffs[-1]} kept bits differ from "
+          f"the first design's")
+    check(not bool((got[4] & ~valid).any()), f"[nms] {tag}: kept an invalid "
           f"candidate")
-    return got, tuple(wants), max(diffs)
+    return got, tuple(wants) + ("v1 keep",), max(diffs)
+
+
+NMS_PHASES = ("count", "stage", "shift", "diag", "resolve", "items", "wait",
+              "emit", "stream", "tail")
+
+
+def nms_probe(shape_sets):
+    """The one-launch design's phase probe (a second build with
+    ``-DAICAM_NMS_PROBE``) on each timed shape's first set, after a
+    warm-up call: a block's cycles by phase on thread 0's clock (n while
+    the staging copy is in flight, the rest of the copy's wait, the shift,
+    the diagonal words; in the scan its resolves, its items and its waits
+    at the step's barrier; the emit, later tiles, the tail), its
+    cycles from entry to exit, and scan steps, diagonal and OR items a
+    block; the probe build's outputs bitwise the default's."""
+    import torch
+    from aicamera_tpu_torch.ops.nms import KERNEL, NmsKernel
+    probe = NmsKernel(probe=True)
+    mhz = sm_clock_mhz()
+    rows = []
+    for shape, args in shape_sets:
+        want = KERNEL(*args)
+        probe(*args)
+        torch.cuda.synchronize()
+        probe.read_probe(reset=True)
+        got = probe(*args)
+        torch.cuda.synchronize()
+        sums = probe.read_probe(reset=True)
+        check(all(bit_diffs(a, w) == 0 for a, w in zip(got, want)),
+              f"[nms] probe {shape}: the probe build's outputs differ")
+        blocks = max(sums["blocks"], 1)
+        row = {"shape": shape, "blocks": sums["blocks"],
+               "total_cycles": sums["total"] / blocks,
+               "steps": sums["steps"] / blocks,
+               "diag_items": sums["diag_items"] / blocks,
+               "or_items": sums["or_items"] / blocks,
+               "sm_mhz": mhz[0]}
+        row.update({f"{ph}_cycles": sums[ph] / blocks for ph in NMS_PHASES})
+        rows.append(row)
+        print(f"[nms] probe {shape}: a block {row['total_cycles']:.0f} "
+              f"cycles entry to exit ({row['total_cycles'] / mhz[0]:.3f} us "
+              f"at {mhz[0]:.0f} MHz, max {mhz[1]:.0f}); by phase "
+              + ", ".join(f"{ph} {row[ph + '_cycles']:.0f}"
+                          for ph in NMS_PHASES)
+              + f"; {row['steps']:.1f} scan steps, {row['diag_items']:.1f} "
+              f"diagonal and {row['or_items']:.1f} OR items a block")
+    return rows
 
 
 def nms_phase(device):
-    """The NMS kernel (``csrc/nms.cu``) through its wrapper on card tensors,
-    bitwise against the plain version's eager and fixed-K forms on the same
-    tensors (and the CPU's) on the main path's own candidates and
-    :func:`nms_cases` (``card_only``); one call under CUDA's sync debug mode
-    "error"; then its time by graph replay at the detect paths' shapes
-    against its bound (the larger of :func:`nms_work`'s bytes and
-    operations), an empty kernel's replay, its time per call, the plain
-    eager form's (it reads once an iteration) and the plain fixed-K form's
-    (graph replay). No single PyTorch call computes a greedy NMS."""
+    """The NMS kernel (``csrc/nms.cu``): the one-launch tail through its
+    wrapper on card tensors, all five outputs bitwise against the plain
+    tail's eager and fixed-K forms on the same tensors (and the CPU's) and
+    its kept set against the first design's (``keep_v1``), on the main
+    path's own candidates and :func:`nms_tail_cases` (``card_only``); one
+    call under CUDA's sync debug mode "error"; then, at the detect paths'
+    six shapes, three designs timed in turns by graph replay: the tail as
+    the first design's path ran it (:func:`v1_tail`), the v1 keep alone
+    and the one-launch tail; against the bound (the larger of
+    :func:`nms_work`'s bytes and operations, the work bound, and an empty
+    kernel's replay), with the time per call, the plain eager tail's (it
+    reads once an iteration) and the plain fixed-K tail's (graph replay).
+    No single PyTorch call computes a greedy NMS."""
+    import numpy as np
     import torch
+    from aicamera_tpu_torch import config
     from aicamera_tpu_torch.ops.nms import (KERNEL, MAX_K, _suppress_and_emit,
-                                            greedy_keep_plain)
+                                            suppress_and_emit_plain)
 
     main = nms_main_path_inputs(device)
     cases = [("main path chunk B=8 K=300", *main)]
-    cases += [(n, s.to(device), v.to(device), t, c)
-              for n, s, v, t, c in nms_cases(card_only=True)]
+    for name, boxes, score, cls, valid, thr, crit, max_det, offset in \
+            nms_tail_cases(card_only=True):
+        cases.append((name, boxes.to(device), score.to(device),
+                      cls.to(device), valid.to(device), thr, max_det,
+                      offset, crit))
     frames = candidates = kept_total = max_diff = 0
-    for name, s, v, thr, crit in cases:
-        k = v.shape[-1]
-        got, forms, diff = nms_hold(name, s, v, thr, crit, fixed=k <= 4096,
+    for name, *args in cases:
+        k = args[3].shape[-1]
+        got, forms, diff = nms_hold(name, args, fixed=k <= 4096,
                                     cpu=k <= 4096)
         max_diff = max(max_diff, diff)
-        frames += v.shape[0]
-        candidates += v.numel()
-        kept_total += int(got.sum())
-        print(f"[nms] {name} ({crit}, threshold {thr}): {int(v.sum())} "
-              f"valid, {int(got.sum())} kept; bitwise the plain version's "
-              f"{', '.join(forms)} forms")
+        frames += args[3].shape[0]
+        candidates += args[3].numel()
+        kept_total += int(got[4].sum())
+        print(f"[nms] {name} ({args[7]}, threshold {args[4]}, max_det "
+              f"{args[5]}, offset {args[6]}): {int(args[3].sum())} valid, "
+              f"{int(got[4].sum())} kept, {int(got[0].sum())} emitted; "
+              f"bitwise the plain tail's {', '.join(forms)} forms")
     # the public tail on the main path's candidates, card vs CPU
-    s, v, thr, crit = main
-    b, k = v.shape
-    score = torch.linspace(1.0, 0.01, k, device=device).expand(b, k)
-    cls = torch.zeros((b, k), dtype=torch.int32, device=device)
-    on_card = _suppress_and_emit(s, score, cls, v, thr, k, 100,
-                                 criterion=crit)
-    on_cpu = _suppress_and_emit(s.cpu(), score.cpu(), cls.cpu(), v.cpu(),
-                                thr, k, 100, criterion=crit)
-    check(all(torch.equal(a.cpu(), c) for a, c in zip(on_card, on_cpu)),
+    boxes, score, cls, valid, thr, max_det, offset, crit = main
+    k = valid.shape[-1]
+    on_card = _suppress_and_emit(boxes, score, cls, valid, thr, k, max_det,
+                                 offset, crit)
+    on_cpu = _suppress_and_emit(boxes.cpu(), score.cpu(), cls.cpu(),
+                                valid.cpu(), thr, k, max_det, offset, crit)
+    check(all(bit_diffs(a.cpu(), c) == 0 for a, c in zip(on_card, on_cpu)),
           "[nms] _suppress_and_emit on the card != on the CPU")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        KERNEL(s, v, thr, crit)
+        KERNEL(*main)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     try:
-        KERNEL(s.cpu(), v.cpu(), thr, crit)
+        KERNEL(*(t.cpu() if hasattr(t, "cpu") else t for t in main))
         check(False, "[nms] the kernel took CPU tensors")
     except ValueError:
         pass
     print(f"[nms] checked {len(cases)} cases, {frames} frames, {candidates} "
-          f"candidates ({kept_total} kept): bitwise the plain version; "
-          f"K up to {MAX_K}; no read under sync debug mode \"error\"; "
+          f"candidates ({kept_total} kept): all five outputs bitwise the "
+          f"plain tail, kept sets bitwise the first design's; K up to "
+          f"{MAX_K}; no read under sync debug mode \"error\"; "
           f"_suppress_and_emit on the main path's candidates card == CPU")
 
     launch_floor = time_device_ms(lambda i: torch.cuda._sleep(0), 1,
@@ -2160,67 +2334,101 @@ def nms_phase(device):
               ("B=1 K=300 (facade detect)", 1, NMS_TOPK, "iou"),
               ("B=1 K=500 (tiled merge, iou)", 1, NMS_TILED_K, "iou"),
               ("B=1 K=500 (tiled merge, ios)", 1, NMS_TILED_K, "ios")]
-    rows = []
+    rows, first_sets = [], []
     for shape, b, k, crit in shapes:
         if "own" in shape:
-            sets = [main[:2]]   # as the path leaves them: in the L2
+            sets = [main]   # as the path leaves them: in the L2
         else:
-            sets = [tuple(t.to(device) for t in nms_inputs(
-                        b, k, seed=100 + i, frame_hw=(
-                            (540, 960) if k == NMS_TILED_K else (640, 640))))
-                    for i in range(NMS_TIMED_SETS)]
-        for i, (s, v) in enumerate(sets):
-            max_diff = max(max_diff, nms_hold(f"{shape} set {i}", s, v,
-                                              NMS_THR, crit, cpu=False)[2])
+            tiled = k == NMS_TILED_K
+            sets = []
+            for i in range(NMS_TIMED_SETS):
+                boxes, cls, valid = nms_scene(
+                    b, k, seed=100 + i,
+                    frame_hw=(540, 960) if tiled else (640, 640))
+                sets.append((boxes.to(device),
+                             nms_scores(b, k, 100 + i).to(device),
+                             cls.to(device), valid.to(device), NMS_THR,
+                             config.YOLO_MAX_DETECTIONS,
+                             1920.0 if tiled else 8192.0,
+                             crit))
+        for i, args in enumerate(sets):
+            max_diff = max(max_diff, nms_hold(f"{shape} set {i}", args,
+                                              cpu=False)[2])
+        first_sets.append((shape, sets[0]))
+        shifted = [a[0] + (a[2].float() * a[6])[..., None] for a in sets]
         outs = [None] * len(sets)
 
-        def launch(i):
-            outs[i] = KERNEL(*sets[i], NMS_THR, crit)
+        def launch_of(design):
+            def launch(i):
+                a = sets[i]
+                if design == "emit":
+                    outs[i] = KERNEL(*a)
+                elif design == "v1":
+                    outs[i] = KERNEL.keep_v1(shifted[i], a[3], a[4], a[7])
+                else:
+                    outs[i] = v1_tail(*a)
+            return launch
 
-        dev_ms, lo, hi = time_device_stats(launch, len(sets),
-                                           rounds=64 // len(sets))
-        s0, v0 = sets[0]
-        ms = sorted(time_ms(lambda: KERNEL(s0, v0, NMS_THR, crit))
-                    for _ in range(3))[1]
+        turns = design_turns(launch_of, len(sets), ("v1 tail", "v1", "emit"),
+                             rounds=64 // len(sets))
+        a0 = sets[0]
+        ms = sorted(time_ms(lambda: KERNEL(*a0)) for _ in range(3))[1]
+        plain = (a0[0], a0[1], a0[2], a0[3], a0[4], a0[3].shape[-1], a0[5],
+                 a0[6], a0[7])
         with yardstick_reads():
-            plain_ms = time_ms(lambda: greedy_keep_plain(s0, v0, NMS_THR,
-                                                         crit),
+            plain_ms = time_ms(lambda: suppress_and_emit_plain(*plain),
                                iters=5, warmup=1)
             fixed_ms = time_device_ms(
-                lambda i: greedy_keep_plain(s0, v0, NMS_THR, crit, True), 1,
+                lambda i: suppress_and_emit_plain(*plain, True), 1,
                 rounds=1, replays=3)
-        n_bytes, ops = nms_work(v0)
+        n_bytes, ops = nms_work(a0[3], a0[5])
         t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_F32_FLOPS * 1e3
-        bound = max(t_bytes, t_ops)
-        r = {"shape": shape, "device_ms": dev_ms, "spread_ms": [lo, hi],
-             "ms": ms, "plain_ms": plain_ms, "plain_fixed_ms": fixed_ms,
-             "library_ms": None, "bound_ms": bound,
+        work = max(t_bytes, t_ops)
+        bound = max(work, launch_floor)
+        dev_ms = float(np.median(turns["emit"]["ms"]))
+        v1_ms = float(np.median(turns["v1"]["ms"]))
+        v1_tail_ms = float(np.median(turns["v1 tail"]["ms"]))
+        r = {"shape": shape, "device_ms": dev_ms, "earlier_ms": v1_ms,
+             "v1_tail_ms": v1_tail_ms, "turns": turns, "ms": ms,
+             "plain_ms": plain_ms, "plain_fixed_ms": fixed_ms,
+             "library_ms": None, "bound_ms": bound, "work_bound_ms": work,
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "bytes": n_bytes, "ops": ops, "launch_floor_ms": launch_floor}
+             "bound_term": "launch floor" if bound == launch_floor
+             else "work", "bytes": n_bytes, "ops": ops,
+             "launch_floor_ms": launch_floor}
         rows.append(r)
-        print(f"[nms] {shape}: device {dev_ms:.5f} ms a call (two launches; "
-              f"graph replay, L2-resident, replays {lo:.5f}-{hi:.5f}), "
-              f"{100 * bound / dev_ms:.3f}% of the bound, "
+        print(f"[nms] {shape} in turns (graph replay, L2-resident, ms a "
+              f"call; v1 tail: shift, v1 keep, emit as eager launches; v1: "
+              f"the keep alone, two launches; emit: the one launch): "
+              f"{turns_line(turns)}; the one launch "
+              f"{100 * bound / dev_ms:.1f}% of the bound, "
               f"{dev_ms / launch_floor:.2f}x an empty kernel's replay "
-              f"({launch_floor:.6f} ms); per call {ms:.4f} ms; plain eager "
-              f"{plain_ms:.4f} ms (reads), plain fixed-K {fixed_ms:.4f} ms "
-              f"(graph replay); bound {bound:.6f} ms (the larger of "
-              f"{n_bytes} bytes, {t_bytes:.6f} ms, and {ops} operations, "
-              f"{t_ops:.6f} ms); library: no single PyTorch call")
+              f"({launch_floor:.6f} ms), v1 keep "
+              f"{100 * bound / v1_ms:.1f}%, v1 tail "
+              f"{100 * bound / v1_tail_ms:.1f}%; per call {ms:.4f} ms; "
+              f"plain eager {plain_ms:.4f} ms (reads), plain fixed-K "
+              f"{fixed_ms:.4f} ms (graph replay); bound {bound:.6f} ms (the "
+              f"larger of the work bound {work:.7f} ms: {n_bytes} bytes, "
+              f"{t_bytes:.7f} ms, {ops} operations, {t_ops:.7f} ms; and an "
+              f"empty kernel's replay: {r['bound_term']}); library: no "
+              f"single PyTorch call")
+    probes = nms_probe(first_sets)
     KERNEL.launches = 0  # comparison and timing launches do not count
     top = rows[0]
     return {"name": KERNEL.name, "route": "cuda",
             "source": "aicamera_tpu_torch/csrc/nms.cu",
             "replaces": KERNEL.replaces, "launches": None,
             "max_abs_err": float(max_diff), "ms": top["ms"],
-            "device_ms": top["device_ms"], "plain_ms": top["plain_ms"],
+            "device_ms": top["device_ms"], "earlier_ms": top["earlier_ms"],
+            "v1_tail_ms": top["v1_tail_ms"], "plain_ms": top["plain_ms"],
             "plain_fixed_ms": top["plain_fixed_ms"],
-            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "bound_ms": top["bound_ms"], "work_bound_ms": top["work_bound_ms"],
+            "bound_by": top["bound_by"], "bound_term": top["bound_term"],
             "library_ms": None, "library": "no single PyTorch call",
             "launch_floor_ms": launch_floor, "cases_checked": len(cases),
             "frames_checked": frames, "candidates_checked": candidates,
-            "shapes": rows}
+            "shapes": rows, "probe": probes}
 
 
 def make_pipeline(device, synthetic_load=24, **kw):
@@ -3927,15 +4135,15 @@ def engine_phase(device, frames, kernels):
     cost = eng.cost_analysis()
     bound = max(cost["flops"] / PEAK_BF16_FLOPS,
                 cost["bytes accessed"] / PEAK_BYTES_PER_S) * 1e3
-    # the same step captured with the plain fixed-K keep where the kernel
-    # runs (the engines' keep before the kernel), replayed in turns
-    with PlainKeep():
-        plain_eng = CUDAGraphEngine(eager, [up[0]], name="detect_plain_keep",
+    # the same step captured with the plain fixed-K tail where the kernel
+    # runs (the engines' tail before the kernel), replayed in turns
+    with PlainTail():
+        plain_eng = CUDAGraphEngine(eager, [up[0]], name="detect_plain_tail",
                                     warmup_iters=1, device=device)
     plain_cap = graph_of(plain_eng)
     check(all(torch.equal(a, b) for a, b in zip(plain_eng(up[0]),
                                                  eng(up[0]))),
-          "[engine] the detect replay with the plain keep differs")
+          "[engine] the detect replay with the plain tail differs")
     turns = [time_ms(c.graph.replay, iters=ENGINE_TIMED)
              for c in (plain_cap, cap, cap, plain_cap)]
     print(f"[engine] bf16 detect at K=1 (960x540): eager step "
@@ -3946,18 +4154,18 @@ def engine_phase(device, frames, kernels):
           f"({cap.nodes} graph nodes); output copies {t_copies:.4f} ms "
           f"device, {h_copies:.4f} ms host; capture "
           f"{eng.compile_seconds:.3f} s, warm-up {eng.warmup_seconds:.3f} s")
-    print(f"[engine] detect replay in turns, the plain fixed-K keep in the "
-          f"kernel's place / the NMS kernel / the kernel / the plain keep: "
+    print(f"[engine] detect replay in turns, the plain fixed-K tail in the "
+          f"kernel's place / the NMS kernel / the kernel / the plain tail: "
           + " / ".join(f"{t:.3f}" for t in turns) + f" ms; graph nodes "
-          f"{plain_cap.nodes} with the plain keep, {cap.nodes} with the "
+          f"{plain_cap.nodes} with the plain tail, {cap.nodes} with the "
           f"kernel; outputs bitwise equal")
     print(f"[engine] device_cost of the detect step: {cost['flops']:.4g} "
           f"FLOPs, {cost['bytes accessed']:.4g} bytes (letterbox included): "
           f"bound {bound:.4f} ms against the replay's {t_replay:.3f} ms")
     ENGINE_NMS.update(replay_ms=t_replay, nodes=cap.nodes,
-                      plain_keep_replay_ms=[turns[0], turns[3]],
+                      plain_tail_replay_ms=[turns[0], turns[3]],
                       kernel_replay_ms=[turns[1], turns[2]],
-                      plain_keep_nodes=plain_cap.nodes)
+                      plain_tail_nodes=plain_cap.nodes)
 
     # the ReID engine at batches 1, 5, 32 (bf16, the default)
     rb = quiet(lambda: ReIDModel(reid, device=device))
@@ -5150,15 +5358,17 @@ def main() -> int:
     from aicamera_tpu_torch.ops.assignment import AssignmentKernel
     from aicamera_tpu_torch.ops.letterbox import KERNEL as LETTERBOX
     from aicamera_tpu_torch.ops.nms import KERNEL as NMS
+    from aicamera_tpu_torch.ops.nms import NmsKernel
     from aicamera_tpu_torch.ops.oru import KERNEL as ORU
     from aicamera_tpu_torch.ops.oru import OruKernel
     from aicamera_tpu_torch.scenes import moving_rectangles
 
     kernels = [LETTERBOX, ASSIGNMENT, ORU, NMS]
     watch_nms_reads()
-    # the phase probes of the assignment and ORU kernels: their own builds,
-    # loaded by the [assignment] and [oru] phases only
-    probe_builds = [AssignmentKernel(probe=True), OruKernel(probe=True)]
+    # the phase probes of the assignment, ORU and NMS kernels: their own
+    # builds, loaded by the [assignment], [oru] and [nms] phases only
+    probe_builds = [AssignmentKernel(probe=True), OruKernel(probe=True),
+                    NmsKernel(probe=True)]
     t_start = time.perf_counter()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:

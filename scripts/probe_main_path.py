@@ -11,7 +11,10 @@ that checkout, builds its kernels, warms up and drives the main path of
 64 seeded 960x540 frames) three times: FPS by the host clock, then the
 tracker's and the NMS stage's ms per frame from CUDA events, then every
 read counter per frame (NMS, ReID bucket, tracker, scan bucket). Then it
-drives the other detect paths on the same frames:
+captures the NMS stage of one chunk alone (``fused_decode_nms`` at B = 8 on
+seeded bf16 level outputs of YOLOv8n's shapes) into a CUDA graph: its nodes
+(the stage's launches a chunk), its replay's ms and its outputs' digest.
+Then it drives the other detect paths on the same frames:
 
 - ``f32``: the main path with no synthetic load in f32, TF32 off;
 - ``facade bf16`` and ``facade f32``: ``YOLODetector.detect`` ->
@@ -137,6 +140,7 @@ launches = ", ".join(
 print(f"[probe] {root} ({tracker}): FPS " + " / ".join(f"{x:.2f}" for x in fps)
       + "; tracker ms per frame " + " / ".join(f"{x:.3f}" for x in trk)
       + "; nms stage ms per frame " + " / ".join(f"{x:.3f}" for x in nms)
+      + " (a chunk of 8: " + " / ".join(f"{8 * x:.3f}" for x in nms) + ")"
       + f"; reads per frame {reads(len(frames))}; "
       f"launches per frame: {launches}; "
       f"track outputs {n_tracks}, SHA-256 of the tuples "
@@ -146,6 +150,49 @@ print(f"[probe] {root} ({tracker}): FPS " + " / ".join(f"{x:.2f}" for x in fps)
       f"{getattr(pipe, 'scan_stats', 'n/a')}", flush=True)
 out = {"main tuples": sorted(tuples), "main detections": sorted(dets)}
 del pipe
+
+# the NMS stage of one chunk alone: fused_decode_nms at the main path's
+# shapes (B = 8, YOLOv8n's three levels at 640x640, bf16) on seeded random
+# level outputs, captured into a CUDA graph: its nodes are the stage's
+# launches a chunk; its replay's device ms and its outputs' digest
+from aicamera_tpu_torch.ops.nms import fused_decode_nms
+from aicamera_tpu_torch.runtime.engine import CUDAGraphEngine
+
+gen = torch.Generator().manual_seed(0)
+levels = []
+for hw in (80, 40, 20):
+    levels += [torch.randn((8, hw, hw, 64), generator=gen),
+               torch.randn((8, hw, hw, 80), generator=gen) * 3 - 4]
+levels = [t.to("cuda", torch.bfloat16) for t in levels]
+
+
+def nms_stage(*t):
+    return fused_decode_nms(
+        [(t[i], t[i + 1]) for i in (0, 2, 4)],
+        score_threshold=config.YOLO_NMS_SCORE_THRESHOLD,
+        iou_threshold=config.YOLO_NMS_THRESHOLD, top_k=config.YOLO_NMS_TOPK,
+        max_det=config.YOLO_MAX_DETECTIONS)
+
+
+stage = CUDAGraphEngine(nms_stage, levels, name="nms_stage", warmup_iters=1,
+                        device="cuda")
+(cap,) = stage._graphs.values()
+start = torch.cuda.Event(enable_timing=True)
+end = torch.cuda.Event(enable_timing=True)
+for _ in range(5):
+    cap.graph.replay()
+start.record()
+for _ in range(100):
+    cap.graph.replay()
+end.record()
+end.synchronize()
+got = stage(*levels)
+out["nms stage"] = digest([t.cpu().numpy().tobytes() for t in got])
+print(f"[probe] {root} nms stage (fused_decode_nms, B=8, seeded levels, "
+      f"bf16): {cap.nodes} graph nodes a chunk, replay "
+      f"{start.elapsed_time(end) / 100:.4f} ms; {int(got[0].sum())} "
+      f"detections; SHA-256 {out['nms stage']}", flush=True)
+del stage, cap
 
 from aicamera_tpu_torch.detector import YOLODetector
 from aicamera_tpu_torch.parallel import MultiStreamPipeline

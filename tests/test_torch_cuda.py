@@ -946,61 +946,105 @@ def test_stream_mesh_of_one_nccl_rank_equals_the_single_device(cuda):
     assert want[-1][4].any()
 
 
+def _tail_bits_equal(got, want):
+    """Five outputs equal bit for bit (NaN where NaN)."""
+    for a, b in zip(got, want, strict=True):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
 def test_nms_kernel_bitwise_equals_plain_version(cuda):
-    """The NMS kernel on ``chip_smoke.nms_cases(card_only=True)`` (the detect
-    paths' shapes: B = 8, 32 and 1 at K = 300, the tiled merge at K = 500
-    by IoU and IoS; crowded scenes, the chain of length K, K = 1, 33 and
-    1100, none and all valid, NaN, infinite and degenerate boxes, overlaps
-    exactly at the threshold; K = 4096 and ``MAX_K``): one launch a call,
-    bitwise the plain version's eager form on the same tensors and its
-    fixed-K form up to K = 1100; CPU tensors raise. Tolerance: bitwise."""
-    for name, shifted, valid, thr, criterion in chip_smoke.nms_cases(
-            card_only=True):
-        s, v = shifted.to(cuda), valid.to(cuda)
+    """The NMS kernel on ``chip_smoke.nms_tail_cases(card_only=True)`` (the
+    detect paths' shapes: B = 8, 32 and 1 at K = 300, the tiled merge at
+    K = 500 by IoU and IoS; crowded scenes, the chain of length K, K = 1,
+    33 and 1100, none and all valid, NaN, infinite and degenerate boxes,
+    overlaps exactly at the threshold, the emit's cases; K = 4096 and
+    ``MAX_K``): one launch a call, its five outputs bitwise the plain tail's
+    eager form on the same tensors and its fixed-K form up to K = 1100; the
+    first design (``keep_v1``) bitwise the plain keep on ``nms_cases``; CPU
+    tensors raise. Tolerance: bitwise."""
+    for name, boxes, score, cls, valid, thr, crit, max_det, offset in \
+            chip_smoke.nms_tail_cases(card_only=True):
+        args = (boxes.to(cuda), score.to(cuda), cls.to(cuda), valid.to(cuda),
+                thr, max_det, offset, crit)
+        k = valid.shape[-1]
         before = tnms.KERNEL.launches
-        got = tnms.KERNEL(s, v, thr, criterion)
+        got = tnms.KERNEL(*args)
         assert tnms.KERNEL.launches == before + 1
-        assert got.dtype == torch.bool and got.shape == v.shape
-        want = tnms.greedy_keep_plain(s, v, thr, criterion)
-        assert torch.equal(got, want), name
-        if v.shape[-1] <= 1100:
-            fixed = tnms.greedy_keep_plain(s, v, thr, criterion,
-                                           fixed_iters=True)
-            assert torch.equal(got, fixed), name
+        plain = args[:5] + (k,) + args[5:]
+        _tail_bits_equal(got, tnms.suppress_and_emit_plain(*plain))
+        if k <= 1100:
+            _tail_bits_equal(got, tnms.suppress_and_emit_plain(*plain, True))
     with pytest.raises(ValueError, match="CUDA"):
-        tnms.KERNEL(shifted, valid, thr, criterion)
+        tnms.KERNEL(boxes, score, cls, valid, thr, max_det, offset, crit)
+    for name, shifted, v_cpu, thr, criterion in chip_smoke.nms_cases(
+            card_only=True):
+        s, v = shifted.to(cuda), v_cpu.to(cuda)
+        got = tnms.KERNEL.keep_v1(s, v, thr, criterion)
+        assert got.dtype == torch.bool and got.shape == v.shape
+        assert torch.equal(got, tnms.greedy_keep_plain(s, v, thr, criterion))
 
 
 def test_nms_kernel_reads_nothing_and_captures(cuda):
     """The kernel under CUDA's sync debug mode "error" (no read back), and
     captured into a CUDA graph: replays bitwise the eager call."""
-    _, shifted, valid, thr, criterion = chip_smoke.nms_cases()[0]
-    s, v = shifted.to(cuda), valid.to(cuda)
-    want = tnms.greedy_keep_plain(s, v, thr, criterion)
+    name, boxes, score, cls, valid, thr, crit, max_det, offset = \
+        chip_smoke.nms_tail_cases()[0]
+    args = (boxes.to(cuda), score.to(cuda), cls.to(cuda), valid.to(cuda),
+            thr, max_det, offset, crit)
+    want = tnms.suppress_and_emit_plain(*args[:5], valid.shape[-1],
+                                        *args[5:])
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = tnms.KERNEL(s, v, thr, criterion)
+        got = tnms.KERNEL(*args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert torch.equal(got, want)
+    _tail_bits_equal(got, want)
     graph = torch.cuda.CUDAGraph()
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        tnms.KERNEL(s, v, thr, criterion)
+        tnms.KERNEL(*args)
     torch.cuda.current_stream().wait_stream(stream)
     with torch.cuda.graph(graph):
-        out = tnms.KERNEL(s, v, thr, criterion)
+        out = tnms.KERNEL(*args)
     graph.replay()
     torch.cuda.synchronize()
-    assert torch.equal(out, want)
+    _tail_bits_equal(out, want)
+
+
+def test_nms_emit_on_the_card_equals_the_cpu(cuda):
+    """``_suppress_and_emit`` on card tensors (one kernel launch) against
+    the same call on CPU tensors (the plain tail), bitwise, on the emit's
+    cases: max_det below the kept count and past K, classes shifted by
+    8192 and by the tiled merge's frame-scaled offset, IoU and IoS, scores
+    with ties and a tail at or below 0; and score rows a stride apart (the
+    top-k's slice of a wider sort, as ``fused_decode_nms`` passes them)."""
+    cases = chip_smoke.nms_tail_cases()[-6:]
+    for name, boxes, score, cls, valid, thr, crit, max_det, offset in cases:
+        b, k = valid.shape
+        wide = torch.zeros((b, 3 * k))
+        wide[:, :k] = score
+        for sc in (score, wide[:, :k]):
+            launches = tnms.KERNEL.launches
+            got = tnms._suppress_and_emit(
+                boxes.to(cuda), sc.to(cuda) if sc is score else
+                wide.to(cuda)[:, :k], cls.to(cuda), valid.to(cuda), thr, k,
+                max_det, offset, crit)
+            assert tnms.KERNEL.launches == launches + 1
+            want = tnms._suppress_and_emit(boxes, sc, cls, valid, thr, k,
+                                           max_det, offset, crit)
+            _tail_bits_equal([t.cpu() for t in got], want)
+            assert int(got[0].max()) <= max_det, name
 
 
 def test_pipeline_on_the_card_makes_no_nms_read(cuda):
     """``TrackingPipeline(device="cuda")``: one NMS launch a chunk and no
     NMS read; the detections and tuples of the card run equal those with
-    the plain keep in its place (the keep swapped for its fixed-K form)."""
+    the plain tail in the kernel's place (its fixed-K form)."""
     from aicamera_tpu_torch import config
     from aicamera_tpu_torch.core.state import TrackerParams
     from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline
@@ -1018,7 +1062,7 @@ def test_pipeline_on_the_card_makes_no_nms_read(cuda):
     assert tnms.KERNEL.launches == launches + 4
     assert tnms.NMS_SYNCS.count == reads
     pipe.reset()
-    with chip_smoke.PlainKeep():
+    with chip_smoke.PlainTail():
         want = list(pipe.process_frames(iter(frames)))
     assert sum(len(r.tracks) for r in got) > 0
     for g, w in zip(got, want, strict=True):
