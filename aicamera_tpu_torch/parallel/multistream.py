@@ -19,9 +19,14 @@ Deep OC-SORT, each with one GMC affine a stream), whose steps read nothing
 back: the states live stacked, ``(S, T, ...)`` with the counters ``(S,)``,
 each frame steps all streams at once (one assignment launch a stage for all
 S problems, a thread block each; one ORU launch for every slot of every
-stream), the capacity bucket is decided once for the stack (two reads a
-dispatch at most), and a dispatch's K frames of all streams replay as one
-captured CUDA graph. ``scan_stats`` counts dispatches.
+stream), and the capacity bucket is decided once for the stack. A
+dispatch is one captured chunk step (``TrackingPipeline._make_step`` over
+the stack, as the JAX package jits its step: ``aicamera_tpu/parallel/
+multistream.py:654-656``): detection, the ReID bucket's switch, the scan's
+two conds and every stream's K frames in one CUDA-graph replay, whose
+branches the device decides; the host uploads the frames and reads
+nothing. ``scan_stats`` counts dispatches, from the replays' own
+decisions.
 
 A per-(stream, frame) validity mask lets streams at different frame rates
 share a dispatch: a masked frame leaves its stream's state as it was. The
@@ -40,7 +45,10 @@ outputs over the stream group, so that ``step_chunk`` returns all S
 streams on every rank. With a ``model`` axis larger than 1 the detector's
 convolutions are split by output channel over it
 (:func:`.tensor_parallel.shard_detector_params`: one all-gather a sharded
-conv); the ReID net stays whole on every rank.
+conv); the ReID net stays whole on every rank. Such a model-split mesh
+runs the eager step (its collectives sit inside the detector's forward,
+where a capture cannot hold them): the host decides its branches, as the
+port did before the step was captured.
 """
 
 from __future__ import annotations
@@ -57,7 +65,7 @@ from ..core import ocsort as oc_core
 from ..core.state import TrackerParams
 from ..ops import gmc as gmc_ops
 from ..runtime.checkpoint import state_like
-from ..runtime.pipeline import TrackingPipeline
+from ..runtime.pipeline import TrackingPipeline, _Readback
 from .distributed import COLLECTIVES, rank_device, require_world
 
 
@@ -195,8 +203,6 @@ class MultiStreamPipeline:
         self.core_params = eng.core_params
         self.gmc_method = eng.gmc_method
         self.scan_bucket = eng.scan_bucket
-        #: dispatches by way of the bucketed scan
-        self.scan_stats = eng.scan_stats
         n_det = self.core_params.max_detections
         if self.device.type == "cuda" and n_det % 4:
             raise ValueError(
@@ -205,21 +211,40 @@ class MultiStreamPipeline:
                 f"kernel reads every problem's rows 16 bytes at a time")
         self._gmc_spec = (gmc_ops.gmc_spec(self.frame_hw)
                           if self.gmc_method is not None else None)
+        #: every dispatch is one replay of the captured step; a model-split
+        #: mesh runs the eager step (chosen here, by the configuration)
+        self._captured = eng._capture_step
         if mesh is not None and "model" in mesh.mesh_dim_names \
                 and mesh.size(mesh.mesh_dim_names.index("model")) > 1:
             from .tensor_parallel import shard_detector_params
             eng.yolo = shard_detector_params(eng.yolo, mesh)
+            self._captured = False
         # this rank's streams (all of them off a mesh): each one's last
         # valid frame (S_local, H, W, 3) and their tracker states, a stack
         # (S_local, T, ...)
         self._gmc_prev = None
         self._states = eng._init_tracker_state(n_streams=self._n_local)
 
+    @property
+    def scan_stats(self) -> dict:
+        """Dispatches by way of the bucketed scan
+        (``TrackingPipeline.scan_stats``)."""
+        return self._engine.scan_stats
+
+    def settle(self):
+        """Wait for the dispatches' decisions and count them
+        (``TrackingPipeline.settle``)."""
+        self._engine.settle()
+
     def scan_replays(self) -> int:
-        """Replays of the captured tracker scans so far
+        """Replays of the eager step's captured tracker scans so far
         (``TrackingPipeline.scan_replays``): one a dispatch (two when its
         bucketed pass reruns)."""
         return self._engine.scan_replays()
+
+    def step_replays(self) -> int:
+        """Replays of the captured chunk step: one a dispatch."""
+        return self._engine.step_replays()
 
     @property
     def stage_timer(self):
@@ -334,7 +359,25 @@ class MultiStreamPipeline:
 
     def _local_chunk(self, frames_np: np.ndarray, valid: np.ndarray):
         """This rank's streams ``(S_local, K, H, W, 3)`` through detection
-        and their trackers: outputs ``(S_local, K, T, ...)``."""
+        and their trackers: outputs ``(S_local, K, T, ...)``. One upload and
+        one replay of the captured step (``TrackingPipeline._replay_chunk``);
+        the outputs are a copy on the device, and only the decisions' words
+        go to the host, counted later without a wait."""
+        if not self._captured:
+            return self._eager_chunk(frames_np, valid)
+        eng = self._engine
+        step, self._states, self._gmc_prev, packed = eng._replay_chunk(
+            frames_np, valid, self._states, self._gmc_prev,
+            n_streams=frames_np.shape[0])
+        if packed.device.type == "cuda":
+            packed = packed.clone()   # the next replay overwrites the graph's
+        _Readback(eng, step, packed, any_valid=bool(valid.any()),
+                  keep=False)
+        return tuple(step.layout.unpack_torch(packed)[:-1])
+
+    def _eager_chunk(self, frames_np: np.ndarray, valid: np.ndarray):
+        """:meth:`_local_chunk` through the eager step (the host decides its
+        branches)."""
         s, k = frames_np.shape[:2]
         detect, track = self._engine._get_stages(self.frame_hw)
         mark = self._engine._mark

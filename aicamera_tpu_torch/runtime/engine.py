@@ -17,6 +17,14 @@ A function that reads the GPU during capture (``.item()``, ``.cpu()``, a
 never falls back to eager execution. On the CPU the engine calls the
 function directly, with the same I/O contract and introspection.
 
+A function may branch on device values through ``runtime.branches``
+(``lax.switch``/``lax.cond``): the capture holds every body as a
+conditional node, the device picks one a replay, and the engine counts a
+body's kernel launches only when told that the replay took it
+(:meth:`CUDAGraphEngine.count_taken`). ``carry`` inputs (a step's state)
+stay in the graph's buffers from one replay to the next, as the JAX
+package donates them.
+
 Engine files. A ``.xlae`` file holds an XLA executable, which PyTorch cannot
 run; every loader here refuses one by name. The port's format, ``.cudae``, is
 ``_ENGINE_MAGIC``, a little-endian u32 header length, a JSON header (name,
@@ -31,6 +39,7 @@ input shape (the ReID engine's dynamic batch).
 from __future__ import annotations
 
 import ctypes
+import gc
 import importlib
 import json
 import os
@@ -50,6 +59,7 @@ from ..ops.assignment import KERNEL as ASSIGNMENT
 from ..ops.letterbox import KERNEL as LETTERBOX
 from ..ops.nms import KERNEL as NMS
 from ..ops.oru import KERNEL as ORU
+from . import branches
 from .params import read_flax_msgpack, write_flax_msgpack
 
 ENGINE_FILE_SUFFIX = ".cudae"
@@ -58,8 +68,9 @@ _ENGINE_MAGIC = b"AICAMCUDA1"
 _XLA_MAGIC = b"AICAMXLAE1"    # the JAX package's .xlae files
 
 #: The hand-written kernels whose launches a replay repeats: each engine
-#: adds ``captured launches x replays`` to their launch counts.
-KERNELS = (LETTERBOX, ASSIGNMENT, ORU, NMS)
+#: adds ``captured launches x replays`` to their launch counts (a branch
+#: body's only when the replay took it).
+KERNELS = (LETTERBOX, ASSIGNMENT, ORU, NMS, branches.KERNEL)
 
 # kind -> (module, function) that rebuilds a serialized step:
 # ``fn(header, weights, device) -> callable``
@@ -118,8 +129,9 @@ class _Captured(NamedTuple):
     inputs: list          # static input buffers
     outputs: list         # static outputs (the leaves)
     spec: Any             # their tree structure
-    launches: tuple       # kernel launches in one replay, per KERNELS
-    nodes: int | None
+    launches: tuple       # kernel launches outside branches, per KERNELS
+    nodes: int | None     # the graph's nodes, its branch bodies' included
+    branches: dict        # site -> {index value: launches of its body}
 
 
 class CUDAGraphEngine:
@@ -137,9 +149,19 @@ class CUDAGraphEngine:
             another shape captures another graph into the same memory pool.
         name: label for logs and errors.
         warmup_iters: eager passes before each capture (at least 1 on a
-            GPU); on the CPU the engine runs ``fn`` once to learn its
-            outputs and then calls it directly.
+            GPU; a branch runs every body in them); on the CPU the engine
+            calls ``fn`` directly and learns its outputs from the first
+            call (or from a run on the example inputs, if they are asked
+            for first).
         device: where ``fn`` runs; default the GPU.
+        carry: the first ``carry`` inputs are a state that the first
+            ``carry`` outputs replace: on the GPU the graph ends by copying
+            those outputs into the inputs' buffers, and a call returns the
+            buffers themselves (a later call overwrites them; an input that
+            already is its buffer is not copied in).
+        copy_outputs: False returns the other outputs as the graph's own
+            buffers too, valid until the next call (read them, or queue
+            their copies, before it); True returns copies.
 
     XLA's ``static_argnums`` and ``donate_argnums`` have no counterpart: a
     graph replays fixed launches on fixed buffers, so there is nothing
@@ -151,17 +173,21 @@ class CUDAGraphEngine:
     """
 
     def __init__(self, fn: Callable, example_inputs: Sequence[Any],
-                 name: str = "engine", warmup_iters: int = 5, device=None):
+                 name: str = "engine", warmup_iters: int = 5, device=None,
+                 carry: int = 0, copy_outputs: bool = True):
         enable_persistent_cache()
         self.name = name
         self.device = resolve_device(device)
         self.warmup_iters = int(warmup_iters)
+        self.carry = int(carry)
+        self.copy_outputs = bool(copy_outputs)
         self.compile_seconds = 0.0
         self.warmup_seconds = 0.0
         self.replays = 0
         self._fn = fn
         self._lock = threading.RLock()
         self._graphs = {}
+        self._records = []   # the captures' branch records (their pools)
         self._cuda = self.device.type == "cuda"
         self._pool = torch.cuda.graph_pool_handle() if self._cuda else None
         self._example = [
@@ -170,12 +196,11 @@ class CUDAGraphEngine:
             for x in example_inputs]
         self._in_info = [TensorInfo(f"input_{i}", tuple(x.shape), x.dtype)
                          for i, x in enumerate(self._example)]
+        self._out_info = None
         if self._cuda:
-            outs = self._capture(self._example).outputs
-        else:
-            t0 = time.perf_counter()
-            outs, _ = _flat(self.run_eager())
-            self.warmup_seconds = time.perf_counter() - t0
+            self._learn_outputs(self._capture(self._example).outputs)
+
+    def _learn_outputs(self, outs):
         self._out_info = [TensorInfo(f"output_{i}", tuple(o.shape), o.dtype)
                           for i, o in enumerate(outs)]
 
@@ -190,10 +215,12 @@ class CUDAGraphEngine:
         dev = self.device
         static = [torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
                   for x in inputs]
+        record = branches.BranchCapture(dev, KERNELS)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         t0 = time.perf_counter()
-        with torch.cuda.stream(side), torch.no_grad():
+        with torch.cuda.stream(side), torch.no_grad(), \
+                branches.warming(record):
             for _ in range(max(1, self.warmup_iters)):
                 self._fn(*static)
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -206,29 +233,61 @@ class CUDAGraphEngine:
         before = [k.launches for k in KERNELS]
         stream = torch.cuda.current_stream(dev)
         t0 = time.perf_counter()
+        # no garbage collection inside the capture: a CUDA object freed
+        # there (an old graph, an event) makes calls a capture forbids
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with torch.no_grad(), torch.cuda.graph(graph, pool=self._pool):
+            with torch.no_grad(), torch.cuda.graph(graph, pool=self._pool), \
+                    branches.capturing(record):
                 out = self._fn(*static)
+                if self.carry:
+                    # the new state into the state's buffers, in the graph
+                    new = _flat(out)[0][:self.carry]
+                    for buf, x in zip(static[:self.carry], new):
+                        buf.copy_(x)
         except RuntimeError as e:
-            # a failed capture leaves the capture stream current
+            # a failed capture leaves the capture stream current, and may
+            # leave the pool's allocation routing open
             torch.cuda.set_stream(stream)
+            try:
+                torch._C._cuda_endAllocateToPool(
+                    torch.cuda.current_device() if dev.index is None
+                    else dev.index, self._pool)
+            except RuntimeError:
+                pass
             raise RuntimeError(
                 f"engine '{self.name}': CUDA-graph capture failed ({e}). A "
                 "function that reads the GPU while it runs (.item(), "
                 ".cpu(), a SyncCounter read) cannot be captured; the engine "
                 "does not run it eagerly instead.") from e
         finally:
+            if collecting:
+                gc.enable()
             # the capture recorded launches; it ran none
             launches = tuple(k.launches - b for k, b in zip(KERNELS, before))
             for k, b in zip(KERNELS, before):
                 k.launches = b
+        taken = {}
+        for site, values, body_launches, _, _ in record.sites:
+            table = taken.setdefault(site, {})
+            for v, n in zip(values, body_launches):
+                table[v] = tuple(a + b for a, b in zip(
+                    table.get(v, (0,) * len(KERNELS)), n))
+                launches = tuple(a - b for a, b in zip(launches, n))
         nodes = _graph_nodes(graph) if keep else None
+        if nodes is not None:
+            nodes += sum(sum(site[3]) for site in record.sites)
         if keep:
             graph.instantiate()
         torch.cuda.synchronize(dev)
         self.compile_seconds += time.perf_counter() - t0
         outs, spec = _flat(out)
-        cap = _Captured(graph, static, outs, spec, launches, nodes)
+        if self.carry:
+            outs = static[:self.carry] + outs[self.carry:]
+        cap = _Captured(graph, static, outs, spec, launches, nodes, taken)
+        # the branch bodies' pool and index copies live with the graph
+        self._records.append(record)
         self._graphs[_shape_key(static)] = cap
         return cap
 
@@ -252,19 +311,45 @@ class CUDAGraphEngine:
         self._check(inputs)
         if not self._cuda:
             with torch.no_grad():
-                return self._fn(*inputs)
+                out = self._fn(*inputs)
+            if self._out_info is None:
+                self._learn_outputs(_flat(out)[0])
+            return out
         with self._lock:
             cap = self._graphs.get(_shape_key(inputs))
             if cap is None:
                 cap = self._capture([x.to(self.device) for x in inputs])
             for buf, x in zip(cap.inputs, inputs):
-                buf.copy_(x)
+                if buf.data_ptr() != x.data_ptr():
+                    buf.copy_(x, non_blocking=True)
             cap.graph.replay()
             self.replays += 1
             for k, n in zip(KERNELS, cap.launches):
                 k.launches += n
-            outs = [o.clone() for o in cap.outputs]
+            outs = cap.outputs[:self.carry] + [
+                o.clone() if self.copy_outputs else o
+                for o in cap.outputs[self.carry:]]
         return tree_unflatten(outs, cap.spec)
+
+    def count_taken(self, taken: dict) -> None:
+        """Add the hand-written kernel launches of the branch bodies that a
+        replay took: ``taken`` maps a branch site to the index it took (as
+        read back from the replay's outputs). The launches outside branches
+        are counted at the replay itself. No-op on the CPU."""
+        cap = next(iter(self._graphs.values()), None)
+        if cap is None:
+            return
+        for site, j in taken.items():
+            for k, n in zip(KERNELS, cap.branches.get(site, {}).get(j, ())):
+                k.launches += n
+
+    def branch_sites(self) -> dict:
+        """``{site: {index: nodes of its body}}`` of the first graph, or
+        ``{}`` (on the CPU, or before a capture)."""
+        for rec in self._records[:1]:
+            return {site: dict(zip(values, nodes))
+                    for site, values, _, nodes, _ in rec.sites}
+        return {}
 
     # --- introspection (TRTEngine.get_input_details/get_output_details) -------
 
@@ -272,6 +357,10 @@ class CUDAGraphEngine:
         return list(self._in_info)
 
     def get_output_details(self):
+        if self._out_info is None:   # the CPU, before a call
+            t0 = time.perf_counter()
+            self._learn_outputs(_flat(self.run_eager())[0])
+            self.warmup_seconds = time.perf_counter() - t0
         return list(self._out_info)
 
     def graph_nodes(self, *inputs) -> int | None:

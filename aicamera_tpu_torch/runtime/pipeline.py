@@ -7,12 +7,15 @@ and Deep OC-SORT), camera-motion compensation and the capacity-bucketed
 tracker scan. All batchable work (camera-motion estimate, letterbox kernel,
 detector forward, decode+NMS, crop gather, ReID embedding) runs batched
 over the chunk on the device; the sequential tracker then runs frame by frame
-over the chunk, its state staying on the same device. No core's step reads
-anything back, so a chunk's tracker frames replay as one captured CUDA
-graph, as the JAX package jits its scan. The same stages step a stack of
-streams' states at once (``parallel.MultiStreamPipeline``: the JAX
-package's ``jax.vmap`` over streams), a chunk of all streams one replay.
-Outputs
+over the chunk, its state staying on the same device. The whole chunk step
+is one function of tensors (:meth:`TrackingPipeline._make_step`) captured
+into one CUDA graph, as the JAX package jits its step: its ReID bucket and
+its bucketed scan branch on the device (``runtime/branches.py``), so a
+chunk is one upload, one replay and one packed readback, and the host
+reads nothing else. The same step runs a stack of streams' states at once
+(``parallel.MultiStreamPipeline``: the JAX package's ``jax.vmap`` over
+streams), a dispatch of all streams one replay. The eager step, whose host
+reads the branches, stays beside it (``_capture_step``). Outputs
 follow the JAX package's contracts: per frame, the detections in frame
 coordinates and the emitted tracks as ``(x1, y1, x2, y2, id, class_name,
 conf)`` tuples.
@@ -27,8 +30,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import threading
 import time
-from typing import Iterator, Tuple
+from typing import Callable, Iterator, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -46,11 +51,14 @@ from ..ops.letterbox import letterbox
 from ..ops.nms import fused_decode_nms
 from ..ops.preprocess import letterbox_spec, scale_boxes_back
 from ..syncs import SyncCounter
+from . import branches
 from .engine import CUDAGraphEngine
 from .params import resolve_reid_params, resolve_yolo_params
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
+# the reads of the eager step and of a step on the CPU (the captured step
+# on the card decides on the device and reads neither)
 EMBED_SYNCS = SyncCounter()  # the ReID bucket choice: one read per chunk
 BUCKET_SYNCS = SyncCounter()  # the bucketed scan: one or two reads per chunk
 
@@ -156,9 +164,12 @@ class CudaStageTimer:
     """Per-stage time of each chunk on the GPU stream, from CUDA events.
     Attach one to ``TrackingPipeline.stage_timer``: each chunk then records
     an event at every stage boundary, and :meth:`finish` adds the stage
-    intervals to ``totals`` (ms over ``chunks`` chunks)."""
+    intervals to ``totals`` (ms over ``chunks`` chunks). The eager step
+    marks every stage; the captured step, one replay, is timed whole as
+    ``step`` (its upload included)."""
 
-    STAGES = ("gmc", "letterbox", "yolo", "nms", "crops_reid", "tracker")
+    STAGES = ("gmc", "letterbox", "yolo", "nms", "crops_reid", "tracker",
+              "step")
 
     def __init__(self, stages=STAGES):
         self._events = []
@@ -196,6 +207,38 @@ def _format_tracks(tlbr, ids, cls, conf, mask):
     return out
 
 
+def bucket_fits(active: torch.Tensor, t_small: int) -> torch.Tensor:
+    """Whether a chunk's scan may run at ``t_small`` slots (0-d bool, on
+    the device): no active slot at or above ``t_small``, and a quarter of
+    the small table (at least 4 slots) free in the busiest stream, since a
+    load at the boundary would overflow and pay the rerun every chunk
+    (``aicamera_tpu/runtime/pipeline.py:106-108``; one decision for a stack
+    ``(S, T)``, ``aicamera_tpu/parallel/multistream.py:620-623``)."""
+    headroom = max(4, t_small // 4)
+    return ~torch.any(active[..., t_small:]) \
+        & (torch.amax(torch.sum(active, -1)) <= t_small - headroom)
+
+
+def bucket_rerun(cand_dropped: torch.Tensor,
+                 dropped: torch.Tensor) -> torch.Tensor:
+    """Whether the chunk reruns at full capacity (0-d bool): the small
+    pass's ``dropped`` (or the skip's ``dropped + 1``) grew, summed over a
+    stack's streams (``aicamera_tpu/runtime/pipeline.py:113``,
+    ``aicamera_tpu/parallel/multistream.py:626``)."""
+    return torch.sum(cand_dropped) > torch.sum(dropped)
+
+
+def reid_bucket_index(d_valid: torch.Tensor, buckets, n_crops: int):
+    """The ReID bucket the busiest frame of a batch needs, as an index into
+    ``buckets`` (0-d int32, on the device): ``aicamera_tpu/runtime/
+    pipeline.py:607, 628``."""
+    n_needed = torch.amax(torch.sum(d_valid[:, :n_crops], 1))
+    idx = torch.zeros((), dtype=torch.int32, device=d_valid.device)
+    for bk in buckets[:-1]:
+        idx = idx + (n_needed > bk).to(torch.int32)
+    return idx
+
+
 def _bucketed_time_scan(state, scan, params, t_small: int, stats: dict):
     """The per-frame tracker scan of one chunk at a reduced track capacity
     when all activity fits, with exact fallbacks.
@@ -225,16 +268,13 @@ def _bucketed_time_scan(state, scan, params, t_small: int, stats: dict):
     t_full = params.max_tracks
     if not (t_small and t_small < t_full):
         return scan(state, params)
-    headroom = max(4, t_small // 4)
     act = state.active
-    fits = ~torch.any(act[..., t_small:]) \
-        & (torch.amax(torch.sum(act, -1)) <= t_small - headroom)
-    if BUCKET_SYNCS.flag(fits):
+    if BUCKET_SYNCS.flag(bucket_fits(act, t_small)):
         s_small, outs = scan(
             core_state.slice_any_tracks(state, t_small),
             dataclasses.replace(params, max_tracks=t_small))
-        if not BUCKET_SYNCS.flag(torch.sum(s_small.dropped)
-                                 > torch.sum(state.dropped)):
+        if not BUCKET_SYNCS.flag(bucket_rerun(s_small.dropped,
+                                              state.dropped)):
             stats["small"] += 1
             ax = act.ndim   # the outputs' track axis, after K and streams
             padded = tuple(torch.cat([a, a.new_zeros(
@@ -247,15 +287,169 @@ def _bucketed_time_scan(state, scan, params, t_small: int, stats: dict):
     return scan(state, params)
 
 
+class _Parts(NamedTuple):
+    """A frame size's chunk-step pieces (``TrackingPipeline._stage_parts``)."""
+    spec: object
+    buckets: list
+    detections: Callable
+    bucket_index: Callable
+    embed_into: Callable
+    empty_feats: Callable
+    tracker_inputs: Callable
+    frame_step: Callable
+    outputs: Callable
+    masked_scan: Callable
+
+
+class _Layout:
+    """Where a step's outputs sit in its one packed int32 tensor, learnt
+    from the first :meth:`pack` (each later one must match): floats and
+    32-bit integers travel by their bits, 64-bit integers as two words,
+    bools as one word each."""
+
+    def __init__(self):
+        self.meta = None   # [(shape, dtype, offset, words)]
+        self.words = 0
+
+    @staticmethod
+    def _words(t: torch.Tensor) -> torch.Tensor:
+        if t.dtype == torch.bool:
+            return t.reshape(-1).to(torch.int32)
+        return t.contiguous().reshape(-1).view(torch.int32)
+
+    def pack(self, tensors) -> torch.Tensor:
+        meta = [(tuple(t.shape), t.dtype) for t in tensors]
+        if self.meta is None:
+            off, self.meta = 0, []
+            for shape, dt in meta:
+                n = int(np.prod(shape)) * (
+                    1 if dt == torch.bool else dt.itemsize // 4)
+                self.meta.append((shape, dt, off, n))
+                off += n
+            self.words = off
+        elif meta != [m[:2] for m in self.meta]:
+            raise ValueError(f"packed outputs changed: {meta}")
+        return torch.cat([self._words(t) for t in tensors])
+
+    def unpack_numpy(self, words: np.ndarray) -> list:
+        out = []
+        for shape, dt, off, n in self.meta:
+            w = words[off:off + n]
+            out.append(w.astype(bool).reshape(shape) if dt == torch.bool
+                       else w.view(torch.empty(0, dtype=dt).numpy().dtype)
+                       .reshape(shape))
+        return out
+
+    def unpack_torch(self, words: torch.Tensor) -> list:
+        out = []
+        for shape, dt, off, n in self.meta:
+            w = words[off:off + n]
+            out.append(w.bool().reshape(shape) if dt == torch.bool
+                       else w.view(dt).reshape(shape))
+        return out
+
+
+class _Step(NamedTuple):
+    """A captured chunk step (``TrackingPipeline._make_step``)."""
+    engine: CUDAGraphEngine
+    layout: _Layout
+    fields: list          # the state's fields, the engine's first inputs
+    frame_bytes: int
+    upload_bytes: int
+    gmc: bool             # the frame before is carried
+    bucketed: bool
+    buckets: tuple        # the ReID buckets, by index
+
+
+class _Readback:
+    """A captured chunk's packed outputs on their way to the host: on the
+    GPU a copy into a pinned buffer queued behind the replay, and an event
+    after it. Reading (:meth:`arrays`) waits on that event only, and counts
+    the chunk's decisions once (``TrackingPipeline._count_decisions``).
+    ``keep``: every output comes to the host and stays until
+    :meth:`release` (``_emit`` uses them); otherwise only the decisions'
+    words are copied, and their buffer is freed once they are counted."""
+
+    def __init__(self, pipe, step: _Step, packed: torch.Tensor,
+                 any_valid: bool, keep: bool = True):
+        self._pipe, self._step = pipe, step
+        self._any_valid, self._keep = any_valid, keep
+        self._arrays = None
+        self._lock = threading.Lock()
+        if not keep:
+            _, _, off, n = step.layout.meta[-1]
+            packed = packed[off:off + n]
+        if packed.device.type == "cuda":
+            self._host = pipe._pinned(packed.numel())
+            self._host.copy_(packed, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = packed, None
+        with pipe._pending_lock:
+            pipe._pending.append(self)
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def settle(self):
+        """Wait for the copy; count the decisions (once)."""
+        with self._lock:
+            if self._arrays is not None:
+                return
+            if self._event is not None:
+                self._event.synchronize()
+            host = self._host.numpy()
+            arrays = self._step.layout.unpack_numpy(host) if self._keep \
+                else [host]
+            self._pipe._count_decisions(self._step, arrays[-1],
+                                        self._any_valid)
+            with self._pipe._pending_lock:
+                if self in self._pipe._pending:
+                    self._pipe._pending.remove(self)
+            self._arrays = arrays
+        if not self._keep:
+            self.release()
+
+    def arrays(self) -> list:
+        """The detections (one stream) and the track outputs, as numpy
+        arrays in the step's layout (views of the pinned buffer)."""
+        self.settle()
+        return self._arrays[:-1]
+
+    def release(self):
+        """Return the pinned buffer; the arrays are gone with it."""
+        host, self._host = self._host, None
+        if self._event is not None and host is not None:
+            self._pipe._free_pinned.append(host)
+
+
+class _EagerOutputs(NamedTuple):
+    """The eager step's outputs, on the device."""
+    det_outs: tuple
+    track_outs: tuple
+
+    def arrays(self) -> list:
+        return [t.cpu().numpy() for t in (*self.det_outs, *self.track_outs)]
+
+    def release(self):
+        pass
+
+
 _TRACKERS = ("deepsort", "bytetrack", "botsort", "ocsort", "deepocsort")
 
 
 class TrackingPipeline:
     """End-to-end detector + tracker with chunked device steps."""
 
-    #: The tracker scan of a chunk replays one capture; False runs it frame
-    #: by frame, skipping invalid frames on the host (the eager path that
-    #: the capture is checked and timed against). Read when stages are made.
+    #: The chunk step replays one capture (:meth:`_make_step`), its
+    #: branches decided on the device; False runs the eager step
+    #: (:meth:`_make_stages`: the host reads the ReID bucket and the scan's
+    #: ways), which the captured step is checked and timed against.
+    _capture_step = True
+    #: In the eager step, the tracker scan of a chunk replays one capture;
+    #: False runs it frame by frame, skipping invalid frames on the host.
+    #: Read when stages are made.
     _capture_scans = True
 
     def __init__(self,
@@ -486,8 +680,21 @@ class TrackingPipeline:
                                         core_params.det_thresh)
         self.stage_timer: CudaStageTimer | None = None
         self._stages = {}
+        self._parts = {}
+        self._steps = {}          # (frame_hw, K, streams, bucket) -> _Step
         self._scan_engines = []   # every stage's captured scans, ever made
+        self._stepping = False    # inside a captured step: no stage marks
+        self._staging = {}        # pinned upload buffers by size
+        self._free_pinned = []    # pinned readback buffers
+        self._pending_lock = threading.Lock()
         self.reset()
+
+    def _pinned(self, words: int) -> torch.Tensor:
+        """A pinned int32 buffer of ``words`` for a readback."""
+        for i, buf in enumerate(self._free_pinned):
+            if buf.numel() == words:
+                return self._free_pinned.pop(i)
+        return torch.empty(words, dtype=torch.int32, pin_memory=True)
 
     def _init_tracker_state(self, n_streams: int | None = None):
         """A fresh state of the core that runs; ``n_streams``: a stack of
@@ -503,27 +710,13 @@ class TrackingPipeline:
 
     # --- the chunk step's stages ---------------------------------------------
 
-    def _make_stages(self, frame_hw: Tuple[int, int]):
-        """The two halves of a chunk step for frames of ``frame_hw``, shared
-        with ``parallel.MultiStreamPipeline``:
-
-        ``detect(frames)``: a batch of ``(B, H, W, 3)`` uint8 frames on the
-        device -> ``(TrackerInputs, det_outs)``: letterbox kernel, YOLOv8,
-        decode+NMS, compaction into the detection slots, the synthetic load
-        and the load-bucketed crop gather + ReID, all batched over B (one
-        ReID bucket for the whole batch).
-
-        ``track(state, inputs, valid)``: one stream's frames through the
-        tracker core, frame by frame, with the capacity-bucketed scan;
-        ``valid[i]`` (host bools, ``(K,)``) False leaves the state as it is at
-        frame i (its output lane repeats the unchanged state's outputs).
-        Returns ``(state, outs)``, ``outs`` five tensors shaped ``(K, T,
-        ...)``. Every core also takes a stack of S streams' states,
-        inputs ``(K, S, N, ...)`` (:meth:`TrackerInputs.by_frame`) and
-        ``valid (K, S)``: every frame steps all streams at once (one
-        assignment launch a stage for all of them), one bucket decision for
-        the stack, one captured replay a chunk; ``outs`` ``(K, S, T,
-        ...)``."""
+    def _stage_parts(self, frame_hw: Tuple[int, int]) -> "_Parts":
+        """The pieces of a chunk step for frames of ``frame_hw``, shared by
+        the eager stages (:meth:`_make_stages`) and the one-function step
+        (:meth:`_make_step`); made once a frame size."""
+        key = tuple(frame_hw)
+        if key in self._parts:
+            return self._parts[key]
         spec = letterbox_spec(frame_hw, self.input_shape,
                               auto=self.letterbox_auto)
         kind = self.tracker_kind
@@ -585,32 +778,10 @@ class TrackingPipeline:
                     compact(labels.to(torch.int32)), compact(elig),
                     det_valid)
 
-        def embed(frames, d_xyxy, d_valid):
-            """Load-bucketed crop gather + ReID: embed only as many crop
-            slots as the busiest frame of the batch needs (the bucket choice
-            reads one value back per batch)."""
-            k = frames.shape[0]
-            d_feats = torch.zeros((k, n_det, feature_dim),
-                                  dtype=torch.float32, device=dev)
-            d_hasfeat = torch.zeros((k, n_det), dtype=torch.bool,
-                                    device=dev)
-            if not self.with_reid:
-                return d_feats, d_hasfeat
-            n_needed = EMBED_SYNCS.tolist(
-                torch.amax(torch.sum(d_valid[:, :n_crops], 1)))
-            b = buckets[sum(int(n_needed > bk) for bk in buckets[:-1])]
-            if b == 0:
-                return d_feats, d_hasfeat
-            crops, crop_valid = extract_reid_crops(
-                frames, d_xyxy[:, :b], out_hw=config.REID_INPUT_SHAPE,
-                compute_dtype=self.reid_dtype)
-            with precision(self.reid_dtype):
-                feats = self.reid(crops.reshape(k * b, *crops.shape[2:]))
-            d_feats[:, :b] = feats.reshape(k, b, -1).float()
-            d_hasfeat[:, :b] = crop_valid & d_valid[:, :b]
-            return d_feats, d_hasfeat
-
-        def detect(frames):
+        def detections(frames):
+            """Letterbox kernel, YOLOv8, decode+NMS, compaction and the
+            synthetic load over a batch of frames: ``(d_xyxy, d_conf, d_cls,
+            d_valid, det_outs)``."""
             x = letterbox(frames, spec, self.detect_dtype)
             mark("letterbox")
             with precision(self.detect_dtype):
@@ -635,14 +806,41 @@ class TrackingPipeline:
                 d_cls = torch.where(fill, torch.zeros_like(d_cls), d_cls)
                 d_valid = d_valid | fill
             mark("nms")
-            d_feats, d_hasfeat = embed(frames, d_xyxy, d_valid)
-            mark("crops_reid")
+            return (d_xyxy, d_conf, d_cls, d_valid,
+                    (num, boxes_f, scores, labels, det_valid))
+
+        def bucket_index(d_valid):
+            return reid_bucket_index(d_valid, buckets, n_crops)
+
+        def embed_into(frames, d_xyxy, d_valid, d_feats, d_hasfeat, b):
+            """The crop gather and ReID of the first ``b`` slots of every
+            frame, written into ``d_feats`` and ``d_hasfeat`` (all of them:
+            zeros past ``b``)."""
+            d_feats.zero_()
+            d_hasfeat.zero_()
+            if b == 0:
+                return
+            k = frames.shape[0]
+            crops, crop_valid = extract_reid_crops(
+                frames, d_xyxy[:, :b], out_hw=config.REID_INPUT_SHAPE,
+                compute_dtype=self.reid_dtype)
+            with precision(self.reid_dtype):
+                feats = self.reid(crops.reshape(k * b, *crops.shape[2:]))
+            d_feats[:, :b] = feats.reshape(k, b, -1).float()
+            d_hasfeat[:, :b] = crop_valid & d_valid[:, :b]
+
+        def empty_feats(k):
+            return (torch.zeros((k, n_det, feature_dim), dtype=torch.float32,
+                                device=dev),
+                    torch.zeros((k, n_det), dtype=torch.bool, device=dev))
+
+        def tracker_inputs(d_xyxy, d_conf, d_cls, d_valid, d_feats,
+                           d_hasfeat):
             tlwh = torch.cat([d_xyxy[..., :2],
                               d_xyxy[..., 2:] - d_xyxy[..., :2]], dim=-1)
-            inputs = TrackerInputs(xyxy=d_xyxy, tlwh=tlwh, conf=d_conf,
-                                   cls=d_cls, valid=d_valid, feats=d_feats,
-                                   hasfeat=d_hasfeat)
-            return inputs, (num, boxes_f, scores, labels, det_valid)
+            return TrackerInputs(xyxy=d_xyxy, tlwh=tlwh, conf=d_conf,
+                                 cls=d_cls, valid=d_valid, feats=d_feats,
+                                 hasfeat=d_hasfeat)
 
         def frame_step(st, inp, i, pp):
             """One frame through the core that runs."""
@@ -675,6 +873,71 @@ class TrackingPipeline:
                     else oc_core.get_outputs(st, pp) if ocsort
                     else core_tracker.get_outputs(st))
 
+        def masked_scan(st, inp, valid, pp):
+            """The frames at the capacity of ``pp``, ``valid`` a ``(K,)``
+            (``(K, S)``) bool tensor: every frame steps, and ``torch.where``
+            keeps the state as it was where a frame is invalid (exact), so
+            the launches do not depend on the validity pattern."""
+            outs = []
+            for i in range(valid.shape[0]):
+                st = select_state(valid[i], frame_step(st, inp, i, pp), st)
+                outs.append(outputs(st, pp))
+            return st, tuple(torch.stack(x) for x in zip(*outs))
+
+        parts = self._parts[key] = _Parts(
+            spec=spec, buckets=buckets, detections=detections,
+            bucket_index=bucket_index, embed_into=embed_into,
+            empty_feats=empty_feats, tracker_inputs=tracker_inputs,
+            frame_step=frame_step, outputs=outputs, masked_scan=masked_scan)
+        return parts
+
+    def _make_stages(self, frame_hw: Tuple[int, int]):
+        """The two halves of the eager chunk step for frames of
+        ``frame_hw`` (the step before it became one captured program; kept
+        for the tests and for ``chip_smoke.py`` to hold the captured step
+        against, and for the model-split mesh, whose collectives a capture
+        cannot hold), shared with ``parallel.MultiStreamPipeline``:
+
+        ``detect(frames)``: a batch of ``(B, H, W, 3)`` uint8 frames on the
+        device -> ``(TrackerInputs, det_outs)``: letterbox kernel, YOLOv8,
+        decode+NMS, compaction into the detection slots, the synthetic load
+        and the load-bucketed crop gather + ReID, all batched over B (one
+        ReID bucket for the whole batch, read back: ``EMBED_SYNCS``).
+
+        ``track(state, inputs, valid)``: one stream's frames through the
+        tracker core, frame by frame, with the capacity-bucketed scan
+        decided on the host (``BUCKET_SYNCS``); ``valid[i]`` (host bools,
+        ``(K,)``) False leaves the state as it is at frame i (its output
+        lane repeats the unchanged state's outputs). Returns ``(state,
+        outs)``, ``outs`` five tensors shaped ``(K, T, ...)``. Every core
+        also takes a stack of S streams' states, inputs ``(K, S, N, ...)``
+        (:meth:`TrackerInputs.by_frame`) and ``valid (K, S)``: every frame
+        steps all streams at once (one assignment launch a stage for all of
+        them), one bucket decision for the stack, one captured replay a
+        chunk; ``outs`` ``(K, S, T, ...)``."""
+        parts = self._stage_parts(frame_hw)
+        kind = self.tracker_kind
+        dev = self.device
+        buckets = parts.buckets
+        frame_step, outputs = parts.frame_step, parts.outputs
+        masked_scan = parts.masked_scan
+
+        def detect(frames):
+            d_xyxy, d_conf, d_cls, d_valid, det_outs = parts.detections(
+                frames)
+            d_feats, d_hasfeat = parts.empty_feats(frames.shape[0])
+            if self.with_reid:
+                # embed only as many crop slots as the busiest frame of the
+                # batch needs (the bucket choice reads one value back)
+                b = buckets[EMBED_SYNCS.tolist(parts.bucket_index(d_valid))]
+                self.reid_buckets[b] = self.reid_buckets.get(b, 0) + 1
+                if b:
+                    parts.embed_into(frames, d_xyxy, d_valid, d_feats,
+                                     d_hasfeat, b)
+            self._mark("crops_reid")
+            return parts.tracker_inputs(d_xyxy, d_conf, d_cls, d_valid,
+                                        d_feats, d_hasfeat), det_outs
+
         def eager_scan(st, inp, valid, pp):
             """The frames at the capacity of ``pp``, ``valid`` host bools
             (``(K,)``, or ``(K, S)`` for a stack): a frame no stream takes
@@ -689,17 +952,6 @@ class TrackingPipeline:
                     st = select_state(valid_mask(v, dev),
                                       frame_step(st, inp, i, pp), st)
                 # else: an invalid frame leaves the state as it is
-                outs.append(outputs(st, pp))
-            return st, tuple(torch.stack(x) for x in zip(*outs))
-
-        def masked_scan(st, inp, valid, pp):
-            """:func:`eager_scan` with ``valid`` a ``(K,)`` (``(K, S)``)
-            bool tensor: every frame steps, and ``torch.where`` keeps the
-            state as it was where a frame is invalid (exact), so the
-            launches do not depend on the validity pattern."""
-            outs = []
-            for i in range(valid.shape[0]):
-                st = select_state(valid[i], frame_step(st, inp, i, pp), st)
                 outs.append(outputs(st, pp))
             return st, tuple(torch.stack(x) for x in zip(*outs))
 
@@ -756,9 +1008,190 @@ class TrackingPipeline:
             if not valid.any():
                 return scan(state, self.core_params)
             return _bucketed_time_scan(state, scan, self.core_params,
-                                       self.scan_bucket, self.scan_stats)
+                                       self.scan_bucket, self._scan_stats)
 
         return detect, track
+
+    def _make_step(self, frame_hw: Tuple[int, int], k: int,
+                   n_streams: int | None = None) -> "_Step":
+        """The chunk step as one function of tensors, as the JAX package
+        jits it (``aicamera_tpu/runtime/pipeline.py:563-753``; over streams
+        ``aicamera_tpu/parallel/multistream.py:654-656``), captured whole by
+        a :class:`CUDAGraphEngine` (on the CPU, called directly).
+
+        Inputs: the tracker state's fields (carried: the graph keeps them
+        from one replay to the next), the frame before the chunk when GMC
+        is on (carried), and one uint8 upload holding the chunk's frames
+        (``(K, H, W, 3)``, or ``(S, K, H, W, 3)`` for ``n_streams`` streams),
+        their validity (``(K,)`` or ``(S, K)``) and a byte that says the
+        carried frame before is absent (a stream's first chunk). Inside, in
+        the JAX order: GMC's estimate when on, letterbox, YOLOv8,
+        ``fused_decode_nms``, ``scale_boxes_back``, the compaction, the
+        synthetic load, the ReID bucket as a :func:`branches.switch` over
+        its bodies (``lax.switch``, ``:628-630``), and the bucketed scan as
+        two :func:`branches.cond` (``lax.cond``, ``:109``, ``:121``).
+        Outputs: the new state, the new frame before, and one int32 tensor
+        packing the detections (one stream only), the track outputs and
+        the decisions taken (ReID bucket index, ``fits``, ``use_full``; -1
+        where the step has no such branch), laid out by the step's
+        :class:`_Layout`."""
+        parts = self._stage_parts(frame_hw)
+        dev = self.device
+        s = n_streams
+        h, w = frame_hw
+        b = k if s is None else s * k
+        frame_bytes = b * h * w * 3
+        valid_shape = (k,) if s is None else (s, k)
+        n_valid = int(np.prod(valid_shape))
+        pp = self.core_params
+        t_full, t_small = pp.max_tracks, self.scan_bucket
+        bucketed = bool(t_small and t_small < t_full)
+        p_small = dataclasses.replace(pp, max_tracks=t_small) \
+            if bucketed else None
+        template = self._init_tracker_state(s)
+        fields = [f.name for f in dataclasses.fields(template)
+                  if getattr(template, f.name) is not None]
+        gmc = self.gmc_method
+        gspec = gmc_ops.gmc_spec(frame_hw) if gmc is not None else None
+        # the track outputs' shapes: (K, [S,] T, ...)
+        with torch.no_grad():
+            out_meta = [((k,) + tuple(o.shape), o.dtype)
+                        for o in parts.outputs(template, pp)]
+        ax = template.active.ndim   # the outputs' track axis
+
+        def last_valid(prev, fr, valid):
+            """Each stream's last valid frame, or ``prev`` where none."""
+            pos = torch.arange(valid.shape[-1], device=dev)
+            idx = torch.amax(torch.where(valid, pos, torch.zeros_like(pos)),
+                             dim=-1)
+            has = torch.any(valid, dim=-1)
+            if s is None:
+                pick = fr.index_select(0, idx.reshape(1))[0]
+            else:
+                pick = fr[torch.arange(s, device=dev), idx]
+                has = has.reshape(s, 1, 1, 1)
+            return torch.where(has, pick, prev)
+
+        def scan(st, inp, valid):
+            """The bucketed scan as JAX's two conds: ``(state, outs,
+            fits, use_full)``."""
+            if not bucketed:
+                st, outs = parts.masked_scan(st, inp, valid, pp)
+                minus = torch.full((), -1, dtype=torch.int32, device=dev)
+                return st, outs, minus, minus
+            fits = bucket_fits(st.active, t_small)
+            cand = [torch.empty_like(getattr(st, f)) for f in fields]
+            cand_outs = [torch.empty(shape, dtype=dt, device=dev)
+                         for shape, dt in out_meta]
+            cand_dropped = torch.empty_like(st.dropped)
+
+            def small_pass():
+                s_small, outs = parts.masked_scan(
+                    core_state.slice_any_tracks(st, t_small), inp, valid,
+                    p_small)
+                spliced = core_state.splice_any_tracks(st, s_small)
+                for buf, f in zip(cand, fields):
+                    buf.copy_(getattr(spliced, f))
+                for buf, o in zip(cand_outs, outs):
+                    buf.zero_()
+                    buf.narrow(ax, 0, t_small).copy_(o)
+                cand_dropped.copy_(s_small.dropped)
+
+            def skip_small():
+                # a high slot is active: force the full pass below
+                cand_dropped.copy_(st.dropped + 1)
+
+            taken = branches.cond(fits, small_pass, skip_small,
+                                  counter=BUCKET_SYNCS, site="fits")
+            # any dropped increment means the small table ran out of slots
+            # mid-chunk (the full table would have placed those tracks)
+            use_full = bucket_rerun(cand_dropped, st.dropped)
+            new = [torch.empty_like(getattr(st, f)) for f in fields]
+            new_outs = [torch.empty(shape, dtype=dt, device=dev)
+                        for shape, dt in out_meta]
+
+            def full_pass():
+                full, outs = parts.masked_scan(st, inp, valid, pp)
+                for buf, f in zip(new, fields):
+                    buf.copy_(getattr(full, f))
+                for buf, o in zip(new_outs, outs):
+                    buf.copy_(o)
+
+            def accept():
+                for buf, c in zip(new + new_outs, cand + cand_outs):
+                    buf.copy_(c)
+
+            # the skip implies the full pass: the host that read ``fits``
+            # needs no second read
+            branches.cond(use_full, full_pass, accept,
+                          counter=None if taken == 0 else BUCKET_SYNCS,
+                          site="use_full")
+            return (dataclasses.replace(st, **dict(zip(fields, new))),
+                    tuple(new_outs), fits.to(torch.int32),
+                    use_full.to(torch.int32))
+
+        def step(*xs):
+            st = dataclasses.replace(template,
+                                     **dict(zip(fields, xs[:len(fields)])))
+            upload = xs[-1]
+            frames = upload[:frame_bytes].view(b, h, w, 3)
+            valid = upload[frame_bytes:frame_bytes + n_valid].view(
+                valid_shape).bool()
+            carried = []
+            g_a = g_t = None
+            if gmc is not None:
+                fr = frames if s is None else frames.view(s, k, h, w, 3)
+                head = fr[0] if s is None else fr[:, 0]
+                # a stream's first chunk: its own first frame
+                prev = torch.where(upload[-1].bool(), head,
+                                   xs[len(fields)])
+                g_a, g_t = gmc_ops.estimate_chunk(prev, fr, gspec, gmc)
+                carried.append(last_valid(prev, fr, valid))
+                if s is not None:
+                    g_a = g_a.reshape(b, *g_a.shape[2:])
+                    g_t = g_t.reshape(b, *g_t.shape[2:])
+            d_xyxy, d_conf, d_cls, d_valid, det_outs = parts.detections(
+                frames)
+            d_feats, d_hasfeat = parts.empty_feats(b)
+            reid_idx = torch.full((), -1, dtype=torch.int32, device=dev)
+            if self.with_reid:
+                reid_idx = parts.bucket_index(d_valid)
+                branches.switch(reid_idx, [
+                    functools.partial(parts.embed_into, frames, d_xyxy,
+                                      d_valid, d_feats, d_hasfeat, bk)
+                    for bk in parts.buckets],
+                    counter=EMBED_SYNCS, site="reid")
+            inputs = dataclasses.replace(
+                parts.tracker_inputs(d_xyxy, d_conf, d_cls, d_valid, d_feats,
+                                     d_hasfeat), gmc_a=g_a, gmc_t=g_t)
+            if s is None:
+                new, outs, fits, use_full = scan(st, inputs, valid)
+            else:
+                new, outs, fits, use_full = scan(st, inputs.by_frame(s, k),
+                                                 valid.T)
+                outs = tuple(o.transpose(0, 1) for o in outs)
+            decisions = torch.stack([reid_idx, fits, use_full])
+            packed = layout.pack((det_outs if s is None else ())
+                                 + tuple(outs) + (decisions,))
+            return (tuple(getattr(new, f) for f in fields)
+                    + tuple(carried)), packed
+
+        layout = _Layout()
+        upload_bytes = frame_bytes + n_valid + 1
+        prev0 = [torch.zeros((h, w, 3) if s is None else (s, h, w, 3),
+                             dtype=torch.uint8, device=dev)] \
+            if gmc is not None else []
+        example = [getattr(template, f) for f in fields] + prev0 + [
+            torch.zeros(upload_bytes, dtype=torch.uint8, device=dev)]
+        name = (f"{self.tracker_kind} chunk step {h}x{w} K={k}"
+                + ("" if s is None else f" over {s} streams"))
+        engine = CUDAGraphEngine(step, example, name=name, warmup_iters=1,
+                                 device=dev, carry=len(example) - 1,
+                                 copy_outputs=False)
+        return _Step(engine=engine, layout=layout, fields=fields,
+                     frame_bytes=frame_bytes, upload_bytes=upload_bytes,
+                     gmc=gmc is not None, bucketed=bucketed,
+                     buckets=tuple(parts.buckets))
 
     def _get_stages(self, frame_hw: Tuple[int, int]):
         key = tuple(frame_hw)
@@ -766,34 +1199,187 @@ class TrackingPipeline:
             self._stages[key] = self._make_stages(key)
         return self._stages[key]
 
+    def _get_step(self, frame_hw: Tuple[int, int], k: int,
+                  n_streams: int | None = None) -> "_Step":
+        """The captured step of this frame size, chunk length and stream
+        count (made and captured at the first call: one graph each)."""
+        key = (tuple(frame_hw), int(k), n_streams, self.scan_bucket)
+        if key not in self._steps:
+            self._stepping = True
+            try:
+                self._steps[key] = self._make_step(key[0], key[1],
+                                                   n_streams)
+            finally:
+                self._stepping = False
+        return self._steps[key]
+
     def scan_replays(self) -> int:
-        """Replays of the captured tracker scans so far (0 on the CPU,
-        where a capture is a direct call): one a chunk, or a dispatch of a
-        stream stack, plus one a bucketed chunk that reruns at full
-        capacity."""
+        """Replays of the eager step's captured tracker scans so far (0 on
+        the CPU, where a capture is a direct call): one a chunk, or a
+        dispatch of a stream stack, plus one a bucketed chunk that reruns at
+        full capacity. The captured step replays no scan of its own
+        (:meth:`step_replays`)."""
         return sum(e.replays for engines in self._scan_engines
                    for e in engines.values())
 
+    def step_replays(self) -> int:
+        """Replays of the captured chunk steps so far: one a chunk or
+        dispatch (0 on the CPU)."""
+        return sum(st.engine.replays for st in self._steps.values())
+
     def _mark(self, stage: str):
-        if self.stage_timer is not None:
+        if self.stage_timer is not None and not self._stepping:
             self.stage_timer.mark(stage)
 
     # --- host API -----------------------------------------------------------
+
+    @property
+    def scan_stats(self) -> dict:
+        """Chunks (dispatches) by way of the bucketed scan since the last
+        :meth:`reset`: ``small``, ``skipped``, ``rerun``. The captured
+        step's are counted from its own decisions, read back with its
+        outputs (:meth:`settle` waits for the ones still on their way)."""
+        self.settle()
+        return self._scan_stats
+
+    def settle(self):
+        """Wait for every dispatched chunk's decisions (the ReID bucket and
+        the scan's ways) and count them: ``scan_stats`` and the launches of
+        the hand-written kernels in the bodies the chunks took. A chunk's
+        decisions come back with its outputs, so this waits only for
+        chunks whose outputs were not read yet."""
+        while True:
+            with self._pending_lock:
+                if not self._pending:
+                    return
+                readback = self._pending[0]
+            readback.settle()   # takes itself off the list
+
+    def _count_decisions(self, step: "_Step", decisions, any_valid: bool):
+        """Count one chunk's decisions ``(reid index, fits, use_full)``."""
+        idx, fits, use_full = (int(v) for v in decisions)
+        taken = {}
+        if idx >= 0:
+            taken["reid"] = idx
+            self.reid_buckets[step.buckets[idx]] = \
+                self.reid_buckets.get(step.buckets[idx], 0) + 1
+        if fits >= 0:
+            taken.update(fits=fits, use_full=use_full)
+            if any_valid:
+                way = "skipped" if not fits else (
+                    "rerun" if use_full else "small")
+                self._scan_stats[way] += 1
+        step.engine.count_taken(taken)
 
     def reset(self):
         """Fresh tracker state (ids restart at 1), scan counts, and no
         frame carried for the camera-motion estimate."""
         self.state = self._init_tracker_state()
-        self.scan_stats = dict(small=0, skipped=0, rerun=0)
+        self._pending = []
+        self._scan_stats = dict(small=0, skipped=0, rerun=0)
+        #: chunks by ReID bucket (the captured step's from its decisions,
+        #: the eager step's from its reads)
+        self.reid_buckets = {}
         self._gmc_prev_frame = None
+
+    def _upload(self, step: "_Step", frames_np: np.ndarray,
+                valid: np.ndarray, first: bool) -> torch.Tensor:
+        """The chunk's frames, validity and first-chunk byte as one uint8
+        tensor: on the GPU a pinned staging buffer (from a ring of three,
+        each reused only after its last copy to the device ran), copied in
+        without a wait; on the CPU a host tensor."""
+        n = step.upload_bytes
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.concatenate([
+                np.ascontiguousarray(frames_np).reshape(-1),
+                valid.reshape(-1).astype(np.uint8),
+                np.array([first], np.uint8)]))
+        ring = self._staging.setdefault(n, [])
+        if len(ring) < 3:
+            buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+            ring.append([buf, None])
+        slot = ring.pop(0)
+        ring.append(slot)
+        buf, event = slot
+        if event is not None:
+            event.synchronize()
+        host = buf.numpy()
+        host[:step.frame_bytes] = np.asarray(frames_np).reshape(-1)
+        host[step.frame_bytes:n - 1] = valid.reshape(-1)
+        host[n - 1] = first
+        return buf
+
+    def _uploaded(self, upload: torch.Tensor):
+        """Mark the staging buffer free once the work queued so far (its
+        copy to the device among it) has run."""
+        if self.device.type != "cuda":
+            return
+        for slot in self._staging[upload.numel()]:
+            if slot[0] is upload:
+                slot[1] = torch.cuda.Event()
+                slot[1].record()
+
+    def _replay_chunk(self, frames_np: np.ndarray, valid: np.ndarray,
+                      state, prev, n_streams: int | None = None):
+        """One chunk (``(K, H, W, 3)``), or one dispatch of a stack of
+        ``n_streams`` streams (``(S, K, H, W, 3)``), through the captured
+        step: counts the decisions of earlier chunks that have come back,
+        uploads the frames with their validity ``valid`` (``([S,] K)``),
+        replays on ``state`` and the carried frame before ``prev`` (``None``:
+        the stream's first chunk). Returns ``(step, new state, new frame
+        before, packed outputs)``; the frame before is ``None`` without GMC,
+        and the packed outputs are the graph's own buffer on the GPU (valid
+        until the next replay)."""
+        with self._pending_lock:
+            back = [r for r in self._pending if r.ready()]
+        for readback in back:
+            readback.settle()
+        step = self._get_step(frames_np.shape[-3:-1], valid.shape[-1],
+                              n_streams)
+        upload = self._upload(step, frames_np, valid, prev is None)
+        xs = [getattr(state, f) for f in step.fields]
+        if step.gmc:
+            xs.append(torch.zeros(frames_np.shape[:-4] + frames_np.shape[-3:],
+                                  dtype=torch.uint8, device=self.device)
+                      if prev is None else prev)
+        timer = self.stage_timer
+        if timer is not None:
+            timer.start()
+        self._stepping = True
+        try:
+            with torch.no_grad():
+                new, packed = step.engine(*xs, upload)
+        finally:
+            self._stepping = False
+        self._uploaded(upload)
+        if timer is not None:
+            timer.mark("step")
+            timer.finish()
+        nf = len(step.fields)
+        state = dataclasses.replace(state, **dict(zip(step.fields, new[:nf])))
+        return step, state, (new[nf] if step.gmc else None), packed
 
     def _dispatch_chunk(self, frames_np: np.ndarray,
                         n_valid: int | None = None):
         """Upload one (K, H, W, 3) uint8 chunk and run the chunk step: its
         first ``n_valid`` frames advance the tracker, the rest are padding.
-        Returns ``(det_outs, track_outs)`` on the device."""
+        Returns the chunk's outputs on their way to the host (``_emit``
+        reads them): the captured step is one upload, one replay and one
+        copy of its packed outputs into pinned memory behind an event, and
+        waits for nothing."""
         k = frames_np.shape[0]
         n_valid = k if n_valid is None else n_valid
+        if not self._capture_step:
+            return self._eager_dispatch(frames_np, n_valid)
+        step, self.state, self._gmc_prev_frame, packed = self._replay_chunk(
+            frames_np, np.arange(k) < n_valid, self.state,
+            self._gmc_prev_frame)
+        return _Readback(self, step, packed, any_valid=n_valid > 0)
+
+    def _eager_dispatch(self, frames_np: np.ndarray, n_valid: int):
+        """The eager chunk step (:meth:`_make_stages`): the host reads the
+        ReID bucket and the scan's ways."""
+        k = frames_np.shape[0]
         detect, track = self._get_stages(frames_np.shape[1:3])
         frames = torch.from_numpy(np.ascontiguousarray(frames_np)).to(
             self.device)
@@ -818,13 +1404,12 @@ class TrackingPipeline:
             self._mark("tracker")
         if self.stage_timer is not None:
             self.stage_timer.finish()
-        return det_outs, track_outs
+        return _EagerOutputs(det_outs, track_outs)
 
     @staticmethod
-    def _emit(det_outs, track_outs, base_index: int, count: int):
-        num, boxes, scores, labels, det_valid = (
-            t.cpu().numpy() for t in det_outs)
-        tlbr, ids, cls, conf, mask = (t.cpu().numpy() for t in track_outs)
+    def _emit(outs, base_index: int, count: int):
+        (num, boxes, scores, labels, det_valid,
+         tlbr, ids, cls, conf, mask) = outs.arrays()
         results = []
         for i in range(count):
             v = det_valid[i]
@@ -836,6 +1421,7 @@ class TrackingPipeline:
                 tracks=_format_tracks(tlbr[i], ids[i], cls[i], conf[i],
                                       mask[i]),
             ))
+        outs.release()
         return results
 
     def process_frames(self, frames: Iterator[np.ndarray],
@@ -880,7 +1466,7 @@ class TrackingPipeline:
                 chunk = np.concatenate(
                     [chunk, np.repeat(chunk[-1:], k - n, axis=0)], axis=0)
             outs = self._dispatch_chunk(chunk, n_valid=n)
-            prev, pending = pending, (*outs, base, n)
+            prev, pending = pending, (outs, base, n)
             base += n
             if prev is not None:
                 yield from self._emit(*prev)
@@ -889,23 +1475,25 @@ class TrackingPipeline:
 
     def process_frame(self, frame_bgr: np.ndarray) -> FrameResult:
         """Single-frame convenience API (a chunk of 1)."""
-        det_outs, track_outs = self._dispatch_chunk(frame_bgr[None])
-        return self._emit(det_outs, track_outs, 0, 1)[0]
+        return self._emit(self._dispatch_chunk(frame_bgr[None]), 0, 1)[0]
 
     def warm_up(self, frame_hw: Tuple[int, int],
                 chunk_size: int | None = None, iters: int = 2) -> float:
         """Run the chunk step on blank frames (builds the kernels, warms the
-        allocator and cuDNN, captures the tracker scan: the last pass at
-        the full track capacity, so that a bucketed scan finds both of its
-        captures), then reset; returns seconds."""
+        allocator and cuDNN, captures the step: its warm-up pass runs every
+        branch body, so every ReID bucket and both scan capacities; the
+        eager step's last pass runs at the full track capacity, so that its
+        bucketed scan finds both of its captures), then reset; returns
+        seconds."""
         t0 = time.perf_counter()
         k = chunk_size or self.chunk_size
         dummy = np.zeros((k, *frame_hw, 3), np.uint8)
         bucket = self.scan_bucket
         try:
             for i in range(iters):
-                self.scan_bucket = bucket if i < iters - 1 else 0
-                self._dispatch_chunk(dummy)
+                if not self._capture_step:
+                    self.scan_bucket = bucket if i < iters - 1 else 0
+                self._emit(self._dispatch_chunk(dummy), 0, 0)
         finally:
             self.scan_bucket = bucket
         if self.device.type == "cuda":

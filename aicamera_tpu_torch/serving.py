@@ -13,10 +13,10 @@ reads the results back and resolves the futures, with at most
 
 Both threads run under ``torch.no_grad()`` (it is thread-local). A device
 error in a dispatch or a readback reaches the futures it concerns through
-``set_exception``; nothing retries on the CPU. The port's dispatch still
-reads the GPU a few times (the NMS, the ReID and scan buckets; no tracker
-core reads), so on this port the worker thread itself waits inside
-``step_chunk``; the scheduler's logic is the JAX package's all the same.
+``set_exception``; nothing retries on the CPU. A dispatch is one replay of
+the pipeline's captured chunk step, which reads nothing back: the worker
+thread queues it and goes on, and only the resolver waits, on the
+dispatch's readback, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -130,9 +130,9 @@ class TrackingService:
         return futures, frames, False, None
 
     def _resolve(self, pending):
-        futures, det_outs, track_outs, base, count = pending
+        futures, outs, base, count = pending
         try:
-            results = self.pipeline._emit(det_outs, track_outs, base, count)
+            results = self.pipeline._emit(outs, base, count)
             for fut, res in zip(futures, results):
                 fut.set_result(res)
         except Exception as e:  # a device failure reaches the callers
@@ -180,14 +180,14 @@ class TrackingService:
         base = self._frame_index
         self._frame_index += count
         try:
-            det_outs, track_outs = self.pipeline._dispatch_chunk(
-                np.stack(frames), n_valid=count)
+            outs = self.pipeline._dispatch_chunk(np.stack(frames),
+                                                 n_valid=count)
         except Exception as e:  # a device failure reaches the callers
             for fut in futures:
                 fut.set_exception(e)
             return
         # blocks only at max_inflight unresolved chunks
-        self._resolve_q.put((futures, det_outs, track_outs, base, count))
+        self._resolve_q.put((futures, outs, base, count))
 
     def _run_resolver(self):
         with torch.no_grad():

@@ -280,6 +280,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import hashlib
 import io
 import json
@@ -303,6 +304,7 @@ GMC_CHUNKS = 4        # frames of the panning scene in the [gmc] phase / CHUNK
 FACADE_FRAMES = 32    # frames of each facade in the [facades] phase
 FACADE_COMPARE = 8    # of them, compared card f32 against the CPU
 WARM_UP_ITERS = 2     # chunk steps of TrackingPipeline.warm_up
+CAPTURE_PASSES = 1    # eager passes of a step before its capture
 SEED = 0
 STREAMS = 8           # [streams]: BASELINE.json config 4, 8 streams of 720p
 STREAM_HW = (720, 1280)
@@ -1797,7 +1799,7 @@ def oru_main_path(pipe, chunks, device, record=None):
         pipe.reset_stream(i)
     oc.oru_replay = spy
     try:
-        with eager_scans(pipe._engine), torch.no_grad():
+        with eager_scans(pipe), torch.no_grad():
             for c in chunks:
                 pipe.step_chunk(c)
         torch.cuda.synchronize()
@@ -2152,7 +2154,9 @@ def nms_main_path_inputs(device):
     frames = moving_rectangles(N_CHUNKS * CHUNK, FRAME_HW, n_objects=6,
                                seed=SEED)[:CHUNK]
     pipe = make_pipeline(device)
-    with SpyKernel() as spy:
+    # the eager step: the captured one calls the kernel's wrapper only in
+    # its pass before the capture and in the capture
+    with eager_step(pipe), SpyKernel() as spy:
         list(pipe.process_frames(iter(frames)))
     check(len(spy.calls) == 1, f"[nms] {len(spy.calls)} NMS calls in one "
           f"main-path chunk")
@@ -2431,6 +2435,113 @@ def nms_phase(device):
             "shapes": rows, "probe": probes}
 
 
+BRANCH_SITES = 16     # [branch]: sites a timed graph holds, one after another
+
+
+def branch_phase(device):
+    """The branch kernel (``csrc/branches.cu``): a branch site of a captured
+    step, its set kernel ahead of its SWITCH node, at the main path's two kinds
+    of site, a 7-way switch (the ReID bucket) and a 2-way cond (each of the
+    scan's two), each captured by ``CUDAGraphEngine`` with bodies that
+    write their index: at every index and one either side the body taken
+    against the plain version (``branches.branch_plain``: the host reads the
+    index). Then device ms a site by graph replay (``BRANCH_SITES`` sites in
+    one graph, one body taken each, and none taken), per call with the
+    engine's host side, the plain read's ms, and the bound: the larger of
+    the work (4 bytes read, a comparison a body) and an empty kernel's
+    replay."""
+    import torch
+    from aicamera_tpu_torch.runtime import branches
+    from aicamera_tpu_torch.runtime.engine import CUDAGraphEngine
+    from aicamera_tpu_torch.syncs import SyncCounter
+
+    kernel = branches.KERNEL
+    counter = SyncCounter()
+    max_err = cases = 0
+
+    def make(n, sites=1):
+        idx = torch.zeros((), dtype=torch.int32, device=device)
+
+        def fn(index):
+            out = torch.full((sites,), -1, dtype=torch.int32, device=device)
+            for s in range(sites):
+                branches.switch(index, [
+                    (lambda j=j, s=s: out[s].fill_(j)) for j in range(n)],
+                    counter=counter, site=f"{n}-way {s}")
+            return out
+        return CUDAGraphEngine(fn, [idx], name=f"{n}-way x{sites}",
+                               warmup_iters=1, device=device), idx
+
+    for n in (7, 2):
+        eng, idx = make(n)
+        for j in range(-1, n + 1):
+            idx.fill_(j)
+            got = int(eng(idx)[0])
+            want = branches.branch_plain(idx, n)
+            max_err = max(max_err, abs(got - want))
+            cases += 1
+    check(max_err == 0 and counter.count == 0, f"[branch] the taken bodies "
+          f"differ from the plain decisions ({max_err}) or the card was read "
+          f"({counter.count})")
+
+    def replay_ms(graph, reps=50):
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    launch_floor = time_device_ms(lambda i: torch.cuda._sleep(0), 1,
+                                  rounds=64)
+    rows = []
+    for n in (7, 2):
+        eng, idx = make(n, BRANCH_SITES)
+        graph = next(iter(eng._graphs.values())).graph
+        idx.fill_(n - 1)
+        taken = sorted(replay_ms(graph) for _ in range(3))[1] / BRANCH_SITES
+        idx.fill_(n)
+        skipped = sorted(replay_ms(graph) for _ in range(3))[1] \
+            / BRANCH_SITES
+        one, idx1 = make(n)
+        idx1.fill_(n - 1)
+        ms = sorted(time_ms(lambda: one(idx1)) for _ in range(3))[1]
+        plain_ms = time_ms(lambda: branches.branch_plain(idx1, n))
+        t_bytes = 4 / PEAK_BYTES_PER_S * 1e3
+        t_ops = n / PEAK_F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops, launch_floor)
+        rows.append({"shape": f"{n}-way site", "device_ms": taken,
+                     "skipped_ms": skipped, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "graph_nodes": eng.graph_nodes()})
+        print(f"[branch] {n}-way site: device {taken:.5f} ms a site (graph "
+              f"replay of {BRANCH_SITES} sites, the last body taken; none "
+              f"taken {skipped:.5f}), per call {ms:.4f} ms (one site through "
+              f"the engine), plain (the host's read) {plain_ms:.4f} ms, "
+              f"bound {bound:.6f} ms (an empty kernel's replay), "
+              f"{eng.graph_nodes()} graph nodes for {BRANCH_SITES} sites")
+    print(f"[branch] the body taken equals the plain decision at {cases} "
+          f"indices (7-way and 2-way, one out of range either side), no "
+          f"read")
+    kernel.launches = 0  # comparison and timing launches do not count
+    main = rows[0]
+    return {"name": kernel.name, "route": "cuda",
+            "source": "aicamera_tpu_torch/csrc/branches.cu",
+            "replaces": kernel.replaces, "launches": None,
+            "max_abs_err": max_err, "ms": main["ms"],
+            "device_ms": main["device_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "launch_floor_ms": launch_floor,
+            "cases_checked": cases, "shapes": rows}
+
+
 def make_pipeline(device, synthetic_load=24, **kw):
     from aicamera_tpu_torch import config
     from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline
@@ -2467,6 +2578,7 @@ def counted_run(pipe, frames, kernels, timed=False):
     results = list(pipe.process_frames(iter(frames)))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    pipe.settle()   # the launches of the branch bodies the chunks took
     launches = {k.name: k.launches for k in kernels}
     syncs = {name: c.count for name, c in counters.items()}
     stage_ms = None
@@ -2480,14 +2592,17 @@ def counted_run(pipe, frames, kernels, timed=False):
     return results, wall, launches, syncs, stage_ms
 
 
-def check_launches(launches, n_chunks, what, solves=True, oru=0):
+def check_launches(launches, n_chunks, what, solves=True, oru=0,
+                   branches=None):
     """The letterbox and the NMS kernel once per chunk (dispatch, call;
     ``detect_tiled`` twice); the assignment kernel
     at least once where the path must solve (``solves``: a tracker core;
     detection alone solves nothing): its count follows the frames and the
     cores, and is printed; the ORU kernel ``oru`` times (one a frame an
-    OC-SORT core steps, none on the other paths). No path reads the card in
-    its NMS (``CARD_NMS_READS``)."""
+    OC-SORT core steps, none on the other paths); the branch kernel
+    ``branches`` times where given (a site a chunk each: the ReID bucket,
+    the scan's two conds). No path reads the card in its NMS
+    (``CARD_NMS_READS``)."""
     check(CARD_NMS_READS[0] == 0, f"{what}: {CARD_NMS_READS[0]} NMS reads "
           f"on the card")
     for name, n in launches.items():
@@ -2497,6 +2612,9 @@ def check_launches(launches, n_chunks, what, solves=True, oru=0):
         elif name == "oru":
             check(n == oru, f"{what}: {name} launched {n} times, {oru} "
                   f"expected")
+        elif name == "branch":
+            check(branches is None or n == branches, f"{what}: {name} "
+                  f"launched {n} times, {branches} expected")
         elif solves:
             check(n >= 1, f"{what}: {name} never launched")
 
@@ -2529,7 +2647,8 @@ def main_path_phase(device, frames, kernels):
     n = len(frames)
     check([r.frame_index for r in results] == list(range(n)),
           "results out of order")
-    check_launches(launches, N_CHUNKS, "main path")
+    check_launches(launches, N_CHUNKS, "main path",
+                   branches=N_CHUNKS * len(step_sites(pipe)))
     n_tracks, n_ids = summarize(results)
     n_init = pipe.tracker_params.n_init
     for r in results[n_init - 1:]:
@@ -2544,23 +2663,26 @@ def main_path_phase(device, frames, kernels):
           + ", ".join(f"{k} {v}" for k, v in launches.items())
           + " (the letterbox one per chunk)")
     print(f"[main] host syncs per frame: {syncs_line(syncs, n)} (plus one "
-          f"result read per chunk); tracker reads a frame "
+          f"packed result read per chunk); tracker reads a frame "
           f"{syncs['tracker'] / n:.3f}; assignment launches a frame "
           f"{launches['assignment'] / n:.3f} (a cascade and an IoU solve)")
-    check(syncs["tracker"] == 0, f"the DeepSORT step read the GPU "
-          f"{syncs['tracker']} times")
-    print(f"[main] reads a frame in all: {sum(syncs.values()) / n:.3f} (NMS "
-          f"{syncs['NMS'] / n:.3f}: the NMS kernel reads nothing)")
-    # a cascade and an IoU solve a frame, a replay of a chunk's frames each
-    # chunk and each rerun of a bucketed one
-    want = 2 * CHUNK * (N_CHUNKS + pipe.scan_stats["rerun"])
+    check(sum(syncs.values()) == 0, f"main path: the captured step read the "
+          f"GPU: {syncs}")
+    print(f"[main] reads a frame in all: {sum(syncs.values()) / n:.3f}; "
+          f"step replays {pipe.step_replays()} (one a chunk, the warm-up's "
+          f"among them); ReID buckets {pipe.reid_buckets}; "
+          + step_line(pipe))
+    # a cascade and an IoU solve a frame, a pass of a chunk's frames each
+    # chunk and each rerun of a bucketed one (counted from the decisions)
+    want = 2 * CHUNK * passes(pipe, N_CHUNKS)
     check(launches["assignment"] == want, f"main path: "
           f"{launches['assignment']} assignment launches, {want} expected")
     print("[main] sample tracks, last frame: "
           + repr(results[-1].tracks[:4]))
 
-    # the same frames again with CUDA events at every stage boundary: the
-    # tracker scans replayed from their captures, then run frame by frame
+    # the same frames again with CUDA events: the captured step whole, the
+    # eager step (the host reading its branches) at every stage boundary,
+    # its scans replayed from their captures, then frame by frame
     def timed_run():
         pipe.reset()
         timer = CudaStageTimer()
@@ -2569,49 +2691,154 @@ def main_path_phase(device, frames, kernels):
         pipe.stage_timer = None
         return out, {s: v / timer.chunks for s, v in timer.totals.items()}
 
-    again, stage_ms = timed_run()
+    again, step_ms = timed_run()
+    with eager_step(pipe):
+        timed_run()
+        eager, stage_ms = timed_run()
     with eager_scans(pipe):
         pipe.warm_up(FRAME_HW)
-        eager, eager_ms = timed_run()
-    print("[main] per-chunk stage ms (CUDA events, includes the host "
-          "launch gaps): " + ", ".join(f"{s} {v:.3f}"
-                                       for s, v in stage_ms.items())
+        eager_frames, eager_ms = timed_run()
+    print("[main] per-chunk stage ms of the eager step (CUDA events, "
+          "includes the host launch gaps): " + ", ".join(
+              f"{s} {v:.3f}" for s, v in stage_ms.items() if s != "step")
           + f"; tracker per frame {stage_ms['tracker'] / CHUNK:.3f} ms")
-    print(f"[main] tracker ms a chunk: captured scan {stage_ms['tracker']:.3f}"
-          f", eager scan {eager_ms['tracker']:.3f}")
+    print(f"[main] the captured step a chunk (CUDA events, its upload "
+          f"included): {step_ms['step']:.3f} ms; the eager step's stages "
+          f"sum to {sum(stage_ms.values()):.3f} ms; tracker ms a chunk: "
+          f"captured scan {stage_ms['tracker']:.3f}, eager scan "
+          f"{eager_ms['tracker']:.3f}")
     same = sum(a.tracks == b.tracks for a, b in zip(results, again))
     print(f"[main] timed rerun: {same}/{n} frames with identical tracks")
     check([r.tracks for r in eager] == [r.tracks for r in again],
-          "[main] the captured scan's tracks differ from the eager scan's")
-    print(f"[main] eager scan: track tuples identical to the captured "
-          f"scan's on {n} frames")
-    pipe.warm_up(FRAME_HW)  # captures the scans again
+          "[main] the captured step's tracks differ from the eager step's")
+    check([r.tracks for r in eager_frames] == [r.tracks for r in again],
+          "[main] the captured step's tracks differ from the eager scan's")
+    print(f"[main] eager step and eager scan: track tuples identical to the "
+          f"captured step's on {n} frames")
+    eager_turns("main", pipe, frames, kernels)
+    pipe.warm_up(FRAME_HW)
     profile_chunk(pipe, frames[-CHUNK:])
     return launches
 
 
 @contextlib.contextmanager
-def eager_scans(pipe):
-    """Inside, ``pipe`` runs its DeepSORT scans frame by frame with the
-    host's branches, not from CUDA-graph captures (to time and hold the two
-    against each other in one call)."""
-    pipe._capture_scans = False
-    pipe._stages.clear()  # the stages hold their engines
+def eager_step(pipe, scans=True):
+    """Inside, ``pipe`` (a ``TrackingPipeline`` or a
+    ``MultiStreamPipeline``) runs the eager chunk step, the host reading its
+    branches, not the captured one (to hold and time the two against each
+    other in one call); ``scans=False``: its tracker scans frame by frame
+    too, not from their captures."""
+    eng = getattr(pipe, "_engine", pipe)
+    eng._capture_step = False
+    if eng is not pipe:
+        pipe._captured = False
+    if not scans:
+        eng._capture_scans = False
+        eng._stages.clear()  # the stages hold their engines
     try:
         yield
     finally:
-        del pipe._capture_scans
-        pipe._stages.clear()
+        del eng._capture_step
+        if eng is not pipe:
+            pipe._captured = True
+        if not scans:
+            del eng._capture_scans
+            eng._stages.clear()
+
+
+def eager_scans(pipe):
+    """:func:`eager_step` with the scans frame by frame."""
+    return eager_step(pipe, scans=False)
+
+
+def step_line(pipe):
+    """The captured chunk steps of a pipeline: name, graph nodes (the
+    branch bodies' included), capture and warm-up seconds, and the nodes of
+    each branch body."""
+    eng = getattr(pipe, "_engine", pipe)
+    return "; ".join(
+        f"{st.engine.name}: {st.engine.graph_nodes()} graph nodes, capture "
+        f"{st.engine.compile_seconds:.3f} s (warm-up "
+        f"{st.engine.warmup_seconds:.3f} s), bodies' nodes "
+        f"{st.engine.branch_sites()}" for st in eng._steps.values())
+
+
+def step_sites(pipe):
+    """The branch sites of a pipeline's captured step (one set kernel a
+    site a replay)."""
+    eng = getattr(pipe, "_engine", pipe)
+    return next(iter(eng._steps.values())).engine.branch_sites()
+
+
+def passes(pipe, chunks):
+    """Tracker passes the captured steps ran: one a chunk, two where the
+    small pass reran (from the chunks' own decisions)."""
+    return chunks + pipe.scan_stats["rerun"]
+
+
+def eager_turns(tag, pipe, frames, kernels, run=None, label=""):
+    """The captured step and the eager step on the same frames, in turns
+    (eager, captured, captured, eager), each from a fresh state: track
+    tuples and detections bitwise equal, the same ways and ReID buckets
+    chunk for chunk; FPS of each turn. ``run(pipe)`` -> ``(outputs,
+    seconds, ways, buckets)``, default a ``process_frames`` pass (then
+    ``frames`` the frames; else the frames a run makes). ``label``: what
+    the line is about, after the phase's ``tag``."""
+    import numpy as np
+    import torch
+
+    def default(p):
+        p.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = list(p.process_frames(iter(frames)))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dict(p.scan_stats), \
+            dict(p.reid_buckets)
+
+    run = run or default
+    with eager_step(pipe):
+        run(pipe)   # the eager step's own stages and scans, warmed
+    got, order = {}, []
+    for way in ("eager", "captured", "captured", "eager"):
+        with eager_step(pipe) if way == "eager" else contextlib.nullcontext():
+            order.append((way, run(pipe)))
+        got.setdefault(way, []).append(order[-1][1])
+    (cap, _, ways, buckets), (eag, _, e_ways, e_buckets) = \
+        got["captured"][0], got["eager"][0]
+    check((ways, buckets) == (e_ways, e_buckets), f"{tag}: captured step "
+          f"ways {ways} buckets {buckets}, eager {e_ways} {e_buckets}")
+    n = 0
+    for a, b in zip(cap, eag, strict=True):
+        if hasattr(a, "tracks"):
+            check(a.tracks == b.tracks, f"{tag}: frame {a.frame_index}: "
+                  f"captured {a.tracks} vs eager {b.tracks}")
+            check(np.array_equal(a.det_boxes, b.det_boxes)
+                  and np.array_equal(a.det_scores, b.det_scores),
+                  f"{tag}: frame {a.frame_index}: detections differ")
+            n += len(a.tracks)
+        else:
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{tag}: captured and eager outputs differ")
+            n += int(a[-1].sum())
+    n_frames = len(frames) if run is default else frames
+    print(f"[{tag}] {label}in turns: " + ", ".join(
+        f"{way} {n_frames / r[1]:.2f}" for way, r in order)
+        + f" frames/s; captured = eager bitwise ({n} track outputs, "
+          f"detections), ways {ways}, ReID buckets {buckets}")
+    return got
 
 
 def bucket_phase(device, frames, kernels):
     """``scan_bucket=32`` against ``scan_bucket=0`` in one call, one run
     each, at the main path's load (24 synthetic boxes a frame, more live
-    tracks than the small pass admits) and at a light load (8, where the
-    small pass runs every chunk): identical track tuples, and the FPS and
-    tracker ms of both."""
+    tracks than the small pass admits), at a light load (8, where the
+    small pass runs every chunk) and at a load that forces the rerun (40:
+    the first chunk overflows the small table): identical track tuples,
+    no read on any counter, the FPS and the captured step's ms of both;
+    then the bucketed run against the eager step, in turns."""
     launches = {}
-    for load in (24, 8):
+    for load in (24, 8, 40):
         pipes = {b: make_pipeline(device, synthetic_load=load, scan_bucket=b)
                  for b in (32, 0)}
         for p in pipes.values():
@@ -2622,8 +2849,13 @@ def bucket_phase(device, frames, kernels):
             res, wall, launches, syncs, stage_ms = counted_run(
                 pipes[b], frames, kernels, timed=True)
             check_launches(launches, N_CHUNKS, f"bucket phase ({b})")
-            runs[b].append((res, len(frames) / wall,
-                            stage_ms["tracker"] / CHUNK, syncs,
+            check(sum(syncs.values()) == 0, f"bucket phase ({b}, load "
+                  f"{load}): reads {syncs}")
+            check(launches["assignment"]
+                  == 2 * CHUNK * passes(pipes[b], N_CHUNKS),
+                  f"bucket phase ({b}, load {load}): "
+                  f"{launches['assignment']} assignment launches")
+            runs[b].append((res, len(frames) / wall, stage_ms["step"], syncs,
                             dict(pipes[b].scan_stats)))
         ref = runs[0][0][0]
         for b in (32, 0):
@@ -2639,16 +2871,21 @@ def bucket_phase(device, frames, kernels):
             check(stats["small"] == N_CHUNKS,
                   f"light load: the small pass did not run every chunk: "
                   f"{stats}")
+        if load == 40:
+            check(stats["rerun"] >= 1, f"load 40: no rerun: {stats}")
         for b in (32, 0):
             print(f"[bucket] load {load}, scan_bucket {b}: FPS "
                   + " / ".join(f"{r[1]:.2f}" for r in runs[b])
-                  + ", tracker ms per frame "
+                  + ", captured step ms a chunk "
                   + " / ".join(f"{r[2]:.3f}" for r in runs[b])
                   + f", syncs per frame: "
                   f"{syncs_line(runs[b][0][3], len(frames))}")
-        print(f"[bucket] load {load}: chunks by way {stats}; track tuples "
-              f"identical over {len(frames)} frames in both runs "
-              f"({summarize(ref)[0]} track outputs)")
+        print(f"[bucket] load {load}: chunks by way {stats}; ReID buckets "
+              f"{pipes[32].reid_buckets}; track tuples identical over "
+              f"{len(frames)} frames in both runs ({summarize(ref)[0]} track "
+              f"outputs); {step_line(pipes[32])}")
+        eager_turns("bucket", pipes[32], frames, kernels,
+                    label=f"load {load}, scan_bucket 32: ")
     return launches
 
 
@@ -2672,9 +2909,10 @@ def tracker_configs():
 
 def trackers_phase(device, frames, kernels):
     """Each new tracker at full width on the card, then against the CPU:
-    no tracker read for any core, each chunk one replay of its captured
-    scan (two where a bucketed pass reruns), OC-SORT's ORU kernel once a
-    frame."""
+    no read on any counter for any core, each chunk one replay of its
+    captured step (a tracker pass a chunk, two where a bucketed pass
+    reruns), OC-SORT's ORU kernel once a frame a pass; the captured step
+    against the eager one, in turns."""
     import torch
     check(not torch.backends.cuda.matmul.allow_tf32,
           "f32 matmuls run in TF32: the cores' cosine products need f32")
@@ -2683,30 +2921,40 @@ def trackers_phase(device, frames, kernels):
     for name, kw in tracker_configs().items():
         pipe = make_pipeline(device, tracker=name, **kw)
         pipe.warm_up(FRAME_HW)
-        replays = pipe.scan_replays()
+        replays = pipe.step_replays()
         res, wall, launches, syncs, _ = counted_run(pipe, sub, kernels)
-        replays = pipe.scan_replays() - replays
+        replays = pipe.step_replays() - replays
         stats = dict(pipe.scan_stats)
-        check(syncs["tracker"] == 0, f"tracker {name}: the step read the "
-              f"GPU {syncs['tracker']} times")
-        check(replays == TRACKER_CHUNKS + stats["rerun"], f"tracker {name}: "
-              f"{replays} scan replays in {TRACKER_CHUNKS} chunks ({stats})")
+        check(sum(syncs.values()) == 0, f"tracker {name}: the step read the "
+              f"GPU: {syncs}")
+        check(replays == TRACKER_CHUNKS, f"tracker {name}: {replays} step "
+              f"replays in {TRACKER_CHUNKS} chunks")
+        n_pass = passes(pipe, TRACKER_CHUNKS)
         check_launches(launches, TRACKER_CHUNKS, f"tracker {name}",
-                       oru=CHUNK * replays if "ocsort" in name else 0)
+                       oru=CHUNK * n_pass if "ocsort" in name else 0,
+                       branches=TRACKER_CHUNKS * len(step_sites(pipe)))
         by_tracker[name] = launches
         n_tracks, n_ids = summarize(res)
         check(n_tracks > 0, f"tracker {name} emitted no track")
         pipe.reset()
-        stage_ms = counted_run(pipe, sub, kernels, timed=True)[4]
+        step_ms = counted_run(pipe, sub, kernels, timed=True)[4]
+        with eager_step(pipe):
+            pipe.reset()
+            counted_run(pipe, sub, kernels, timed=True)
+            pipe.reset()
+            stage_ms = counted_run(pipe, sub, kernels, timed=True)[4]
         gmc = (f", gmc {pipe.gmc_method} {stage_ms['gmc']:.3f} ms per chunk"
                if pipe.gmc_method else "")
         print(f"[trackers] {name}: {len(sub)} frames, {len(sub) / wall:.2f} "
-              f"FPS, tracker {stage_ms['tracker'] / CHUNK:.3f} ms per "
-              f"frame (captured scan){gmc}, syncs per "
-              f"frame: {syncs_line(syncs, len(sub))}; {replays} scan "
-              f"replays in {TRACKER_CHUNKS} chunks; track outputs "
-              f"{n_tracks}, distinct ids {n_ids}, chunks {stats}, launches "
-              f"{launches} (the letterbox one per chunk)")
+              f"FPS, the captured step {step_ms['step']:.3f} ms a chunk; "
+              f"the eager step's tracker {stage_ms['tracker'] / CHUNK:.3f} "
+              f"ms per frame (captured scan){gmc}; syncs per "
+              f"frame: {syncs_line(syncs, len(sub))}; {replays} step "
+              f"replays and {n_pass} tracker passes in {TRACKER_CHUNKS} "
+              f"chunks; track outputs {n_tracks}, distinct ids {n_ids}, "
+              f"chunks {stats}, launches {launches} (the letterbox one per "
+              f"chunk); {step_line(pipe)}")
+        eager_turns("trackers", pipe, sub, kernels, label=f"{name}: ")
         compare_runs(
             f"trackers] {name}",
             list(make_pipeline("cuda", tracker=name, detect_dtype="f32",
@@ -2775,20 +3023,28 @@ def gmc_phase(device, kernels):
             pipe = make_pipeline(device, synthetic_load=0, tracker=name,
                                  gmc=mode)
             pipe.warm_up(FRAME_HW)
-            replays = pipe.scan_replays()
-            res, wall, counts, _, stage_ms = counted_run(
+            res, wall, counts, syncs, step_ms = counted_run(
                 pipe, frames, kernels, timed=True)
-            replays = pipe.scan_replays() - replays
+            check(sum(syncs.values()) == 0, f"gmc {name} {mode}: reads "
+                  f"{syncs}")
             check_launches(counts, GMC_CHUNKS, f"gmc {name} {mode}",
-                           oru=CHUNK * replays if name == "ocsort" else 0)
+                           oru=CHUNK * passes(pipe, GMC_CHUNKS)
+                           if name == "ocsort" else 0)
             n_tracks, n_ids = summarize(res)
             check(n_tracks > 0, f"gmc {name} {mode}: no track")
-            line.append(f"{mode}: {len(frames) / wall:.2f} FPS, gmc "
-                        f"{stage_ms['gmc']:.3f} ms per chunk, "
+            with eager_step(pipe):
+                pipe.warm_up(FRAME_HW)
+                stage_ms = counted_run(pipe, frames, kernels, timed=True)[4]
+            line.append(f"{mode}: {len(frames) / wall:.2f} FPS, the "
+                        f"captured step {step_ms['step']:.3f} ms a chunk "
+                        f"(the eager step's gmc stage "
+                        f"{stage_ms['gmc']:.3f} ms), "
                         f"{n_ids / n_obj:.2f} ids per object, {n_tracks} "
-                        f"track outputs")
+                        f"track outputs, reads 0")
             if mode == "affine":
                 launches[name] = counts
+                eager_turns("gmc", pipe, frames, kernels,
+                            label=f"{name} affine: ")
         print(f"[gmc] {name} on the panning scene ({len(frames)} frames, "
               f"{n_obj} objects, real detections only): " + "; ".join(line))
     return launches
@@ -2932,14 +3188,16 @@ def cli_phase(frames, kernels, workdir):
     from aicamera_tpu_torch.utils import visualization
     from aicamera_tpu_torch.utils.video_io import VideoWriter
 
-    def run(argv):
-        for k in kernels:
-            k.launches = 0
+    def run(argv, echo=True):
+        reset_counts(kernels)
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             cli.main(argv)
-        for ln in out.getvalue().splitlines():
-            print(f"[cli]   {ln}")
+        if echo:
+            for ln in out.getvalue().splitlines():
+                print(f"[cli]   {ln}")
+        syncs = {n: c.count for n, c in sync_counters().items()}
+        check(sum(syncs.values()) == 0, f"cli {argv[-1]}: reads {syncs}")
         return out.getvalue(), {k.name: k.launches for k in kernels}
 
     weights = ["--yolo_weights", str(config.YOLO_SYNTHETIC_PATH),
@@ -2957,8 +3215,10 @@ def cli_phase(frames, kernels, workdir):
     check("detect+track" in text and "checkpoint" in text,
           "--profile printed no stage table")
     check(ckpt.exists(), "no checkpoint file")
-    # one launch per chunk, the warm-up's chunks included
-    check_launches(launches, n // CHUNK + WARM_UP_ITERS, "cli")
+    # one launch per chunk, the warm-up's chunks and the eager pass before
+    # the step's capture included
+    warm = WARM_UP_ITERS + CAPTURE_PASSES
+    check_launches(launches, n // CHUNK + warm, "cli")
     state = load_state(ckpt, TrackerParams())
     check(bool(state.active.any()) and int(state.next_id) > 1,
           "the checkpoint holds no track")
@@ -2966,18 +3226,44 @@ def cli_phase(frames, kernels, workdir):
                          str(ckpt), "--max_frames", "16", *weights])
     check(f"Resumed tracker state from {ckpt}" in text
           and "Processed 16 frames" in text, "the resumed run")
-    check_launches(resumed, 16 // CHUNK + WARM_UP_ITERS, "cli --resume")
+    check_launches(resumed, 16 // CHUNK + warm, "cli --resume")
     text, strong = run(["--input", str(clip), "--no_save", "--tracker",
                         "strongsort", "--max_frames", "16", *weights])
     check("Processed 16 frames" in text, "the strongsort run")
-    check_launches(strong, 16 // CHUNK + WARM_UP_ITERS,
-                   "cli --tracker strongsort")
+    check_launches(strong, 16 // CHUNK + warm, "cli --tracker strongsort")
     print(f"[cli] {n} frames through aicamera_tpu_torch.cli on the card: "
           f"{avg} tracks per frame, checkpoint with next_id "
           f"{int(state.next_id)} written and resumed for 16 frames; "
           f"--tracker strongsort (default --gmc affine) for 16 frames; "
           f"launches {launches}, {resumed} and {strong} (one per chunk, "
-          f"{WARM_UP_ITERS} warm-up chunks each)")
+          f"{WARM_UP_ITERS} warm-up chunks and {CAPTURE_PASSES} pass before "
+          f"the capture each); host reads a frame 0.000 on every counter")
+
+    # the captured step against the eager one through the CLI, in turns:
+    # the same tracks a frame and the same final state, bitwise
+    from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline
+    turns = []
+    for way in ("eager", "captured", "captured", "eager"):
+        path = workdir / f"state_{way}_{len(turns)}.msgpack"
+        TrackingPipeline._capture_step = way == "captured"
+        try:
+            reset_counts(kernels)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                cli.main(["--input", str(clip), "--no_save", "--checkpoint",
+                          str(path), *weights])
+        finally:
+            TrackingPipeline._capture_step = True
+        turns.append((way, out.getvalue(), path.read_bytes()))
+    same = all(t[2] == turns[0][2] for t in turns)
+    check(same, "cli: the eager and captured steps' final states differ")
+    tracks = {t[1].split("Average tracks per frame: ")[1].split()[0]
+              for t in turns}
+    check(len(tracks) == 1, f"cli: tracks per frame differ: {tracks}")
+    print("[cli] in turns: " + ", ".join(
+        "{} {:.2f} / {:.2f}".format(w, *cli_fps(t)) for w, t, _ in turns)
+        + f" FPS (the CLI's own: wall / detect+track); final states bitwise "
+          f"equal, tracks per frame {tracks.pop()} in all four")
 
     # the MJPEG input, then the default (saving) run with its draw calls
     avi_in = workdir / "clip.avi"
@@ -3018,15 +3304,15 @@ def cli_phase(frames, kernels, workdir):
     check("Presentation errors: 0 frames skipped" in saved_text,
           "the saved run skipped frames")
     check("draw+write" in saved_text, "--profile printed no draw+write")
-    check_launches(saved, n // CHUNK + WARM_UP_ITERS, "cli (saving)")
+    check_launches(saved, n // CHUNK + warm, "cli (saving)")
     nosave_text, nosave = run(["--input", str(avi_in), "--no_save",
                                *weights])
-    check_launches(nosave, n // CHUNK + WARM_UP_ITERS, "cli (.avi, no save)")
+    check_launches(nosave, n // CHUNK + warm, "cli (.avi, no save)")
     native_text, native = run(["--input", str(avi_in), "--no_save",
                                "--native_io", *weights])
     check("Using native C++ video decoder" in native_text
           and f"Processed {n} frames" in native_text, "the --native_io run")
-    check_launches(native, n // CHUNK + WARM_UP_ITERS, "cli --native_io")
+    check_launches(native, n // CHUNK + warm, "cli --native_io")
     PRESENT.update(input=avi_in, output=avi_out, calls=calls, n=n,
                    saved=cli_fps(saved_text), nosave=cli_fps(nosave_text),
                    native=cli_fps(native_text), launches=saved)
@@ -3034,7 +3320,8 @@ def cli_phase(frames, kernels, workdir):
           f"saved run with --draw_detections --profile wrote {n} frames, "
           f"no presentation error, launches {saved}; --no_save launches "
           f"{nosave}; --native_io launches {native} (one per chunk, "
-          f"{WARM_UP_ITERS} warm-up chunks each)")
+          f"{WARM_UP_ITERS} warm-up chunks and {CAPTURE_PASSES} pass before "
+          f"the capture each)")
     return launches
 
 
@@ -3212,39 +3499,44 @@ def streams_phase(device, kernels, oru_record=None):
         for i in range(s):
             pipe.reset_stream(i)
         pipe.scan_stats.update(dict.fromkeys(pipe.scan_stats, 0))
+        pipe._engine.reid_buckets.clear()
         pipe.stage_timer = timer
         reset_counts(kernels)
-        replays = pipe.scan_replays()
+        replays = pipe.step_replays()
         t0 = time.perf_counter()
         outs = [tuple(x.cpu() for x in pipe.step_chunk(c)) for c in chunks]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         pipe.stage_timer = None
+        pipe.settle()
         return (outs, wall, {kn.name: kn.launches for kn in kernels},
                 {n: c.count for n, c in sync_counters().items()},
-                pipe.scan_replays() - replays)
+                pipe.step_replays() - replays)
 
-    run()  # captures the scans of whichever capacities the chunks take
+    run()
     outs, wall, launches, syncs, replays = run()
-    check_launches(launches, d, "streams (one launch per dispatch)")
-    check(syncs["tracker"] == 0, f"streams: the DeepSORT steps read the GPU "
-          f"{syncs['tracker']} times")
-    # the stack: one replay a dispatch (two where the small pass reruns),
-    # a cascade and an IoU solve a frame for all streams, two bucket reads
+    check_launches(launches, d, "streams (one launch per dispatch)",
+                   branches=d * len(step_sites(pipe)))
+    check(sum(syncs.values()) == 0, f"streams: the captured step read the "
+          f"GPU: {syncs}")
+    # the stack: one replay a dispatch, a tracker pass (two where the small
+    # pass reruns), a cascade and an IoU solve a frame for all streams
     reruns = pipe.scan_stats["rerun"]
-    check(replays == d + reruns, f"streams: {replays} scan replays in {d} "
-          f"dispatches ({reruns} reruns)")
-    check(launches["assignment"] == 2 * k * replays, f"streams: "
-          f"{launches['assignment']} assignment launches in {replays} "
-          f"replays of {k} frames")
-    check(syncs["scan bucket"] <= 2 * d, f"streams: {syncs['scan bucket']} "
-          f"bucket reads in {d} dispatches")
-    print(f"[streams] a dispatch: {replays / d:.2f} scan replays, "
+    n_pass = passes(pipe, d)
+    check(replays == d, f"streams: {replays} step replays in {d} "
+          f"dispatches")
+    check(launches["assignment"] == 2 * k * n_pass, f"streams: "
+          f"{launches['assignment']} assignment launches in {n_pass} "
+          f"passes of {k} frames")
+    print(f"[streams] a dispatch: {replays / d:.2f} step replays, "
+          f"{n_pass / d:.2f} tracker passes ({reruns} reruns), "
           f"{launches['assignment'] / d:.2f} assignment launches (2 K = "
-          f"{2 * k} a replay, every stream's problems in each), "
-          f"{syncs['scan bucket'] / d:.2f} bucket reads, "
-          f"{syncs['tracker'] / d:.2f} tracker reads; chunks "
-          f"{dict(pipe.scan_stats)}")
+          f"{2 * k} a pass, every stream's problems in each), reads "
+          f"{sum(syncs.values()) / d:.2f} (bucket "
+          f"{syncs['scan bucket'] / d:.2f}, ReID {syncs['ReID bucket'] / d:.2f}"
+          f", tracker {syncs['tracker'] / d:.2f}); chunks "
+          f"{dict(pipe.scan_stats)}, ReID buckets "
+          f"{pipe._engine.reid_buckets}; {step_line(pipe)}")
     tuples = [stream_tuples(outs, si) for si in range(s)]
     n_tracks = [sum(map(len, t)) for t in tuples]
     check(all(n > 0 for n in n_tracks), f"a stream emitted no track: "
@@ -3262,8 +3554,15 @@ def streams_phase(device, kernels, oru_record=None):
           f"chunks {pipe.scan_stats}); launches {launches} ({d} dispatches)")
     print(f"[streams] per-dispatch stage ms (CUDA events): "
           + ", ".join(f"{st} {v:.3f}" for st, v in stage_ms.items())
-          + f"; tracker per stream-frame {stage_ms['tracker'] / (s * k):.3f}"
-          f" ms; timed rerun identical: {same}")
+          + f"; the captured step {stage_ms['step']:.3f} ms a dispatch; "
+          f"timed rerun identical: {same}")
+
+    def stream_run(p):
+        outs, wall = run()[:2]
+        return (outs, wall, dict(p.scan_stats), dict(p._engine.reid_buckets))
+
+    eager_turns("streams", pipe, s * k * d, kernels, run=stream_run,
+                label="DeepSORT stack (stream-frames/s): ")
     print(f"[streams] host syncs per stream-frame: {syncs_line(syncs, n_sf)};"
           f" track outputs per stream {n_tracks}")
     stream_stack_vs_loop(pipe, chunks, device)
@@ -3344,19 +3643,26 @@ def streams_phase(device, kernels, oru_record=None):
 
     # StrongSORT (camera-motion compensation on) at full width: gmc ms
     strong = make_streams(device, tracker="strongsort")
-    strong.step_chunk(chunks[0])  # FFT plans, cuDNN
-    timer = CudaStageTimer()
-    strong.stage_timer = timer
-    t0 = time.perf_counter()
-    for c in chunks[1:]:
-        strong.step_chunk(c)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    strong.stage_timer = None
-    g_ms = {st: v / timer.chunks for st, v in timer.totals.items()}
+
+    def strong_run():
+        strong.step_chunk(chunks[0])  # FFT plans, cuDNN, the capture
+        timer = CudaStageTimer()
+        strong.stage_timer = timer
+        t0 = time.perf_counter()
+        for c in chunks[1:]:
+            strong.step_chunk(c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        strong.stage_timer = None
+        return wall, {st: v / timer.chunks for st, v in timer.totals.items()}
+
+    wall, step_ms = strong_run()
+    with eager_step(strong):
+        g_ms = strong_run()[1]
     print(f"[streams] strongsort (gmc {strong.gmc_method}), {s} streams, "
           f"{d - 1} dispatches: {s * k * (d - 1) / wall:.2f} stream-frames/s;"
-          f" per dispatch gmc {g_ms['gmc']:.3f} ms (all {s} streams in one "
+          f" the captured step {step_ms['step']:.3f} ms a dispatch; the "
+          f"eager step's gmc {g_ms['gmc']:.3f} ms (all {s} streams in one "
           f"batched estimate), tracker {g_ms['tracker']:.3f} ms")
     return {"deepsort": launches, "bytetrack": motion["bytetrack"],
             "ocsort": motion["ocsort"]}
@@ -3489,33 +3795,31 @@ def motion_stacks(device, kernels, chunks, oru_record=None):
             pipe.reset_stream(i)
         pipe.scan_stats.update(dict.fromkeys(pipe.scan_stats, 0))
         reset_counts(kernels)
-        replays = pipe.scan_replays()
+        replays = pipe.step_replays()
         t0 = time.perf_counter()
         outs = [tuple(x.cpu() for x in pipe.step_chunk(c)) for c in chunks]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        replays = pipe.scan_replays() - replays
+        pipe.settle()
+        replays = pipe.step_replays() - replays
         launches = {kn.name: kn.launches for kn in kernels}
         syncs = {n: c.count for n, c in sync_counters().items()}
-        reruns = pipe.scan_stats["rerun"]
-        check(replays == d + reruns, f"streams {name}: {replays} scan "
-              f"replays in {d} dispatches ({reruns} reruns)")
+        n_pass = passes(pipe, d)
+        check(replays == d, f"streams {name}: {replays} step replays in {d} "
+              f"dispatches")
         check_launches(launches, d, f"streams {name}",
-                       oru=k * replays if name == "ocsort" else 0)
-        check(launches["assignment"] == solves * k * replays, f"streams "
+                       oru=k * n_pass if name == "ocsort" else 0)
+        check(launches["assignment"] == solves * k * n_pass, f"streams "
               f"{name}: {launches['assignment']} assignment launches in "
-              f"{replays} replays of {k} frames")
-        check(syncs["tracker"] == 0, f"streams {name}: {syncs['tracker']} "
-              f"tracker reads")
-        check(syncs["scan bucket"] <= 2 * d, f"streams {name}: "
-              f"{syncs['scan bucket']} bucket reads in {d} dispatches")
+              f"{n_pass} passes of {k} frames")
+        check(sum(syncs.values()) == 0, f"streams {name}: reads {syncs}")
         n_tracks = [sum(map(len, stream_tuples(outs, si)))
                     for si in range(s)]
         check(sum(n_tracks) > 0, f"streams {name}: no track")
         print(f"[streams] {name} stack, {s} streams x {d} dispatches of {k} "
               f"frames: {s * k * d / wall:.2f} stream-frames/s, "
               f"{wall / d * 1e3:.2f} ms per dispatch; a dispatch "
-              f"{replays / d:.2f} scan replays, "
+              f"{replays / d:.2f} step replays, {n_pass / d:.2f} passes, "
               f"{launches['assignment'] / d:.2f} assignment launches "
               f"({solves} K a replay), {launches['oru'] / d:.2f} ORU "
               f"launches, {syncs['scan bucket'] / d:.2f} bucket reads, "
@@ -3558,7 +3862,10 @@ def serving_phase(device, frames, kernels):
     got = [f.result(timeout=300) for f in futs]
     wall = time.perf_counter() - t0
     svc.shutdown()
+    pipe.settle()
     single = {kn.name: kn.launches for kn in kernels}
+    reads = {n: c.count for n, c in sync_counters().items()}
+    check(sum(reads.values()) == 0, f"TrackingService: reads {reads}")
     check_launches(single, N_CHUNKS, "TrackingService")
     check([r.frame_index for r in got] == list(range(len(frames))),
           "TrackingService: frame indices")
@@ -3569,8 +3876,24 @@ def serving_phase(device, frames, kernels):
     check(total > 0, "TrackingService: no track")
     print(f"[serving] TrackingService: {len(frames)} frames in {wall:.3f} s "
           f"({len(frames) / wall:.2f} FPS, chunk {CHUNK}, the main path's "
-          f"pipeline); launches {single}; vs process_frames: {total} tuples, "
-          f"{exact} bitwise identical")
+          f"pipeline); launches {single}; host reads a frame "
+          f"{syncs_line(reads, len(frames))}; vs process_frames: {total} "
+          f"tuples, {exact} bitwise identical")
+
+    def service_run(p):
+        import torch
+        p.reset()
+        svc = TrackingService(pipeline=p, chunk_size=CHUNK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futs = [svc.submit(f) for f in frames]
+        res = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        svc.shutdown()
+        return res, wall, dict(p.scan_stats), dict(p.reid_buckets)
+
+    eager_turns("serving", pipe, len(frames), kernels, run=service_run,
+                label="TrackingService: ")
 
     # --- the multi-tenant service at its defaults (4 slots, 720x1280, chunk
     # 4, 30 ms), f32 with TF32 off so that every tenant can be held against
@@ -3616,8 +3939,12 @@ def serving_phase(device, frames, kernels):
             t.join(timeout=300)
         mt.wait_idle(timeout=300)
         wall = time.perf_counter() - t0
+        mt.pipeline.settle()
         multi = {kn.name: kn.launches for kn in kernels}
+        tenant_reads = {n: c.count for n, c in sync_counters().items()}
         stats = {n: v - stats0[n] for n, v in mt.stats.items()}
+        check(sum(tenant_reads.values()) == 0, f"tenants: reads "
+              f"{tenant_reads}")
         check(len(results) == len(TENANT_PACES), "a tenant did not finish")
         check_launches(multi, stats["dispatches"],
                        "MultiTenantTrackingService (one per dispatch)")
@@ -3662,7 +3989,8 @@ def serving_phase(device, frames, kernels):
           f"TF32 off): tenants at " + ", ".join(
               "burst" if p is None else f"{p:g}/s" for p in TENANT_PACES)
           + f", {n} frames in {wall:.3f} s ({n / wall:.2f} frames/s); stats "
-          f"{stats}; launches {multi}")
+          f"{stats}; launches {multi}; reads a dispatch "
+          f"{syncs_line(tenant_reads, stats['dispatches'])}")
     print(f"[serving] queue wait (dispatch - arrival) p50 {pct(waits, 50):.2f}"
           f" ms, p99 {pct(waits, 99):.2f} ms; cycle (resolve - dispatch) p50 "
           f"{pct(cycles, 50):.2f} ms, p99 {pct(cycles, 99):.2f} ms")
@@ -4449,7 +4777,8 @@ def mot_phase(device, kernels):
                     "--reid_weights", str(config.REID_SYNTHETIC_PATH)])
             wall = time.perf_counter() - t0
             counts = {k.name: k.launches for k in kernels}
-            check_launches(counts, MOT_FRAMES // CHUNK,
+            # the harness's pipeline runs one eager pass before its capture
+            check_launches(counts, MOT_FRAMES // CHUNK + CAPTURE_PASSES,
                            f"mot --run ({ext})")
             launches = launches or counts
             res, gsi = out / "SYN-01.txt", out / "SYN-01.gsi.txt"
@@ -5137,7 +5466,11 @@ def parallel_phase(device, kernels):
     wall_a = time.perf_counter() - t0
     check(a["backend"] == "nccl", f"[parallel] world A: {a['backend']}")
     total, exact = same("world A (nccl, make_stream_mesh(1))", a["tuples"])
-    check(a["launches"] == d and a["batches"] == [(s * k, *STREAM_HW, 3)] * d,
+    # a stream mesh runs the captured step: a launch a dispatch and one in
+    # the pass before its capture; the letterbox is called in that pass and
+    # in the capture (a replay calls nothing)
+    check(a["launches"] == d + CAPTURE_PASSES
+          and a["batches"] == [(s * k, *STREAM_HW, 3)] * (1 + CAPTURE_PASSES),
           f"[parallel] world A: launches {a['launches']}, {a['batches']}")
     check(a["collectives"] == {"all_gather": d}, f"[parallel] world A: "
           f"collectives {a['collectives']}")
@@ -5160,9 +5493,9 @@ def parallel_phase(device, kernels):
         check(b["backend"] == "gloo", f"[parallel] world B: {b['backend']}")
         st = b["streams"]
         same(f"world B rank {r} make_stream_mesh({n})", st["tuples"])
-        check(st["launches"] == d
+        check(st["launches"] == d + CAPTURE_PASSES
               and st["batches"] == [parallel_shape()[2:3]
-                                    + (*STREAM_HW, 3)] * d,
+                                    + (*STREAM_HW, 3)] * (1 + CAPTURE_PASSES),
               f"[parallel] world B rank {r}: launches {st['launches']}, "
               f"{st['batches']}")
         check(st["collectives"] == {"all_gather": d}, f"[parallel] world B "
@@ -5345,8 +5678,8 @@ def main() -> int:
                     help="stop after the kernel phase (build, compare, time)")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the kernel "
-                         "phases (assignment, oru or nms: the kernel phases "
-                         "alone; main, "
+                         "phases (assignment, oru, nms or branch: the kernel "
+                         "phases alone; main, "
                          "bucket, "
                          "trackers, gmc, facades, "
                          "engine, cli, present, compare, streams, serving, "
@@ -5361,9 +5694,10 @@ def main() -> int:
     from aicamera_tpu_torch.ops.nms import NmsKernel
     from aicamera_tpu_torch.ops.oru import KERNEL as ORU
     from aicamera_tpu_torch.ops.oru import OruKernel
+    from aicamera_tpu_torch.runtime.branches import KERNEL as BRANCH
     from aicamera_tpu_torch.scenes import moving_rectangles
 
-    kernels = [LETTERBOX, ASSIGNMENT, ORU, NMS]
+    kernels = [LETTERBOX, ASSIGNMENT, ORU, NMS, BRANCH]
     watch_nms_reads()
     # the phase probes of the assignment, ORU and NMS kernels: their own
     # builds, loaded by the [assignment], [oru] and [nms] phases only
@@ -5385,13 +5719,22 @@ def main() -> int:
             t0 = time.perf_counter()
             out = fn(*a)
             phase_s[name] = time.perf_counter() - t0
+            # the phase's pipelines (and their graphs' pools) go before the
+            # next phase, cycles among them too
+            gc.collect()
+            print(f"[memory] after {name}: "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                  f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} "
+                  f"GiB reserved")
             return out
 
         records = [timed("kernel", kernel_phase, device),
                    timed("assignment", assignment_phase, device),
                    timed("oru", oru_phase, device),
-                   timed("nms", nms_phase, device)]
-        if args.kernels_only or args.only in ("assignment", "oru", "nms"):
+                   timed("nms", nms_phase, device),
+                   timed("branch", branch_phase, device)]
+        if args.kernels_only or args.only in ("assignment", "oru", "nms",
+                                              "branch"):
             print(json.dumps({"kernels": records}))
             return 0
         frames = moving_rectangles(N_CHUNKS * CHUNK, FRAME_HW, n_objects=6,

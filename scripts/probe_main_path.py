@@ -9,8 +9,10 @@ change change parent) a fresh process imports ``aicamera_tpu_torch`` from
 that checkout, builds its kernels, warms up and drives the main path of
 ``chip_smoke.py`` (YOLOv8n at 640x640, T=128, chunk 8, ``synthetic_load=24``,
 64 seeded 960x540 frames) three times: FPS by the host clock, then the
-tracker's and the NMS stage's ms per frame from CUDA events, then every
-read counter per frame (NMS, ReID bucket, tracker, scan bucket). Then it
+tracker's and the NMS stage's ms per frame from CUDA events (a checkout
+whose chunk step is one captured replay times that whole, ``step``, and
+prints its graph's nodes and capture seconds; its stages read 0), then
+every read counter per frame (NMS, ReID bucket, tracker, scan bucket). Then it
 captures the NMS stage of one chunk alone (``fused_decode_nms`` at B = 8 on
 seeded bf16 level outputs of YOLOv8n's shapes) into a CUDA graph: its nodes
 (the stage's launches a chunk), its replay's ms and its outputs' digest.
@@ -116,7 +118,7 @@ pipe = pl.TrackingPipeline(yolo_weights=YOLO, reid_weights=REID,
                            chunk_size=8, synthetic_load=24, device="cuda",
                            tracker=tracker, **core)
 pipe.warm_up((540, 960))
-fps, trk, nms, tuples, dets = [], [], [], set(), set()
+fps, trk, nms, stp, tuples, dets = [], [], [], [], set(), set()
 for timed in (False, True) * 3:
     pipe.reset()
     pipe.stage_timer = Timer() if timed else None
@@ -132,6 +134,7 @@ for timed in (False, True) * 3:
         totals = pipe.stage_timer.totals
         trk.append(totals["tracker"] / len(frames))
         nms.append(totals.get("nms", float("nan")) / len(frames))
+        stp.append(totals.get("step", float("nan")) / len(frames))
     else:
         fps.append(len(frames) / (time.perf_counter() - t0))
 launches = ", ".join(
@@ -141,6 +144,10 @@ print(f"[probe] {root} ({tracker}): FPS " + " / ".join(f"{x:.2f}" for x in fps)
       + "; tracker ms per frame " + " / ".join(f"{x:.3f}" for x in trk)
       + "; nms stage ms per frame " + " / ".join(f"{x:.3f}" for x in nms)
       + " (a chunk of 8: " + " / ".join(f"{8 * x:.3f}" for x in nms) + ")"
+      + "; captured step ms per frame " + " / ".join(f"{x:.3f}" for x in stp)
+      + "".join(f"; {st.engine.name}: {st.engine.graph_nodes()} nodes, "
+                f"capture {st.engine.compile_seconds:.3f} s"
+                for st in getattr(pipe, "_steps", {}).values())
       + f"; reads per frame {reads(len(frames))}; "
       f"launches per frame: {launches}; "
       f"track outputs {n_tracks}, SHA-256 of the tuples "

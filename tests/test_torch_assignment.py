@@ -538,11 +538,11 @@ def _pipeline_run(frames, **kw):
 
 @pytest.mark.parametrize("gmc", [False, "affine"], ids=["plain", "gmc"])
 def test_captured_scan_equals_the_eager_scan(monkeypatch, gmc):
-    """Through the engine (on the CPU a direct call) and eagerly, frame by
-    frame with the host skipping invalid frames: the same tuples and the
-    same state, over full chunks and a partial one (its padding frame
-    stepped and discarded by the mask), at both bucket capacities; no
-    tracker read in either."""
+    """Through the captured chunk step (one engine; on the CPU a direct
+    call) and through the eager step, frame by frame with the host skipping
+    invalid frames: the same tuples and the same state, over full chunks
+    and a partial one (its padding frame stepped and discarded by the
+    mask), at both bucket capacities; no tracker read in either."""
     frames = list(moving_rectangles(7, (96, 128), n_objects=3, seed=3))
     made = []
 
@@ -553,11 +553,14 @@ def test_captured_scan_equals_the_eager_scan(monkeypatch, gmc):
 
     monkeypatch.setattr(pl, "CUDAGraphEngine", Spy)
     cap, res_cap, reads_cap = _pipeline_run(frames, gmc=gmc)
+    monkeypatch.setattr(pl.TrackingPipeline, "_capture_step", False)
     monkeypatch.setattr(pl.TrackingPipeline, "_capture_scans", False)
     eag, res_eag, reads_eag = _pipeline_run(frames, gmc=gmc)
     assert reads_cap == reads_eag == 0
-    # full chunks and the partial last one, at 8 and 16 slots
-    assert len(set(made)) >= 2 and cap.scan_stats["small"] >= 1
+    # full chunks and the partial last one, at 8 and 16 slots, one step
+    assert made == ["deepsort chunk step 96x128 K=2"]
+    assert cap.scan_stats["small"] >= 1 and cap.scan_stats["skipped"] >= 1
+    assert cap.scan_stats == eag.scan_stats
     assert sum(len(r.tracks) for r in res_cap) > 0
     assert [r.tracks for r in res_cap] == [r.tracks for r in res_eag]
     for f in dataclasses.fields(cap.state):
@@ -591,7 +594,7 @@ def test_one_capture_a_capacity_whatever_the_validity(monkeypatch):
     for valid in ([[True, False], [False, False]],
                   [[False, True], [False, False]]):
         pipe.step_chunk(frames, frame_valid=np.array(valid))
-    assert made == ["deepsort scan T=16 over streams"] \
+    assert made == ["deepsort chunk step 96x128 K=2 over 2 streams"] \
         and bool(before[0].any())
     for a, b in zip(before, dataclasses.astuple(pipe.states)):
         assert torch.equal(a, b[1])
@@ -619,11 +622,16 @@ CORES = {
 def test_deepsort_chunk_scan_reads_nothing(tracker):
     """Every core's chunk scan (DeepSORT, ByteTrack, BoT-SORT, OC-SORT, Deep
     OC-SORT) takes no tracker read: ``TRACKER_SYNCS`` stays at 0 over every
-    chunk, and every chunk goes through the captured scan (on the CPU a
-    direct call) at the full and the bucketed capacity."""
+    chunk, and every chunk goes through the captured chunk step (on the CPU
+    a direct call), whose decisions took the small pass in one chunk and
+    the full scan (skipped or rerun) in another."""
     frames = list(moving_rectangles(6, (96, 128), n_objects=3, seed=3))
     pipe, results, reads = _pipeline_run(frames, **CORES[tracker])
     assert reads == 0 and sum(len(r.tracks) for r in results) > 0
-    names = {e.name for engines in pipe._scan_engines
-             for e in engines.values()}
-    assert names == {f"{pipe.tracker_kind} scan T={t}" for t in (8, 16)}
+    names = {st.engine.name for st in pipe._steps.values()}
+    assert names == {f"{pipe.tracker_kind} chunk step 96x128 K=2"}
+    assert not pipe._scan_engines and all(
+        st.bucketed for st in pipe._steps.values())
+    stats = pipe.scan_stats
+    assert sum(stats.values()) == len(frames) // 2
+    assert stats["small"] >= 1 and stats["skipped"] + stats["rerun"] >= 1

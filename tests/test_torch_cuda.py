@@ -129,7 +129,8 @@ def test_pipeline_launches_the_kernel_once_per_chunk(cuda):
     frames = moving_rectangles(6, (180, 320), n_objects=3, seed=3)
     launches = lb.KERNEL.launches
     results = list(pipe.process_frames(iter(frames)))
-    assert lb.KERNEL.launches == launches + 3
+    # a chunk each, and the captured step's eager pass before its capture
+    assert lb.KERNEL.launches == launches + 3 + chip_smoke.CAPTURE_PASSES
     assert len(results) == 6
     assert all(np.isfinite(r.det_boxes).all() for r in results)
     assert len(results[-1].tracks) > 0
@@ -288,8 +289,9 @@ def test_stream_stack_scan_reads_nothing_and_replays_once(cuda):
     back), replays once a dispatch with 2 K assignment launches, and its
     tracks equal the streams stepped one by one through the same stage on
     the same detections (ids, classes, boxes identical, conf within
-    1e-4). Through ``step_chunk`` with ``scan_bucket`` 8: at most two
-    bucket reads and no tracker read a dispatch."""
+    1e-4). Through ``step_chunk`` with ``scan_bucket`` 8 (the captured
+    chunk step): no bucket read, no tracker read, one step replay a
+    dispatch, and outputs bitwise the eager step's."""
     from aicamera_tpu_torch import config
     from aicamera_tpu_torch.core.assignment import TRACKER_SYNCS
     from aicamera_tpu_torch.core.state import TrackerParams
@@ -344,15 +346,24 @@ def test_stream_stack_scan_reads_nothing_and_replays_once(cuda):
     assert sum(len(f) for g in got for f in g) > 0
 
     pipe = MultiStreamPipeline(s, hw, scan_bucket=8, device=cuda, **kw)
-    pipe.step_chunk(frames[:, :k])   # captures
+    got = [pipe.step_chunk(frames[:, :k])]   # captures
     reads, bucket = TRACKER_SYNCS.count, BUCKET_SYNCS.count
-    replays, reruns = pipe.scan_replays(), pipe.scan_stats["rerun"]
+    replays = pipe.step_replays()
     for c in range(1, 3):
-        pipe.step_chunk(frames[:, c * k:(c + 1) * k], frame_valid=valid)
+        got.append(pipe.step_chunk(frames[:, c * k:(c + 1) * k],
+                                   frame_valid=valid))
     assert TRACKER_SYNCS.count == reads
-    assert BUCKET_SYNCS.count - bucket <= 2 * 2
-    assert pipe.scan_replays() - replays \
-        == 2 + pipe.scan_stats["rerun"] - reruns
+    assert BUCKET_SYNCS.count - bucket == 0
+    assert pipe.step_replays() - replays == 2
+    assert pipe.scan_replays() == 0
+    eager = MultiStreamPipeline(s, hw, scan_bucket=8, device=cuda, **kw)
+    eager._captured = False
+    want = [eager.step_chunk(frames[:, c * k:(c + 1) * k],
+                             frame_valid=None if c == 0 else valid)
+            for c in range(3)]
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+    assert pipe.scan_stats == eager.scan_stats
 
 
 @pytest.mark.parametrize("tracker,solves", [("bytetrack", 3),
@@ -623,6 +634,7 @@ def test_deepsort_scan_on_the_card_reads_nothing_and_replays(cuda,
     frames = moving_rectangles(7, (180, 320), n_objects=3, seed=3)
     captured, reads, launches = run()
     assert reads == 0 and launches >= 2 * len(frames)
+    monkeypatch.setattr(pl.TrackingPipeline, "_capture_step", False)
     monkeypatch.setattr(pl.TrackingPipeline, "_capture_scans", False)
     eager, reads, launches = run()
     assert reads == 0 and launches == 2 * len(frames)
@@ -656,7 +668,7 @@ def test_tracker_on_the_card_matches_the_cpu_path(cuda, tracker):
     launches = lb.KERNEL.launches
     gpu = list(TrackingPipeline(detect_dtype="f32", reid_dtype="f32",
                                 **kw).process_frames(iter(frames)))
-    assert lb.KERNEL.launches == launches + 3
+    assert lb.KERNEL.launches == launches + 3 + chip_smoke.CAPTURE_PASSES
     cpu = list(TrackingPipeline(device="cpu", **kw).process_frames(
         iter(frames)))
     assert sum(len(r.tracks) for r in gpu) > 0
@@ -757,7 +769,7 @@ def test_multistream_on_the_card_matches_single_streams_and_the_cpu(cuda):
     launches = lb.KERNEL.launches
     outs = {d: [p.step_chunk(frames[:, :2]), p.step_chunk(frames[:, 2:])]
             for d, p in pipes.items()}
-    assert lb.KERNEL.launches == launches + 2
+    assert lb.KERNEL.launches == launches + 2 + chip_smoke.CAPTURE_PASSES
     before = pipes["cuda"].states
     pipes["cuda"].step_chunk(frames[:, 2:], frame_valid=np.array(
         [[True, True], [False, False]]))
@@ -939,7 +951,7 @@ def test_stream_mesh_of_one_nccl_rank_equals_the_single_device(cuda):
     want = [tuple(t.cpu() for t in pipe.step_chunk(frames[:, c:c + 2]))
             for c in (0, 2)]
     for name in ("stream", "2d"):
-        assert out[name + "_counts"] == (2, 2)
+        assert out[name + "_counts"] == (2, 2 + chip_smoke.CAPTURE_PASSES)
         for got, ref in zip(out[name], want):
             for a, b in zip(got, ref):
                 assert torch.equal(a, b)
@@ -1042,9 +1054,10 @@ def test_nms_emit_on_the_card_equals_the_cpu(cuda):
 
 
 def test_pipeline_on_the_card_makes_no_nms_read(cuda):
-    """``TrackingPipeline(device="cuda")``: one NMS launch a chunk and no
-    NMS read; the detections and tuples of the card run equal those with
-    the plain tail in the kernel's place (its fixed-K form)."""
+    """``TrackingPipeline(device="cuda")``: one NMS launch a chunk (and one
+    in the captured step's pass before its capture) and no NMS read; the
+    detections and tuples of the card run equal those of the eager step
+    with the plain tail in the kernel's place (its fixed-K form)."""
     from aicamera_tpu_torch import config
     from aicamera_tpu_torch.core.state import TrackerParams
     from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline
@@ -1059,13 +1072,114 @@ def test_pipeline_on_the_card_makes_no_nms_read(cuda):
     frames = moving_rectangles(16, (180, 320), n_objects=3, seed=3)
     launches, reads = tnms.KERNEL.launches, tnms.NMS_SYNCS.count
     got = list(pipe.process_frames(iter(frames)))
-    assert tnms.KERNEL.launches == launches + 4
+    assert tnms.KERNEL.launches == launches + 4 + chip_smoke.CAPTURE_PASSES
     assert tnms.NMS_SYNCS.count == reads
     pipe.reset()
-    with chip_smoke.PlainTail():
+    # the captured step holds the kernel: the stand-in runs in the eager one
+    with chip_smoke.PlainTail(), chip_smoke.eager_step(pipe):
         want = list(pipe.process_frames(iter(frames)))
     assert sum(len(r.tracks) for r in got) > 0
     for g, w in zip(got, want, strict=True):
         np.testing.assert_array_equal(g.det_boxes, w.det_boxes)
         np.testing.assert_array_equal(g.det_scores, w.det_scores)
         assert repr(g.tracks) == repr(w.tracks)
+
+
+# loads whose busiest frame needs each ReID bucket of 32 crops: 0, 4, 8, 12,
+# 16, 24, 32; at scan_bucket 16 the first chunks of the light loads take the
+# small pass, of 20 and 28 the rerun, and the second chunks of 14 and up the
+# skip
+STEP_LOADS = (0, 3, 6, 10, 14, 20, 28)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_captured_step_reads_nothing_and_equals_the_eager_step(cuda, dtype):
+    """The chunk step captured whole (``TrackingPipeline._make_step``),
+    over loads that reach every ReID bucket and every scan way: no read on
+    any counter (NMS, ReID bucket, tracker, scan bucket), one replay a
+    chunk, and chunk by chunk the eager step's decisions (ways, buckets),
+    detections and track tuples, bitwise."""
+    from aicamera_tpu_torch import config
+    from aicamera_tpu_torch.core.assignment import TRACKER_SYNCS
+    from aicamera_tpu_torch.core.state import TrackerParams
+    from aicamera_tpu_torch.ops.nms import NMS_SYNCS
+    from aicamera_tpu_torch.runtime import pipeline as pl
+    counters = (NMS_SYNCS, pl.EMBED_SYNCS, TRACKER_SYNCS, pl.BUCKET_SYNCS)
+    # noise: the synthetic grid is the whole load
+    frames = np.random.RandomState(0).randint(0, 255, (4, 180, 320, 3),
+                                              np.uint8)
+    ways, buckets = dict(small=0, skipped=0, rerun=0), {}
+    for load in STEP_LOADS:
+        runs = []
+        for capture in (True, False):
+            pipe = pl.TrackingPipeline(
+                input_shape=(256, 256), chunk_size=2, synthetic_load=load,
+                max_reid_crops=32, scan_bucket=16, detect_dtype=dtype,
+                reid_dtype=dtype,
+                tracker_params=TrackerParams(max_tracks=64,
+                                             max_detections=32, nn_budget=4,
+                                             max_age=10),
+                yolo_weights=str(config.YOLO_SYNTHETIC_PATH),
+                reid_weights=str(config.REID_SYNTHETIC_PATH))
+            pipe._capture_step = capture
+            pipe.warm_up((180, 320))
+            before = [c.count for c in counters]
+            replays = pipe.step_replays()
+            chunks = []
+            for c in range(2):
+                res = list(pipe.process_chunks(iter([frames[2 * c:2 * c
+                                                             + 2]])))
+                chunks.append((res, dict(pipe.scan_stats),
+                               dict(pipe.reid_buckets)))
+            reads = [c.count - b for c, b in zip(counters, before)]
+            runs.append((chunks, reads, pipe.step_replays() - replays))
+        (cap, cap_reads, replays), (eag, eag_reads, _) = runs
+        assert cap_reads == [0, 0, 0, 0] and replays == 2, load
+        assert eag_reads[1] == 2, load      # the eager step reads its bucket
+        for (rc, wc, bc), (re_, we, be) in zip(cap, eag):
+            assert (wc, bc) == (we, be), load
+            for a, b in zip(rc, re_, strict=True):
+                assert a.tracks == b.tracks, load
+                assert np.array_equal(a.det_boxes, b.det_boxes)
+                assert np.array_equal(a.det_scores, b.det_scores)
+        for way, n in cap[-1][1].items():
+            ways[way] += n
+        for b, n in cap[-1][2].items():
+            buckets[b] = buckets.get(b, 0) + n
+    assert all(ways.values()), ways
+    assert sorted(buckets) == [0, 4, 8, 12, 16, 24, 32], buckets
+
+
+def test_a_branch_body_that_reads_the_gpu_raises(cuda):
+    """A captured step whose branch body reads the GPU: the capture raises
+    (no eager fallback), the stream is restored, and a step whose bodies
+    read nothing captures next and replays its switch right."""
+    from aicamera_tpu_torch.runtime import branches
+    from aicamera_tpu_torch.runtime.engine import CUDAGraphEngine
+    from aicamera_tpu_torch.syncs import SyncCounter
+    counter = SyncCounter()
+    index = torch.zeros((), dtype=torch.int32, device=cuda)
+
+    def reads(i):
+        out = torch.zeros((), device=cuda)
+        branches.cond(i > 0, lambda: out.fill_(float(i.sum())),
+                      counter=counter, site="reads")
+        return out
+
+    def writes(i):
+        out = torch.full((4,), -1.0, device=cuda)
+        branches.switch(i, [lambda j=j: out.fill_(j) for j in range(3)],
+                        counter=counter, site="writes")
+        return out
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        CUDAGraphEngine(reads, [index], warmup_iters=1)
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    eng = CUDAGraphEngine(writes, [index], warmup_iters=1)
+    for j in (2, 0, 1):
+        index.fill_(j)
+        assert torch.equal(eng(index), torch.full((4,), float(j),
+                                                  device=cuda))
+    assert counter.count == 0
+    with pytest.raises(RuntimeError, match="outside a CUDA-graph capture"):
+        writes(index)
