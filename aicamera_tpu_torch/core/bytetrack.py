@@ -45,6 +45,7 @@ import dataclasses
 
 import torch
 
+from ..device import resolve_device
 from ..ops.gmc import warp_xyah_bank
 from . import kalman
 from .assignment import (_claim, _scatter_drop, _take, min_cost_matching,
@@ -131,10 +132,11 @@ class ByteDetections:
     has_feature: torch.Tensor | None = None  # (N,) bool
 
 
-def init_state(params: ByteTrackParams, device="cpu",
+def init_state(params: ByteTrackParams, device=None,
                n_streams: int | None = None) -> ByteTrackState:
     """Fresh state; track ids restart at 1. ``n_streams``: a stack of that
     many fresh states on a leading stream axis."""
+    device = resolve_device(device)
     t = params.max_tracks
     lead = () if n_streams is None else (int(n_streams),)
 
@@ -162,10 +164,11 @@ def init_state(params: ByteTrackParams, device="cpu",
 
 
 def make_detections(tlwh, score, class_id, valid=None, feature=None, *,
-                    params: ByteTrackParams, device="cpu") -> ByteDetections:
+                    params: ByteTrackParams, device=None) -> ByteDetections:
     """Pad raw per-frame detections (numpy or tensors) to the static
     capacity. ``feature``: ``(k, D)`` ReID embeddings (rows of zeros = no
     feature), used only when ``params.with_appearance``."""
+    device = resolve_device(device)
     n = params.max_detections
 
     def t(x, dtype):

@@ -57,6 +57,7 @@ from typing import Optional
 
 import torch
 
+from ..device import resolve_device
 from ..ops import oru as _oru_kernel
 from ..ops.gmc import warp_ocsort_state
 from . import kalman
@@ -271,10 +272,11 @@ class OCSortDetections:
     has_feature: Optional[torch.Tensor] = None  # (N,) bool
 
 
-def init_state(params: OCSortParams, device="cpu",
+def init_state(params: OCSortParams, device=None,
                n_streams: int | None = None) -> OCSortState:
     """Fresh state; track ids restart at 1. ``n_streams``: a stack of that
     many fresh states on a leading stream axis."""
+    device = resolve_device(device)
     t, k = params.max_tracks, params.delta_t + 1
     lead = () if n_streams is None else (int(n_streams),)
 
@@ -313,10 +315,11 @@ def init_state(params: OCSortParams, device="cpu",
 
 def make_detections(xyxy, score, class_id, valid=None, *,
                     feature=None, has_feature=None,
-                    params: OCSortParams, device="cpu") -> OCSortDetections:
+                    params: OCSortParams, device=None) -> OCSortDetections:
     """Pad raw per-frame detections (numpy or tensors) to the static
     capacity. ``feature``: ``(k, F)`` ReID embeddings (rows of zeros = no
     feature), used only when ``params.with_appearance``."""
+    device = resolve_device(device)
     n = params.max_detections
 
     def t(x, dtype):

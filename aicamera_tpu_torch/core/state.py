@@ -20,6 +20,8 @@ import dataclasses
 
 import torch
 
+from ..device import resolve_device
+
 TENTATIVE = 1
 CONFIRMED = 2
 
@@ -84,10 +86,11 @@ class Detections:
     valid: torch.Tensor          # (N,) bool
 
 
-def init_state(params: TrackerParams, device="cpu",
+def init_state(params: TrackerParams, device=None,
                n_streams: int | None = None) -> TrackerState:
     """Fresh tracker state; track ids restart at 1. ``n_streams``: a stack
     of that many fresh states on a leading stream axis."""
+    device = resolve_device(device)
     t, g, d = params.max_tracks, params.nn_budget, params.feature_dim
     lead = () if n_streams is None else (int(n_streams),)
 
@@ -123,9 +126,10 @@ def pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
 
 def make_detections(tlwh, conf, class_id, feature=None, has_feature=None,
                     valid=None, *, params: TrackerParams,
-                    device="cpu") -> Detections:
+                    device=None) -> Detections:
     """Pad raw detection arrays (numpy or tensors, leading dim
     n <= max_detections) to the static capacity."""
+    device = resolve_device(device)
     n = params.max_detections
     d = params.feature_dim
 

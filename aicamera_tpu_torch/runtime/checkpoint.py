@@ -56,12 +56,13 @@ def load_state(path: str | Path, params, n_streams: int | None = None,
     states: every field with a leading stream axis of S, as
     ``MultiStreamPipeline.states`` holds them."""
     device = resolve_device(device)
+    # the template only gives shapes and dtypes; state_like moves the fields
     if isinstance(params, _bt.ByteTrackParams):
-        template = _bt.init_state(params)
+        template = _bt.init_state(params, "cpu")
     elif isinstance(params, _oc.OCSortParams):
-        template = _oc.init_state(params)
+        template = _oc.init_state(params, "cpu")
     else:
-        template = init_state(params)
+        template = init_state(params, "cpu")
     tree = load_flax_msgpack(path)
     names = [f.name for f in dataclasses.fields(template)]
     if not isinstance(tree, dict) or set(tree) != set(names):

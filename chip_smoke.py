@@ -258,7 +258,21 @@ this file; exits non-zero otherwise. In order it:
     1e-6 relative, parameters within rtol 5e-3 and atol 1e-5, the start
     outside it, bitwise equal across ranks; one all-reduce a step) and the
     composed ``meshes=`` stage-split detector; ms a dispatch and a step
-    per rank (two ranks sharing one card: no scaling figure).
+    per rank (two ranks sharing one card: no scaling figure);
+18. ``[examples]``: the twelve scripts of ``examples_torch/``, each one's
+    ``main(argv)`` in this process with no ``--device`` (the card), at the
+    sizes ``tests/test_torch_examples.py`` runs them on the CPU (the video
+    scripts on an MJPEG ``.avi`` of the synthetic world's frames, written
+    by the port's ``VideoWriter``), and ``multistream.py --ranks 1`` (one
+    NCCL rank) and ``--ranks 2`` (two gloo ranks sharing the card): a line
+    a run with its exit status, wall seconds, every hand kernel's launches
+    (the ranks report their own) and the memory still allocated after it;
+    it fails where a
+    script raises or exits non-zero, or leaves unlaunched a kernel it runs
+    (letterbox and NMS in every script that detects, assignment in every
+    one that tracks, ORU in ``ocsort_video.py``, the branch kernel in every
+    ``TrackingPipeline`` and stream stack); ``serialized_engines.py``
+    asserts its engine bitwise the weight path.
 
 Every path that detects launches the NMS kernel once a chunk, dispatch,
 request or ``detect`` replay (twice a ``detect_tiled`` replay) and reads
@@ -273,7 +287,7 @@ the assignment's and the NMS kernel's on the main path, the ORU kernel's on
 ``--only oru`` and ``--only nms``;
 ``--only`` runs the kernel phases and the named phases (``int8`` brings
 ``quality`` along, ``present`` brings ``cli``; ``--only parallel`` runs
-step 17 alone).
+step 17 alone, ``--only examples`` step 18).
 """
 
 from __future__ import annotations
@@ -284,6 +298,7 @@ import gc
 import hashlib
 import io
 import json
+import re
 import shutil
 import struct
 import subprocess
@@ -5580,6 +5595,122 @@ def parallel_phase(device, kernels):
     return counts
 
 
+EXAMPLE_CLIP_FRAMES = 2   # [examples]: the .avi the video scripts read
+# [examples]: (script, arguments, hand kernels it must launch), at the sizes
+# tests/test_torch_examples.py runs them on the CPU; "{clip}" is the .avi
+DETECTS = ("letterbox", "nms")
+TRACKS = DETECTS + ("assignment",)
+PIPELINE = TRACKS + ("branch",)
+EXAMPLE_RUNS = [
+    ("detect_image.py", (), DETECTS),
+    ("track_video.py", ("--input", "{clip}", "--frames",
+                        EXAMPLE_CLIP_FRAMES), TRACKS),
+    ("bytetrack_video.py", ("--input", "{clip}", "--frames",
+                            EXAMPLE_CLIP_FRAMES), TRACKS),
+    ("ocsort_video.py", ("--input", "{clip}", "--frames",
+                         EXAMPLE_CLIP_FRAMES), TRACKS + ("oru",)),
+    ("fused_pipeline.py", ("--frames", 4, "--chunk", 2), PIPELINE),
+    ("synthetic_eval.py", ("--frames", 4, "--chunk", 2), PIPELINE),
+    ("quantized_pipeline.py", ("--frames", 4), PIPELINE),
+    ("serialized_engines.py", (), TRACKS),
+    ("serving_async.py", (), PIPELINE),
+    ("multitenant_serving.py", (), PIPELINE),
+    ("multistream.py", ("--streams", 4, "--steps", 2), PIPELINE),
+    ("multistream.py", ("--ranks", 1, "--streams", 4, "--steps", 2),
+     PIPELINE),
+    ("multistream.py", ("--ranks", 2, "--streams", 4, "--steps", 2),
+     PIPELINE),
+    ("pipeline_parallel.py", ("--batch", 4), DETECTS),
+]
+RANK_LINE = re.compile(r"rank (\d+) on (\S+): streams \d+-\d+, kernel "
+                       r"launches (\{.*\})")
+
+
+def examples_phase(device, kernels, workdir):
+    """The twelve scripts of ``examples_torch/`` on the card: each one's
+    ``main(argv)`` in this process with no ``--device`` (so the GPU), at the
+    CPU test's sizes, every kernel count set to 0 just before and read just
+    after; ``multistream.py`` also as a world of one NCCL rank and of two
+    gloo ranks sharing the card, whose launches its ranks report. Fails
+    where a script raises, exits non-zero or leaves a hand kernel it runs
+    unlaunched. One line a run: exit status, wall seconds, launches by
+    kernel, the memory still allocated after its objects are gone."""
+    import ast
+    import importlib
+    import torch
+    from aicamera_tpu_torch.synthetic import TemporalWorld, WorldSpec
+    from aicamera_tpu_torch.utils.video_io import VideoWriter
+
+    # the clip the video scripts read: the synthetic world's frames
+    clip = Path(workdir) / "examples_world.avi"
+    world = TemporalWorld(WorldSpec(max_objects=8, presence=1.0), seed=3,
+                          speed=2.0, device=device)
+    writer = VideoWriter(str(clip), 30.0, world.spec.hw)
+    try:
+        for _ in range(EXAMPLE_CLIP_FRAMES):
+            writer.write(world.step()[0])
+    finally:
+        writer.release()
+    del world
+
+    launches = {}
+    for script, args, must in EXAMPLE_RUNS:
+        argv = [str(clip) if a == "{clip}" else str(a) for a in args]
+        tag = " ".join([script, *(a if a != str(clip) else clip.name
+                                  for a in argv)])
+        main = importlib.import_module(
+            "examples_torch." + script[:-3]).main
+        reset_counts(kernels)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = main(argv)
+        except Exception as e:  # noqa: BLE001 - reported, then the run fails
+            print(out.getvalue()[-2000:])
+            raise SmokeFailure(f"[examples] {tag} raised {e!r}") from e
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in kernels}
+        text = out.getvalue()
+        ranks = RANK_LINE.findall(text)
+        if "--ranks" in argv:
+            # the ranks' own counts: they launch in their processes. One
+            # rank a card runs NCCL; two on the one card, gloo
+            n_ranks = int(argv[argv.index("--ranks") + 1])
+            backend = ("nccl" if n_ranks <= torch.cuda.device_count()
+                       else "gloo")
+            check(len(ranks) == n_ranks, f"[examples] {tag}: {len(ranks)} "
+                  f"rank lines")
+            check(f"over a {n_ranks}-rank mesh ({backend})" in text,
+                  f"[examples] {tag}: not a {backend} world")
+            per_rank = [ast.literal_eval(r[2]) for r in ranks]
+            counts = {n: sum(r[n] for r in per_rank) for n in counts}
+            check(all(r[1].startswith("cuda") for r in ranks),
+                  f"[examples] {tag}: ranks on {[r[1] for r in ranks]}")
+            check(all(all(r[n] > 0 for n in must) for r in per_rank),
+                  f"[examples] {tag}: a rank left a kernel unlaunched: "
+                  f"{per_rank}")
+        gc.collect()
+        torch.cuda.synchronize()
+        launches[tag] = counts
+        last = [ln for ln in text.splitlines()
+                if ln.strip() and not ln.startswith("    ID:")]
+        print(f"[examples] {tag}: exit {rc}, {wall:.2f} s, launches "
+              + ", ".join(f"{n} {v}" for n, v in counts.items())
+              + f"; {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+              f"allocated after; last line: {last[-1] if last else ''!r}")
+        check(rc == 0, f"[examples] {tag} exited {rc}")
+        missing = [n for n in must if counts[n] == 0]
+        check(not missing, f"[examples] {tag}: {missing} never launched")
+        check(CARD_NMS_READS[0] == 0, f"[examples] {tag}: "
+              f"{CARD_NMS_READS[0]} NMS reads on the card")
+        if script == "serialized_engines.py":
+            check("== weight-based output (bitwise)" in text,
+                  f"[examples] {tag}: the engine was not held bitwise")
+    return launches
+
+
 def profile_chunk(pipe, chunk):
     """GPU busy share of one more chunk, from a torch.profiler trace: the
     sum of kernel and copy times over the host wall time of the chunk."""
@@ -5683,7 +5814,8 @@ def main() -> int:
                          "bucket, "
                          "trackers, gmc, facades, "
                          "engine, cli, present, compare, streams, serving, "
-                         "server, quality, int8, mot, train, parallel); "
+                         "server, quality, int8, mot, train, parallel, "
+                         "examples); "
                          "default all")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -5781,6 +5913,7 @@ def main() -> int:
         run("mot", mot_phase, device, kernels)
         run("train", train_phase, device, kernels)
         run("parallel", parallel_phase, device, kernels)
+        run("examples", examples_phase, device, kernels, workdir)
         check(CARD_NMS_READS[0] == 0, f"{CARD_NMS_READS[0]} NMS reads on "
               f"the card outside the yardsticks")
         print("[nms] no path read the card in its NMS (0 reads of the plain "
@@ -5813,7 +5946,7 @@ def main() -> int:
             path: (counts if path in ("train", "parallel") else
                    {t: v[name] for t, v in counts.items()}
                    if path in ("trackers", "gmc", "facades", "engine",
-                               "quality", "int8", "streams")
+                               "quality", "int8", "streams", "examples")
                    else counts[name])
             for path, counts in by_path.items()
             if name == "letterbox" or path not in ("train", "parallel")}

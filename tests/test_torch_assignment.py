@@ -429,13 +429,13 @@ def _run_both(frames, **extra):
     states, the initial one first."""
     jp = jstate.TrackerParams(**P, **extra)
     tp = tstate.TrackerParams(**P, **extra)
-    js, ts = jstate.init_state(jp), tstate.init_state(tp)
+    js, ts = jstate.init_state(jp), tstate.init_state(tp, device="cpu")
     states = [ts]
     for i, (tlwh, conf, cls, feat, has) in enumerate(frames):
         js = jtrk.update(jtrk.predict(js, jp), jstate.make_detections(
             tlwh, conf, cls, feat, has, params=jp), jp)
         ts = ttrk.update(ttrk.predict(ts, tp), tstate.make_detections(
-            tlwh, conf, cls, feat, has, params=tp), tp)
+            tlwh, conf, cls, feat, has, params=tp, device="cpu"), tp)
         for name in INT_FIELDS:
             np.testing.assert_array_equal(
                 getattr(ts, name).numpy(), np.asarray(getattr(js, name)),

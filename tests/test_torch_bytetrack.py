@@ -84,7 +84,7 @@ def compare_outputs(ours, ref):
 
 def run_both(scene, kw, seed):
     tp, jp = tbt.ByteTrackParams(**kw), jbt.ByteTrackParams(**kw)
-    st, js = tbt.init_state(tp), jbt.init_state(jp)
+    st, js = tbt.init_state(tp, device="cpu"), jbt.init_state(jp)
     rng = np.random.RandomState(seed)
     worst, emitted, lost_seen = [0.0], 0, False
     for xyxy, score, cls in scene:
@@ -93,7 +93,8 @@ def run_both(scene, kw, seed):
         feat = (_features(rng, cls, tp.feature_dim)
                 if tp.with_appearance else None)
         st = tbt.step(st, tbt.make_detections(
-            _tlwh(xyxy), score, cls, feature=feat, params=tp), tp)
+            _tlwh(xyxy), score, cls, feature=feat, params=tp,
+            device="cpu"), tp)
         js = jbt.step(js, jbt.make_detections(
             _tlwh(xyxy), score, cls, feature=feat, params=jp), jp)
         compare_states(st, js, worst)
@@ -145,8 +146,8 @@ def test_score_equal_to_the_threshold_is_in_neither_split():
     tp, jp = tbt.ByteTrackParams(**SMALL), jbt.ByteTrackParams(**SMALL)
     box = np.array([[10, 10, 50, 80]], np.float32)
     args = (box, np.array([0.5], np.float32), np.array([0], np.int32))
-    st = tbt.step(tbt.init_state(tp), tbt.make_detections(*args, params=tp),
-                  tp)
+    st = tbt.step(tbt.init_state(tp, device="cpu"),
+                  tbt.make_detections(*args, params=tp, device="cpu"), tp)
     js = jbt.step(jbt.init_state(jp), jbt.make_detections(*args, params=jp),
                   jp)
     assert not st.active.any() and not np.asarray(js.active).any()
@@ -162,7 +163,7 @@ def test_make_detections_matches_jax():
     feat = rng.normal(size=(5, 8)).astype(np.float32)
     feat[3] = 0.0                             # no feature
     args = (tlwh, rng.uniform(size=5), np.arange(5))
-    ours = tbt.make_detections(*args, feature=feat, params=tp)
+    ours = tbt.make_detections(*args, feature=feat, params=tp, device="cpu")
     ref = jbt.make_detections(*args, feature=feat, params=jp)
     for f in dataclasses.fields(ours):
         np.testing.assert_array_equal(getattr(ours, f.name).numpy(),
@@ -171,7 +172,7 @@ def test_make_detections_matches_jax():
     assert not ours.valid[2] and not ours.has_feature[3]
     with pytest.raises(ValueError, match="exceed capacity"):
         tbt.make_detections(np.zeros((17, 4)), np.zeros(17), np.zeros(17),
-                            params=tp)
+                            params=tp, device="cpu")
 
 
 def test_gmc_argument_is_not_ported():
@@ -180,10 +181,10 @@ def test_gmc_argument_is_not_ported():
     is without one."""
     tp = tbt.ByteTrackParams(**SMALL)
     scene = moving_boxes(3, seed=5)
-    st = st_gmc = tbt.init_state(tp)
+    st = st_gmc = tbt.init_state(tp, device="cpu")
     for xyxy, score, cls in scene:
         dets = tbt.make_detections(_tlwh(xyxy[:16]), score[:16], cls[:16],
-                                   params=tp)
+                                   params=tp, device="cpu")
         st = tbt.step(st, dets, tp)
         st_gmc = tbt.step(st_gmc, dets, tp,
                           gmc=(torch.eye(2), torch.zeros(2)))

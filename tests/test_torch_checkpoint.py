@@ -49,19 +49,20 @@ def _step(p, st, xyxy, score, cls, rng):
     """One frame through the port core that ``p`` belongs to."""
     feat = rng.normal(size=(len(xyxy), 8)).astype(np.float32)
     if isinstance(p, cs.TrackerParams):
-        dets = cs.make_detections(_tlwh(xyxy), score, cls, feat, params=p)
+        dets = cs.make_detections(_tlwh(xyxy), score, cls, feat, params=p,
+                                  device="cpu")
         return trk.update(trk.predict(st, p), dets, p)
     if isinstance(p, bt.ByteTrackParams):
         return bt.step(st, bt.make_detections(
-            _tlwh(xyxy), score, cls, feature=feat, params=p), p)
+            _tlwh(xyxy), score, cls, feature=feat, params=p, device="cpu"), p)
     return oc.step(st, oc.make_detections(xyxy, score, cls, feature=feat,
-                                          params=p), p)
+                                          params=p, device="cpu"), p)
 
 
 def _init(p):
-    return (cs.init_state(p) if isinstance(p, cs.TrackerParams)
-            else bt.init_state(p) if isinstance(p, bt.ByteTrackParams)
-            else oc.init_state(p))
+    core = (cs if isinstance(p, cs.TrackerParams)
+            else bt if isinstance(p, bt.ByteTrackParams) else oc)
+    return core.init_state(p, device="cpu")
 
 
 def _lived_in_state(p, n_frames=5):

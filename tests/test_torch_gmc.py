@@ -324,7 +324,8 @@ def test_warp_ocsort_state(seed):
         velocity=vel)
     fields = {n: (v.astype(np.float32) if v.dtype == np.float64 else v)
               for n, v in fields.items()}
-    ours = toc.init_state(tp).replace(**{n: T(v) for n, v in fields.items()})
+    ours = toc.init_state(tp, device="cpu").replace(
+        **{n: T(v) for n, v in fields.items()})
     ref = joc.init_state(jp).replace(
         **{n: jnp.asarray(v) for n, v in fields.items()})
     a, tr = _affine(seed + 10)

@@ -83,11 +83,17 @@ def _tlwh(xyxy):
     return np.concatenate([xyxy[:, :2], xyxy[:, 2:] - xyxy[:, :2]], 1)
 
 
+def _on_cpu(mod):
+    """The port's constructors are told the CPU; JAX's take no device."""
+    return ({"device": "cpu"} if mod.__name__.startswith("aicamera_tpu_torch")
+            else {})
+
+
 def _run_deepsort(pkg, use_gmc):
     core, st_mod, tracker, gmc_mod, arr = pkg
     p = st_mod.TrackerParams(max_tracks=16, max_detections=8, feature_dim=8,
                              n_init=2)
-    s = st_mod.init_state(p)
+    s = st_mod.init_state(p, **_on_cpu(st_mod))
     outs = []
     for box, (a, t) in zip(SCENE[1], SCENE[2]):
         s = tracker.predict(s, p)
@@ -97,7 +103,7 @@ def _run_deepsort(pkg, use_gmc):
             s = s.replace(mean=m, cov=c)
         xyxy, score, cls, valid = _one_det(box, 8)
         d = st_mod.make_detections(_tlwh(xyxy), score, cls, valid=valid,
-                                   params=p)
+                                   params=p, **_on_cpu(st_mod))
         s = tracker.update(s, d, p)
         outs.append(tracker.get_outputs(s))
     return outs
@@ -106,12 +112,12 @@ def _run_deepsort(pkg, use_gmc):
 def _run_bytetrack(pkg, use_gmc):
     core, _, _, _, arr = pkg
     p = core.ByteTrackParams(max_tracks=16, max_detections=8)
-    s = core.init_state(p)
+    s = core.init_state(p, **_on_cpu(core))
     outs = []
     for box, (a, t) in zip(SCENE[1], SCENE[2]):
         xyxy, score, cls, valid = _one_det(box, 8)
         d = core.make_detections(_tlwh(xyxy), score, cls, valid=valid,
-                                 params=p)
+                                 params=p, **_on_cpu(core))
         s = core.step(s, d, p, gmc=(arr(a), arr(t)) if use_gmc else None)
         outs.append(core.get_outputs(s))
     return outs
@@ -120,11 +126,12 @@ def _run_bytetrack(pkg, use_gmc):
 def _run_ocsort(pkg, use_gmc):
     core, _, _, _, arr = pkg
     p = core.OCSortParams(max_tracks=16, max_detections=8, min_hits=2)
-    s = core.init_state(p)
+    s = core.init_state(p, **_on_cpu(core))
     outs = []
     for box, (a, t) in zip(SCENE[1], SCENE[2]):
         xyxy, score, cls, valid = _one_det(box, 8)
-        d = core.make_detections(xyxy, score, cls, valid=valid, params=p)
+        d = core.make_detections(xyxy, score, cls, valid=valid, params=p,
+                                 **_on_cpu(core))
         s = core.step(s, d, p, gmc=(arr(a), arr(t)) if use_gmc else None)
         outs.append(core.get_outputs(s, p))
     return outs

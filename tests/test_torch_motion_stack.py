@@ -125,11 +125,13 @@ STREAM_HIDDEN = ([(0, 3, 4), (2, 5, 7)], [(1, 2, 6), (3, 4, 4)],
 
 
 def _dets(mod, xyxy, score, cls, feat, params):
+    on = {"device": "cpu"} if mod in (tbt, toc) else {}  # JAX takes none
     if mod in (tbt, jbt):
         tlwh = np.concatenate([xyxy[:, :2], xyxy[:, 2:] - xyxy[:, :2]], 1)
         return mod.make_detections(tlwh, score, cls, feature=feat,
-                                   params=params)
-    return mod.make_detections(xyxy, score, cls, feature=feat, params=params)
+                                   params=params, **on)
+    return mod.make_detections(xyxy, score, cls, feature=feat, params=params,
+                               **on)
 
 
 def _stack(items):
@@ -191,8 +193,8 @@ def test_stacked_step_equals_per_stream_and_jax_vmap(name, gmc):
     floors = P_FLOORS if core is toc else None
     reads = tasg.TRACKER_SYNCS.count
 
-    stack = core.init_state(tp, n_streams=S)
-    singles = [core.init_state(tp) for _ in range(S)]
+    stack = core.init_state(tp, "cpu", n_streams=S)
+    singles = [core.init_state(tp, "cpu") for _ in range(S)]
     jstack = jax.vmap(lambda _: jcore.init_state(jp))(jnp.arange(S))
     emitted, replays, worst = np.zeros(S, int), 0, [0.0]
     for t in range(N_FRAMES):
@@ -274,8 +276,8 @@ def test_oru_replay_matches_the_jax_step_and_the_gmax_loop(monkeypatch):
             f.name: None if getattr(js, f.name) is None
             else torch.from_numpy(np.array(getattr(js, f.name)))
             for f in dataclasses.fields(js)})
-        st = toc.step(st, toc.make_detections(xyxy, score, cls, params=tp),
-                      tp)
+        st = toc.step(st, toc.make_detections(xyxy, score, cls, params=tp,
+                                              device="cpu"), tp)
         js = joc.step(js, joc.make_detections(xyxy, score, cls, params=jp),
                       jp)
         compare_states(st, js, [0.0], P_FLOORS)
@@ -362,7 +364,7 @@ def test_no_core_reads_the_device(monkeypatch, name):
             tlwh = np.concatenate([xyxy[:, :2], xyxy[:, 2:] - xyxy[:, :2]],
                                   1)
             return tstate.make_detections(tlwh, score, cls, feat,
-                                          params=tp)
+                                          params=tp, device="cpu")
 
         def step(st, d):
             return ttrk.update(ttrk.predict(st, tp), d, tp)
@@ -379,7 +381,7 @@ def test_no_core_reads_the_device(monkeypatch, name):
     reads = tasg.TRACKER_SYNCS.count
     with monkeypatch.context() as m:
         _forbid_reads(m)
-        single, stack = init(tp), init(tp, n_streams=S)
+        single, stack = init(tp, "cpu"), init(tp, "cpu", n_streams=S)
         for d in frames:
             single = step(single, d[0])
             stack = step(stack, _stack(d))
@@ -418,7 +420,7 @@ def test_stacked_init_slice_splice_and_checkpoint(name, tmp_path):
     package's ``slice_stream_tracks`` / ``splice_stream_tracks``; a stacked
     checkpoint loads back with ``n_streams=S``."""
     core, jcore, tp, jp = _params(name)
-    stack = core.init_state(tp, n_streams=S)
+    stack = core.init_state(tp, "cpu", n_streams=S)
     jstack = jax.vmap(lambda _: jcore.init_state(jp))(jnp.arange(S))
     rng = np.random.RandomState(4)
     upd = {}
@@ -465,7 +467,7 @@ def test_ocsort_warp_over_streams_equals_jax_vmap():
     within 1e-5 relative of ``jax.vmap`` of the JAX warp; each stream
     bitwise its own unbatched warp; sentinel entries untouched."""
     _, _, tp, jp = _params("ocsort")
-    stack = toc.init_state(tp, n_streams=S)
+    stack = toc.init_state(tp, n_streams=S, device="cpu")
     rng = np.random.RandomState(5)
     k = tp.delta_t + 1
     m = rng.normal(0, 1, (S, T_SLOTS, 7, 7))

@@ -387,7 +387,7 @@ def test_states_assign_and_checkpoint_round_trip(tmp_path):
                                          device="cpu").replace(
             next_id=torch.ones(S + 1, dtype=torch.int32))
     with pytest.raises(TypeError):
-        b.states = tbt.init_state(tbt.ByteTrackParams(**CAP))
+        b.states = tbt.init_state(tbt.ByteTrackParams(**CAP), device="cpu")
 
 
 def test_step_chunk_checks_its_inputs():

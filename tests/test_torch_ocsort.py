@@ -44,7 +44,7 @@ def T(x):
 
 def run_both(scene, kw, seed, nan_at=None):
     tp, jp = toc.OCSortParams(**kw), joc.OCSortParams(**kw)
-    st, js = toc.init_state(tp), joc.init_state(jp)
+    st, js = toc.init_state(tp, device="cpu"), joc.init_state(jp)
     rng = np.random.RandomState(seed)
     worst, emitted, replays = [0.0], 0, 0
     for f, (xyxy, score, cls) in enumerate(scene):
@@ -54,7 +54,8 @@ def run_both(scene, kw, seed, nan_at=None):
             xyxy[0, 2] = np.nan  # a non-finite box: make_detections drops it
         feat = (_features(rng, cls, tp.feature_dim)
                 if tp.with_appearance else None)
-        dets = toc.make_detections(xyxy, score, cls, feature=feat, params=tp)
+        dets = toc.make_detections(xyxy, score, cls, feature=feat, params=tp,
+                                   device="cpu")
         jdets = joc.make_detections(xyxy, score, cls, feature=feat,
                                     params=jp)
         # a revival that triggers the replay: a frozen, unobserved track
@@ -108,10 +109,10 @@ def test_nan_prediction_deactivates_the_track():
     tp, jp = toc.OCSortParams(**SMALL), joc.OCSortParams(**SMALL)
     scene = moving_boxes(4, n_objects=3, seed=1, miss=0.0, low=0.0,
                          clutter=0.0)
-    st, js = toc.init_state(tp), joc.init_state(jp)
+    st, js = toc.init_state(tp, device="cpu"), joc.init_state(jp)
     for xyxy, score, cls in scene[:3]:
-        st = toc.step(st, toc.make_detections(xyxy, score, cls, params=tp),
-                      tp)
+        st = toc.step(st, toc.make_detections(xyxy, score, cls, params=tp,
+                                              device="cpu"), tp)
         js = joc.step(js, joc.make_detections(xyxy, score, cls, params=jp),
                       jp)
     x = st.x.clone()
@@ -121,7 +122,8 @@ def test_nan_prediction_deactivates_the_track():
     doomed = int(st.track_id[0])
     assert bool(st.active[0]) and doomed > 0
     xyxy, score, cls = scene[3]
-    st = toc.step(st, toc.make_detections(xyxy, score, cls, params=tp), tp)
+    st = toc.step(st, toc.make_detections(xyxy, score, cls, params=tp,
+                                          device="cpu"), tp)
     js = joc.step(js, joc.make_detections(xyxy, score, cls, params=jp), jp)
     # its detection starts a new track (the freed slot is the lowest)
     assert doomed not in st.track_id[st.active].tolist()
@@ -212,10 +214,10 @@ def test_gmc_argument_is_not_ported():
     is without one, but for the momentum direction, which the warp
     renormalizes (the core stores ``d / (|d| + 1e-6)``): within 1e-6."""
     tp = toc.OCSortParams(**SMALL)
-    st = st_gmc = toc.init_state(tp)
+    st = st_gmc = toc.init_state(tp, device="cpu")
     for xyxy, score, cls in moving_boxes(4, seed=5):
         dets = toc.make_detections(xyxy[:16], score[:16], cls[:16],
-                                   params=tp)
+                                   params=tp, device="cpu")
         st = toc.step(st, dets, tp)
         st_gmc = toc.step(st_gmc, dets, tp,
                           gmc=(torch.eye(2), torch.zeros(2)))
@@ -228,4 +230,4 @@ def test_gmc_argument_is_not_ported():
         assert (a is None and b is None) or torch.equal(a, b), name
     with pytest.raises(ValueError, match="exceed capacity"):
         toc.make_detections(np.zeros((17, 4)), np.zeros(17), np.zeros(17),
-                            params=tp)
+                            params=tp, device="cpu")

@@ -210,12 +210,20 @@ MUST_COVER = ("cli.py", "utils/__init__.py", "utils/video_io.py",
               "parallel/pipeline_parallel.py", "ops/assignment.py")
 
 
+# the examples' twins import neither the JAX package's examples nor its
+# helpers (examples/_common.py)
+EXAMPLES_FORBIDDEN = FORBIDDEN + ("examples",)
+EXAMPLE_FILES = sorted((ROOT / "examples_torch").glob("*.py"))
+
+
 def test_source_scan_finds_no_forbidden_import():
     files = sorted(PORT_DIR.rglob("*.py")) + [SMOKE]
     assert SMOKE.exists()
     assert {PORT_DIR / m for m in MUST_COVER} <= set(files)
-    for f in files:
-        bad = set(_imported_roots(f)) & set(FORBIDDEN)
+    assert len(EXAMPLE_FILES) == 13   # the 12 examples and _common.py
+    for f in files + EXAMPLE_FILES:
+        forbidden = EXAMPLES_FORBIDDEN if f in EXAMPLE_FILES else FORBIDDEN
+        bad = set(_imported_roots(f)) & set(forbidden)
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
 
 
@@ -252,6 +260,9 @@ f = np.zeros((16, 24, 3), np.uint8)
 visualization.draw_tracks(f, [(1, 1, 8, 8, 1, "person", 0.5)])
 assert jpeg.decode_jpeg(jpeg.encode_jpeg(f)).shape == (16, 24, 3)
 runpy.run_path({smoke!r}, run_name="chip_smoke_imported")
+for name in {examples!r}:
+    mod = importlib.import_module("examples_torch." + name)
+    assert name == "_common" or callable(mod.main), name
 print("IMPORT-OK")
 """
 
@@ -259,7 +270,9 @@ print("IMPORT-OK")
 def test_imports_with_jax_and_the_jax_package_blocked():
     must = ["aicamera_tpu_torch." + m[:-3].replace("/", ".")
             for m in MUST_COVER if not m.endswith("__init__.py")]
-    code = _BLOCKER.format(forbidden=FORBIDDEN, smoke=str(SMOKE), must=must)
+    code = _BLOCKER.format(forbidden=EXAMPLES_FORBIDDEN, smoke=str(SMOKE),
+                           must=must,
+                           examples=[f.stem for f in EXAMPLE_FILES])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]

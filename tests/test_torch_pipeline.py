@@ -2,6 +2,8 @@
 tracker) on the CPU against the JAX ``TrackingPipeline``, for every tracker
 core."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -14,6 +16,7 @@ from aicamera_tpu.core import state as jstate  # noqa: E402
 from aicamera_tpu_torch import config  # noqa: E402
 from aicamera_tpu_torch.core import bytetrack as tbt  # noqa: E402
 from aicamera_tpu_torch.core import ocsort as toc  # noqa: E402
+from aicamera_tpu_torch.core import state as tstate  # noqa: E402
 from aicamera_tpu_torch.core.state import TrackerParams  # noqa: E402
 from aicamera_tpu_torch.runtime.pipeline import TrackingPipeline  # noqa: E402
 from aicamera_tpu_torch.scenes import moving_rectangles  # noqa: E402
@@ -199,6 +202,43 @@ def test_entry_point_defaults_to_the_gpu():
         pytest.skip("a GPU is present; the no-GPU error cannot be shown")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TrackingPipeline(input_shape=INPUT_HW)
+
+
+CORES = {"deepsort": (tstate, TrackerParams(max_tracks=4, max_detections=4,
+                                            feature_dim=8)),
+         "bytetrack": (tbt, tbt.ByteTrackParams(max_tracks=4,
+                                                max_detections=4)),
+         "ocsort": (toc, toc.OCSortParams(max_tracks=4, max_detections=4))}
+
+
+@pytest.mark.parametrize("fn", ["init_state", "make_detections"])
+@pytest.mark.parametrize("core", sorted(CORES))
+def test_core_state_defaults_to_the_gpu(core, fn):
+    """The cores' public constructors take the device rule of every entry
+    point (``device.resolve_device``): left out, the GPU, which raises
+    where there is none; ``device="cpu"`` places every tensor on the
+    CPU."""
+    mod, params = CORES[core]
+    box = np.array([[10.0, 20.0, 30.0, 60.0]], np.float32)
+
+    def make(**kw):
+        if fn == "init_state":
+            return mod.init_state(params, **kw)
+        return mod.make_detections(box, np.array([0.9], np.float32),
+                                   np.array([0], np.int32), params=params,
+                                   **kw)
+
+    def devices(obj):
+        return {getattr(obj, f.name).device.type
+                for f in dataclasses.fields(obj)
+                if getattr(obj, f.name) is not None}
+
+    assert devices(make(device="cpu")) == {"cpu"}
+    if torch.cuda.is_available():
+        assert devices(make()) == {"cuda"}
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 # (strongsort's default gmc="affine" and gmc= itself run now:

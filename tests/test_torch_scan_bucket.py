@@ -42,7 +42,8 @@ def _deepsort_frame(p):
 
     def frame(st, xyxy, score, cls):
         feat = rng.normal(size=(len(xyxy), p.feature_dim)).astype(np.float32)
-        dets = cs.make_detections(_tlwh(xyxy), score, cls, feat, params=p)
+        dets = cs.make_detections(_tlwh(xyxy), score, cls, feat, params=p,
+                                  device="cpu")
         return trk.update(trk.predict(st, p), dets, p)
     return frame
 
@@ -52,18 +53,20 @@ def _family(name, t):
     if name == "deepsort":
         p = cs.TrackerParams(max_tracks=t, max_detections=N_DET, nn_budget=4,
                              max_age=6, n_init=2, feature_dim=16)
-        return p, cs.init_state(p), _deepsort_frame(p), trk.get_outputs
+        return (p, cs.init_state(p, device="cpu"), _deepsort_frame(p),
+                trk.get_outputs)
     if name == "bytetrack":
         p = bt.ByteTrackParams(max_tracks=t, max_detections=N_DET,
                                max_time_lost=6)
-        return (p, bt.init_state(p),
+        return (p, bt.init_state(p, device="cpu"),
                 lambda st, b, s, c: bt.step(st, bt.make_detections(
-                    _tlwh(b), s, c, params=p), p), bt.get_outputs)
+                    _tlwh(b), s, c, params=p, device="cpu"), p),
+                bt.get_outputs)
     p = oc.OCSortParams(max_tracks=t, max_detections=N_DET, max_age=6,
                         min_hits=2)
-    return (p, oc.init_state(p),
+    return (p, oc.init_state(p, device="cpu"),
             lambda st, b, s, c: oc.step(st, oc.make_detections(
-                b, s, c, params=p), p),
+                b, s, c, params=p, device="cpu"), p),
             lambda st: oc.get_outputs(st, p))
 
 
@@ -107,17 +110,17 @@ def test_track_axis_field_names_match_jax():
     from aicamera_tpu.core import ocsort as joc
     pairs = [
         (cs.init_state(cs.TrackerParams(max_tracks=4, nn_budget=2,
-                                        feature_dim=4)),
+                                        feature_dim=4), device="cpu"),
          jstate.init_state(jstate.TrackerParams(max_tracks=4, nn_budget=2,
                                                 feature_dim=4))),
-        (bt.init_state(bt.ByteTrackParams(max_tracks=4)),
+        (bt.init_state(bt.ByteTrackParams(max_tracks=4), device="cpu"),
          jbt.init_state(jbt.ByteTrackParams(max_tracks=4))),
         (bt.init_state(bt.ByteTrackParams(max_tracks=4, with_appearance=True,
-                                          feature_dim=4)),
+                                          feature_dim=4), device="cpu"),
          jbt.init_state(jbt.ByteTrackParams(max_tracks=4,
                                             with_appearance=True,
                                             feature_dim=4))),
-        (oc.init_state(oc.OCSortParams(max_tracks=4)),
+        (oc.init_state(oc.OCSortParams(max_tracks=4), device="cpu"),
          joc.init_state(joc.OCSortParams(max_tracks=4))),
     ]
     for ours, ref in pairs:

@@ -259,11 +259,11 @@ def test_stacked_step_equals_per_stream_and_jax_vmap(preset):
     a_all, t_all = _affines()
     step = _jax_step(jp, gmc)
 
-    stack = tstate.init_state(tp, n_streams=S)
-    singles = [tstate.init_state(tp) for _ in range(S)]
+    stack = tstate.init_state(tp, n_streams=S, device="cpu")
+    singles = [tstate.init_state(tp, device="cpu") for _ in range(S)]
     jstack = jax.vmap(lambda _: jstate.init_state(jp))(jnp.arange(S))
     for t in range(12):
-        dets = [tstate.make_detections(*seqs[s][t], params=tp)
+        dets = [tstate.make_detections(*seqs[s][t], params=tp, device="cpu")
                 for s in range(S)]
         jdets = jax.tree.map(lambda *xs: jnp.stack(xs), *[
             jstate.make_detections(*seqs[s][t], params=jp)
@@ -322,7 +322,7 @@ def test_stacked_init_slice_and_splice_equal_jax():
     ``slice_stream_tracks`` / ``splice_stream_tracks``."""
     tp = tstate.TrackerParams(**BASE, nn_budget=2)
     jp = jstate.TrackerParams(**BASE, nn_budget=2)
-    stack = tstate.init_state(tp, n_streams=S)
+    stack = tstate.init_state(tp, n_streams=S, device="cpu")
     jstack = jax.vmap(lambda _: jstate.init_state(jp))(jnp.arange(S))
     rng = np.random.RandomState(4)
     upd = {}
@@ -386,7 +386,8 @@ def test_stream_bucket_decision_takes_the_jax_way():
     step = _jax_step(jp, False)
 
     def chunk_inputs(c):
-        return [_stack([tstate.make_detections(*seqs[s][t], params=tp)
+        return [_stack([tstate.make_detections(*seqs[s][t], params=tp,
+                                               device="cpu")
                         for s in range(S)]) for t in (2 * c, 2 * c + 1)]
 
     def scan_of(dets, valid):
@@ -399,7 +400,7 @@ def test_stream_bucket_decision_takes_the_jax_way():
             return st, tuple(torch.stack(x) for x in zip(*outs))
         return scan
 
-    bucketed = full = tstate.init_state(tp, n_streams=S)
+    bucketed = full = tstate.init_state(tp, n_streams=S, device="cpu")
     jstack = jax.vmap(lambda _: jstate.init_state(jp))(jnp.arange(S))
     ways, per_stream_small = [], 0
     for c in range(6):

@@ -239,11 +239,12 @@ def test_core_replay_matches_jax(nsa, tol):
     singular and the same rounding grows tenfold (measured worst 7e-5)."""
     jp = jstate.TrackerParams(**PARAMS, nsa=nsa)
     tp = tstate.TrackerParams(**PARAMS, nsa=nsa)
-    js, ts = jstate.init_state(jp), tstate.init_state(tp)
+    js, ts = jstate.init_state(jp), tstate.init_state(tp, device="cpu")
     n_confirmed = 0
     for i, (tlwh, sc, cls, f, has) in enumerate(_window()):
         jd = jstate.make_detections(tlwh, sc, cls, f, has, params=jp)
-        td = tstate.make_detections(tlwh, sc, cls, f, has, params=tp)
+        td = tstate.make_detections(tlwh, sc, cls, f, has, params=tp,
+                                    device="cpu")
         j_pred = jtrk.predict(js, jp)
         pred_scale = {n: np.abs(np.asarray(getattr(j_pred, n))).reshape(
             jp.max_tracks, -1).max(1) for n in ("mean", "cov")}
