@@ -179,7 +179,7 @@ def main(argv=None):
 
     from .runtime.checkpoint import load_state, save_state
     from .runtime.pipeline import TrackingPipeline
-    from .runtime.profiler import StageTimer
+    from .runtime.profiler import CudaStageTimer, StageTimer
     from .utils import visualization
     from .utils.video_io import NativeVideoReader, VideoReader, VideoWriter
 
@@ -243,6 +243,9 @@ def main(argv=None):
             device=args.device.lower(),
             **extra,
         )
+        if args.profile:
+            # before the warm-up, which captures the stamped step
+            pipeline.stage_timer = CudaStageTimer()
         print("Warming up the detect+track step (builds the CUDA kernel on "
               "first use)...")
         secs = pipeline.warm_up((reader.height, reader.width))
@@ -353,6 +356,8 @@ def main(argv=None):
         print(f"Presentation errors: {n_skipped} frames skipped")
     if timer:
         print(timer.report())
+        pipeline.settle()
+        print(pipeline.stage_timer.report())
 
 
 if __name__ == "__main__":

@@ -19,6 +19,12 @@
 // events, no read back to the host). A capture that fails leaves that body
 // graph empty and the parent capture whole.
 //
+// Beside the branches, the stage stamps of a captured step: a one-thread
+// kernel that writes the device's global timer (%globaltimer, ns) into one
+// slot of an int64 buffer when the stream reaches it, a node of the graph
+// like any kernel, and a count of the nodes a capture holds so far, so that
+// the step's node count can leave the stamps out.
+//
 // Plain C interface (ctypes), no PyTorch headers. Every function returns a
 // cudaError_t (0 on success). Needs CUDA 12.8 or later (SWITCH nodes), on
 // the host and the device alike.
@@ -34,9 +40,44 @@ __global__ void set_branch(cudaGraphConditionalHandle handle,
   cudaGraphSetConditional(handle, static_cast<unsigned int>(*index));
 }
 
+// One thread: the device's global timer (ns) into stamps[slot].
+__global__ void aicam_stamp(long long* stamps, int slot) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  stamps[slot] = static_cast<long long>(t);
+}
+
 }  // namespace
 
 extern "C" {
+
+// Queues the stamp kernel on `stream` (recorded as a node when the stream
+// is capturing).
+int aicam_stamp_launch(void* stream, void* stamps, int slot) {
+  aicam_stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(stamps), slot);
+  return cudaGetLastError();
+}
+
+// The nodes of the graph that `stream` is capturing into, so far.
+int aicam_capture_nodes(void* stream, unsigned long long* nodes) {
+  cudaStreamCaptureStatus status;
+  unsigned long long id = 0;
+  cudaGraph_t graph = nullptr;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t n_deps = 0;
+  cudaError_t err = cudaStreamGetCaptureInfo(
+      static_cast<cudaStream_t>(stream), &status, &id, &graph, &deps,
+      &n_deps);
+  if (err != cudaSuccess) return err;
+  if (status != cudaStreamCaptureStatusActive) {
+    return cudaErrorStreamCaptureImplicit;
+  }
+  size_t n = 0;
+  err = cudaGraphGetNodes(graph, nullptr, &n);
+  *nodes = n;
+  return err;
+}
 
 // Adds a branch site to the graph that `parent` is capturing: the set
 // kernel, then one SWITCH node of n bodies. Writes the body graphs to

@@ -250,7 +250,9 @@ class MultiStreamPipeline:
     def stage_timer(self):
         """A ``CudaStageTimer`` that times every dispatch (stages ``gmc``,
         ``letterbox``, ``yolo``, ``nms``, ``crops_reid`` and ``tracker``, the
-        last over all streams), or None."""
+        last over all streams; the captured step's from its own stamps, and
+        the host's spans), or None. Attach it before the first dispatch of
+        a shape: the timed step is a capture of its own."""
         return self._engine.stage_timer
 
     @stage_timer.setter

@@ -33,6 +33,12 @@ What happens depends on where the call runs:
 
 The helpers return the index taken where the host knows it (the CPU), else
 ``None``.
+
+The same library holds the stage stamps of a captured step
+(:func:`stamp`): a one-thread kernel that writes the device's clock into a
+slot of a buffer, a node of the graph, and (:func:`aside`) a count of the
+nodes that instrumentation adds to a capture, which the step's node count
+leaves out.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import contextlib
 import ctypes
 import queue
 import threading
+import time
 from typing import Callable, Sequence
 
 import torch
@@ -48,7 +55,8 @@ import torch
 from ..ops import cuda_build
 
 __all__ = ["KERNEL", "BranchKernel", "branch_plain", "cond", "switch",
-           "every_body", "warming", "capturing", "BranchCapture"]
+           "every_body", "warming", "capturing", "BranchCapture", "stamp",
+           "aside"]
 
 _local = threading.local()
 
@@ -87,6 +95,11 @@ class BranchKernel:
                 lib.aicam_branch_body_end.restype = i32
                 lib.aicam_branch_error.argtypes = [i32]
                 lib.aicam_branch_error.restype = ctypes.c_char_p
+                lib.aicam_stamp_launch.argtypes = [ptr, ptr, i32]
+                lib.aicam_stamp_launch.restype = i32
+                lib.aicam_capture_nodes.argtypes = [
+                    ptr, ctypes.POINTER(ctypes.c_ulonglong)]
+                lib.aicam_capture_nodes.restype = i32
                 self._lib = lib
             return self._lib
 
@@ -204,6 +217,8 @@ class BranchCapture:
             else torch.cuda.current_device()
         self.counters = tuple(counters)
         self.sites = []
+        #: nodes recorded inside :func:`aside` (instrumentation)
+        self.aside = 0
         # where bodies are captured: the body worker's stream
         self.worker = _body_worker(self.index)
         self.stream = self.worker.stream
@@ -356,3 +371,46 @@ def cond(pred: torch.Tensor, if_true: Callable | None,
     ``None``."""
     return switch(pred.to(torch.int32), [if_false, if_true],
                   counter=counter, site=site)
+
+
+def stamp(buf: torch.Tensor, slot: int) -> None:
+    """The clock into ``buf[slot]`` (an int64 tensor), in nanoseconds: on
+    the GPU a one-thread kernel queued on the current stream reads the
+    device's global timer when the stream reaches it (inside a capture, a
+    node of the graph, read again at every replay); on the CPU the host's
+    ``time.time_ns()`` now. Not counted in ``KERNEL.launches``."""
+    if buf.dtype != torch.int64 or buf.dim() != 1 \
+            or not 0 <= slot < buf.numel():
+        raise ValueError(f"stamp slot {slot} of a {tuple(buf.shape)} "
+                         f"{buf.dtype} buffer (a 1-d int64 one is needed)")
+    if buf.device.type == "cpu":
+        buf[slot].fill_(time.time_ns())
+        return
+    stream = torch._C._cuda_getCurrentRawStream(buf.device.index)
+    _check(KERNEL.load().aicam_stamp_launch(
+        ctypes.c_void_p(stream), ctypes.c_void_p(buf.data_ptr()), slot),
+        "a stage stamp")
+
+
+def _capture_nodes(stream: int) -> int:
+    n = ctypes.c_ulonglong(0)
+    _check(KERNEL.load().aicam_capture_nodes(ctypes.c_void_p(stream),
+                                             ctypes.byref(n)),
+           "counting a capture's nodes")
+    return int(n.value)
+
+
+@contextlib.contextmanager
+def aside():
+    """Inside, the nodes that this thread's capture records (an engine's
+    capture on the GPU) are counted in its ``BranchCapture.aside``:
+    instrumentation, which ``CUDAGraphEngine.graph_nodes`` leaves out.
+    Anywhere else it does nothing."""
+    rec = getattr(_local, "capture", None)
+    if rec is None or not torch.cuda.is_current_stream_capturing():
+        yield
+        return
+    stream = torch.cuda.current_stream(rec.device).cuda_stream
+    n0 = _capture_nodes(stream)
+    yield
+    rec.aside += _capture_nodes(stream) - n0

@@ -132,6 +132,7 @@ class _Captured(NamedTuple):
     launches: tuple       # kernel launches outside branches, per KERNELS
     nodes: int | None     # the graph's nodes, its branch bodies' included
     branches: dict        # site -> {index value: launches of its body}
+    aside: int            # nodes of instrumentation, not in ``nodes``
 
 
 class CUDAGraphEngine:
@@ -277,7 +278,8 @@ class CUDAGraphEngine:
                 launches = tuple(a - b for a, b in zip(launches, n))
         nodes = _graph_nodes(graph) if keep else None
         if nodes is not None:
-            nodes += sum(sum(site[3]) for site in record.sites)
+            nodes += sum(sum(site[3]) for site in record.sites) \
+                - record.aside
         if keep:
             graph.instantiate()
         torch.cuda.synchronize(dev)
@@ -285,7 +287,8 @@ class CUDAGraphEngine:
         outs, spec = _flat(out)
         if self.carry:
             outs = static[:self.carry] + outs[self.carry:]
-        cap = _Captured(graph, static, outs, spec, launches, nodes, taken)
+        cap = _Captured(graph, static, outs, spec, launches, nodes, taken,
+                        record.aside)
         # the branch bodies' pool and index copies live with the graph
         self._records.append(record)
         self._graphs[_shape_key(static)] = cap
@@ -365,9 +368,17 @@ class CUDAGraphEngine:
 
     def graph_nodes(self, *inputs) -> int | None:
         """Nodes in the graph of these inputs' shape (default: the example
-        shape); ``None`` on the CPU or where this PyTorch cannot say."""
+        shape), those of instrumentation left out (:meth:`aside_nodes`);
+        ``None`` on the CPU or where this PyTorch cannot say."""
         cap = self._graphs.get(_shape_key(inputs or self._example))
         return None if cap is None else cap.nodes
+
+    def aside_nodes(self, *inputs) -> int | None:
+        """Nodes of instrumentation (the stage stamps and what carries
+        them home, recorded inside ``branches.aside``) in the graph of
+        these inputs' shape; ``None`` on the CPU."""
+        cap = self._graphs.get(_shape_key(inputs or self._example))
+        return None if cap is None else cap.aside
 
     def cost_analysis(self) -> dict:
         """``{"flops", "bytes accessed"}`` of one call on the example inputs

@@ -54,6 +54,7 @@ from ..syncs import SyncCounter
 from . import branches
 from .engine import CUDAGraphEngine
 from .params import resolve_reid_params, resolve_yolo_params
+from .profiler import CudaStageTimer
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -158,42 +159,6 @@ def precision(dtype: torch.dtype):
     """The context a forward in ``dtype`` runs in: :func:`full_f32` for
     f32, nothing for bf16."""
     return full_f32() if dtype == torch.float32 else contextlib.nullcontext()
-
-
-class CudaStageTimer:
-    """Per-stage time of each chunk on the GPU stream, from CUDA events.
-    Attach one to ``TrackingPipeline.stage_timer``: each chunk then records
-    an event at every stage boundary, and :meth:`finish` adds the stage
-    intervals to ``totals`` (ms over ``chunks`` chunks). The eager step
-    marks every stage; the captured step, one replay, is timed whole as
-    ``step`` (its upload included)."""
-
-    STAGES = ("gmc", "letterbox", "yolo", "nms", "crops_reid", "tracker",
-              "step")
-
-    def __init__(self, stages=STAGES):
-        self._events = []
-        self.totals = dict.fromkeys(stages, 0.0)
-        self.chunks = 0
-
-    def start(self):
-        self._events = [("start", self._record())]
-
-    def mark(self, stage: str):
-        self._events.append((stage, self._record()))
-
-    @staticmethod
-    def _record():
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    def finish(self):
-        """Sync, add this chunk's stage times to the totals."""
-        self._events[-1][1].synchronize()
-        for (_, a), (stage, b) in zip(self._events, self._events[1:]):
-            self.totals[stage] += a.elapsed_time(b)
-        self.chunks += 1
 
 
 def _format_tracks(tlbr, ids, cls, conf, mask):
@@ -359,6 +324,25 @@ class _Step(NamedTuple):
     gmc: bool             # the frame before is carried
     bucketed: bool
     buckets: tuple        # the ReID buckets, by index
+    batch: int            # frames a dispatch (K, or S * K)
+    stamps: list | None   # a stamped step's boundaries, in slot order
+
+
+class _Stamps:
+    """One call's stage stamps (a timed captured step): an int64 buffer of
+    a slot a boundary, written by the device's clock (``branches.stamp``;
+    on the CPU the host's), and the boundaries' names in slot order."""
+
+    SLOTS = 8
+
+    def __init__(self, device):
+        self.buf = torch.empty(self.SLOTS, dtype=torch.int64, device=device)
+        self.names = []
+
+    def stamp(self, name: str):
+        with branches.aside():
+            branches.stamp(self.buf, len(self.names))
+        self.names.append(name)
 
 
 class _Readback:
@@ -368,12 +352,17 @@ class _Readback:
     the chunk's decisions once (``TrackingPipeline._count_decisions``).
     ``keep``: every output comes to the host and stays until
     :meth:`release` (``_emit`` uses them); otherwise only the decisions'
-    words are copied, and their buffer is freed once they are counted."""
+    words (a timed step's stamps and crop count among them) are copied, and
+    their buffer is freed once they are counted. ``timer`` and
+    ``dispatch``: the pipeline's timer at the dispatch and the dispatch's
+    id, which the wait's and the formatting's spans carry."""
 
     def __init__(self, pipe, step: _Step, packed: torch.Tensor,
                  any_valid: bool, keep: bool = True):
         self._pipe, self._step = pipe, step
         self._any_valid, self._keep = any_valid, keep
+        self.timer = pipe.stage_timer
+        self.dispatch = pipe._dispatch if self.timer is not None else None
         self._arrays = None
         self._lock = threading.Lock()
         if not keep:
@@ -397,13 +386,22 @@ class _Readback:
         with self._lock:
             if self._arrays is not None:
                 return
+            timer = self.timer
+            if timer is not None:
+                timer.open("readback.wait", self.dispatch)
             if self._event is not None:
                 self._event.synchronize()
+            if timer is not None:
+                timer.close("readback.wait")
+                timer.open("readback.count", self.dispatch)
             host = self._host.numpy()
             arrays = self._step.layout.unpack_numpy(host) if self._keep \
                 else [host]
             self._pipe._count_decisions(self._step, arrays[-1],
-                                        self._any_valid)
+                                        self._any_valid, timer,
+                                        self.dispatch)
+            if timer is not None:
+                timer.close("readback.count")
             with self._pipe._pending_lock:
                 if self in self._pipe._pending:
                     self._pipe._pending.remove(self)
@@ -428,6 +426,8 @@ class _EagerOutputs(NamedTuple):
     """The eager step's outputs, on the device."""
     det_outs: tuple
     track_outs: tuple
+    timer = None        # the eager step's stages are timed by events
+    dispatch = None
 
     def arrays(self) -> list:
         return [t.cpu().numpy() for t in (*self.det_outs, *self.track_outs)]
@@ -681,9 +681,12 @@ class TrackingPipeline:
         self.stage_timer: CudaStageTimer | None = None
         self._stages = {}
         self._parts = {}
-        self._steps = {}          # (frame_hw, K, streams, bucket) -> _Step
+        # (frame_hw, K, streams, bucket[, "stamped"]) -> _Step
+        self._steps = {}
         self._scan_engines = []   # every stage's captured scans, ever made
-        self._stepping = False    # inside a captured step: no stage marks
+        self._stepping = False    # inside a captured step: marks are stamps
+        self._stamps = None       # the stamps of the step running, if timed
+        self._dispatch = None     # the timed dispatch's id
         self._staging = {}        # pinned upload buffers by size
         self._free_pinned = []    # pinned readback buffers
         self._pending_lock = threading.Lock()
@@ -1013,7 +1016,8 @@ class TrackingPipeline:
         return detect, track
 
     def _make_step(self, frame_hw: Tuple[int, int], k: int,
-                   n_streams: int | None = None) -> "_Step":
+                   n_streams: int | None = None,
+                   stamped: bool = False) -> "_Step":
         """The chunk step as one function of tensors, as the JAX package
         jits it (``aicamera_tpu/runtime/pipeline.py:563-753``; over streams
         ``aicamera_tpu/parallel/multistream.py:654-656``), captured whole by
@@ -1034,7 +1038,16 @@ class TrackingPipeline:
         packing the detections (one stream only), the track outputs and
         the decisions taken (ReID bucket index, ``fits``, ``use_full``; -1
         where the step has no such branch), laid out by the step's
-        :class:`_Layout`."""
+        :class:`_Layout`.
+
+        ``stamped`` (a timed step, ``CudaStageTimer``): the stage
+        boundaries (entry, ``gmc``, ``letterbox``, ``yolo``, ``nms``,
+        ``crops_reid``, ``tracker``) stamp the device's clock into a buffer
+        (:meth:`_mark`), and the decisions' words go on with the chunk's
+        real crop count (its valid slots below ``max_reid_crops``, summed on
+        the device) and the stamps' words. Those nodes are counted apart
+        (``branches.aside``); the rest of the capture is the unstamped
+        one."""
         parts = self._stage_parts(frame_hw)
         dev = self.device
         s = n_streams
@@ -1131,6 +1144,15 @@ class TrackingPipeline:
                     use_full.to(torch.int32))
 
         def step(*xs):
+            marks = _Stamps(dev) if stamped else None
+            self._stamps = marks
+            try:
+                return run_step(marks, *xs)
+            finally:
+                self._stamps = None
+
+        def run_step(marks, *xs):
+            self._mark("entry")
             st = dataclasses.replace(template,
                                      **dict(zip(fields, xs[:len(fields)])))
             upload = xs[-1]
@@ -1150,6 +1172,7 @@ class TrackingPipeline:
                 if s is not None:
                     g_a = g_a.reshape(b, *g_a.shape[2:])
                     g_t = g_t.reshape(b, *g_t.shape[2:])
+                self._mark("gmc")
             d_xyxy, d_conf, d_cls, d_valid, det_outs = parts.detections(
                 frames)
             d_feats, d_hasfeat = parts.empty_feats(b)
@@ -1161,6 +1184,7 @@ class TrackingPipeline:
                                       d_valid, d_feats, d_hasfeat, bk)
                     for bk in parts.buckets],
                     counter=EMBED_SYNCS, site="reid")
+            self._mark("crops_reid")
             inputs = dataclasses.replace(
                 parts.tracker_inputs(d_xyxy, d_conf, d_cls, d_valid, d_feats,
                                      d_hasfeat), gmc_a=g_a, gmc_t=g_t)
@@ -1170,13 +1194,22 @@ class TrackingPipeline:
                 new, outs, fits, use_full = scan(st, inputs.by_frame(s, k),
                                                  valid.T)
                 outs = tuple(o.transpose(0, 1) for o in outs)
+            self._mark("tracker")
             decisions = torch.stack([reid_idx, fits, use_full])
+            if marks is not None:
+                stamp_names[:] = marks.names
+                with branches.aside():
+                    crops = torch.sum(d_valid[:, :self.max_reid_crops],
+                                      dtype=torch.int32)
+                    decisions = torch.cat([decisions, crops.reshape(1),
+                                           marks.buf.view(torch.int32)])
             packed = layout.pack((det_outs if s is None else ())
                                  + tuple(outs) + (decisions,))
             return (tuple(getattr(new, f) for f in fields)
                     + tuple(carried)), packed
 
         layout = _Layout()
+        stamp_names = [] if stamped else None
         upload_bytes = frame_bytes + n_valid + 1
         prev0 = [torch.zeros((h, w, 3) if s is None else (s, h, w, 3),
                              dtype=torch.uint8, device=dev)] \
@@ -1184,14 +1217,16 @@ class TrackingPipeline:
         example = [getattr(template, f) for f in fields] + prev0 + [
             torch.zeros(upload_bytes, dtype=torch.uint8, device=dev)]
         name = (f"{self.tracker_kind} chunk step {h}x{w} K={k}"
-                + ("" if s is None else f" over {s} streams"))
+                + ("" if s is None else f" over {s} streams")
+                + (", stamped" if stamped else ""))
         engine = CUDAGraphEngine(step, example, name=name, warmup_iters=1,
                                  device=dev, carry=len(example) - 1,
                                  copy_outputs=False)
         return _Step(engine=engine, layout=layout, fields=fields,
                      frame_bytes=frame_bytes, upload_bytes=upload_bytes,
                      gmc=gmc is not None, bucketed=bucketed,
-                     buckets=tuple(parts.buckets))
+                     buckets=tuple(parts.buckets), batch=b,
+                     stamps=stamp_names)
 
     def _get_stages(self, frame_hw: Tuple[int, int]):
         key = tuple(frame_hw)
@@ -1202,15 +1237,22 @@ class TrackingPipeline:
     def _get_step(self, frame_hw: Tuple[int, int], k: int,
                   n_streams: int | None = None) -> "_Step":
         """The captured step of this frame size, chunk length and stream
-        count (made and captured at the first call: one graph each)."""
+        count, stamped while a timer is attached (made and captured at the
+        first call: one graph each; a stamped one puts the device's clock on
+        the host's, :meth:`CudaStageTimer.calibrate`)."""
+        timer = self.stage_timer
         key = (tuple(frame_hw), int(k), n_streams, self.scan_bucket)
+        if timer is not None:
+            key += ("stamped",)
         if key not in self._steps:
             self._stepping = True
             try:
-                self._steps[key] = self._make_step(key[0], key[1],
-                                                   n_streams)
+                self._steps[key] = self._make_step(
+                    key[0], key[1], n_streams, stamped=timer is not None)
             finally:
                 self._stepping = False
+            if timer is not None:
+                timer.calibrate(self.device)
         return self._steps[key]
 
     def scan_replays(self) -> int:
@@ -1228,7 +1270,13 @@ class TrackingPipeline:
         return sum(st.engine.replays for st in self._steps.values())
 
     def _mark(self, stage: str):
-        if self.stage_timer is not None and not self._stepping:
+        """A stage boundary: with a timer attached, a stamp inside a timed
+        captured step (made or run), else the eager step's event."""
+        if self.stage_timer is None:
+            return
+        if self._stamps is not None:
+            self._stamps.stamp(stage)
+        elif not self._stepping:
             self.stage_timer.mark(stage)
 
     # --- host API -----------------------------------------------------------
@@ -1247,17 +1295,24 @@ class TrackingPipeline:
         the scan's ways) and count them: ``scan_stats`` and the launches of
         the hand-written kernels in the bodies the chunks took. A chunk's
         decisions come back with its outputs, so this waits only for
-        chunks whose outputs were not read yet."""
+        chunks whose outputs were not read yet. With a timer attached to a
+        stamped step, the device's clock is put on the host's once more."""
         while True:
             with self._pending_lock:
                 if not self._pending:
-                    return
+                    break
                 readback = self._pending[0]
             readback.settle()   # takes itself off the list
+        if self.stage_timer is not None and any(
+                st.stamps is not None for st in self._steps.values()):
+            self.stage_timer.calibrate(self.device)
 
-    def _count_decisions(self, step: "_Step", decisions, any_valid: bool):
-        """Count one chunk's decisions ``(reid index, fits, use_full)``."""
-        idx, fits, use_full = (int(v) for v in decisions)
+    def _count_decisions(self, step: "_Step", decisions, any_valid: bool,
+                         timer=None, dispatch=None):
+        """Count one chunk's decisions ``(reid index, fits, use_full)``; a
+        stamped step's crop count and stamps, which follow them, go to
+        ``timer`` under the chunk's ``dispatch`` id."""
+        idx, fits, use_full = (int(v) for v in decisions[:3])
         taken = {}
         if idx >= 0:
             taken["reid"] = idx
@@ -1270,10 +1325,21 @@ class TrackingPipeline:
                     "rerun" if use_full else "small")
                 self._scan_stats[way] += 1
         step.engine.count_taken(taken)
+        if timer is not None and step.stamps is not None:
+            n = len(step.stamps)
+            stamps = np.ascontiguousarray(decisions[4:4 + 2 * n]).view(
+                np.int64)
+            reid = idx >= 0
+            timer.arrive(dispatch, step.stamps, stamps,
+                         crops=int(decisions[3]) if reid else 0,
+                         slots=step.buckets[idx] * step.batch if reid else 0)
 
     def reset(self):
-        """Fresh tracker state (ids restart at 1), scan counts, and no
-        frame carried for the camera-motion estimate."""
+        """Fresh tracker state (ids restart at 1), scan counts, no frame
+        carried for the camera-motion estimate, and the timer's counts
+        cleared (``CudaStageTimer.clear``)."""
+        if self.stage_timer is not None:
+            self.stage_timer.clear()
         self.state = self._init_tracker_state()
         self._pending = []
         self._scan_stats = dict(small=0, skipped=0, rerun=0)
@@ -1289,11 +1355,17 @@ class TrackingPipeline:
         each reused only after its last copy to the device ran), copied in
         without a wait; on the CPU a host tensor."""
         n = step.upload_bytes
+        timer = self.stage_timer
         if self.device.type != "cuda":
-            return torch.from_numpy(np.concatenate([
+            if timer is not None:
+                timer.open("upload.copy")
+            upload = torch.from_numpy(np.concatenate([
                 np.ascontiguousarray(frames_np).reshape(-1),
                 valid.reshape(-1).astype(np.uint8),
                 np.array([first], np.uint8)]))
+            if timer is not None:
+                timer.close("upload.copy")
+            return upload
         ring = self._staging.setdefault(n, [])
         if len(ring) < 3:
             buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
@@ -1301,12 +1373,19 @@ class TrackingPipeline:
         slot = ring.pop(0)
         ring.append(slot)
         buf, event = slot
+        if timer is not None:
+            timer.open("upload.ring_wait")
         if event is not None:
             event.synchronize()
+        if timer is not None:
+            timer.close("upload.ring_wait")
+            timer.open("upload.copy")
         host = buf.numpy()
         host[:step.frame_bytes] = np.asarray(frames_np).reshape(-1)
         host[step.frame_bytes:n - 1] = valid.reshape(-1)
         host[n - 1] = first
+        if timer is not None:
+            timer.close("upload.copy")
         return buf
 
     def _uploaded(self, upload: torch.Tensor):
@@ -1329,7 +1408,12 @@ class TrackingPipeline:
         the stream's first chunk). Returns ``(step, new state, new frame
         before, packed outputs)``; the frame before is ``None`` without GMC,
         and the packed outputs are the graph's own buffer on the GPU (valid
-        until the next replay)."""
+        until the next replay). With a timer attached this is the
+        ``dispatch`` span (its id in ``_dispatch``), the engine call the
+        ``replay`` span, and nothing waits."""
+        timer = self.stage_timer
+        if timer is not None:
+            self._dispatch = timer.open("dispatch")
         with self._pending_lock:
             back = [r for r in self._pending if r.ready()]
         for readback in back:
@@ -1342,9 +1426,8 @@ class TrackingPipeline:
             xs.append(torch.zeros(frames_np.shape[:-4] + frames_np.shape[-3:],
                                   dtype=torch.uint8, device=self.device)
                       if prev is None else prev)
-        timer = self.stage_timer
         if timer is not None:
-            timer.start()
+            timer.open("replay")
         self._stepping = True
         try:
             with torch.no_grad():
@@ -1353,8 +1436,8 @@ class TrackingPipeline:
             self._stepping = False
         self._uploaded(upload)
         if timer is not None:
-            timer.mark("step")
-            timer.finish()
+            timer.close("replay")
+            timer.close("dispatch")
         nf = len(step.fields)
         state = dataclasses.replace(state, **dict(zip(step.fields, new[:nf])))
         return step, state, (new[nf] if step.gmc else None), packed
@@ -1410,6 +1493,9 @@ class TrackingPipeline:
     def _emit(outs, base_index: int, count: int):
         (num, boxes, scores, labels, det_valid,
          tlbr, ids, cls, conf, mask) = outs.arrays()
+        timer = outs.timer
+        if timer is not None:
+            timer.open("emit", outs.dispatch)
         results = []
         for i in range(count):
             v = det_valid[i]
@@ -1422,6 +1508,8 @@ class TrackingPipeline:
                                       mask[i]),
             ))
         outs.release()
+        if timer is not None:
+            timer.close("emit")
         return results
 
     def process_frames(self, frames: Iterator[np.ndarray],

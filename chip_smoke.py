@@ -2579,11 +2579,15 @@ def counted_run(pipe, frames, kernels, timed=False):
     """One run of a path with every launch and sync count set to 0 just
     before and read just after. Returns ``(results, wall seconds, launches by
     kernel, syncs by counter, ms per chunk by stage or None)``; ``timed``
-    puts CUDA events at the stage boundaries."""
+    attaches a ``CudaStageTimer`` and warms the pipeline up with it first
+    (the captured step's stamped capture, outside the counts; the eager
+    step's CUDA events)."""
     import torch
     from aicamera_tpu_torch.runtime.pipeline import CudaStageTimer
     counters = sync_counters()
     pipe.stage_timer = CudaStageTimer() if timed else None
+    if timed:
+        pipe.warm_up(frames[0].shape[:2])
     for k in kernels:
         k.launches = 0
     for c in counters.values():
@@ -2601,6 +2605,7 @@ def counted_run(pipe, frames, kernels, timed=False):
         stage_ms = {s: v / pipe.stage_timer.chunks
                     for s, v in pipe.stage_timer.totals.items()}
         pipe.stage_timer = None
+        drop_stamped(pipe)
     check(len(results) == len(frames),
           f"{len(results)} results for {len(frames)} frames")
     check(syncs["NMS"] == 0, f"{syncs['NMS']} NMS reads in a run on the card")
@@ -2649,6 +2654,29 @@ def summarize(results):
 
 def syncs_line(syncs, n):
     return ", ".join(f"{name} {v / n:.3f}" for name, v in syncs.items())
+
+
+def drop_stamped(pipe):
+    """Free a pipeline's stamped captures once its timed run is read: each
+    is a graph of its own beside the untimed one, and the phases that keep
+    several pipelines of 8 streams at 720p alive would run the card out of
+    memory holding both."""
+    import torch
+    steps = getattr(pipe, "_engine", pipe)._steps
+    for key in [k for k in steps if k[-1] == "stamped"]:
+        del steps[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def step_ms(stage_ms) -> float:
+    """A chunk's whole step from its stages' ms (the captured step's: its
+    entry stamp to its ``tracker`` stamp)."""
+    return sum(stage_ms.values())
+
+
+def stages_line(stage_ms) -> str:
+    return ", ".join(f"{s} {v:.3f}" for s, v in stage_ms.items() if v)
 
 
 def main_path_phase(device, frames, kernels):
@@ -2706,7 +2734,8 @@ def main_path_phase(device, frames, kernels):
         pipe.stage_timer = None
         return out, {s: v / timer.chunks for s, v in timer.totals.items()}
 
-    again, step_ms = timed_run()
+    again, captured_ms = timed_run()
+    drop_stamped(pipe)
     with eager_step(pipe):
         timed_run()
         eager, stage_ms = timed_run()
@@ -2714,12 +2743,13 @@ def main_path_phase(device, frames, kernels):
         pipe.warm_up(FRAME_HW)
         eager_frames, eager_ms = timed_run()
     print("[main] per-chunk stage ms of the eager step (CUDA events, "
-          "includes the host launch gaps): " + ", ".join(
-              f"{s} {v:.3f}" for s, v in stage_ms.items() if s != "step")
+          "includes the host launch gaps): " + stages_line(stage_ms)
           + f"; tracker per frame {stage_ms['tracker'] / CHUNK:.3f} ms")
-    print(f"[main] the captured step a chunk (CUDA events, its upload "
-          f"included): {step_ms['step']:.3f} ms; the eager step's stages "
-          f"sum to {sum(stage_ms.values()):.3f} ms; tracker ms a chunk: "
+    print(f"[main] per-chunk stage ms of the captured step (its stamps): "
+          f"{stages_line(captured_ms)}; entry to tracker "
+          f"{step_ms(captured_ms):.3f} ms; the eager step's stages sum to "
+          f"{step_ms(stage_ms):.3f} ms; tracker ms a chunk: "
+          f"captured step {captured_ms['tracker']:.3f}, eager step's "
           f"captured scan {stage_ms['tracker']:.3f}, eager scan "
           f"{eager_ms['tracker']:.3f}")
     same = sum(a.tracks == b.tracks for a, b in zip(results, again))
@@ -2870,7 +2900,7 @@ def bucket_phase(device, frames, kernels):
                   == 2 * CHUNK * passes(pipes[b], N_CHUNKS),
                   f"bucket phase ({b}, load {load}): "
                   f"{launches['assignment']} assignment launches")
-            runs[b].append((res, len(frames) / wall, stage_ms["step"], syncs,
+            runs[b].append((res, len(frames) / wall, step_ms(stage_ms), syncs,
                             dict(pipes[b].scan_stats)))
         ref = runs[0][0][0]
         for b in (32, 0):
@@ -2952,7 +2982,7 @@ def trackers_phase(device, frames, kernels):
         n_tracks, n_ids = summarize(res)
         check(n_tracks > 0, f"tracker {name} emitted no track")
         pipe.reset()
-        step_ms = counted_run(pipe, sub, kernels, timed=True)[4]
+        captured_ms = counted_run(pipe, sub, kernels, timed=True)[4]
         with eager_step(pipe):
             pipe.reset()
             counted_run(pipe, sub, kernels, timed=True)
@@ -2961,7 +2991,8 @@ def trackers_phase(device, frames, kernels):
         gmc = (f", gmc {pipe.gmc_method} {stage_ms['gmc']:.3f} ms per chunk"
                if pipe.gmc_method else "")
         print(f"[trackers] {name}: {len(sub)} frames, {len(sub) / wall:.2f} "
-              f"FPS, the captured step {step_ms['step']:.3f} ms a chunk; "
+              f"FPS, the captured step {step_ms(captured_ms):.3f} ms a "
+              f"chunk ({stages_line(captured_ms)}); "
               f"the eager step's tracker {stage_ms['tracker'] / CHUNK:.3f} "
               f"ms per frame (captured scan){gmc}; syncs per "
               f"frame: {syncs_line(syncs, len(sub))}; {replays} step "
@@ -3038,7 +3069,7 @@ def gmc_phase(device, kernels):
             pipe = make_pipeline(device, synthetic_load=0, tracker=name,
                                  gmc=mode)
             pipe.warm_up(FRAME_HW)
-            res, wall, counts, syncs, step_ms = counted_run(
+            res, wall, counts, syncs, captured_ms = counted_run(
                 pipe, frames, kernels, timed=True)
             check(sum(syncs.values()) == 0, f"gmc {name} {mode}: reads "
                   f"{syncs}")
@@ -3051,7 +3082,8 @@ def gmc_phase(device, kernels):
                 pipe.warm_up(FRAME_HW)
                 stage_ms = counted_run(pipe, frames, kernels, timed=True)[4]
             line.append(f"{mode}: {len(frames) / wall:.2f} FPS, the "
-                        f"captured step {step_ms['step']:.3f} ms a chunk "
+                        f"captured step {step_ms(captured_ms):.3f} ms a "
+                        f"chunk (gmc {captured_ms['gmc']:.3f} ms) "
                         f"(the eager step's gmc stage "
                         f"{stage_ms['gmc']:.3f} ms), "
                         f"{n_ids / n_obj:.2f} ids per object, {n_tracks} "
@@ -3560,6 +3592,7 @@ def streams_phase(device, kernels, oru_record=None):
               for ts in tuples for f in ts for t in f), "non-finite track")
     timer = CudaStageTimer()
     again = run(timer)[0]
+    drop_stamped(pipe)
     stage_ms = {st: v / timer.chunks for st, v in timer.totals.items()}
     same = all(stream_tuples(again, si) == tuples[si] for si in range(s))
     n_sf = s * k * d
@@ -3569,7 +3602,8 @@ def streams_phase(device, kernels, oru_record=None):
           f"chunks {pipe.scan_stats}); launches {launches} ({d} dispatches)")
     print(f"[streams] per-dispatch stage ms (CUDA events): "
           + ", ".join(f"{st} {v:.3f}" for st, v in stage_ms.items())
-          + f"; the captured step {stage_ms['step']:.3f} ms a dispatch; "
+          + f"; the captured step {step_ms(stage_ms):.3f} ms a dispatch "
+          f"(its stamps, entry to tracker); "
           f"timed rerun identical: {same}")
 
     def stream_run(p):
@@ -3660,23 +3694,28 @@ def streams_phase(device, kernels, oru_record=None):
     strong = make_streams(device, tracker="strongsort")
 
     def strong_run():
-        strong.step_chunk(chunks[0])  # FFT plans, cuDNN, the capture
         timer = CudaStageTimer()
         strong.stage_timer = timer
+        strong.step_chunk(chunks[0])  # FFT plans, cuDNN, the capture
+        strong.settle()
+        timer.clear()
         t0 = time.perf_counter()
         for c in chunks[1:]:
             strong.step_chunk(c)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         strong.stage_timer = None
+        strong.settle()
+        drop_stamped(strong)
         return wall, {st: v / timer.chunks for st, v in timer.totals.items()}
 
-    wall, step_ms = strong_run()
+    wall, captured_ms = strong_run()
     with eager_step(strong):
         g_ms = strong_run()[1]
     print(f"[streams] strongsort (gmc {strong.gmc_method}), {s} streams, "
           f"{d - 1} dispatches: {s * k * (d - 1) / wall:.2f} stream-frames/s;"
-          f" the captured step {step_ms['step']:.3f} ms a dispatch; the "
+          f" the captured step {step_ms(captured_ms):.3f} ms a dispatch "
+          f"(gmc {captured_ms['gmc']:.3f}); the "
           f"eager step's gmc {g_ms['gmc']:.3f} ms (all {s} streams in one "
           f"batched estimate), tracker {g_ms['tracker']:.3f} ms")
     return {"deepsort": launches, "bytetrack": motion["bytetrack"],
