@@ -1,17 +1,23 @@
 """YOLOv8 detector family (n/s/m/l/x) in PyTorch, anchor-free with DFL.
 
-The port of ``aicamera_tpu/models/yolov8.py``. Convolutions run NCHW; the
-public output keeps the JAX package's layout: per level ``(box_bins
-(B, h, w, 64), cls_logits (B, h, w, C))`` in NHWC at strides 8/16/32, so that
-``ops/nms.py`` builds anchors row-major over ``(h, w)``.
+The port of ``aicamera_tpu/models/yolov8.py``. In bf16 the convolutions
+run channels-last from the input to the head, as Flax's run NHWC, and in
+f32 NCHW (``layers.layout``); the public output keeps the JAX package's
+layout either way: per level ``(box_bins (B, h, w, 64), cls_logits (B, h,
+w, C))``, contiguous NHWC at strides 8/16/32, so that ``ops/nms.py`` builds
+anchors row-major over ``(h, w)``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
-from .layers import C2f, ConvBlock, SPPF, scale_channels, upsample2x
+from . import layers
+from .layers import (C2f, Conv2d, ConvBlock, SPPF, cat_channels,
+                     scale_channels, upsample2x)
 
 # variant: (depth_multiple, width_multiple, max_channels)
 YOLOV8_VARIANTS = {
@@ -77,10 +83,10 @@ class Neck(nn.Module):
         self.down_c2f2 = C2f(ch[3] + ch[4], ch[4], n, False)
 
     def forward(self, p3, p4, p5):
-        t1 = self.up_c2f1(torch.cat([upsample2x(p5), p4], dim=1))
-        n3 = self.up_c2f2(torch.cat([upsample2x(t1), p3], dim=1))
-        n4 = self.down_c2f1(torch.cat([self.down_conv1(n3), t1], dim=1))
-        n5 = self.down_c2f2(torch.cat([self.down_conv2(n4), p5], dim=1))
+        t1 = self.up_c2f1(cat_channels([upsample2x(p5), p4]))
+        n3 = self.up_c2f2(cat_channels([upsample2x(t1), p3]))
+        n4 = self.down_c2f1(cat_channels([self.down_conv1(n3), t1]))
+        n5 = self.down_c2f2(cat_channels([self.down_conv2(n4), p5]))
         return n3, n4, n5
 
 
@@ -95,10 +101,10 @@ class DetectHead(nn.Module):
         for i, c_in in enumerate((ch[2], ch[3], ch[4])):
             self.add_module(f"reg{i}_cv1", ConvBlock(c_in, c_reg, 3))
             self.add_module(f"reg{i}_cv2", ConvBlock(c_reg, c_reg, 3))
-            self.add_module(f"reg{i}_out", nn.Conv2d(c_reg, 4 * REG_MAX, 1))
+            self.add_module(f"reg{i}_out", Conv2d(c_reg, 4 * REG_MAX))
             self.add_module(f"cls{i}_cv1", ConvBlock(c_in, c_cls, 3))
             self.add_module(f"cls{i}_cv2", ConvBlock(c_cls, c_cls, 3))
-            self.add_module(f"cls{i}_out", nn.Conv2d(c_cls, num_classes, 1))
+            self.add_module(f"cls{i}_out", Conv2d(c_cls, num_classes))
 
     def forward(self, feats):
         outs = []
@@ -110,6 +116,7 @@ class DetectHead(nn.Module):
                 r = getattr(self, f"reg{i}_{part}")(r)
             for part in ("cv1", "cv2", "out"):
                 c = getattr(self, f"cls{i}_{part}")(c)
+            # channels-last outputs are NHWC as they lie: no copy
             outs.append((r.permute(0, 2, 3, 1).contiguous(),
                          c.permute(0, 2, 3, 1).contiguous()))
         return outs
@@ -118,7 +125,15 @@ class DetectHead(nn.Module):
 class YOLOv8(nn.Module):
     """Full detector. Input NCHW float in [0, 1] (B, 3, H, W), as the
     letterbox kernel writes it; returns per-level NHWC
-    ``(box_bins, cls_logits)`` at strides 8/16/32."""
+    ``(box_bins, cls_logits)`` at strides 8/16/32.
+
+    ``conv_calls`` counts the convolutions run by forwards outside a
+    CUDA-graph capture, ``relayouts`` (module name -> count) those of them
+    whose input was not dense in its dtype's layout (``layers.layout``),
+    which the conv copies before it runs: at most C2f's first bottleneck,
+    which takes a channel slice. Read them as the kernels' ``launches``
+    are read, as a difference; a graph replay runs no Python and counts
+    nothing."""
 
     def __init__(self, variant: str = "n", num_classes: int = 80):
         super().__init__()
@@ -127,7 +142,23 @@ class YOLOv8(nn.Module):
         self.backbone = Backbone(variant)
         self.neck = Neck(variant)
         self.head = DetectHead(variant, num_classes)
+        self.conv_calls = 0
+        self.relayouts: dict[str, int] = {}
+        for name, mod in self.named_modules():
+            if isinstance(mod, nn.Conv2d):
+                mod.register_forward_pre_hook(
+                    functools.partial(self._count_conv, name))
+
+    def _count_conv(self, name, conv, args):
+        x = args[0]
+        if x.is_cuda and torch.cuda.is_current_stream_capturing():
+            return
+        self.conv_calls += 1
+        if not x.is_contiguous(memory_format=layers.layout(x.dtype)):
+            self.relayouts[name] = self.relayouts.get(name, 0) + 1
 
     def forward(self, x):
-        x = x.to(self.head.reg0_out.weight.dtype)
+        # the letterbox output, NCHW: to the weights' dtype and layout in
+        # one copy (none in f32)
+        x = layers.to_layout(x, self.head.reg0_out.weight.dtype)
         return self.head(self.neck(*self.backbone(x)))

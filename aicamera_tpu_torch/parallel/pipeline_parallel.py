@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..models.layers import to_layout
 from ..models.yolov8 import (REG_MAX, STRIDES, Backbone, DetectHead, Neck,
                              _widths)
 from ..runtime.params import compute_dtype
@@ -181,7 +182,7 @@ class PipelineParallelDetector:
     def _devices_microbatch(self, x):
         back, neck, head = self._stages
         d0, d1, d2 = self.devices
-        feats = back(x.to(d0, non_blocking=True).to(self.dtype))
+        feats = back(to_layout(x.to(d0, non_blocking=True), self.dtype))
         feats = neck(*(f.to(d1, non_blocking=True) for f in feats))
         return head([f.to(d2, non_blocking=True) for f in feats])
 
@@ -194,9 +195,9 @@ class PipelineParallelDetector:
         feats = None
         if me in held:   # every rank holds the frames: no hop into stage 0
             lo, hi = held[me]
-            feats = self._stages[0](
-                x[lo:hi].to(self.devices[0], non_blocking=True)
-                .to(self.dtype))
+            feats = self._stages[0](to_layout(
+                x[lo:hi].to(self.devices[0], non_blocking=True),
+                self.dtype))
         for k in (1, 2):
             feats = self._hop(feats, k - 1, mb,
                               _rows_held(self.meshes[k], mb),

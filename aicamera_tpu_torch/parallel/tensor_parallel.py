@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..models.layers import layout
 from .distributed import COLLECTIVES, rank_device
 
 
@@ -50,15 +51,21 @@ class ChannelParallelConv2d(nn.Module):
 
     def forward(self, x):
         y = F.conv2d(x, self.weight, self.bias, self.stride, self.padding,
-                     self.dilation, self.groups).contiguous()
-        b, c, h, w = y.shape
-        out = torch.empty((self.n * b, c, h, w), dtype=y.dtype,
+                     self.dilation, self.groups)
+        # gathered in the activation's memory order (models/layers.py):
+        # rows (B, h, w, c) channels-last, (B, c, h, w) NCHW; no copy of a
+        # y in its layout
+        nhwc = layout(y.dtype) == torch.channels_last
+        rows = (y.permute(0, 2, 3, 1) if nhwc else y).contiguous()
+        out = torch.empty((self.n, *rows.shape), dtype=y.dtype,
                           device=y.device)
-        COLLECTIVES.all_gather_into_tensor(out, y, group=self.group)
-        # (rank, B, c, h, w) -> (B, rank * c, h, w): rank r's block of
-        # channels lands where the whole conv writes it
-        return out.view(self.n, b, c, h, w).transpose(0, 1).reshape(
-            b, self.n * c, h, w)
+        COLLECTIVES.all_gather_into_tensor(out.view(-1, *rows.shape[1:]),
+                                           rows, group=self.group)
+        # (rank, B, ..., c, ...) -> (B, ..., rank * c, ...): rank r's block
+        # of channels lands where the whole conv writes it
+        cdim = 3 if nhwc else 1
+        full = out.movedim(0, cdim).flatten(cdim, cdim + 1)
+        return full.permute(0, 3, 1, 2) if nhwc else full
 
 
 def _placements(module: nn.Module):

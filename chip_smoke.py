@@ -273,6 +273,24 @@ this file; exits non-zero otherwise. In order it:
     one that tracks, ORU in ``ocsort_video.py``, the branch kernel in every
     ``TrackingPipeline`` and stream stack); ``serialized_engines.py``
     asserts its engine bitwise the weight path.
+19. ``[layout]``: YOLOv8m in bf16 at (32, 3, 640, 640), the eight-camera
+    dispatch's detector batch, from its seeded init: the forward
+    channels-last (the program's bf16 layout, ``models/layers.py``)
+    against the same weights run NCHW (``layers.CHANNELS_LAST_DTYPES``
+    emptied: the earlier build), each captured into a CUDA graph: device
+    ms a forward replayed in turns (NCHW, NHWC, NHWC, NCHW), graph nodes,
+    the device ops of each by time (``torch.profiler``), both outputs'
+    largest error against an f32 forward (TF32 off) over the largest
+    reference value and their difference likewise, the input's relayout
+    alone; the convs of an eager forward and those that took an input not
+    dense in the layout (``YOLOv8.relayouts``): C2f's first bottleneck
+    alone, one a C2f; fails where another conv relayouts, the NHWC graph
+    has no fewer nodes, or its error passes 1.5 times the NCHW one's.
+    Then the other callers' detector calls, each both ways in turns (the
+    main path's and the quality run's YOLOv8n at K=8 in bf16 and in f32
+    with TF32 off, the facade's K=1, the trainers' forward and backward
+    in bf16 at batch 8 and in f32 at batch 2), and which way the program
+    runs each.
 
 Every path that detects launches the NMS kernel once a chunk, dispatch,
 request or ``detect`` replay (twice a ``detect_tiled`` replay) and reads
@@ -5817,6 +5835,221 @@ def compare_runs(tag, ours, ref, ref_name):
           f"including conf (conf tolerance 1e-4)")
 
 
+def profile_ops(fn, top, calls=4):
+    """The ``top`` device operations of ``fn`` by device time: ``(name,
+    ms a call, launches a call)``, from ``torch.profiler`` over ``calls``
+    calls (a name's first 80 characters, namespaces dropped)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not e.self_device_time_total:
+            continue
+        name = re.sub(r"void |at::native::|\(anonymous namespace\)::", "",
+                      e.key)[:80]
+        t, n = ops.get(name, (0.0, 0))
+        ops[name] = (t + e.self_device_time_total / 1e3, n + e.count)
+    rows = sorted(ops.items(), key=lambda kv: -kv[1][0])[:top]
+    return [(name, t / calls, n // calls) for name, (t, n) in rows]
+
+
+LAYOUT_BATCH = 32      # [layout]: YOLOv8m's batch, the 8 x 4 dispatch
+LAYOUT_REPLAYS = 20    # [layout]: replays a timed turn
+# [layout]: the other callers' detector calls, timed the same way: (what,
+# variant, batch, dtype, with a backward pass)
+LAYOUT_CALLERS = (
+    ("main path, quality bf16", "n", 8, "bf16", False),
+    ("quality f32, TF32 off", "n", 8, "f32", False),
+    ("facade detect", "n", 1, "bf16", False),
+    ("bf16 training step", "n", 8, "bf16", True),
+    ("f32 training dispatch", "n", 2, "f32", True),
+)
+
+
+def layout_graphs(model, x, dtype, backward=False):
+    """``model`` (f32 weights) run in ``dtype`` channels-last and NCHW
+    (``layers.CHANNELS_LAST_DTYPES`` patched to hold ``dtype`` or not;
+    the program's own choice is one of the two), each warmed up on a side
+    stream and then captured, the forward (and with ``backward`` the
+    backward of the outputs' sum, through ``train._forward``'s cast of the
+    f32 weights, as the trainers run it) one CUDA graph. Returns
+    ``{"nhwc" | "nchw": (graph, outputs, graph nodes, (conv calls,
+    relayouts) of the warm-up's first forward)}``."""
+    import copy
+    from unittest import mock
+
+    import torch
+    from aicamera_tpu_torch import train
+    from aicamera_tpu_torch.models import layers
+    from aicamera_tpu_torch.runtime.engine import _graph_nodes
+
+    def step(m):
+        if not backward:
+            return m(x)
+        out = train._forward(m, x, dtype)
+        torch.stack([t.float().sum() for level in out
+                     for t in level]).sum().backward()
+        return out
+
+    res = {}
+    for name, dtypes in (("nhwc", (dtype,)), ("nchw", ())):
+        with mock.patch.object(layers, "CHANNELS_LAST_DTYPES", dtypes), \
+                torch.set_grad_enabled(backward):
+            m = copy.deepcopy(model).to(dtype=torch.float32 if backward
+                                        else dtype)
+            m.conv_calls, m.relayouts = 0, {}
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                step(m)       # cuDNN's plans, off the capture
+                counts = (m.conv_calls, dict(m.relayouts))
+                step(m)
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+            m.zero_grad(set_to_none=True)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph):
+                out = step(m)
+            nodes = _graph_nodes(graph)
+            graph.instantiate()
+        graph.replay()
+        res[name] = (graph, [t.detach().float() for level in out
+                             for t in level], nodes, counts)
+    torch.cuda.synchronize()
+    return res
+
+
+def layout_turns(graphs, order=("nchw", "nhwc", "nhwc", "nchw")):
+    """Device ms a replay of each graph, in turns: ``[(name, ms)]``."""
+    import torch
+
+    def turn(graph):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(LAYOUT_REPLAYS):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / LAYOUT_REPLAYS
+
+    return [(name, turn(graphs[name])) for name in order]
+
+
+def turns_text(turns) -> str:
+    by = {}
+    for name, t in turns:
+        by.setdefault(name, []).append(t)
+    return ", ".join(f"{n} {min(v):.3f}-{max(v):.3f}" for n, v in by.items()) \
+        + " (turns: " + ", ".join(f"{n} {t:.3f}" for n, t in turns) + ")"
+
+
+def layout_yolov8m(device):
+    """YOLOv8m's forward channels-last against NCHW (the docstring's step
+    19, its first part)."""
+    import torch
+    from aicamera_tpu_torch.models import layers
+    from aicamera_tpu_torch.models.yolov8 import YOLOv8
+    from aicamera_tpu_torch.runtime.params import seeded_init_
+    from aicamera_tpu_torch.runtime.pipeline import full_f32
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    # NCHW bf16, as the letterbox kernel writes a dispatch
+    x = torch.rand((LAYOUT_BATCH, 3, 640, 640), generator=gen,
+                   device=device).to(torch.bfloat16)
+    model = YOLOv8("m")
+    seeded_init_(model, SEED)
+    model = model.to(device=device).eval()
+    with torch.no_grad(), full_f32():
+        want = [t.float() for level in model(x.float()) for t in level]
+    res = layout_graphs(model, x, torch.bfloat16)
+    graphs = {name: r[0] for name, r in res.items()}
+    scale = max(float(w.abs().max()) for w in want)
+
+    def err(got, base):
+        return max(float((g - b).abs().max())
+                   for g, b in zip(got, base)) / scale
+
+    turns = layout_turns(graphs)
+    # the input's relayout alone, as the forward makes it
+    graphs["input"] = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graphs["input"]):
+        layers.to_layout(x, torch.bfloat16)
+    input_ms = layout_turns(graphs, ("input",))[0][1]
+    for name in ("nhwc", "nchw"):
+        print(f"[layout] {name} device ops a forward: "
+              + "; ".join(f"{op} {t:.3f} ms x{n}"
+                          for op, t, n in profile_ops(
+                              lambda: graphs[name].replay(), 8)))
+    ms = {name: sorted(t for n, t in turns if n == name)
+          for name in ("nhwc", "nchw")}
+    errs = {name: err(r[1], want) for name, r in res.items()}
+    diff = err(res["nhwc"][1], res["nchw"][1])
+    nodes = {name: r[2] for name, r in res.items()}
+    calls, relayouts = res["nhwc"][3]
+    c2f = sorted(f"{n}.m0.cv1.conv" for n, mod in model.named_modules()
+                 if isinstance(mod, layers.C2f))
+    print(f"[layout] YOLOv8m bf16 {tuple(x.shape)}: device ms a forward "
+          f"{turns_text(turns)}; graph nodes nchw {nodes['nchw']}, nhwc "
+          f"{nodes['nhwc']}; error against f32 (of max |ref| {scale:.4g}) "
+          f"nchw {errs['nchw']:.3e}, nhwc {errs['nhwc']:.3e}; nhwc vs nchw "
+          f"{diff:.3e}; convs {calls}, relayouts {sum(relayouts.values())} "
+          f"({', '.join(sorted(relayouts))}); nchw build relayouts "
+          f"{sum(res['nchw'][3][1].values())}; the input's relayout alone "
+          f"{input_ms:.3f} ms")
+    check(sorted(relayouts) == c2f and set(relayouts.values()) == {1},
+          f"[layout] relayouts {relayouts}, expected one at each of {c2f}")
+    check(calls == sum(isinstance(mod, torch.nn.Conv2d)
+                       for mod in model.modules()),
+          f"[layout] {calls} conv calls in one forward")
+    check(nodes["nhwc"] is None or nodes["nhwc"] < nodes["nchw"],
+          f"[layout] graph nodes nhwc {nodes['nhwc']} against nchw "
+          f"{nodes['nchw']}")
+    check(errs["nhwc"] <= 1.5 * errs["nchw"],
+          f"[layout] nhwc error {errs['nhwc']:.3e} against nchw "
+          f"{errs['nchw']:.3e}")
+    return {"nchw_ms": ms["nchw"], "nhwc_ms": ms["nhwc"],
+            "graph_nodes": nodes, "err": errs, "diff": diff}
+
+
+def layout_phase(device):
+    """:func:`layout_yolov8m`, then the other callers' detector calls, each
+    channels-last against NCHW (the docstring's step 19)."""
+    import torch
+    from aicamera_tpu_torch.models.layers import layout
+    from aicamera_tpu_torch.models.yolov8 import YOLOv8
+    from aicamera_tpu_torch.runtime.params import seeded_init_
+    from aicamera_tpu_torch.runtime.pipeline import precision
+
+    out = layout_yolov8m(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.rand((8, 3, 640, 640), generator=gen, device=device)
+    callers = {}
+    for what, variant, batch, dt, backward in LAYOUT_CALLERS:
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+        m = YOLOv8(variant)
+        seeded_init_(m, SEED)
+        m = m.to(device=device).train(backward)
+        xb = x[:batch].to(dtype)
+        with precision(dtype):
+            turns = layout_turns({k: r[0] for k, r in layout_graphs(
+                m, xb, dtype, backward).items()})
+        own = "nhwc" if layout(dtype) == torch.channels_last else "nchw"
+        print(f"[layout] {what}: YOLOv8{variant} {dt} "
+              f"{tuple(xb.shape)}{' forward and backward' if backward else ''}"
+              f": device ms {turns_text(turns)}; the program runs {own}")
+        callers[what] = (own, turns)
+    return dict(out, callers=callers)
+
+
 def compare_phase(frames):
     """First chunks on the card in f32 (TF32 off) against the plain CPU
     path, and at chunk 4 against chunk 8 on the card."""
@@ -5854,7 +6087,7 @@ def main() -> int:
                          "trackers, gmc, facades, "
                          "engine, cli, present, compare, streams, serving, "
                          "server, quality, int8, mot, train, parallel, "
-                         "examples); "
+                         "examples, layout); "
                          "default all")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -5953,6 +6186,8 @@ def main() -> int:
         run("train", train_phase, device, kernels)
         run("parallel", parallel_phase, device, kernels)
         run("examples", examples_phase, device, kernels, workdir)
+        if only is None or "layout" in only:
+            timed("layout", layout_phase, device)
         check(CARD_NMS_READS[0] == 0, f"{CARD_NMS_READS[0]} NMS reads on "
               f"the card outside the yardsticks")
         print("[nms] no path read the card in its NMS (0 reads of the plain "

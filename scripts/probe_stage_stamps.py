@@ -21,8 +21,10 @@ profiler's sub-window) the mean device ms of the detect stages (entry to
 open at its middle, the host spans' ms, the share of ReID crop slots
 holding a real crop, the device period a chunk (first stamp to first
 stamp) against the host's, the clock's calibration, the step's graph
-nodes with and without the stamps' ones, and one stamp node's device
-time.
+nodes with and without the stamps' ones, one stamp node's device time,
+and the detector's conv calls and relayouts (``YOLOv8.conv_calls`` and
+``relayouts``: the forwards run outside a capture, its warm-up's; none
+where the model does not count them).
 """
 
 import time
@@ -202,6 +204,8 @@ def main(argv=None) -> int:
         out["graph_nodes"] = [(s.engine.graph_nodes(),
                                s.engine.aside_nodes())
                               for s in pipe._steps.values()]
+        out["yolo_layout"] = {k: getattr(pipe.yolo, k, None)
+                              for k in ("conv_calls", "relayouts")}
     if args.trace and "breakdown" in line:
         out["idle_gaps"] = line["breakdown"]["idle_gaps"]
     text = json.dumps(out, default=float)

@@ -1183,3 +1183,56 @@ def test_a_branch_body_that_reads_the_gpu_raises(cuda):
     assert counter.count == 0
     with pytest.raises(RuntimeError, match="outside a CUDA-graph capture"):
         writes(index)
+
+
+# [layout]'s forwards in bf16 differ from the f32 forward by bf16 rounding
+# grown over 83 convs; the channels-last one may carry at most 1.5 times
+# the NCHW one's error, and the two differ by at most LAYOUT_REL of the
+# largest output value
+LAYOUT_REL = 0.05
+
+
+def test_yolov8m_channels_last_matches_nchw_in_bf16(cuda):
+    """YOLOv8m at (32, 3, 640, 640) in bf16, channels-last against the
+    NCHW forward of the same weights (``chip_smoke.layout_yolov8m``: both
+    captured, each against an f32 forward), and the only relayouts C2f's
+    split halves."""
+    res = chip_smoke.layout_yolov8m(cuda)
+    assert res["err"]["nhwc"] <= 1.5 * res["err"]["nchw"], res
+    assert res["diff"] <= LAYOUT_REL, res
+
+
+def test_captured_multistream_step_has_fewer_nodes_channels_last(
+        cuda, tmp_path, monkeypatch):
+    """The eight-camera step (8 x 4 frames of 720p, YOLOv8m in bf16,
+    ByteTrack) captured with the detector channels-last has fewer graph
+    nodes than the NCHW build (``layers.CHANNELS_LAST_DTYPES`` emptied:
+    weights and activations NCHW), and its warm-up's forwards relayout
+    only C2f's split halves."""
+    from aicamera_tpu_torch.models import layers
+    from aicamera_tpu_torch.models.yolov8 import YOLOv8
+    from aicamera_tpu_torch.parallel import MultiStreamPipeline
+    from aicamera_tpu_torch.runtime import params
+    model = YOLOv8("m")
+    params.seeded_init_(model)
+    weights = tmp_path / "yolov8m.msgpack"
+    weights.write_bytes(params.write_flax_msgpack(params.flax_tree(model)))
+    frames = np.zeros((8, 4, 720, 1280, 3), np.uint8)
+
+    def captured_nodes():
+        pipe = MultiStreamPipeline(
+            n_streams=8, frame_hw=(720, 1280), variant="m",
+            tracker="bytetrack", yolo_weights=str(weights), device=cuda)
+        pipe.step_chunk(frames)
+        torch.cuda.synchronize()
+        eng = pipe._engine
+        nodes = sum(s.engine.graph_nodes() for s in eng._steps.values())
+        return nodes, eng.yolo.conv_calls, dict(eng.yolo.relayouts)
+
+    nhwc, calls, relayouts = captured_nodes()
+    halves = {f"{n}.m0.cv1.conv" for n, m in model.named_modules()
+              if isinstance(m, layers.C2f)}
+    assert calls > 0 and set(relayouts) == halves, relayouts
+    monkeypatch.setattr(layers, "CHANNELS_LAST_DTYPES", ())
+    nchw, _, _ = captured_nodes()
+    assert nhwc < nchw, (nhwc, nchw)
