@@ -53,9 +53,10 @@ def main(argv=None) -> int:
                               for k, v in line["metrics"].items()}
         if args.control == "reference_fp8":
             numbers, _ = harness.judge_outputs(
-                config, traffic, {"streams": keep["program"]["streams"],
-                                  "tracks": keep["reference"]["tracks"],
-                                  "dets": keep["reference"]["dets"]},
+                config, keep["ctx"].family, traffic,
+                {"streams": keep["program"]["streams"],
+                 "tracks": keep["reference"]["tracks"],
+                 "dets": keep["reference"]["dets"]},
                 keep["trees"], "cuda", keep["clips"], precision="fp8")
             row["control"] = numbers
         elif args.control.startswith("fault_"):

@@ -77,12 +77,11 @@ class Phases:
             self.spans.setdefault(name, []).append(time.perf_counter() - t0)
 
 
-def pipeline_kwargs(cfg: dict) -> dict:
-    """The program's constructor arguments that the configuration states."""
+def pipeline_kwargs(cfg: dict, family) -> dict:
+    """The program's constructor arguments that the configuration states:
+    the detector family's (``portbench/families``) and the tracker's."""
     p, trk = cfg["pipeline"], cfg["tracker"]
-    kw = dict(variant=cfg["port_variant"], input_shape=tuple(p["input_hw"]),
-              conf_threshold=p["conf_threshold"],
-              nms_threshold=p["nms_iou"], tracker=trk["kind"],
+    kw = dict(family.program_kwargs(cfg), tracker=trk["kind"],
               scan_bucket=trk["scan_bucket"])
     if trk["kind"] == "deepsort":
         from aicamera_tpu_torch.core.state import TrackerParams

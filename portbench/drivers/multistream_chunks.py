@@ -36,7 +36,7 @@ class Driver:
         self.pipe = MultiStreamPipeline(
             n_streams=s, frame_hw=hw, yolo_weights=ctx.weight_path("yolo"),
             reid_weights=ctx.weight_path("reid"), device=ctx.device,
-            **common.pipeline_kwargs(cfg))
+            **common.pipeline_kwargs(cfg, ctx.family))
         n = int(t["clip_frames"])
         order = common.pingpong(n)
         period = len(order)

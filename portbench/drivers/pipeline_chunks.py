@@ -37,7 +37,8 @@ class Driver:
         self.pipe = TrackingPipeline(
             yolo_weights=ctx.weight_path("yolo"),
             reid_weights=ctx.weight_path("reid"), chunk_size=self.k,
-            device=ctx.device, **common.pipeline_kwargs(cfg), **quant)
+            device=ctx.device, **common.pipeline_kwargs(cfg, ctx.family),
+            **quant)
         n = int(t["clip_frames"])
         clip = common.render_clip(t["world"], hw, n, 0, ctx.device)
         self.clips = {0: clip}

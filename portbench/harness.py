@@ -2,7 +2,8 @@
 metrics, the reference comparison and the result line.
 
 Everything a cell needs is found by name: the cell in ``BENCHMARK.json``;
-its configuration in the file that names; its traffic in
+its configuration in the file that names, whose ``model.family`` names its
+detector's module in ``portbench/families``; its traffic in
 ``portbench/traffic/<traffic>.json``, whose ``driver`` names a module of
 ``portbench/drivers``; its limits in ``portbench/workloads/<cell>.json``;
 each metric's reader in ``portbench/metrics/<metric>.py`` (or, for
@@ -46,6 +47,7 @@ class Context:
         self.device = device
         self.root = Path(root)
         self.control = control
+        self.family = family_module(config, self.root)
         self.tracer = Tracer()
         self.phases = Phases(self.tracer)
         self.events = []
@@ -59,24 +61,17 @@ class Context:
         self._paths = {}
 
     def weight_path(self, what: str) -> str | None:
-        """The weight file the program loads for ``what`` (``yolo`` or
-        ``reid``), made first where the configuration says the benchmark
-        makes it."""
+        """The weight file the program loads for ``what`` (``yolo``, the
+        detector, or ``reid``): a string spec is a file path; a dict spec is
+        made first by the detector family's ``make_weights``."""
         spec = self.config["weights"].get(what)
         if spec is None:
             return None
         if isinstance(spec, str):
             return str(self.root / spec)
         if what not in self._paths:
-            from . import weights
-            from .yardstick import arch
-            small = msgpack_io.load_flax_msgpack(self.root / spec["embed"])
-            m = self.config["model"]
-            shapes = arch.yolo_shapes(m["depth_multiple"],
-                                      m["width_multiple"],
-                                      m["max_channels"], m["num_classes"])
-            tree = weights.embedded_yolo(small, shapes, self.seed,
-                                         self.device)
+            tree = self.family.make_weights(spec, self.config, self.seed,
+                                            self.device)
             work = self.root / "portbench" / ".work"
             work.mkdir(parents=True, exist_ok=True)
             fd, path = tempfile.mkstemp(suffix=".msgpack", dir=work)
@@ -132,11 +127,23 @@ def metric_reader(name: str, root: Path = ROOT):
     path = root / "portbench" / "metrics" / f"{name}.py"
     if not path.exists():
         path = path.with_name(f"{name.split('.')[0]}.py")
-    spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{name.replace('.', '_')}", path)
+    return _module_at(path,
+                      f"portbench_metric_{name.replace('.', '_')}").read
+
+
+def family_module(config: dict, root: Path = ROOT):
+    """The detector family that ``config["model"]["family"]`` names: the
+    module of ``portbench/families/<family>.py`` under ``root``."""
+    family = config["model"]["family"]
+    return _module_at(root / "portbench" / "families" / f"{family}.py",
+                      f"portbench_family_{family}")
+
+
+def _module_at(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
 
 
 def cell_metrics(bench: dict, cell: dict, trace: bool) -> list:
@@ -231,7 +238,8 @@ def run_cell(bench: dict, cell: dict, config: dict, traffic: dict,
                 "failed": int(ctx.failed), "metrics": metrics,
                 "device": dev, "notes": ctx.notes, "checks": {}}
     t_ref = time.perf_counter()
-    numbers, ref = judge_outputs(config, traffic, out, trees, device, clips)
+    numbers, ref = judge_outputs(config, ctx.family, traffic, out, trees,
+                                 device, clips)
     ctx.notes.append(f"reference and comparison: "
                      f"{time.perf_counter() - t_ref:.1f} s over "
                      f"{ctx.frames_compared} frames "
@@ -254,14 +262,15 @@ def run_cell(bench: dict, cell: dict, config: dict, traffic: dict,
     return line
 
 
-def judge_outputs(config, traffic, out, trees, device, clips,
+def judge_outputs(config, family, traffic, out, trees, device, clips,
                   precision="f32"):
-    """The reference over the served frames, and the numbers compared."""
+    """The reference over the served frames, through the detector
+    ``family``'s module, and the numbers compared."""
     hw = tuple(traffic["frame_hw"])
     want_dets = out.get("dets") is not None
     with _f32():
-        got = reference.run(config, hw, clips, out["streams"], trees,
-                            device, precision=precision,
+        got = reference.run(config, family, hw, clips, out["streams"],
+                            trees, device, precision=precision,
                             want_dets=want_dets)
     ref_tracks, ref_dets = got if want_dets else (got, None)
     numbers = compare.compare_tracks(out["tracks"], ref_tracks)

@@ -1,9 +1,9 @@
 """The model FLOPs of the tracked frames over the seconds they took, as a
-share of the card's bf16 peak: YOLOv8 for every frame, and the ReID net for
-every crop slot of the bucket each chunk ran (FLOPs from layer shapes,
-``yardstick/arch.py``). Taken over the window less all that tracing took
-(the profiler's start, its sub-window, where it slows the program, and
-its reduction)."""
+share of the card's bf16 peak: the detector for every frame (its family's
+count, ``portbench/families``), and the ReID net for every crop slot of the
+bucket each chunk ran (FLOPs from layer shapes, ``yardstick/arch.py``).
+Taken over the window less all that tracing took (the profiler's start, its
+sub-window, where it slows the program, and its reduction)."""
 
 from portbench.yardstick import arch, kernels
 
@@ -22,8 +22,7 @@ def read(ctx):
     if seconds <= 0 or not frames:
         return None
     cfg = ctx.config
-    flops = frames * arch.yolo_flops(cfg["model"],
-                                     cfg["pipeline"]["input_hw"])
+    flops = frames * ctx.family.flops(cfg)
     buckets = ctx.counters.get("reid_buckets") or {}
     chunks = sum(buckets.values())
     if chunks:

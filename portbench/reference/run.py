@@ -1,6 +1,7 @@
 """The reference over what a run served: each stream's frames in order,
-from a fresh tracker, through :class:`.perception.Perception` (once per
-distinct frame) and the configuration's tracker.
+from a fresh tracker, through the configuration's detector family's
+``Reference`` and :class:`.perception.Perception` (once per distinct
+frame) and the configuration's tracker.
 """
 
 from __future__ import annotations
@@ -47,17 +48,21 @@ def _tlwh(xyxy: np.ndarray) -> np.ndarray:
     return out
 
 
-def run(config: dict, frame_hw, clips: dict, streams: list, trees: dict,
-        device, precision: str = "f32", want_dets: bool = False):
-    """``clips``: key -> ``(n, H, W, 3)`` uint8 frames. ``streams``: per
+def run(config: dict, family, frame_hw, clips: dict, streams: list,
+        trees: dict, device, precision: str = "f32", want_dets: bool = False):
+    """``family``: the detector family's module (``portbench/families``).
+    ``clips``: key -> ``(n, H, W, 3)`` uint8 frames. ``streams``: per
     stream the ``(clip key, frame index)`` of each frame, in order.
+    ``trees``: the detector's (``yolo``) and the ReID net's (``reid``) Flax
+    trees.
     Returns per stream, per frame, the tracks ``(x1, y1, x2, y2, id,
     class, conf)``; with ``want_dets`` also per stream, per frame, the
     detections at or above the output threshold, ``(boxes, scores,
     classes)``."""
     t0 = time.perf_counter()
-    perc = Perception(config, frame_hw, trees["yolo"], trees.get("reid"),
-                      device, precision)
+    detector = family.Reference(config, frame_hw, trees["yolo"], device,
+                                precision)
+    perc = Perception(config, detector, trees.get("reid"), device, precision)
     need = {}
     for s in streams:
         for key, i in s:

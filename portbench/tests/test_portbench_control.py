@@ -26,14 +26,15 @@ def test_the_control_is_not_correct(name):
     order = list(common.pingpong(traffic["clip_frames"])) * 2
     streams = [[(key, int(i)) for i in order] for key in keep["clips"]]
     want_dets = keep["program"]["dets"] is not None
+    family = keep["ctx"].family
     with harness._f32():
-        got = reference.run(config, traffic["frame_hw"], keep["clips"],
-                            streams, keep["trees"], "cpu",
+        got = reference.run(config, family, traffic["frame_hw"],
+                            keep["clips"], streams, keep["trees"], "cpu",
                             want_dets=want_dets)
     tracks, dets = got if want_dets else (got, None)
     numbers, _ = harness.judge_outputs(
-        config, traffic, {"streams": streams, "tracks": tracks,
-                          "dets": dets},
+        config, family, traffic, {"streams": streams, "tracks": tracks,
+                                  "dets": dets},
         keep["trees"], "cpu", keep["clips"], precision="fp8")
     assert numbers["tracks_paired"] > 20
     correct, checks = compare.judge(numbers, limits["limits"])

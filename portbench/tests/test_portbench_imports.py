@@ -1,6 +1,7 @@
 """Nothing the benchmark runs imports JAX or the JAX package, compared by
 whole top-level name (``aicamera_tpu_torch`` begins with ``aicamera_tpu``),
-and the reference imports nothing of the program."""
+the reference and the detector families import nothing of the program, and
+each family exports what the harness looks up."""
 
 import ast
 import subprocess
@@ -33,8 +34,20 @@ def test_no_file_of_the_benchmark_imports_jax():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for path in _sources("reference") + _sources("yardstick"):
+    for path in (_sources("reference") + _sources("yardstick")
+                 + _sources("families")):
         assert "aicamera_tpu_torch" not in set(_imports(path)), path
+
+
+def test_every_family_exports_what_the_harness_looks_up():
+    found = [p for p in _sources("families") if p.name != "__init__.py"]
+    assert found
+    for path in found:
+        tree = ast.parse(path.read_text())
+        names = {n.name for n in tree.body
+                 if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+        assert {"program_kwargs", "make_weights", "Reference",
+                "flops"} <= names, path
 
 
 def test_a_run_holds_no_jax_module():

@@ -35,7 +35,7 @@ def letterbox_bytes(src_hw, dst_hw, frames: int, out_bytes: int = 2) -> int:
     source row that some output row taps with a weight above 0, read once
     (``W * 3`` bytes), and the ``(3, Dh, Dw)`` output written once in
     ``out_bytes`` a value (bf16: 2)."""
-    from ..reference.perception import Letterbox
+    from ..reference.letterbox import Letterbox
     lb = Letterbox(src_hw, dst_hw, "cpu")
     if lb.resize:
         y0, y1, w0, w1 = (t.numpy() for t in lb.ty)
