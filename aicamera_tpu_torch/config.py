@@ -25,6 +25,7 @@ YOLO_ONNX_PATH = _MODELS / "detection/yolov8n.onnx"
 REID_ONNX_PATH = _MODELS / "reid/deepsort_reid.onnx"
 # Committed checkpoints (tracked in git).
 YOLO_SYNTHETIC_PATH = _MODELS / "detection/yolov8n_synthetic.msgpack"
+RTDETR_SYNTHETIC_PATH = _MODELS / "detection/rtdetr_l_synthetic.msgpack"
 YOLO_SYNTHETIC_CROWD_PATH = (_MODELS
                              / "detection/yolov8n_synthetic_crowd.msgpack")
 YOLO_CLIP_ADAPTED_PATH = _MODELS / "detection/yolov8n_clip_adapted.msgpack"

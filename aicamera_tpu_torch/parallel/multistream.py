@@ -131,10 +131,15 @@ class MultiStreamPipeline:
                  reid_quant: str | None = None,
                  detect_dtype: str | None = None,
                  reid_dtype: str | None = None,
+                 detector: str = "yolov8",
+                 num_queries: int | None = None,
                  device=None):
         """Arguments as in the JAX ``MultiStreamPipeline``, plus
-        ``detect_dtype``/``reid_dtype`` and ``device`` as in
-        :class:`TrackingPipeline` (default the GPU; raises without one).
+        ``detect_dtype``/``reid_dtype``, ``detector`` (``"yolov8"`` or
+        ``"rtdetr-l"``, whose weights ``yolo_weights`` names), ``num_queries``
+        and ``device`` as in :class:`TrackingPipeline` (default the GPU;
+        raises without one); RT-DETR has no model-split path (a mesh with a ``model`` axis
+        larger than 1 raises).
         The tracker names, their parameters and presets, ``gmc``,
         ``scan_bucket``, ``letterbox_auto`` and ``reid_quant="int8"`` (the
         W8A8 embed stage over every stream's crops) mean what they mean
@@ -191,7 +196,8 @@ class MultiStreamPipeline:
             letterbox_auto=letterbox_auto, tracker=tracker,
             bytetrack_params=bytetrack_params, ocsort_params=ocsort_params,
             gmc=gmc, reid_quant=reid_quant, detect_dtype=detect_dtype,
-            reid_dtype=reid_dtype, device=device)
+            reid_dtype=reid_dtype, detector=detector,
+            num_queries=num_queries, device=device)
         eng = self._engine
         eng.state = None
         self.device = eng.device
@@ -216,6 +222,10 @@ class MultiStreamPipeline:
         self._captured = eng._capture_step
         if mesh is not None and "model" in mesh.mesh_dim_names \
                 and mesh.size(mesh.mesh_dim_names.index("model")) > 1:
+            if eng.rtdetr is not None:
+                raise ValueError("a model-split mesh shards YOLOv8's "
+                                 "convolutions; RT-DETR has no such path "
+                                 "(use a stream mesh)")
             from .tensor_parallel import shard_detector_params
             eng.yolo = shard_detector_params(eng.yolo, mesh)
             self._captured = False

@@ -11,7 +11,9 @@ Two layers:
   Flax writes.
 - :func:`yolo_state_dict_from_flax` / :func:`reid_state_dict_from_flax` map
   a nested dict of numpy arrays (the Flax params tree) onto the port's module
-  names: conv kernels HWIO -> OIHW, Dense ``(in, out)`` -> ``(out, in)``.
+  names: conv kernels HWIO -> OIHW, Dense ``(in, out)`` -> ``(out, in)``,
+  norms' ``scale``, ``mean`` and ``var`` -> ``weight`` and running statistics
+  (RT-DETR's checkpoint, read by :func:`resolve_rtdetr_params`).
   Loading is strict: every leaf must be consumed and every parameter filled.
 
 Resolution mirrors the JAX package: an explicit path (``.msgpack`` or
@@ -32,6 +34,7 @@ import torch
 from .. import config
 from ..device import resolve_device
 from ..models.reid import ReIDNet
+from ..models.rtdetr import RTDETR, init_weights_
 from ..models.yolov8 import YOLOv8
 
 # --- msgpack reader ----------------------------------------------------------
@@ -209,6 +212,11 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
+# a norm's Flax leaves -> its torch names (RT-DETR's BatchNorms and
+# LayerNorms; YOLOv8 and ReID checkpoints hold folded convs and Dense layers)
+_FLAX_LEAF = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+
+
 def _state_dict_from_flax(tree) -> dict:
     if set(tree) == {"params"}:
         tree = tree["params"]
@@ -226,28 +234,43 @@ def _state_dict_from_flax(tree) -> dict:
             name = "weight"
         elif leaf_name == "bias":
             name = "bias"
+        elif leaf_name in _FLAX_LEAF:
+            name = _FLAX_LEAF[leaf_name]
         else:
             raise ValueError(f"unexpected Flax leaf {'/'.join(path)}")
         out[".".join((*mods, name))] = torch.from_numpy(
             np.ascontiguousarray(arr))
+        if name == "running_mean":
+            out[".".join((*mods, "num_batches_tracked"))] = \
+                torch.zeros((), dtype=torch.int64)
     return out
 
 
-def flax_tree(model: torch.nn.Module) -> dict:
-    """A module's weights as the Flax params tree, f32 numpy (the inverse of
-    :func:`_state_dict_from_flax`): conv kernels OIHW -> HWIO, Dense
-    ``(out, in)`` -> ``(in, out)``; what an engine file stores."""
+def flax_tree(model: torch.nn.Module, dtype=np.float32) -> dict:
+    """A module's weights as the Flax params tree of ``dtype`` numpy arrays
+    (the inverse of :func:`_state_dict_from_flax`): conv kernels OIHW ->
+    HWIO, Dense ``(out, in)`` -> ``(in, out)``, a norm's weight as
+    ``scale``, BatchNorm statistics as ``mean`` and ``var``; what an engine
+    file stores."""
+    norms = {name for name, m in model.named_modules()
+             if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.LayerNorm))}
     tree = {}
     for key, t in model.state_dict().items():
         *mods, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
         arr = t.detach().float().cpu().numpy()
-        if leaf == "weight":
+        if leaf == "weight" and ".".join(mods) in norms:
+            leaf = "scale"
+        elif leaf == "weight":
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
             leaf = "kernel"
+        elif leaf in ("running_mean", "running_var"):
+            leaf = leaf[len("running_"):]
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = np.ascontiguousarray(arr.astype(dtype, copy=False))
     return {"params": tree}
 
 
@@ -265,6 +288,12 @@ def yolo_state_dict_from_flax(tree) -> dict:
 
 def reid_state_dict_from_flax(tree) -> dict:
     """ReIDNet Flax params tree -> ``models.reid.ReIDNet`` state dict."""
+    return _state_dict_from_flax(tree)
+
+
+def rtdetr_state_dict_from_flax(tree) -> dict:
+    """RT-DETR's Flax params tree -> ``models.rtdetr.RTDETR`` state dict of
+    its trained (unfused) form."""
     return _state_dict_from_flax(tree)
 
 
@@ -380,3 +409,30 @@ def resolve_reid_params(weights_path: str | None = None, device=None,
                     config.REID_ONNX_PATH, reid_state_dict_from_flax,
                     torch.zeros(1, *config.REID_INPUT_SHAPE, 3),
                     config.REID_PARAMS_PATH, device, dtype, "ReID")
+
+
+def resolve_rtdetr_params(weights_path: str | None = None, device=None,
+                          dtype: torch.dtype | None = None,
+                          num_queries: int | None = None) -> RTDETR:
+    """RT-DETR-L with its weights, in the inference form
+    (``RTDETR.to_inference``: BNs folded, RepConvs merged) on ``device`` in
+    ``dtype`` (defaults as in :func:`resolve_yolo_params`).
+    ``weights_path``: a Flax-layout ``.msgpack`` of the trained form (it
+    must exist); none: ``config.RTDETR_SYNTHETIC_PATH`` if it exists, else
+    Ultralytics' initialisation from seed 0 with a warning."""
+    device = resolve_device(device)
+    dtype = dtype or compute_dtype(device)
+    kw = {} if num_queries is None else {"num_queries": int(num_queries)}
+    model = RTDETR(**kw)
+    path = Path(weights_path) if weights_path else config.RTDETR_SYNTHETIC_PATH
+    if weights_path and (path.suffix != ".msgpack" or not path.exists()):
+        raise FileNotFoundError(f"RT-DETR weights must be an existing "
+                                f".msgpack file (got {path})")
+    if path.exists():
+        load_state_strict(model, rtdetr_state_dict_from_flax(
+            load_flax_msgpack(path)))
+    else:
+        warnings.warn(f"No RT-DETR weights found at {path}; using seeded "
+                      "random init (outputs will be meaningless).")
+        init_weights_(model)
+    return model.to_inference(device, dtype)

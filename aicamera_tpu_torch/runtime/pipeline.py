@@ -1,5 +1,6 @@
-"""The fused chunk pipeline: letterbox -> YOLOv8 -> decode+NMS -> crops ->
-ReID -> tracker, K frames per dispatch.
+"""The fused chunk pipeline: letterbox -> YOLOv8 -> decode+NMS (or RT-DETR-L
+-> its NMS-free post-process) -> crops -> ReID -> tracker, K frames per
+dispatch.
 
 The port of ``aicamera_tpu/runtime/pipeline.py`` with its three tracker
 cores (DeepSORT and its StrongSORT preset, ByteTrack and BoT-SORT, OC-SORT
@@ -45,6 +46,7 @@ from ..core import state as core_state
 from ..core import tracker as core_tracker
 from ..core.state import Detections, TrackerParams
 from ..device import resolve_device
+from ..models import rtdetr as rtdetr_model
 from ..ops import gmc as gmc_ops
 from ..ops.crops import extract_reid_crops
 from ..ops.letterbox import letterbox
@@ -53,7 +55,8 @@ from ..ops.preprocess import letterbox_spec, scale_boxes_back
 from ..syncs import SyncCounter
 from . import branches
 from .engine import CUDAGraphEngine
-from .params import resolve_reid_params, resolve_yolo_params
+from .params import (resolve_reid_params, resolve_rtdetr_params,
+                     resolve_yolo_params)
 from .profiler import CudaStageTimer
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -333,7 +336,7 @@ class _Stamps:
     a slot a boundary, written by the device's clock (``branches.stamp``;
     on the CPU the host's), and the boundaries' names in slot order."""
 
-    SLOTS = 8
+    SLOTS = 10
 
     def __init__(self, device):
         self.buf = torch.empty(self.SLOTS, dtype=torch.int64, device=device)
@@ -437,6 +440,8 @@ class _EagerOutputs(NamedTuple):
 
 
 _TRACKERS = ("deepsort", "bytetrack", "botsort", "ocsort", "deepocsort")
+#: the detectors a pipeline runs
+DETECTORS = ("yolov8", "rtdetr-l")
 
 
 class TrackingPipeline:
@@ -478,8 +483,24 @@ class TrackingPipeline:
                  yolo_quant: str | None = None,
                  detect_dtype: str | None = None,
                  reid_dtype: str | None = None,
+                 detector: str = "yolov8",
+                 num_queries: int | None = None,
                  device=None):
-        """Arguments as in the JAX ``TrackingPipeline``, plus ``device``.
+        """Arguments as in the JAX ``TrackingPipeline``, plus ``device``,
+        ``detector`` and ``num_queries``.
+
+        ``detector``: ``"yolov8"`` (default; ``variant`` names the scale)
+        or ``"rtdetr-l"`` (RT-DETR-L, ``models/rtdetr.py``, its weights
+        from ``yolo_weights``, default the committed
+        ``config.RTDETR_SYNTHETIC_PATH``): the same letterbox kernel, then
+        the backbone, encoder and decoder, then the NMS-free post-process
+        (``models.rtdetr.postprocess``: each query's best class score and
+        class, its top ``max_det`` queries at or above the score floor),
+        boxes back to frame pixels and the same compaction, all inside the
+        same captured step. ``conf_threshold`` and the score floor mean
+        what they mean for YOLOv8; ``nms_threshold`` is unused. RT-DETR has
+        no int8 twin (``yolo_quant`` raises). ``num_queries``: RT-DETR's
+        decoder queries (default 300, the published model's).
 
         ``tracker``: ``"deepsort"`` (default), ``"strongsort"`` (the DeepSORT
         core with the StrongSORT preset: EMA appearance bank, NSA Kalman,
@@ -606,6 +627,13 @@ class TrackingPipeline:
             if dt not in (None, "bf16", "f32"):
                 raise ValueError(f"{name} must be None, 'bf16' or 'f32' "
                                  f"(got {dt!r})")
+        if detector not in DETECTORS:
+            raise ValueError(f"detector must be one of {DETECTORS} (got "
+                             f"{detector!r})")
+        self.detector = detector
+        if detector == "rtdetr-l" and yolo_quant not in (None, "", "none"):
+            raise ValueError("yolo_quant='int8' has no RT-DETR path: the "
+                             "int8 twin is YOLOv8's (models/quant_yolo.py)")
         if detect_dtype == "f32" and yolo_quant == "int8":
             raise ValueError("detect_dtype='f32' and yolo_quant='int8' "
                              "conflict")
@@ -633,9 +661,16 @@ class TrackingPipeline:
         self.min_detection_confidence = float(min_detection_confidence)
         self.chunk_size = int(chunk_size)
         self.with_reid = with_reid
-        self.yolo = resolve_yolo_params(variant, weights_path=yolo_weights,
-                                        device=self.device,
-                                        dtype=self.detect_dtype)
+        #: the YOLOv8 detector, or None where RT-DETR runs (``rtdetr``)
+        self.yolo = self.rtdetr = None
+        if detector == "rtdetr-l":
+            self.rtdetr = resolve_rtdetr_params(
+                yolo_weights, device=self.device, dtype=self.detect_dtype,
+                num_queries=num_queries)
+        else:
+            self.yolo = resolve_yolo_params(
+                variant, weights_path=yolo_weights, device=self.device,
+                dtype=self.detect_dtype)
         self.reid = resolve_reid_params(weights_path=reid_weights,
                                         device=self.device,
                                         dtype=self.reid_dtype)
@@ -781,21 +816,41 @@ class TrackingPipeline:
                     compact(labels.to(torch.int32)), compact(elig),
                     det_valid)
 
-        def detections(frames):
-            """Letterbox kernel, YOLOv8, decode+NMS, compaction and the
-            synthetic load over a batch of frames: ``(d_xyxy, d_conf, d_cls,
-            d_valid, det_outs)``."""
-            x = letterbox(frames, spec, self.detect_dtype)
-            mark("letterbox")
+        def detect_yolo(x):
             with precision(self.detect_dtype):
                 levels = self.yolo(x)
             mark("yolo")
-            num, nboxes, scores, labels = fused_decode_nms(
+            return fused_decode_nms(
                 levels,
                 score_threshold=self._nms_score_floor,
                 iou_threshold=self.nms_threshold,
                 top_k=config.YOLO_NMS_TOPK,
                 max_det=config.YOLO_MAX_DETECTIONS)
+
+        def detect_rtdetr(x):
+            model = self.rtdetr
+            with precision(self.detect_dtype):
+                maps = model.features(x)
+                mark("backbone")
+                feats, shapes = model.encode(maps)
+                mark("encoder")
+                boxes, logits = model.decode(feats, shapes)
+                mark("decoder")
+            return rtdetr_model.postprocess(
+                boxes, logits, x.shape[-2:], self._nms_score_floor,
+                config.YOLO_MAX_DETECTIONS)
+
+        detect_model = detect_rtdetr if self.rtdetr is not None \
+            else detect_yolo
+
+        def detections(frames):
+            """Letterbox kernel, the detector (YOLOv8 then decode+NMS, or
+            RT-DETR then its NMS-free post-process), compaction and the
+            synthetic load over a batch of frames: ``(d_xyxy, d_conf,
+            d_cls, d_valid, det_outs)``."""
+            x = letterbox(frames, spec, self.detect_dtype)
+            mark("letterbox")
+            num, nboxes, scores, labels = detect_model(x)
             boxes_f = scale_boxes_back(nboxes, spec)
             d_xyxy, d_conf, d_cls, d_valid, det_valid = compact_dets(
                 num, boxes_f, scores, labels)
@@ -808,7 +863,7 @@ class TrackingPipeline:
                                      d_conf)
                 d_cls = torch.where(fill, torch.zeros_like(d_cls), d_cls)
                 d_valid = d_valid | fill
-            mark("nms")
+            mark("post" if self.rtdetr is not None else "nms")
             return (d_xyxy, d_conf, d_cls, d_valid,
                     (num, boxes_f, scores, labels, det_valid))
 
@@ -1042,10 +1097,13 @@ class TrackingPipeline:
 
         ``stamped`` (a timed step, ``CudaStageTimer``): the stage
         boundaries (entry, ``gmc``, ``letterbox``, ``yolo``, ``nms``,
-        ``crops_reid``, ``tracker``) stamp the device's clock into a buffer
-        (:meth:`_mark`), and the decisions' words go on with the chunk's
-        real crop count (its valid slots below ``max_reid_crops``, summed on
-        the device) and the stamps' words. Those nodes are counted apart
+        ``crops_reid``, ``tracker``; RT-DETR's ``backbone``, ``encoder``,
+        ``decoder`` and ``post`` in place of ``yolo`` and ``nms``) stamp the
+        device's clock into a buffer (:meth:`_mark`), and the decisions'
+        words go on with the chunk's real crop count (its valid slots below
+        ``max_reid_crops``, summed on the device), its detections that reach
+        the tracker (its valid slots, summed on the device) and the stamps'
+        words. Those nodes are counted apart
         (``branches.aside``); the rest of the capture is the unstamped
         one."""
         parts = self._stage_parts(frame_hw)
@@ -1201,7 +1259,9 @@ class TrackingPipeline:
                 with branches.aside():
                     crops = torch.sum(d_valid[:, :self.max_reid_crops],
                                       dtype=torch.int32)
+                    dets = torch.sum(d_valid, dtype=torch.int32)
                     decisions = torch.cat([decisions, crops.reshape(1),
+                                           dets.reshape(1),
                                            marks.buf.view(torch.int32)])
             packed = layout.pack((det_outs if s is None else ())
                                  + tuple(outs) + (decisions,))
@@ -1327,12 +1387,13 @@ class TrackingPipeline:
         step.engine.count_taken(taken)
         if timer is not None and step.stamps is not None:
             n = len(step.stamps)
-            stamps = np.ascontiguousarray(decisions[4:4 + 2 * n]).view(
+            stamps = np.ascontiguousarray(decisions[5:5 + 2 * n]).view(
                 np.int64)
             reid = idx >= 0
             timer.arrive(dispatch, step.stamps, stamps,
                          crops=int(decisions[3]) if reid else 0,
-                         slots=step.buckets[idx] * step.batch if reid else 0)
+                         slots=step.buckets[idx] * step.batch if reid else 0,
+                         dets=int(decisions[4]), frames=step.batch)
 
     def reset(self):
         """Fresh tracker state (ids restart at 1), scan counts, no frame

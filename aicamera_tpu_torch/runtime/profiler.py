@@ -87,9 +87,13 @@ class CudaStageTimer:
       graph): its entry, then ``gmc`` (when on), ``letterbox``, ``yolo``,
       ``nms`` (decode, NMS, compaction, synthetic load), ``crops_reid``
       (after the ReID bucket's switch) and ``tracker`` (after the scan's
-      conds, before the pack). A stage's time runs from the boundary before
-      it. The stamps and the chunk's real crop count come home with the
-      chunk's decisions, so they add no read and no wait:
+      conds, before the pack); an RT-DETR step stamps ``backbone``,
+      ``encoder``, ``decoder`` (the query selection and the six layers) and
+      ``post`` (the NMS-free post-process, compaction, synthetic load) in
+      place of ``yolo`` and ``nms``. A stage's time runs from the boundary
+      before it. The stamps, the chunk's real crop count and its
+      detections that reach the tracker come home with the chunk's
+      decisions, so they add no read and no wait:
       :meth:`arrive` takes them when the chunk is read back. A stamped step
       is a capture of its own; without a timer the capture holds no stamp.
     - The eager step records a CUDA event at each boundary (:meth:`start`,
@@ -110,12 +114,14 @@ class CudaStageTimer:
     ``gap_totals`` (ms of the device's gap from a replay's last stamp to the
     next one's first, by the innermost host span open at its middle, or
     ``caller`` where none was: the rule of ``portbench/yardstick/
-    trace.py``), ``crops`` (real crops, crop slots computed),
+    trace.py``), ``crops`` (real crops, crop slots computed), ``dets``
+    (detections that reached the tracker, frames),
     ``calibrations``, the last ``KEEP`` dispatches' records
     (:meth:`records`) and the last 1,024 spans (:meth:`spans`).
     :meth:`calibrate` puts the device's clock on the host's."""
 
-    STAGES = ("gmc", "letterbox", "yolo", "nms", "crops_reid", "tracker")
+    STAGES = ("gmc", "letterbox", "yolo", "nms", "crops_reid", "tracker",
+              "backbone", "encoder", "decoder", "post")
     KEEP = 4096
 
     def __init__(self, stages=STAGES, on_span=None):
@@ -126,6 +132,7 @@ class CudaStageTimer:
         self.gap_totals = {}      # host span -> ms
         self.gaps = 0
         self.crops = [0, 0]       # real crops, crop slots computed
+        self.dets = [0, 0]        # detections to the tracker, frames
         #: ``(host ns, offset ns, error ns)``: device clock + offset = host
         #: clock, within the error (the first and the last 15 kept)
         self.calibrations = []
@@ -177,7 +184,7 @@ class CudaStageTimer:
                 self._records[dispatch] = dict(
                     id=dispatch, t0=None, t1=None, spans={}, stages=None,
                     first=None, last=None, gap=None, gap_at=None, crops=0,
-                    slots=0)
+                    slots=0, dets=0, frames=0)
                 while len(self._records) > self.KEEP:
                     self._records.popitem(last=False)
         elif dispatch is None and parent is not None:
@@ -221,12 +228,13 @@ class CudaStageTimer:
     # --- the captured step: stamps -------------------------------------------
 
     def arrive(self, dispatch: int | None, names, stamps, crops: int = 0,
-               slots: int = 0):
+               slots: int = 0, dets: int = 0, frames: int = 0):
         """A captured chunk's stamps, read back with its decisions:
         ``stamps[i]`` (ns, the device's clock) at boundary ``names[i]``,
         ``names[0]`` the step's entry; ``crops``, its real crops, and
         ``slots``, the crop slots its ReID bucket computed (0 without
-        ReID)."""
+        ReID); ``dets``, its detections that reached the tracker, over
+        ``frames`` frames."""
         stamps = [int(t) for t in stamps[:len(names)]]
         stages = {name: (b - a) * 1e-6 for name, a, b
                   in zip(names[1:], stamps, stamps[1:])}
@@ -237,6 +245,8 @@ class CudaStageTimer:
             self.chunks += 1
             self.crops[0] += crops
             self.crops[1] += slots
+            self.dets[0] += dets
+            self.dets[1] += frames
             gap = where = None
             if dispatch is not None and self._last is not None \
                     and self._last[0] == dispatch - 1:
@@ -249,7 +259,8 @@ class CudaStageTimer:
             if rec is not None:
                 rec.update(stages=stages, first=stamps[0] + off,
                            last=stamps[-1] + off, gap=gap, gap_at=where,
-                           crops=crops, slots=slots)
+                           crops=crops, slots=slots, dets=dets,
+                           frames=frames)
 
     def _label(self, t: int) -> str:
         """The innermost (shortest) span open at host time ``t``, closed or
@@ -305,6 +316,7 @@ class CudaStageTimer:
             self.chunks = self.gaps = 0
             self.span_totals, self.gap_totals = {}, {}
             self.crops = [0, 0]
+            self.dets = [0, 0]
             self._records.clear()
             self._recent.clear()
             self._last = None
@@ -318,8 +330,8 @@ class CudaStageTimer:
         stamp (host ns, through the latest calibration), ``gap`` (device ms
         from the dispatch before's last stamp, where that one came back
         just before) and ``gap_at`` (the host span open at its middle),
-        ``crops`` and ``slots``. A dispatch not read back yet has ``stages``
-        None."""
+        ``crops`` and ``slots``, ``dets`` and ``frames``. A dispatch not
+        read back yet has ``stages`` None."""
         with self._lock:
             return [dict(r, spans=dict(r["spans"])) for r in
                     self._records.values()]
@@ -328,8 +340,9 @@ class CudaStageTimer:
         """Means a chunk over everything timed: device ms by stage, host ms
         by span (over the dispatches), gap ms by the host span open at its
         middle, the share of computed crop slots holding a real crop, and
-        the clock's calibration (offset, error, drift between the first
-        and the last)."""
+        the detections a frame that reached the tracker, and the clock's
+        calibration (offset, error, drift between the first and the
+        last)."""
         with self._lock:
             n, gaps = self.chunks, self.gaps
             d = self.span_totals.get("dispatch", [0.0, 0])[1]
@@ -342,7 +355,9 @@ class CudaStageTimer:
                               sorted(self.gap_totals.items(),
                                      key=lambda kv: -kv[1])} if gaps else {},
                    "crop_use": self.crops[0] / self.crops[1]
-                   if self.crops[1] else None}
+                   if self.crops[1] else None,
+                   "dets_per_frame": self.dets[0] / self.dets[1]
+                   if self.dets[1] else None}
             cal = list(self.calibrations)
         if cal:
             out["clock"] = {"offset_ns": cal[-1][1], "error_ns": cal[-1][2],
@@ -376,6 +391,9 @@ class CudaStageTimer:
             lines.append(f"ReID crop slots holding a real crop: "
                          f"{100 * s['crop_use']:.1f}% ({self.crops[0]} of "
                          f"{self.crops[1]})")
+        if s["dets_per_frame"] is not None:
+            lines.append(f"detections a frame to the tracker: "
+                         f"{s['dets_per_frame']:.3f}")
         if "clock" in s:
             c = s["clock"]
             lines.append(f"stamp clock: host - stamp {c['offset_ns']} ns "

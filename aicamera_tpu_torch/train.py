@@ -830,3 +830,305 @@ def train_detector(variant: str = "n", world: WorldSpec = WorldSpec(),
                 f"  cls {ax['cls'][-1]:.3f} iou {ax['iou'][-1]:.3f}"
                 f" dfl {ax['dfl'][-1]:.3f}")
     return model
+
+
+# --- RT-DETR: set prediction -------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DetrTrainConfig:
+    """RT-DETR's training on the synthetic world. The losses are
+    Ultralytics' ``RTDETRDetectionLoss`` without denoising groups: Hungarian
+    matching on focal class cost + L1 + GIoU (gains 2, 5, 2), varifocal
+    class loss + L1 + GIoU (gains 1, 5, 2), on every decoder layer and on
+    the encoder's top-k. Scenes come from a pool a world size (``pool``
+    scenes each; ``refresh`` of them rendered anew over the oldest before
+    every dispatch), drawn at random and flipped left-right at random; a
+    step's batch is of one size."""
+    batch: int = 16
+    steps: int = 6000
+    scan: int = 25
+    lr: float = 2e-4
+    warmup: int = 500
+    weight_decay: float = 1e-4
+    max_norm: float = 0.1           # RT-DETR's gradient clip
+    pool: int = 2048
+    refresh: int = 16
+    seed: int = 0
+    cost_class: float = 2.0
+    cost_bbox: float = 5.0
+    cost_giou: float = 2.0
+    w_class: float = 1.0
+    w_bbox: float = 5.0
+    w_giou: float = 2.0
+    #: the varifocal loss's weight of an unmatched query's score
+    #: (Ultralytics' 0.75); a larger one pushes duplicates' scores down
+    vfl_alpha: float = 0.75
+
+
+def cxcywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
+    c, wh = b[..., :2], b[..., 2:]
+    return torch.cat([c - wh / 2, c + wh / 2], -1)
+
+
+def box_ious(a: torch.Tensor, b: torch.Tensor):
+    """IoU and GIoU of xyxy boxes ``a`` and ``b`` (broadcast)."""
+    iw = (torch.minimum(a[..., 2], b[..., 2])
+          - torch.maximum(a[..., 0], b[..., 0])).clamp(min=0)
+    ih = (torch.minimum(a[..., 3], b[..., 3])
+          - torch.maximum(a[..., 1], b[..., 1])).clamp(min=0)
+    inter = iw * ih
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    union = area_a + area_b - inter
+    iou = inter / (union + 1e-7)
+    cw = torch.maximum(a[..., 2], b[..., 2]) - torch.minimum(a[..., 0],
+                                                             b[..., 0])
+    ch = torch.maximum(a[..., 3], b[..., 3]) - torch.minimum(a[..., 1],
+                                                             b[..., 1])
+    hull = cw * ch + 1e-7
+    return iou, iou - (hull - union) / hull
+
+
+def match_cost(prob: torch.Tensor, boxes: torch.Tensor, gt_cls: torch.Tensor,
+               gt_boxes: torch.Tensor, cfg: DetrTrainConfig,
+               alpha: float = 0.25, gamma: float = 2.0) -> torch.Tensor:
+    """Ultralytics' ``HungarianMatcher`` cost ``(..., Q, G)``: ``prob``
+    ``(..., Q, C)`` sigmoid scores, ``boxes`` ``(..., Q, 4)`` and
+    ``gt_boxes`` ``(..., G, 4)`` cxcywh, ``gt_cls`` ``(..., G)`` class
+    indices."""
+    idx = gt_cls.long()[..., None, :].expand(*prob.shape[:-1], -1)
+    p = torch.gather(prob, -1, idx)
+    neg = (1 - alpha) * p ** gamma * -(1 - p + 1e-8).log()
+    pos = alpha * (1 - p) ** gamma * -(p + 1e-8).log()
+    l1 = (boxes[..., :, None, :] - gt_boxes[..., None, :, :]).abs().sum(-1)
+    _, giou = box_ious(cxcywh_to_xyxy(boxes)[..., :, None, :],
+                       cxcywh_to_xyxy(gt_boxes)[..., None, :, :])
+    return (cfg.cost_class * (pos - neg) + cfg.cost_bbox * l1
+            + cfg.cost_giou * (1 - giou))
+
+
+def hungarian(cost: np.ndarray):
+    """Minimum-cost assignment of a ``(Q, G)`` cost, ``G <= Q``: ``(rows,
+    cols)`` int64, every column assigned, ``cols`` ascending."""
+    from scipy.optimize import linear_sum_assignment
+    r, c = linear_sum_assignment(cost)
+    order = np.argsort(c)
+    return r[order].astype(np.int64), c[order].astype(np.int64)
+
+
+def detr_loss(outputs, gt_boxes, gt_cls, gt_valid, cfg: DetrTrainConfig):
+    """The set-prediction loss and its parts. ``outputs``: per head (each
+    decoder layer, then the encoder's top-k) ``(boxes (B, Q, 4) cxcywh in
+    [0, 1], logits (B, Q, C))``; the ground truth ``(B, G, 4)`` cxcywh in
+    [0, 1], ``(B, G)`` class indices, ``(B, G)`` bool. Each head is matched
+    on its own (one host read a call for all of them); sums are over the
+    batch's boxes, divided by their count."""
+    dev = gt_boxes.device
+    b, q = outputs[0][1].shape[:2]
+    with torch.no_grad():
+        costs = torch.stack([match_cost(lg.float().sigmoid(), bx.float(),
+                                        gt_cls, gt_boxes, cfg)
+                             for bx, lg in outputs])
+    costs = costs.double().cpu().numpy()
+    valid = gt_valid.cpu().numpy()
+    n_gt = max(int(valid.sum()), 1)
+    parts = {"class": 0.0, "bbox": 0.0, "giou": 0.0}
+    for h, (bx, lg) in enumerate(outputs):
+        bi, qi, gi = [], [], []
+        for f in range(b):
+            cols = np.flatnonzero(valid[f])
+            if not len(cols):
+                continue
+            r, c = hungarian(costs[h, f][:, cols])
+            bi.append(np.full(len(r), f))
+            qi.append(r)
+            gi.append(cols[c])
+        cat = (lambda xs: torch.as_tensor(np.concatenate(xs)
+                                          if xs else np.zeros(0, np.int64),
+                                          device=dev))
+        bi, qi, gi = cat(bi), cat(qi), cat(gi)
+        pb, tb = bx[bi, qi].float(), gt_boxes[bi, gi]
+        iou, giou = box_ious(cxcywh_to_xyxy(pb), cxcywh_to_xyxy(tb))
+        logits = lg.float()
+        label = torch.zeros_like(logits)
+        label[bi, qi, gt_cls[bi, gi].long()] = 1.0
+        score = torch.zeros_like(logits)
+        score[bi, qi, gt_cls[bi, gi].long()] = iou.detach()
+        # Ultralytics' VarifocalLoss (gamma 2)
+        weight = cfg.vfl_alpha * logits.sigmoid().detach() ** 2 \
+            * (1 - label) + score * label
+        vfl = (F.binary_cross_entropy_with_logits(logits, score,
+                                                  reduction="none")
+               * weight).sum()
+        parts["class"] = parts["class"] + vfl / n_gt
+        parts["bbox"] = parts["bbox"] + (pb - tb).abs().sum() / n_gt
+        parts["giou"] = parts["giou"] + (1 - giou).sum() / n_gt
+    loss = (cfg.w_class * parts["class"] + cfg.w_bbox * parts["bbox"]
+            + cfg.w_giou * parts["giou"])
+    return loss, parts
+
+
+def detr_outputs(model, x: torch.Tensor):
+    """RT-DETR's training forward: per head (the six decoder layers, then
+    the encoder's top-k) ``(boxes, logits)``, the decoder started from the
+    detached selection as Ultralytics trains it."""
+    dec = model.decoder
+    feats, shapes = model.encode(model.backbone(x))
+    top, ref, enc_boxes, enc_logits, _, _ = dec.select(feats, shapes)
+    boxes, logits = dec.layers_forward(top.detach(), ref.detach(), feats,
+                                       shapes, all_layers=True)
+    return list(zip(boxes, logits)) + [(enc_boxes, enc_logits)]
+
+
+class ScenePool:
+    """Scenes rendered on the device for RT-DETR's training: frames
+    ``(P, H, W, 3)`` u8 and their ground truth, one pool a world;
+    :meth:`refresh` renders fresh scenes over the oldest."""
+
+    def __init__(self, world: WorldSpec, n: int, seed: int, device,
+                 chunk: int = 64):
+        frames, boxes, cls, valid = [], [], [], []
+        keys = prng.split(prng.PRNGKey(seed), n)
+        for lo in range(0, n, chunk):
+            fr, bx, cl, va = _render_batch(keys[lo:lo + chunk], world, device)
+            for lst, t in zip((frames, boxes, cls, valid), (fr, bx, cl, va)):
+                lst.append(t)
+        self.frames, self.boxes, self.cls, self.valid = (
+            torch.cat(t) for t in (frames, boxes, cls, valid))
+        self.world = world
+        self.key = prng.PRNGKey(seed + 1)
+        self.oldest = 0
+
+    def refresh(self, n: int):
+        """Render ``n`` new scenes over the ``n`` oldest."""
+        if n <= 0:
+            return
+        self.key, sub = prng.split(self.key)
+        new = _render_batch(prng.split(sub, n), self.world,
+                            self.frames.device)
+        rows = (self.oldest + torch.arange(n)) % len(self.frames)
+        rows = rows.to(self.frames.device)
+        for dst, t in zip((self.frames, self.boxes, self.cls, self.valid),
+                          new):
+            dst[rows] = t
+        self.oldest = (self.oldest + n) % len(self.frames)
+
+    def batch(self, rng: np.random.Generator, b: int):
+        """``b`` scenes drawn at random, each flipped left-right with
+        probability one half: frames and gt (xyxy source pixels)."""
+        dev = self.frames.device
+        idx = torch.as_tensor(rng.integers(len(self.frames), size=b),
+                              device=dev)
+        flip = torch.as_tensor(rng.random(b) < 0.5, device=dev)
+        frames = self.frames[idx]
+        frames = torch.where(flip[:, None, None, None], frames.flip(2),
+                             frames)
+        boxes = self.boxes[idx]
+        w = float(self.world.hw[1])
+        mirrored = torch.stack([w - boxes[..., 2], boxes[..., 1],
+                                w - boxes[..., 0], boxes[..., 3]], -1)
+        boxes = torch.where(flip[:, None, None], mirrored, boxes)
+        return frames, boxes, self.cls[idx], self.valid[idx]
+
+
+def detr_targets(boxes, cls, valid, spec: LetterboxSpec,
+                 input_hw: Tuple[int, int]):
+    """Source-pixel xyxy ground truth -> cxcywh normalized to the
+    letterboxed input, and which boxes are trainable (valid and wider and
+    taller than one input pixel)."""
+    r, left, top = _f32(spec.ratio), float(spec.left), float(spec.top)
+    ih, iw = input_hw
+    x1 = (boxes[..., 0] * r + left) / iw
+    y1 = (boxes[..., 1] * r + top) / ih
+    x2 = (boxes[..., 2] * r + left) / iw
+    y2 = (boxes[..., 3] * r + top) / ih
+    out = torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
+    ok = valid & ((x2 - x1) * iw > 1) & ((y2 - y1) * ih > 1)
+    return out, ok
+
+
+def make_detr_train_step(model, pools, input_hw: Tuple[int, int],
+                         cfg: DetrTrainConfig, tx: AdamW,
+                         stage_timer=None):
+    """RT-DETR's dispatch: ``multi_step(rng) -> (losses (scan,), parts)``,
+    ``cfg.scan`` optimizer steps on batches drawn from ``pools`` in turn,
+    in bf16 autocast on the card (f32 on the CPU), the model f32 and
+    channels-last, in train mode (BatchNorm on batch statistics)."""
+    device = next(model.parameters()).device
+    cuda = device.type == "cuda"
+    specs = [letterbox_spec(p.world.hw, input_hw) for p in pools]
+    dtype = torch.bfloat16 if cuda else torch.float32
+    count = [0]
+
+    def one_step(rng):
+        p = count[0] % len(pools)
+        count[0] += 1
+        frames, boxes, cls, valid = pools[p].batch(rng, cfg.batch)
+        _mark(stage_timer, "render")
+        x = letterbox(frames, specs[p], dtype).contiguous(
+            memory_format=torch.channels_last)
+        _mark(stage_timer, "letterbox")
+        tb, ok = detr_targets(boxes, cls, valid, specs[p], input_hw)
+        ctx = torch.autocast("cuda", torch.bfloat16) if cuda \
+            else _without_onednn()
+        with ctx:
+            outs = detr_outputs(model, x)
+        loss, parts = detr_loss(outs, tb, cls, ok, cfg)
+        _mark(stage_timer, "forward")
+        _optimizer_step(loss, tx, stage_timer)
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}
+
+    def multi_step(rng):
+        for p in pools:
+            p.refresh(cfg.refresh)
+        if stage_timer is not None:
+            stage_timer.start()
+        losses, auxes = zip(*[one_step(rng) for _ in range(cfg.scan)])
+        return torch.stack(losses), _stack_aux(auxes)
+
+    return multi_step
+
+
+def train_rtdetr(worlds=(WorldSpec(), WorldSpec(hw=(720, 1280))),
+                 input_hw: Tuple[int, int] = (640, 640),
+                 cfg: DetrTrainConfig = DetrTrainConfig(), model=None,
+                 log=print, device=None, max_seconds: float | None = None):
+    """Train RT-DETR-L on the synthetic world, a pool of scenes a world
+    size in ``worlds``, from ``model``'s weights or Ultralytics'
+    initialisation; returns the f32 model (trained form) on ``device``.
+    ``max_seconds``: stop after the dispatch that would pass that many
+    seconds of stepping (the schedule then ends early)."""
+    import time
+    from .models.rtdetr import RTDETR, init_weights_
+    device = resolve_device(device)
+    if model is None:
+        model = init_weights_(RTDETR(), seed=cfg.seed)
+    model = model.to(device=device, dtype=torch.float32,
+                     memory_format=torch.channels_last).train()
+    t0 = time.perf_counter()
+    pools = [ScenePool(w, cfg.pool, cfg.seed + 1000 * i, device)
+             for i, w in enumerate(worlds)]
+    log(f"rendered {len(pools)} pools of {cfg.pool} scenes in "
+        f"{time.perf_counter() - t0:.0f}s")
+    n_disp, total = _dispatches(cfg.steps, cfg.scan, log)
+    sched = warmup_cosine_schedule(cfg.lr, cfg.warmup,
+                                   max(total, cfg.warmup + 1), cfg.lr / 20)
+    tx = AdamW(model.parameters(), sched, cfg.weight_decay, cfg.max_norm)
+    step_fn = make_detr_train_step(model, pools, input_hw, cfg, tx)
+    rng = np.random.default_rng(cfg.seed)
+    t0 = time.perf_counter()
+    for i in range(n_disp):
+        ls, ax = _read(*step_fn(rng))
+        spent = time.perf_counter() - t0
+        last = i == n_disp - 1 or (max_seconds is not None
+                                   and spent * (i + 2) / (i + 1)
+                                   > max_seconds)
+        if i % max(1, n_disp // 40) == 0 or last:
+            log(f"step {(i + 1) * cfg.scan:>5}/{total}"
+                f"  loss {ls[-1]:.3f} (mean {ls.mean():.3f})"
+                f"  class {ax['class'][-1]:.3f} bbox {ax['bbox'][-1]:.3f}"
+                f" giou {ax['giou'][-1]:.3f}"
+                f"  {1e3 * spent / ((i + 1) * cfg.scan):.1f} ms a step")
+        if last:
+            break
+    return model

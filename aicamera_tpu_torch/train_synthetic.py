@@ -1,5 +1,5 @@
-"""Train YOLOv8n (or the ReID embedder) on the synthetic world on the card
-and save a checkpoint that passes the quality gate.
+"""Train YOLOv8n (or the ReID embedder, or RT-DETR-L) on the synthetic
+world on the card and save a checkpoint that passes the quality gate.
 
 The port of ``scripts/train_synthetic.py``. Scenes are rendered on the
 device (:mod:`.synthetic`), the trainer is :mod:`.train`, and the result is
@@ -11,10 +11,22 @@ package loads as well.
     python -m aicamera_tpu_torch.train_synthetic --out /tmp/yolo.msgpack
         [--steps 3000] [--batch 8] [--scan 25] [--lr 2e-3] [--crowd]
         [--reid] [--eval-only] [--device cuda|cpu]
+    python -m aicamera_tpu_torch.train_synthetic --detector rtdetr-l
+        [--steps 6000] [--batch 16] [--lr 2e-4] [--pool 2048] [--refresh 16]
+        [--vfl-alpha 0.75] [--init W.msgpack] [--minutes M]
+        [--candidate PATH] [--eval-only]
 
 Without ``--out`` it writes over the committed checkpoint
 (``models/detection/yolov8n_synthetic.msgpack``; ``--reid``:
-``models/reid/deepsort_reid_synthetic.msgpack``), as the JAX script does.
+``models/reid/deepsort_reid_synthetic.msgpack``; ``--detector rtdetr-l``:
+``models/detection/rtdetr_l_synthetic.msgpack``), as the JAX script does.
+
+RT-DETR-L (``train.train_rtdetr``) trains on pools of scenes of the default
+world and of 1280x720 frames, and is saved in float16 (its trained form,
+BatchNorms unfolded) only if its precision and recall come within 0.05 of
+the committed YOLOv8n's, evaluated on the same scenes in the same run;
+``--init`` continues from earlier weights, ``--candidate`` keeps weights
+that miss the gate for that.
 """
 
 from __future__ import annotations
@@ -31,17 +43,22 @@ import torch
 from . import config, prng
 from .device import resolve_device
 from .eval import _iou_matrix, evaluate_detections
+from .models.rtdetr import postprocess as rtdetr_postprocess
 from .ops.crops import extract_reid_crops
 from .ops.letterbox import letterbox
 from .ops.nms import fused_decode_nms
 from .ops.preprocess import letterbox_spec, scale_boxes_back
-from .runtime.params import (compute_dtype, flax_tree, resolve_reid_params,
+from .runtime.params import (compute_dtype, flax_tree,
+                             resolve_reid_params,
                              resolve_yolo_params, write_flax_msgpack)
 from .runtime.pipeline import precision
 from .synthetic import WorldSpec, ground_truth, random_objects, render
 from .train import _forward
 
 DEFAULT_OUT = config.YOLO_SYNTHETIC_PATH
+RTDETR_OUT = config.RTDETR_SYNTHETIC_PATH
+#: how far RT-DETR-L's precision and recall may lie below YOLOv8n's
+RTDETR_GATE = 0.05
 CROWD_OUT = config.YOLO_SYNTHETIC_CROWD_PATH
 
 
@@ -55,12 +72,28 @@ def _crowd_world():
                      occlusion_aware_gt=True)
 
 
+def _yolo_detect(model, x, dtype):
+    with precision(dtype):
+        levels = _forward(model, x, dtype)
+    return fused_decode_nms(levels, score_threshold=0.25, iou_threshold=0.5)
+
+
+def _rtdetr_detect(model, x, dtype):
+    with precision(dtype):
+        boxes, logits = model(x)
+    return rtdetr_postprocess(boxes, logits, x.shape[-2:], 0.25)
+
+
 @torch.no_grad()
 def evaluate(model, world, input_hw, n_scenes=48, conf=0.3, iou_match=0.5,
-             seed=7777, dtype=None):
+             seed=7777, dtype=None, detector="yolov8"):
     """Precision and recall of the full detect path on fresh scenes:
     ``(prec, rec, tp, fp, fn, ap)``. ``model`` runs on its own device,
-    in ``dtype`` (default bf16 on the GPU, f32 on the CPU)."""
+    in ``dtype`` (default bf16 on the GPU, f32 on the CPU). ``detector``:
+    ``"yolov8"`` (DFL decode and NMS) or ``"rtdetr"`` (an RT-DETR in its
+    inference form, ``RTDETR.to_inference``, and its NMS-free
+    post-process); either keeps scores down to 0.25."""
+    detect = _rtdetr_detect if detector == "rtdetr" else _yolo_detect
     device = next(model.parameters()).device
     dtype = dtype or compute_dtype(device)
     spec = letterbox_spec(world.hw, input_hw)
@@ -76,11 +109,8 @@ def evaluate(model, world, input_hw, n_scenes=48, conf=0.3, iou_match=0.5,
             frames.append(render(obj, world, kr))
             for lst, t in zip((gtb, gtc, gtv), ground_truth(obj, world)):
                 lst.append(t)
-        with precision(dtype):
-            levels = _forward(model, letterbox(torch.stack(frames), spec,
-                                               dtype), dtype)
-        num, boxes, scores, labels = fused_decode_nms(
-            levels, score_threshold=0.25, iou_threshold=0.5)
+        num, boxes, scores, labels = detect(
+            model, letterbox(torch.stack(frames), spec, dtype), dtype)
         out = (num, scale_boxes_back(boxes, spec), scores, labels,
                torch.stack(gtb), torch.stack(gtc), torch.stack(gtv))
         num, boxes, scores, labels, gtb_, gtc_, gtv_ = (
@@ -181,12 +211,101 @@ def parse_arguments(argv=None):
                          "yolov8n_synthetic_crowd.msgpack")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--detector", default="yolov8n",
+                    choices=("yolov8n", "rtdetr-l"))
+    ap.add_argument("--pool", type=int, default=None,
+                    help="rtdetr-l: scenes rendered a world size")
+    ap.add_argument("--refresh", type=int, default=None,
+                    help="rtdetr-l: scenes rendered anew a pool a dispatch")
+    ap.add_argument("--vfl-alpha", type=float, default=None,
+                    help="rtdetr-l: the varifocal loss's weight of an "
+                         "unmatched query (Ultralytics' 0.75)")
+    ap.add_argument("--init", type=str, default=None,
+                    help="rtdetr-l: continue from these weights (the "
+                         "trained form's .msgpack) with a fresh schedule")
+    ap.add_argument("--minutes", type=float, default=None,
+                    help="rtdetr-l: stop stepping after this many minutes")
+    ap.add_argument("--candidate", type=str, default=None,
+                    help="rtdetr-l: where to write the weights when they "
+                         "miss the gate (for inspection; never the "
+                         "committed path)")
     return ap.parse_args(argv)
+
+
+def _rtdetr_trained(path):
+    """RT-DETR-L in its trained form, from a ``.msgpack`` of it."""
+    from .models.rtdetr import RTDETR
+    from .runtime.params import (load_flax_msgpack, load_state_strict,
+                                 rtdetr_state_dict_from_flax)
+    model = RTDETR()
+    load_state_strict(model, rtdetr_state_dict_from_flax(
+        load_flax_msgpack(path)))
+    return model
+
+
+def _rtdetr_save(model, path: Path):
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(write_flax_msgpack(flax_tree(model.float(), np.float16)))
+    print(f"saved {path} ({path.stat().st_size / 1e6:.1f} MB)",
+          file=sys.stderr)
+
+
+def _rtdetr_main(args, device):
+    """Train (or evaluate) RT-DETR-L; gate it on the committed YOLOv8n's
+    precision and recall on the same scenes; save it in float16."""
+    from .train import DetrTrainConfig, train_rtdetr
+    import copy
+    world = WorldSpec()
+    input_hw = (640, 640)
+    out = RTDETR_OUT if args.out == str(DEFAULT_OUT) else Path(args.out)
+    if args.eval_only:
+        trained = _rtdetr_trained(out)
+    else:
+        base = DetrTrainConfig()
+        cfg = DetrTrainConfig(**{
+            k: getattr(args, k) if getattr(args, k) is not None
+            else getattr(base, k) for k in ("steps", "batch", "scan", "lr",
+                                            "pool", "refresh", "vfl_alpha")})
+        init = None
+        if args.init:
+            init = _rtdetr_trained(args.init)
+            print(f"continuing from {args.init}")
+        t0 = time.time()
+        trained = train_rtdetr(
+            input_hw=input_hw, cfg=cfg, model=init, device=device,
+            max_seconds=None if args.minutes is None else 60 * args.minutes)
+        print(f"trained in {time.time() - t0:.0f}s")
+    model = copy.deepcopy(trained).to_inference(device, compute_dtype(device))
+    yolo = resolve_yolo_params("n", weights_path=str(DEFAULT_OUT),
+                               device=device, dtype=compute_dtype(device))
+    rows = {}
+    for name, m, kind in (("rtdetr-l", model, "rtdetr"),
+                          ("yolov8n_synthetic", yolo, "yolov8")):
+        prec, rec, tp, fp, fn, ap = evaluate(m, world, input_hw,
+                                             detector=kind)
+        rows[name] = {"precision": round(prec, 4), "recall": round(rec, 4),
+                      "tp": tp, "fp": fp, "fn": fn,
+                      "ap50": round(ap.ap50, 4), "ap75": round(ap.ap75, 4),
+                      "map_5095": round(ap.map_5095, 4)}
+    print(json.dumps(rows))
+    if args.eval_only:
+        return
+    r, y = rows["rtdetr-l"], rows["yolov8n_synthetic"]
+    if r["precision"] < y["precision"] - RTDETR_GATE \
+            or r["recall"] < y["recall"] - RTDETR_GATE:
+        print(f"more than {RTDETR_GATE} below YOLOv8n — NOT saving",
+              file=sys.stderr)
+        if args.candidate:
+            _rtdetr_save(trained, Path(args.candidate))
+        sys.exit(1)
+    _rtdetr_save(trained, out)
 
 
 def main(argv=None):
     args = parse_arguments(argv)
     device = resolve_device(args.device)
+    if args.detector == "rtdetr-l":
+        return _rtdetr_main(args, device)
     from .train import (ReIDTrainConfig, TrainConfig, train_detector,
                         train_reid)
 

@@ -15,11 +15,13 @@ cell untouched, the base for the timer's cost. Prints one JSON line (and
 appends it to ``--out``): the result line's end-to-end metrics and
 ``correct`` (with ``--judge 1``), and from the window's dispatches (those
 whose dispatch span and device span lie inside the window and clear of the
-profiler's sub-window) the mean device ms of the detect stages (entry to
-``nms``), of ReID (``nms`` to ``crops_reid``) and of the scan
+profiler's sub-window) the mean device ms of every stage (RT-DETR's
+``backbone``, ``encoder``, ``decoder`` and ``post`` among them), of the
+detect stages (entry to ``nms``, or to ``post``), of ReID (``nms`` to ``crops_reid``) and of the scan
 (``crops_reid`` to ``tracker``), the step gap and its ms by the host span
 open at its middle, the host spans' ms, the share of ReID crop slots
-holding a real crop, the device period a chunk (first stamp to first
+holding a real crop, the detections a frame that reached the tracker, the
+device period a chunk (first stamp to first
 stamp) against the host's, the clock's calibration, the step's graph
 nodes with and without the stamps' ones, one stamp node's device time,
 and the detector's conv calls and relayouts (``YOLOv8.conv_calls`` and
@@ -39,7 +41,8 @@ from pathlib import Path  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-DETECT = ("gmc", "letterbox", "yolo", "nms")
+DETECT = ("gmc", "letterbox", "yolo", "nms", "backbone", "encoder",
+          "decoder", "post")
 
 
 def window_records(records, lo_ns, hi_ns, skip=None) -> list:
@@ -99,6 +102,8 @@ def reduce(recs) -> dict:
                      for k in names},
         "reid_crop_use": 100.0 * sum(r["crops"] for r in recs) / slots
         if slots else None,
+        "dets_per_frame": sum(r["dets"] for r in recs)
+        / max(1, sum(r["frames"] for r in recs)),
         "device_period_ms": sum(steps) / len(steps) if steps else None,
     }
 

@@ -194,8 +194,12 @@ def test_default_scan_bucket_is_the_jax_default():
     ours = inspect.signature(pl.TrackingPipeline.__init__).parameters
     ref = inspect.signature(Jax.__init__).parameters
     assert ours["scan_bucket"].default == ref["scan_bucket"].default == 32
-    # every argument of the JAX class, in its order, then ``device``
-    assert list(ours) == list(ref) + ["device"]
+    # every argument of the JAX class, in its order, then the port's own:
+    # ``detector`` (YOLOv8 by default, or RT-DETR-L), RT-DETR's
+    # ``num_queries`` (its published 300 by default) and ``device``
+    assert list(ours) == list(ref) + ["detector", "num_queries", "device"]
+    assert ours["detector"].default == "yolov8"
+    assert ours["num_queries"].default is None
     for name, p in ref.items():
         if name not in ("self", "bytetrack_params", "ocsort_params",
                         "tracker_params"):

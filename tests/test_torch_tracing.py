@@ -197,7 +197,8 @@ def test_without_a_timer_the_step_key_and_layout_are_the_untimed_ones(timed):
     stamped = timed_pipe._steps[key + ("stamped",)]
     assert stamped.stamps == ["entry"] + STAGES
     shape, _, _, words = stamped.layout.meta[-1]
-    assert shape == (3 + 1 + 2 * pl._Stamps.SLOTS,) and words == shape[0]
+    # the decisions, the crop and detection counts, the stamps
+    assert shape == (3 + 2 + 2 * pl._Stamps.SLOTS,) and words == shape[0]
     # every other output where the untimed step has it
     assert stamped.layout.meta[:-1] == step.layout.meta[:-1]
 
